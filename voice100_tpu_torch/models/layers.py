@@ -1,0 +1,168 @@
+"""Shared building blocks: conv encoder blocks and the masked biLSTM.
+
+Port of ``voice100_tpu/models/layers.py:54-81, 123-213``. Modules take
+and return batch-major ``[B, T, C]`` tensors, as the JAX modules do, and
+keep the parameter names of the torch reference
+(``encoder.{i}.conv.weight``, ``encoder.{i}.layer_norm.{weight,bias}``,
+``lstm.{weight,bias}_{ih,hh}_l{k}[_reverse]``), so state dicts carry
+across (``tools/weights.py``). Transposed conv blocks wait for TTS.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..device import resolve_device
+from ..ops.lstm import stack_directions
+from ..ops.lstm_cuda import bilstm_cuda
+
+__all__ = [
+    "ConvSetting",
+    "ConvLayerBlock",
+    "ConvStack",
+    "conv_stack_output_length",
+    "BiLSTM",
+    "uniform_",
+]
+
+# (out_channels, transpose, kernel_size, stride, padding, bias), as in
+# config/asr_en_base.yaml:16-28
+ConvSetting = Tuple[int, bool, int, int, int, bool]
+
+
+@torch.no_grad()
+def uniform_(param: torch.Tensor, bound: float,
+             generator: Optional[torch.Generator] = None) -> None:
+    """Fill ``param`` from U(-bound, bound), drawn on the CPU from
+    ``generator`` so a seed gives the same weights on any device."""
+    values = torch.empty(param.shape, dtype=param.dtype).uniform_(-bound, bound, generator=generator)
+    param.copy_(values)
+
+
+class ConvLayerBlock(nn.Module):
+    """Conv1d + channel LayerNorm (eps 1e-5) + exact GELU on ``[B, T, C]``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int, padding: int, bias: bool, device=None) -> None:
+        super().__init__()
+        device = resolve_device(device)
+        self.conv = nn.Conv1d(in_channels, out_channels, kernel_size, stride=stride,
+                              padding=padding, bias=bias, device=device)
+        self.layer_norm = nn.LayerNorm(out_channels, eps=1e-5, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x.transpose(1, 2)).transpose(1, 2)
+        return F.gelu(self.layer_norm(x))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """torch's default conv bound 1/sqrt(fan_in); LayerNorm at 1, 0."""
+        bound = 1.0 / math.sqrt(self.conv.in_channels * self.conv.kernel_size[0])
+        uniform_(self.conv.weight, bound, generator)
+        if self.conv.bias is not None:
+            uniform_(self.conv.bias, bound, generator)
+        self.layer_norm.reset_parameters()
+
+
+class ConvStack(nn.Sequential):
+    """Conv blocks built from settings tuples."""
+
+    def __init__(self, in_channels: int, settings: Sequence[ConvSetting], device=None) -> None:
+        device = resolve_device(device)
+        blocks = []
+        for out_ch, transpose, kernel, stride, padding, bias in settings:
+            if transpose:
+                raise NotImplementedError("transposed conv blocks are not ported yet")
+            blocks.append(ConvLayerBlock(in_channels, out_ch, kernel, stride, padding,
+                                         bias, device=device))
+            in_channels = out_ch
+        super().__init__(*blocks)
+
+
+def conv_stack_output_length(settings: Sequence[ConvSetting], length):
+    """Time-axis length through a ConvStack (torch length rule); ints,
+    arrays or tensors."""
+    for _, transpose, kernel, stride, padding, _ in settings:
+        if transpose:
+            length = (length - 1) * stride - 2 * padding + kernel
+        else:
+            length = (length + 2 * padding - kernel) // stride + 1
+    return length
+
+
+class BiLSTM(nn.Module):
+    """Stacked bidirectional LSTM over padded sequences with lengths.
+
+    Parameters follow ``torch.nn.LSTM``'s names and layout. Each layer
+    runs :func:`voice100_tpu_torch.ops.lstm_cuda.bilstm_cuda`: the CUDA
+    kernel for CUDA tensors, the plain loop for CPU ones.
+    ``dropout`` (0.2 between layers, torch convention) is stored for the
+    training slice; training mode is not ported and raises.
+    """
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int,
+                 dropout: float = 0.2, device=None) -> None:
+        super().__init__()
+        device = resolve_device(device)
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.dropout = dropout
+        for layer in range(num_layers):
+            d_in = input_size if layer == 0 else 2 * hidden_size
+            for suffix in ("", "_reverse"):
+                for name, shape in (
+                    ("weight_ih", (4 * hidden_size, d_in)),
+                    ("weight_hh", (4 * hidden_size, hidden_size)),
+                    ("bias_ih", (4 * hidden_size,)),
+                    ("bias_hh", (4 * hidden_size,)),
+                ):
+                    self.register_parameter(
+                        f"{name}_l{layer}{suffix}",
+                        nn.Parameter(torch.empty(shape, device=device)),
+                    )
+        self._stacked_key = None
+        self._stacked = []
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """torch.nn.LSTM's init: U(-1/sqrt(H), 1/sqrt(H)) for every tensor."""
+        bound = 1.0 / math.sqrt(self.hidden_size)
+        for param in self.parameters():
+            uniform_(param, bound, generator)
+
+    def stacked_layers(self):
+        """Per layer ``(w_ih [2, 4H, D], w_hh [2, 4H, H], bias [2, 4H])``
+        as :func:`voice100_tpu_torch.ops.lstm.stack_directions` gives them.
+        Built once and rebuilt only after a parameter changes: in place
+        (a state-dict load), or by a move to another device."""
+        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        if key != self._stacked_key:
+            with torch.no_grad():
+                self._stacked = [
+                    stack_directions({
+                        direction: {
+                            ours: getattr(self, f"{theirs}_l{layer}{suffix}")
+                            for ours, theirs in (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
+                                                 ("b_ih", "bias_ih"), ("b_hh", "bias_hh"))
+                        }
+                        for direction, suffix in (("fwd", ""), ("bwd", "_reverse"))
+                    })
+                    for layer in range(self.num_layers)
+                ]
+            self._stacked_key = key
+        return self._stacked
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        """``[B, T, D] -> [B, T, 2H]``, zero past each length (inference:
+        no gradient reaches the parameters)."""
+        if self.training and self.dropout > 0.0:
+            raise NotImplementedError(
+                "training mode (inter-layer dropout) is not ported yet; call .eval()"
+            )
+        for w_ih, w_hh, bias in self.stacked_layers():
+            x = bilstm_cuda(w_ih, w_hh, bias, x, lengths)
+        return x
