@@ -6,20 +6,36 @@ Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds every kernel of the serving path from voice100_tpu_torch/csrc/
-   with nvcc, all sources at once (set-up, timed);
+2. builds every kernel of the serving and training paths from
+   voice100_tpu_torch/csrc/ with nvcc, all sources at once (set-up, timed);
 3. holds the fused log-mel kernel against its plain PyTorch version on
    the card at 8 x 10 s, and times kernel, plain and torch.stft;
-4. holds the biLSTM recurrence kernel against its plain version at
+4. holds the biLSTM inference kernel against its plain version at
    B=8, T=501, H=512 for both layer widths of asr_en_base (input 512 and
    1024) with ragged lengths, and times kernel, plain and cuDNN nn.LSTM;
-5. serves asr_en_base end to end through ASRPipeline on the card (16
+5. holds the biLSTM training kernels (state-saving forward, dG backward)
+   and their autograd Function against the plain versions and torch
+   autograd at the train shapes, B=64, T=501, H=512, both input widths,
+   and times kernels, plain versions and cuDNN nn.LSTM forward/backward;
+6. holds the CTC lattice kernels (alpha forward, adjoint) and the loss
+   Function against the plain versions at B=64, T=501, V=29 with a
+   repeated-label row, an empty target and an infeasible row, and times
+   kernels, plain versions and F.ctc_loss forward/backward;
+7. serves asr_en_base end to end through ASRPipeline on the card (16
    int16 clips of 2-10 s, batch 8, seeded random weights), with the
    kernels' launch counts set to 0 just before and read just after,
    holds its logits and greedy ids against the same pipeline on the CPU,
    and its transcripts to those greedy ids;
-6. prints one JSON line of per-kernel results, then, last,
-   {"ok": true, "device": {...}}.
+8. trains asr_en_base on the card through Trainer.train_step (batch 64
+   of 2-10 s clips in the 10 s bucket, augmentation and dropout on, Adam
+   1e-3, clip 1.0): one warm-up step, then 10 timed steps with the launch
+   counts set to 0 just before and read just after; the loss must be
+   finite and fall; prints the card time by layer;
+9. takes 3 training steps from the same weights on the first 8 clips,
+   augmentation and dropout off, on the card and on the CPU's plain path,
+   and holds the first step's gradients and the 3 losses together;
+10. prints one JSON line of per-kernel results, then, last,
+    {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line is printed. Without
 CUDA, or without the voice100_tpu_torch package beside it, it exits
@@ -61,6 +77,31 @@ LSTM_TOL = 1e-4
 # conv encoder, LayerNorm and two biLSTM layers. Greedy ids are compared
 # where the top-2 margin exceeds 2 * LOGIT_TOL, where no flip is possible.
 LOGIT_TOL = 2e-3
+# Training slice, asr_en_base's train batch (config/asr_en_base.yaml:41).
+TRAIN_BATCH = 64
+TIMED_STEPS = 10
+PARITY_BATCH = 8
+PARITY_STEPS = 3
+# LSTM training kernels' outputs and saved states, max abs error: values in
+# [-1, 1] (c a little beyond), the same 512-term dot products summed in
+# another order through 501 contracting steps; a wrong index or mask moves
+# an entry by O(0.1).
+LSTM_STATE_TOL = 1e-4
+# dG and the Function's gradients, max error over the tensor's max
+# magnitude: a 2048-term dh product a step and (B*T)-term weight sums in
+# another order; a masking or time-reversal fault gives O(1).
+GRAD_REL_TOL = 1e-3
+# CTC ll and finite alpha entries, error over max(1, |value|): each entry
+# is the same three-way log-sum-exp on both sides, only exp/log rounding
+# differs; a skip-gate or length-hold fault moves values by O(1).
+CTC_REL_TOL = 1e-5
+# CTC gradient with respect to log_probs, max abs: entries are posteriors
+# over the target length, within [-1, 1].
+CTC_GRAD_TOL = 1e-4
+# Card vs CPU training steps from the same weights: each first-step
+# gradient by ||g_card - g_cpu|| / ||g_cpu||, and the losses relatively.
+PARITY_GRAD_TOL = 1e-3
+PARITY_LOSS_TOL = 1e-3
 PEAK_F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
@@ -230,6 +271,270 @@ def check_bilstm(device):
     }
 
 
+def rel_err(got, ref) -> float:
+    """Max abs error over the reference's max magnitude."""
+    return ((got - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
+
+
+def train_lengths(rng, time_steps):
+    """Ragged lengths of a train batch, the full length and 1 included."""
+    lengths = rng.integers(1, time_steps + 1, size=TRAIN_BATCH)
+    lengths[0], lengths[1] = time_steps, 1
+    return lengths
+
+
+def check_lstm_train(device):
+    from voice100_tpu_torch.models.layers import BiLSTM
+    from voice100_tpu_torch.ops.lstm import (bilstm, bilstm_train_bwd, bilstm_train_fwd,
+                                             project_inputs)
+    from voice100_tpu_torch.ops.lstm_cuda import (bilstm_train_bwd_cuda, bilstm_train_cuda,
+                                                  bilstm_train_fwd_cuda)
+
+    hidden, time_steps = 512, 501
+    lengths_np = train_lengths(np.random.default_rng(SEED + 1), time_steps)
+    lengths = torch.tensor(lengths_np, dtype=torch.int32, device=device)
+    cpu_lengths = lengths.cpu()
+    valid = int(lengths_np.sum())
+    module = BiLSTM(512, hidden, 2, device=device)
+    module.reset_parameters(torch.Generator().manual_seed(SEED))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    fwd = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    bwd = dict(fwd)
+    for layer, (w_ih, w_hh, bias) in enumerate(module.stacked_layers()):
+        d_in = w_ih.shape[2]
+        x = torch.randn(TRAIN_BATCH, time_steps, d_in, device=device, generator=gen)
+        dout = torch.randn(TRAIN_BATCH, time_steps, 2 * hidden, device=device, generator=gen)
+        with torch.no_grad():
+            xg = project_inputs(w_ih, bias, x).contiguous()
+            got = bilstm_train_fwd_cuda(xg, w_hh, lengths)
+            ref = bilstm_train_fwd(xg, w_hh, lengths)
+            torch.cuda.synchronize()
+            if not all(torch.isfinite(t).all() for t in got):
+                fail(f"biLSTM train forward kernel layer {layer}: non-finite outputs")
+            fwd_err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+            h_prev, c_prev = ref[1], ref[2]
+            dg = bilstm_train_bwd_cuda(xg, w_hh, lengths, h_prev, c_prev, dout)
+            dg_ref = bilstm_train_bwd(xg, w_hh, lengths, h_prev, c_prev, dout)
+            torch.cuda.synchronize()
+            dg_err = rel_err(dg, dg_ref)
+            dg_abs = (dg - dg_ref).abs().max().item()
+            del got, ref, dg, dg_ref
+        # the Function (both kernels + products) vs autograd through the plain loop
+        grads = []
+        for fn in (bilstm_train_cuda, bilstm):
+            leaves = [t.detach().clone().requires_grad_() for t in (w_ih, w_hh, bias, x)]
+            (fn(*leaves, lengths) * dout).sum().backward()
+            grads.append([t.grad for t in leaves])
+        grad_err = max(rel_err(a, b) for a, b in zip(*grads))
+        del grads
+
+        lstm = torch.nn.LSTM(d_in, hidden, bidirectional=True, batch_first=True, device=device)
+        with torch.no_grad():
+            for suffix in ("", "_reverse"):
+                for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+                    getattr(lstm, f"{name}_l0{suffix}").copy_(
+                        getattr(module, f"{name}_l{layer}{suffix}"))
+        x_leaf = x.clone().requires_grad_()
+
+        def library_fwd():
+            packed = torch.nn.utils.rnn.pack_padded_sequence(
+                x_leaf, cpu_lengths, batch_first=True, enforce_sorted=False)
+            return torch.nn.utils.rnn.pad_packed_sequence(
+                lstm(packed)[0], batch_first=True, total_length=time_steps)[0]
+
+        y = library_fwd()
+        inputs = [x_leaf, *lstm.parameters()]
+        timings = {
+            "fwd_ms": time_ms(lambda: bilstm_train_fwd_cuda(xg, w_hh, lengths), iters=5),
+            "fwd_plain_ms": time_ms(lambda: bilstm_train_fwd(xg, w_hh, lengths), iters=2, warmup=1),
+            "fwd_library_ms": time_ms(library_fwd, iters=5),
+            "bwd_ms": time_ms(lambda: bilstm_train_bwd_cuda(xg, w_hh, lengths, h_prev, c_prev,
+                                                            dout), iters=5),
+            "bwd_plain_ms": time_ms(lambda: bilstm_train_bwd(xg, w_hh, lengths, h_prev, c_prev,
+                                                             dout), iters=2, warmup=1),
+            "bwd_library_ms": time_ms(lambda: torch.autograd.grad(y, inputs, dout,
+                                                                  retain_graph=True), iters=5),
+        }
+        del y
+        # least work of each function at these lengths (valid rows only):
+        # forward, h W_hh^T of both directions (8 H^2 flops a row) reading
+        # xg and writing out, h_prev and c_prev; backward, the gate
+        # recompute and dG W_hh (16 H^2 a row) reading xg, the states and
+        # dout and writing dG. W_hh is read once.
+        w_bytes = w_hh.numel() * 4
+        state_bytes = TRAIN_BATCH * time_steps * 2 * hidden * 4       # one [2, B, T, H] tensor
+        fwd_bytes = 2 * valid * 4 * hidden * 4 + w_bytes + 3 * state_bytes
+        bwd_bytes = 2 * valid * 7 * hidden * 4 + w_bytes + 4 * state_bytes
+        for total, err, n_bytes, n_ops, key in (
+                (fwd, fwd_err, fwd_bytes, 2 * valid * 8 * hidden * hidden, "fwd"),
+                (bwd, dg_abs, bwd_bytes, 2 * valid * 16 * hidden * hidden, "bwd")):
+            total["err"] = max(total["err"], err)
+            total["ms"] += timings[f"{key}_ms"]
+            total["plain_ms"] += timings[f"{key}_plain_ms"]
+            total["library_ms"] += timings[f"{key}_library_ms"]
+            total["bytes"] += n_bytes
+            total["ops"] += n_ops
+        print(f"biLSTM train layer {layer} (B={TRAIN_BATCH}, T={time_steps}, D={d_in}, H={hidden}, "
+              f"{valid} valid rows): forward out/states max_abs_err {fwd_err:.3e} "
+              f"(tol {LSTM_STATE_TOL:.0e}), dG rel err {dg_err:.3e}, Function gradients rel err "
+              f"{grad_err:.3e} (tol {GRAD_REL_TOL:.0e}); "
+              + ", ".join(f"{k} {v:.3f}" for k, v in timings.items()), flush=True)
+        if not fwd_err <= LSTM_STATE_TOL:
+            fail(f"biLSTM train forward kernel layer {layer} disagrees with the plain version: "
+                 f"{fwd_err:.3e} > {LSTM_STATE_TOL:.0e}")
+        if not max(dg_err, grad_err) <= GRAD_REL_TOL:
+            fail(f"biLSTM train backward layer {layer} disagrees with the plain version: dG "
+                 f"{dg_err:.3e}, gradients {grad_err:.3e} > {GRAD_REL_TOL:.0e}")
+    shapes = (f"both layers of one train batch: B={TRAIN_BATCH}, T={time_steps}, H={hidden}, "
+              f"{valid} valid rows of {TRAIN_BATCH * time_steps}")
+    entries = []
+    for total, name, source_line, what in (
+            (fwd, "bilstm_train_fwd", "voice100_tpu/ops/lstm_pallas.py:232", "nn.LSTM forward"),
+            (bwd, "bilstm_train_bwd", "voice100_tpu/ops/lstm_pallas.py:267",
+             "nn.LSTM backward (dx and dW too)")):
+        bound, bound_by = bound_ms(total["bytes"], total["ops"])
+        entries.append({
+            "name": name, "route": "cuda", "source": "voice100_tpu_torch/csrc/bilstm_train.cu",
+            "replaces": source_line, "launches": None, "max_abs_err": total["err"],
+            "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": total["library_ms"],
+            "shapes": shapes + f"; library: cuDNN {what}, packed",
+        })
+    return entries
+
+
+def ctc_targets(rng, seconds, vocab):
+    """Target ids for clips of ``seconds``: about 14 a second, at most 150."""
+    target_lengths = np.minimum(np.round(np.asarray(seconds) * 14).astype(np.int64), 150)
+    targets = rng.integers(1, vocab, size=(len(target_lengths), int(target_lengths.max())))
+    return targets, target_lengths
+
+
+def check_ctc(device):
+    from voice100_tpu_torch.ops.ctc import (NEG_INF, ctc_alpha, ctc_alpha_adjoint, ctc_loss,
+                                            ctc_prep, ll_from_alpha)
+    from voice100_tpu_torch.ops.ctc_cuda import (ctc_alpha_adjoint_cuda, ctc_alpha_cuda,
+                                                 ctc_loss_cuda)
+
+    time_steps, vocab = 501, ASR_EN_BASE["vocab_size"]
+    rng = np.random.default_rng(SEED + 2)
+    seconds = rng.uniform(2.0, 10.0, size=TRAIN_BATCH)
+    seconds[0] = 10.0
+    input_lengths = np.minimum((seconds * 50).astype(np.int64) + 1, time_steps)
+    targets, target_lengths = ctc_targets(rng, seconds, vocab)
+    # row 1 repeats one label, row 2 has no target, row 3 cannot fit its 100
+    targets[1] = 7
+    target_lengths[2] = 0
+    input_lengths[3], target_lengths[3] = 40, 100
+    targets[np.arange(targets.shape[1])[None, :] >= target_lengths[:, None]] = 0
+    logits = torch.from_numpy(rng.standard_normal((TRAIN_BATCH, time_steps, vocab)) * 2.0)
+    log_probs = torch.log_softmax(logits.float(), dim=-1).to(device)
+    targets, input_lengths, target_lengths = (torch.from_numpy(a).to(device) for a in (
+        targets, input_lengths, target_lengths))
+    batch = TRAIN_BATCH
+
+    z, can_skip, valid = ctc_prep(targets, target_lengths)
+    s_len = z.shape[1]
+    alpha = ctc_alpha_cuda(log_probs, z, can_skip, valid, input_lengths)
+    alpha_ref = ctc_alpha(log_probs, z, can_skip, valid, input_lengths)
+    torch.cuda.synchronize()
+    finite = alpha_ref > NEG_INF / 2
+    if not torch.equal(alpha > NEG_INF / 2, finite) or not torch.isfinite(alpha).all():
+        fail("CTC alpha kernel: its reachable states differ from the plain version's")
+    alpha_err = ((alpha - alpha_ref).abs() / alpha_ref.abs().clamp(min=1.0))[finite].max().item()
+    alpha_abs = (alpha - alpha_ref).abs()[finite].max().item()
+    ll = ll_from_alpha(alpha[-1], target_lengths)[0]
+    ll_ref, a_last, a_prev = ll_from_alpha(alpha_ref[-1], target_lengths)
+    feasible = ll_ref > NEG_INF / 2
+    ll_err = ((ll - ll_ref).abs() / ll_ref.abs().clamp(min=1.0))[feasible].max().item()
+    if bool(feasible[3]) or not bool((ll[~feasible] < NEG_INF / 2).all()):
+        fail("CTC: the infeasible row is not infeasible on both sides")
+
+    # the seed the loss gives: dLL/d alpha[T-1] on the two end states,
+    # zero on the infeasible row as zero_infinity makes it (there every
+    # log-sum-exp weight is 1 and the adjoint would grow like 3^t)
+    end = 2 * target_lengths
+    seed = torch.zeros(batch, s_len, device=device)
+    seed.scatter_add_(1, end[:, None], torch.exp(a_last - ll_ref)[:, None])
+    seed.scatter_add_(1, (end - 1).clamp(min=0)[:, None],
+                      torch.where(target_lengths > 0, torch.exp(a_prev - ll_ref), 0.0)[:, None])
+    seed = seed * feasible[:, None]
+    adj = ctc_alpha_adjoint_cuda(alpha_ref, seed, can_skip, valid, input_lengths)
+    adj_ref = ctc_alpha_adjoint(alpha_ref, seed, can_skip, valid, input_lengths)
+    adj_err = rel_err(adj, adj_ref)
+    adj_abs = (adj - adj_ref).abs().max().item()
+
+    grads = []
+    for fn in (ctc_loss_cuda, ctc_loss):
+        leaf = log_probs.clone().requires_grad_()
+        fn(leaf, targets, input_lengths, target_lengths).backward()
+        grads.append(leaf.grad)
+    grad_err = (grads[0] - grads[1]).abs().max().item()
+    if grads[0][3].abs().max().item() != 0.0:
+        fail("CTC: the infeasible row's gradient is not exactly zero")
+    del grads
+
+    lp_leaf = log_probs.clone().requires_grad_()
+    lp_tbv = lp_leaf.transpose(0, 1)
+
+    def library_fwd():
+        return torch.nn.functional.ctc_loss(lp_tbv, targets, input_lengths, target_lengths,
+                                            zero_infinity=True)
+
+    library_loss = library_fwd()
+    library_diff = abs(library_loss.item() - ctc_loss_cuda(
+        log_probs, targets, input_lengths, target_lengths).item())
+    timings = {
+        "alpha_ms": time_ms(lambda: ctc_alpha_cuda(log_probs, z, can_skip, valid, input_lengths),
+                            iters=20),
+        "alpha_plain_ms": time_ms(lambda: ctc_alpha(log_probs, z, can_skip, valid,
+                                                    input_lengths), iters=3, warmup=1),
+        "alpha_library_ms": time_ms(library_fwd, iters=20),
+        "adjoint_ms": time_ms(lambda: ctc_alpha_adjoint_cuda(alpha_ref, seed, can_skip, valid,
+                                                             input_lengths), iters=20),
+        "adjoint_plain_ms": time_ms(lambda: ctc_alpha_adjoint(alpha_ref, seed, can_skip, valid,
+                                                              input_lengths), iters=3, warmup=1),
+        "adjoint_library_ms": time_ms(lambda: torch.autograd.grad(library_loss, lp_leaf,
+                                                                  retain_graph=True), iters=20),
+    }
+    print(f"CTC lattice (B={batch}, T={time_steps}, V={vocab}, S={s_len}): alpha rel err "
+          f"{alpha_err:.3e}, ll rel err {ll_err:.3e} (tol {CTC_REL_TOL:.0e}), adjoint rel err "
+          f"{adj_err:.3e} (tol {CTC_REL_TOL:.0e}), loss gradient max_abs_err {grad_err:.3e} "
+          f"(tol {CTC_GRAD_TOL:.0e}); |F.ctc_loss - kernel loss| {library_diff:.3e}; "
+          + ", ".join(f"{k} {v:.4f}" for k, v in timings.items()), flush=True)
+    if not max(alpha_err, ll_err, adj_err) <= CTC_REL_TOL:
+        fail(f"CTC kernels disagree with the plain versions: alpha {alpha_err:.3e}, "
+             f"ll {ll_err:.3e}, adjoint {adj_err:.3e} > {CTC_REL_TOL:.0e}")
+    if not grad_err <= CTC_GRAD_TOL:
+        fail(f"CTC loss gradient disagrees with the plain version: {grad_err:.3e}")
+
+    # least work, bytes-bound both: the forward reads log_probs and the
+    # lattice constants and writes alpha; the adjoint reads alpha, the
+    # seed and the constants and writes dLL/d lp_z. Operations: about 10
+    # a valid state of an active step (3 exp, 1 log, adds and maxes).
+    active_states = int((input_lengths.clamp(max=time_steps) * (2 * target_lengths + 1)).sum())
+    lattice_bytes = time_steps * batch * s_len * 4
+    const_bytes = 3 * batch * s_len * 4 + batch * 4
+    shapes = (f"one train batch: B={batch}, T={time_steps}, V={vocab}, S={s_len}, "
+              f"{active_states} active lattice states; library: F.ctc_loss")
+    entries = []
+    for name, source_line, key, n_bytes, err in (
+            ("ctc_alpha", "voice100_tpu/ops/ctc_pallas.py:64", "alpha",
+             log_probs.numel() * 4 + const_bytes + lattice_bytes, alpha_abs),
+            ("ctc_adjoint", "voice100_tpu/ops/ctc_pallas.py:88", "adjoint",
+             2 * lattice_bytes + const_bytes + batch * s_len * 4, adj_abs)):
+        bound, bound_by = bound_ms(n_bytes, 10 * active_states)
+        entries.append({
+            "name": name, "route": "cuda", "source": "voice100_tpu_torch/csrc/ctc.cu",
+            "replaces": source_line, "launches": None, "max_abs_err": err,
+            "ms": timings[f"{key}_ms"], "plain_ms": timings[f"{key}_plain_ms"],
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": timings[f"{key}_library_ms"],
+            "shapes": shapes + (" forward" if key == "alpha" else " backward"),
+        })
+    return entries
+
+
 def serve(device, card):
     from voice100_tpu_torch.inference import ASRPipeline
     from voice100_tpu_torch.models import AudioToAlignText
@@ -333,6 +638,178 @@ def stages(pipe, clips):
     print("stages_ms " + json.dumps({"batch": list(wav.shape), **parts}), flush=True)
 
 
+TRAIN_KERNELS = ("bilstm_train_fwd", "bilstm_train_bwd", "ctc_alpha", "ctc_adjoint")
+
+
+def train_counters():
+    from voice100_tpu_torch.ops.ctc_cuda import ctc_alpha_adjoint_cuda, ctc_alpha_cuda
+    from voice100_tpu_torch.ops.lstm_cuda import bilstm_train_bwd_cuda, bilstm_train_fwd_cuda
+
+    return dict(zip(TRAIN_KERNELS, (bilstm_train_fwd_cuda, bilstm_train_bwd_cuda,
+                                    ctc_alpha_cuda, ctc_alpha_adjoint_cuda)))
+
+
+def train_batch(device):
+    """64 int16 clips of 2-10 s in the 10 s bucket, turned into features
+    by the log-mel kernel and masked past each clip to the blank level,
+    with random targets of about 14 ids a second:
+    ``((mel, mel_len), (text, text_len))`` on the card, and the seconds."""
+    from voice100_tpu_torch.ops.mask import BLANK_AUDIO, sequence_mask
+    from voice100_tpu_torch.ops.melspec_cuda import log_mel_spectrogram_cuda
+
+    rng = np.random.default_rng(SEED + 3)
+    seconds = rng.uniform(2.0, 10.0, size=TRAIN_BATCH)
+    seconds[0] = 10.0
+    clips = int16_clips(rng, seconds)
+    pcm = np.zeros((TRAIN_BATCH, 10 * SAMPLE_RATE), np.int16)
+    for row, clip in enumerate(clips):
+        pcm[row, :len(clip)] = clip
+    wav_len = torch.tensor([len(c) for c in clips], device=device)
+    with torch.no_grad():
+        wav = torch.from_numpy(pcm).to(device).float() * (1.0 / 32768.0)
+        mel = log_mel_spectrogram_cuda(wav, sample_rate=SAMPLE_RATE)
+        mel_len = wav_len // 160 + 1
+        mel = torch.where(sequence_mask(mel_len, mel.shape[1], torch.bool)[:, :, None], mel,
+                          BLANK_AUDIO)
+    targets, target_lengths = ctc_targets(rng, seconds, ASR_EN_BASE["vocab_size"])
+    targets[np.arange(targets.shape[1])[None, :] >= target_lengths[:, None]] = 0
+    text = torch.from_numpy(targets).to(device)
+    text_len = torch.from_numpy(target_lengths).to(device)
+    return ((mel, mel_len), (text, text_len)), float(seconds.sum())
+
+
+def train(device, card):
+    from voice100_tpu_torch.models import AudioToAlignText
+    from voice100_tpu_torch.training import Trainer, TrainerConfig, TrainState, make_task
+
+    model = AudioToAlignText(**ASR_EN_BASE, device=device,
+                             generator=torch.Generator().manual_seed(SEED))
+    batch, audio_sec = train_batch(device)
+    trainer = Trainer(TrainerConfig(gradient_clip_val=1.0))
+    task = make_task(model)
+    state = TrainState(model, task.make_optimizer())
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    counters = train_counters()
+    warm = float(trainer.train_step(task, state, batch, gen)["loss"])   # warm-up
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, step_ms = [], []
+    for _ in range(TIMED_STEPS):
+        start = time.perf_counter()
+        losses.append(float(trainer.train_step(task, state, batch, gen)["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - start) * 1e3)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    median = float(np.median(step_ms))
+    print(f"train asr_en_base: batch {TRAIN_BATCH} ({audio_sec:.2f} s of audio, 10 s bucket), "
+          f"augmentation and dropout on; loss warm-up {warm:.4f}, then "
+          f"{[round(v, 4) for v in losses]}; step median {median:.2f} ms "
+          f"(min {min(step_ms):.2f}, max {max(step_ms):.2f}), "
+          f"{audio_sec / (median * 1e-3):.1f} audio s/s on {card}; launches over "
+          f"{TIMED_STEPS} steps {launches}", flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"train: non-finite loss {losses}")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        fail(f"train: the loss does not fall on one repeated batch: {losses}")
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"the training path never launched the {name} kernel")
+    train_stages(trainer, task, state, batch, gen)
+    return launches
+
+
+def train_stages(trainer, task, state, batch, gen):
+    """Card time of each layer of one training step (CUDA events), the
+    backward split by layer through autograd.grad on a retained graph."""
+    from voice100_tpu_torch.models.layers import conv_stack_output_length
+    from voice100_tpu_torch.ops.augment import apply_augment, draw_augment
+    from voice100_tpu_torch.ops.ctc_cuda import ctc_loss_cuda
+    from voice100_tpu_torch.training.trainer import clip_by_global_norm
+
+    model = state.model.train()
+    (audio, audio_len), (text, text_len) = batch
+    enc_params = list(model.encoder.parameters())
+    lstm_params = list(model.lstm.parameters())
+    dense_params = list(model.dense.parameters())
+
+    def augment():
+        return apply_augment(audio, audio_len, draw_augment(gen, *audio.shape))
+
+    mel, mel_len = augment()
+    x = model.encoder(mel)
+    x_len = conv_stack_output_length(model.encoder_settings, mel_len)
+    h = model.lstm(x, x_len, gen)
+    lp = torch.log_softmax(model.dense(h), dim=-1)
+    loss = ctc_loss_cuda(lp, text, x_len, text_len)
+    g_lp, g_h, g_x = torch.autograd.grad(loss, [lp, h, x], retain_graph=True)
+    parts = {
+        "augment": time_ms(augment),
+        "conv_encoder_fwd": time_ms(lambda: model.encoder(mel)),
+        "bilstm_fwd": time_ms(lambda: model.lstm(x, x_len, gen), iters=3),
+        "dense_logsoftmax_fwd": time_ms(lambda: torch.log_softmax(model.dense(h), dim=-1)),
+        "ctc_fwd": time_ms(lambda: ctc_loss_cuda(lp, text, x_len, text_len)),
+        "ctc_bwd": time_ms(lambda: torch.autograd.grad(loss, lp, retain_graph=True)),
+        "dense_logsoftmax_bwd": time_ms(lambda: torch.autograd.grad(
+            lp, [h, *dense_params], g_lp, retain_graph=True)),
+        "bilstm_bwd": time_ms(lambda: torch.autograd.grad(
+            h, [x, *lstm_params], g_h, retain_graph=True), iters=3),
+        "conv_encoder_bwd": time_ms(lambda: torch.autograd.grad(
+            x, enc_params, g_x, retain_graph=True)),
+        "backward_total": time_ms(lambda: torch.autograd.grad(
+            loss, list(model.parameters()), retain_graph=True), iters=3),
+    }
+    loss.backward()
+    parts["clip_adam"] = time_ms(lambda: (clip_by_global_norm(model.parameters(), 1.0),
+                                          state.optimizer.step()))
+    # host time to enqueue one whole step: close to its card time, the
+    # card waits on the host's launch loops
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    trainer.train_step(task, state, batch, gen)
+    parts["step_host_enqueue"] = (time.perf_counter() - start) * 1e3
+    torch.cuda.synchronize()
+    print("train_stages_ms " + json.dumps({"batch": list(audio.shape), **parts}), flush=True)
+
+
+def train_parity(device):
+    """Three steps from the same weights on the first clips of the train
+    batch, augmentation and dropout off, on the card and on the CPU."""
+    from voice100_tpu_torch.models import AudioToAlignText
+    from voice100_tpu_torch.training import Trainer, TrainerConfig, TrainState, make_task
+
+    (mel, mel_len), (text, text_len) = train_batch(device)[0]
+    rows = slice(0, PARITY_BATCH)
+    batch = ((mel[rows], mel_len[rows]), (text[rows], text_len[rows]))
+    cpu_model = AudioToAlignText(**ASR_EN_BASE, device="cpu",
+                                 generator=torch.Generator().manual_seed(SEED + 4))
+    results = []
+    for model, where in ((copy.deepcopy(cpu_model).to(device), device), (cpu_model, "cpu")):
+        trainer = Trainer(TrainerConfig(gradient_clip_val=1.0))
+        task = make_task(model)
+        state = TrainState(model, task.make_optimizer())
+        side_batch = tuple(tuple(t.to(where) for t in pair) for pair in batch)
+        losses, first_grads = [], None
+        start = time.perf_counter()
+        for _ in range(PARITY_STEPS):
+            losses.append(float(trainer.train_step(task, state, side_batch, train=False)["loss"]))
+            if first_grads is None:
+                first_grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        results.append((losses, first_grads, time.perf_counter() - start))
+    (card_losses, card_grads, card_s), (cpu_losses, cpu_grads, cpu_s) = results
+    grad_err = max(((card_grads[n] - g).norm() / g.norm()).item() for n, g in cpu_grads.items())
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    print(f"train parity, card vs CPU plain path (batch {PARITY_BATCH}, {PARITY_STEPS} steps, "
+          f"augmentation and dropout off): losses card {card_losses}, CPU {cpu_losses}, "
+          f"max rel err {loss_err:.3e} (tol {PARITY_LOSS_TOL:.0e}); first-step gradients max "
+          f"rel-norm err {grad_err:.3e} over {len(cpu_grads)} tensors (tol "
+          f"{PARITY_GRAD_TOL:.0e}); card {card_s:.2f} s, CPU {cpu_s:.2f} s", flush=True)
+    if not all(np.isfinite(card_losses)) or not loss_err <= PARITY_LOSS_TOL:
+        fail(f"train parity: card losses {card_losses} vs CPU {cpu_losses}")
+    if not grad_err <= PARITY_GRAD_TOL:
+        fail(f"train parity: first-step gradients differ by {grad_err:.3e} (relative norm)")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -353,11 +830,16 @@ def main() -> None:
     print(f"kernel build: {time.perf_counter() - start:.1f} s", flush=True)
 
     device = resolve_device("cuda")
-    kernels = [check_melspec(device), check_bilstm(device)]
+    serving = [check_melspec(device), check_bilstm(device)]
+    training = check_lstm_train(device) + check_ctc(device)
     launches = serve(device, card)
-    for entry in kernels:
+    launches.update(train(device, card))
+    train_parity(device)
+    for entry in serving + training:
         entry["launches"] = launches[entry["name"]]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    for entry in training:
+        entry["launches_per_step"] = entry["launches"] / TIMED_STEPS
+    print(json.dumps({"kernels": serving + training}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

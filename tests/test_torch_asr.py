@@ -108,12 +108,18 @@ def test_pipeline_transcripts_match_jax(jax_model):
 
 
 def test_training_mode_and_long_inputs_raise(jax_model):
+    """Training mode runs (dropout between the biLSTM layers) since the
+    train slice; serving puts the model in eval mode, and clips longer
+    than the largest bucket still raise."""
     from voice100_tpu_torch.inference import ASRPipeline
 
     port = _port_model(jax_model[1]).train()
-    with pytest.raises(NotImplementedError):
-        port(torch.zeros(1, 21, MELS), torch.tensor([21]))
-    pipe = ASRPipeline(port, device="cpu", batch_size=1, buckets_sec=(0.5,))
+    audio, lengths = torch.randn(1, 21, MELS), torch.tensor([21])
+    with torch.no_grad():
+        dropped, _ = port(audio, lengths, torch.Generator().manual_seed(0))
+        plain, _ = port.eval()(audio, lengths)
+    assert (dropped - plain).abs().max() > 1e-4
+    pipe = ASRPipeline(port.train(), device="cpu", batch_size=1, buckets_sec=(0.5,))
     assert not pipe.model.training
     with pytest.raises(NotImplementedError):
         pipe.transcribe([np.zeros(8001, np.float32)])

@@ -14,7 +14,11 @@ what it needs from there is copied (``text/tokenizers.py``) or rebuilt
 
 Ported so far: ASR v2 serving (``inference.ASRPipeline`` ->
 ``models.AudioToAlignText.greedy_decode``), with the fused log-mel and
-the biLSTM inference recurrence as hand-written kernels.
+the biLSTM inference recurrence as hand-written kernels; and ASR v2
+training (``training.Trainer`` -> ``models.AudioToAlignText.compute_loss``:
+augmentation, model, CTC loss, backward, gradient clip, Adam), with the
+biLSTM train forward and backward (``csrc/bilstm_train.cu``) and the CTC
+lattice forward and adjoint (``csrc/ctc.cu``) as hand-written kernels.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 see :func:`voice100_tpu_torch.device.resolve_device`.

@@ -19,7 +19,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.lstm import stack_directions
-from ..ops.lstm_cuda import bilstm_cuda
+from ..ops.lstm_cuda import bilstm_cuda, bilstm_train_cuda
 
 __all__ = [
     "ConvSetting",
@@ -97,11 +97,20 @@ def conv_stack_output_length(settings: Sequence[ConvSetting], length):
 class BiLSTM(nn.Module):
     """Stacked bidirectional LSTM over padded sequences with lengths.
 
-    Parameters follow ``torch.nn.LSTM``'s names and layout. Each layer
-    runs :func:`voice100_tpu_torch.ops.lstm_cuda.bilstm_cuda`: the CUDA
-    kernel for CUDA tensors, the plain loop for CPU ones.
-    ``dropout`` (0.2 between layers, torch convention) is stored for the
-    training slice; training mode is not ported and raises.
+    Parameters follow ``torch.nn.LSTM``'s names and layout. When no
+    gradient is needed (``torch.no_grad``, ``inference_mode``, or no
+    parameter or input that requires one), each layer runs the inference
+    kernel :func:`voice100_tpu_torch.ops.lstm_cuda.bilstm_cuda` on
+    weights stacked once and cached. Otherwise it runs the training pair
+    through :func:`voice100_tpu_torch.ops.lstm_cuda.bilstm_train_cuda`,
+    on weights stacked from the parameters in each call so that the
+    gradients reach them. Either way CUDA tensors take the kernels and
+    CPU tensors the plain loops.
+
+    In training mode, ``dropout`` (0.2, torch convention) zeroes each
+    output of every layer but the last with that probability and scales
+    the rest by ``1 / (1 - dropout)`` (``voice100_tpu/ops/lstm.py:343-347``),
+    drawing from ``generator`` (the default generator if None).
     """
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int,
@@ -134,35 +143,42 @@ class BiLSTM(nn.Module):
         for param in self.parameters():
             uniform_(param, bound, generator)
 
+    def _stack(self):
+        return [
+            stack_directions({
+                direction: {
+                    ours: getattr(self, f"{theirs}_l{layer}{suffix}")
+                    for ours, theirs in (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
+                                         ("b_ih", "bias_ih"), ("b_hh", "bias_hh"))
+                }
+                for direction, suffix in (("fwd", ""), ("bwd", "_reverse"))
+            })
+            for layer in range(self.num_layers)
+        ]
+
     def stacked_layers(self):
         """Per layer ``(w_ih [2, 4H, D], w_hh [2, 4H, H], bias [2, 4H])``
-        as :func:`voice100_tpu_torch.ops.lstm.stack_directions` gives them.
-        Built once and rebuilt only after a parameter changes: in place
-        (a state-dict load), or by a move to another device."""
+        as :func:`voice100_tpu_torch.ops.lstm.stack_directions` gives them,
+        detached from autograd. Built once and rebuilt only after a
+        parameter changes: in place (a state-dict load, an optimizer
+        step), or by a move to another device."""
         key = tuple((p.data_ptr(), p._version) for p in self.parameters())
         if key != self._stacked_key:
             with torch.no_grad():
-                self._stacked = [
-                    stack_directions({
-                        direction: {
-                            ours: getattr(self, f"{theirs}_l{layer}{suffix}")
-                            for ours, theirs in (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
-                                                 ("b_ih", "bias_ih"), ("b_hh", "bias_hh"))
-                        }
-                        for direction, suffix in (("fwd", ""), ("bwd", "_reverse"))
-                    })
-                    for layer in range(self.num_layers)
-                ]
+                self._stacked = self._stack()
             self._stacked_key = key
         return self._stacked
 
-    def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-        """``[B, T, D] -> [B, T, 2H]``, zero past each length (inference:
-        no gradient reaches the parameters)."""
-        if self.training and self.dropout > 0.0:
-            raise NotImplementedError(
-                "training mode (inter-layer dropout) is not ported yet; call .eval()"
-            )
-        for w_ih, w_hh, bias in self.stacked_layers():
-            x = bilstm_cuda(w_ih, w_hh, bias, x, lengths)
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``[B, T, D] -> [B, T, 2H]``, zero past each length."""
+        needs_grad = torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+        layers, layer_fn = ((self._stack(), bilstm_train_cuda) if needs_grad
+                            else (self.stacked_layers(), bilstm_cuda))
+        for i, (w_ih, w_hh, bias) in enumerate(layers):
+            x = layer_fn(w_ih, w_hh, bias, x, lengths)
+            if self.training and self.dropout > 0.0 and i < self.num_layers - 1:
+                keep = torch.empty_like(x).bernoulli_(1.0 - self.dropout, generator=generator)
+                x = torch.where(keep.bool(), x / (1.0 - self.dropout), 0.0)
         return x

@@ -1,17 +1,27 @@
-"""biLSTM inference: wrapper of the CUDA recurrence kernel ``csrc/bilstm.cu``.
+"""biLSTM kernels: wrappers of ``csrc/bilstm.cu`` and ``csrc/bilstm_train.cu``.
 
-Replaces the TPU kernel ``voice100_tpu/ops/lstm_pallas.py::_kernel``
-(``_bilstm_pallas_call`` via ``bilstm_pallas``) with its float32
-semantics. The input projection ``x @ W_ih^T + b_ih + b_hh`` stays a
-``torch.matmul``, outside the kernel as in the JAX wrapper; the kernel
-runs one launch per time step for both directions, and this wrapper
-loops over time on the current stream. It is bound on the H100 by
-reading ``W_hh`` (8 MB for H=512) from L2 every step, and at T~501 by
-the launches; see the note at the top of the CUDA source.
+* :func:`bilstm_cuda`, inference, replaces the TPU kernel
+  ``voice100_tpu/ops/lstm_pallas.py::_kernel`` (``_bilstm_pallas_call``
+  via ``bilstm_pallas``) with its float32 semantics;
+* :func:`bilstm_train_fwd_cuda` and :func:`bilstm_train_bwd_cuda`, the
+  training pair, replace ``_kernel_train_fwd`` and ``_kernel_train_bwd``
+  (float32 variants);
+* :class:`BiLSTMFunction` (:func:`bilstm_train_cuda`) is the
+  ``torch.autograd.Function`` in the shape of ``_bilstm_op``
+  (``lstm_pallas.py:482-573``).
 
-For tensors on the CPU :func:`bilstm_cuda` runs the plain version,
-:func:`voice100_tpu_torch.ops.lstm.bilstm`. For CUDA tensors it launches
-the kernel or raises; it never falls back.
+The input projection ``x @ W_ih^T + b_ih + b_hh`` stays a
+``torch.matmul``, outside the kernels as in the JAX wrappers, and so do
+the weight and input gradients of the backward (``dW_ih = dG^T x``,
+``dW_hh = dG^T h_prev``, ``db = sum dG``, ``dx = dG W_ih``). The kernels
+launch once a time step (the backward twice) for both directions, and
+these wrappers loop over time on the current stream; see the notes at
+the top of the CUDA sources for what bounds them.
+
+For tensors on the CPU each wrapper runs its plain version from
+:mod:`voice100_tpu_torch.ops.lstm`. For CUDA tensors it launches the
+kernel or raises; it never falls back. Each wrapper counts its kernel
+launches in its ``launches`` attribute.
 """
 
 from __future__ import annotations
@@ -21,27 +31,55 @@ import ctypes
 import torch
 
 from ..kernels.build import check, load
-from .lstm import bilstm
+from .lstm import bilstm, bilstm_train_bwd, bilstm_train_fwd, project_inputs
 
-__all__ = ["bilstm_cuda"]
+__all__ = ["bilstm_cuda", "bilstm_train_fwd_cuda", "bilstm_train_bwd_cuda",
+           "BiLSTMFunction", "bilstm_train_cuda"]
 
 _UNITS = 8           # hidden units per block (csrc/bilstm.cu)
+_TRAIN_MULTIPLE = 32  # hidden must be a multiple of this (csrc/bilstm_train.cu)
 _SMEM_LIMIT = 48 * 1024
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _lib():
     lib = load("bilstm")
     if lib.bilstm_step_f32.argtypes is None:
-        lib.bilstm_step_f32.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        lib.bilstm_step_f32.restype = ctypes.c_int
-        lib.bilstm_step_smem_bytes.argtypes = [ctypes.c_int]
-        lib.bilstm_step_smem_bytes.restype = ctypes.c_int
+        lib.bilstm_step_f32.argtypes = [_P] * 8 + [_I] * 4 + [_P]
+        lib.bilstm_step_f32.restype = _I
+        lib.bilstm_step_smem_bytes.argtypes = [_I]
+        lib.bilstm_step_smem_bytes.restype = _I
     return lib
+
+
+def _train_lib():
+    lib = load("bilstm_train")
+    if lib.lstm_train_fwd_step_f32.argtypes is None:
+        lib.lstm_train_fwd_step_f32.argtypes = [_P] * 10 + [_I] * 4 + [_P]
+        lib.lstm_train_fwd_step_f32.restype = _I
+        lib.lstm_train_bwd_step_f32.argtypes = [_P] * 9 + [_I] * 4 + [_P]
+        lib.lstm_train_bwd_step_f32.restype = _I
+        lib.lstm_train_smem_bytes.argtypes = [_I]
+        lib.lstm_train_smem_bytes.restype = _I
+    return lib
+
+
+def _check_cuda(name: str, tensors, shapes) -> None:
+    device = tensors[0].device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    for t, shape in zip(tensors, shapes):
+        if t.dtype != torch.float32 or t.device != device:
+            raise ValueError(f"{name}: every tensor must be float32 on {device}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
 
 
 def bilstm_cuda(w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,
                 x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """Bidirectional layer ``[B, T, D] -> [B, T, 2H]`` (float32).
+    """Bidirectional layer ``[B, T, D] -> [B, T, 2H]`` (float32, inference).
 
     ``w_ih [2, 4H, D]``, ``w_hh [2, 4H, H]`` (contiguous) and
     ``bias [2, 4H]`` hold the forward then the backward direction, as
@@ -69,8 +107,7 @@ def bilstm_cuda(w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"bilstm_cuda: hidden {hidden} must be a multiple of "
                          f"{_UNITS} and fit the kernel's shared memory")
 
-    xg = (torch.matmul(x.reshape(1, batch * time, d_in), w_ih.transpose(1, 2))
-          + bias[:, None, :]).contiguous()                           # [2, B*T, 4H]
+    xg = project_inputs(w_ih, bias, x).contiguous()                  # [2, B, T, 4H]
     lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
     state = torch.zeros(2, 2, 2, batch, hidden, device=x.device)     # [ping-pong, h/c, dir]
     out = torch.empty(batch, time, 2 * hidden, device=x.device)
@@ -88,3 +125,119 @@ def bilstm_cuda(w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,
 
 
 bilstm_cuda.launches = 0
+
+
+def _train_setup(name: str, xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor):
+    _, batch, time, gates4 = xg.shape
+    hidden = gates4 // 4
+    _check_cuda(name, (xg, w_hh), ((2, batch, time, gates4), (2, gates4, hidden)))
+    if lengths.shape != (batch,):
+        raise ValueError(f"{name}: lengths must be [{batch}], got {tuple(lengths.shape)}")
+    lib = _train_lib()
+    if hidden % _TRAIN_MULTIPLE or lib.lstm_train_smem_bytes(hidden) > _SMEM_LIMIT:
+        raise ValueError(f"{name}: hidden {hidden} must be a multiple of "
+                         f"{_TRAIN_MULTIPLE} and fit the kernel's shared memory")
+    lengths = lengths.to(device=xg.device, dtype=torch.int32).contiguous()
+    return lib, batch, time, hidden, lengths
+
+
+def bilstm_train_fwd_cuda(xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor):
+    """The state-saving recurrence (kernel ``csrc/bilstm_train.cu``):
+    ``xg [2, B, T, 4H]``, ``w_hh [2, 4H, H]`` -> ``out [B, T, 2H]``,
+    ``h_prev, c_prev [2, B, T, H]``, as the plain
+    :func:`voice100_tpu_torch.ops.lstm.bilstm_train_fwd`."""
+    if xg.device.type == "cpu":
+        return bilstm_train_fwd(xg, w_hh, lengths)
+    lib, batch, time, hidden, lengths = _train_setup("bilstm_train_fwd_cuda", xg, w_hh, lengths)
+    state = torch.zeros(2, 2, 2, batch, hidden, device=xg.device)    # [ping-pong, h/c, dir]
+    out = torch.empty(batch, time, 2 * hidden, device=xg.device)
+    h_prev = torch.empty(2, batch, time, hidden, device=xg.device)
+    c_prev = torch.empty_like(h_prev)
+    ptrs = [xg.data_ptr(), w_hh.data_ptr(), lengths.data_ptr()]
+    bufs = [(state[p, 0].data_ptr(), state[p, 1].data_ptr()) for p in (0, 1)]
+    saved = [out.data_ptr(), h_prev.data_ptr(), c_prev.data_ptr()]
+    with torch.cuda.device(xg.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for s in range(time):
+            (h_in, c_in), (h_out, c_out) = bufs[s % 2], bufs[1 - s % 2]
+            status = lib.lstm_train_fwd_step_f32(*ptrs, h_in, c_in, h_out, c_out, *saved,
+                                                 batch, time, hidden, s, stream)
+            check(lib, status, "lstm_train_fwd_step_f32")
+            bilstm_train_fwd_cuda.launches += 1
+    return out, h_prev, c_prev
+
+
+bilstm_train_fwd_cuda.launches = 0
+
+
+def bilstm_train_bwd_cuda(xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor,
+                          h_prev: torch.Tensor, c_prev: torch.Tensor,
+                          dout: torch.Tensor) -> torch.Tensor:
+    """dG ``[2, B, T, 4H]`` (kernels ``csrc/bilstm_train.cu``, two
+    launches a step: gate recompute and adjoint, then ``dh = dG W_hh``),
+    as the plain :func:`voice100_tpu_torch.ops.lstm.bilstm_train_bwd`."""
+    if xg.device.type == "cpu":
+        return bilstm_train_bwd(xg, w_hh, lengths, h_prev, c_prev, dout)
+    name = "bilstm_train_bwd_cuda"
+    lib, batch, time, hidden, lengths = _train_setup(name, xg, w_hh, lengths)
+    _check_cuda(name, (h_prev, c_prev, dout),
+                ((2, batch, time, hidden),) * 2 + ((batch, time, 2 * hidden),))
+    carry = torch.zeros(2, 2, batch, hidden, device=xg.device)       # [dh/dc, dir]
+    dg = torch.empty_like(xg)
+    ptrs = [xg.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(), h_prev.data_ptr(),
+            c_prev.data_ptr(), dout.data_ptr(), carry[0].data_ptr(), carry[1].data_ptr(),
+            dg.data_ptr()]
+    with torch.cuda.device(xg.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for s in range(time - 1, -1, -1):
+            status = lib.lstm_train_bwd_step_f32(*ptrs, batch, time, hidden, s, stream)
+            check(lib, status, "lstm_train_bwd_step_f32")
+            bilstm_train_bwd_cuda.launches += 2
+    return dg
+
+
+bilstm_train_bwd_cuda.launches = 0
+
+
+class BiLSTMFunction(torch.autograd.Function):
+    """One bidirectional layer with the training kernel pair: the
+    counterpart of ``_bilstm_op`` (``lstm_pallas.py:482-573``).
+
+    Forward: ``xg`` by ``torch.matmul``, then the state-saving
+    recurrence; ``xg``, the states, ``x`` and the lengths are saved.
+    Backward: the dG kernel, then ``dW_ih = dG^T x``,
+    ``dW_hh = dG^T h_prev``, ``d bias = sum dG`` and ``dx = dG W_ih`` as
+    plain products. The bias is ``b_ih + b_hh``, so both get ``sum dG``.
+    """
+
+    @staticmethod
+    def forward(ctx, w_ih, w_hh, bias, x, lengths):
+        w_hh = w_hh.contiguous()
+        xg = project_inputs(w_ih, bias, x).contiguous()
+        out, h_prev, c_prev = bilstm_train_fwd_cuda(xg, w_hh, lengths)
+        ctx.save_for_backward(w_ih, w_hh, x, lengths, xg, h_prev, c_prev)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        w_ih, w_hh, x, lengths, xg, h_prev, c_prev = ctx.saved_tensors
+        _, batch, time, gates4 = xg.shape
+        dg = bilstm_train_bwd_cuda(xg, w_hh, lengths, h_prev, c_prev, dout.contiguous())
+        dg2 = dg.reshape(2, batch * time, gates4)
+        d_w_ih = d_w_hh = d_bias = d_x = None
+        if ctx.needs_input_grad[0]:
+            d_w_ih = torch.matmul(dg2.transpose(1, 2), x.reshape(1, batch * time, -1))
+        if ctx.needs_input_grad[1]:
+            d_w_hh = torch.matmul(dg2.transpose(1, 2), h_prev.reshape(2, batch * time, -1))
+        if ctx.needs_input_grad[2]:
+            d_bias = dg2.sum(dim=1)
+        if ctx.needs_input_grad[3]:
+            d_x = torch.matmul(dg2, w_ih).sum(dim=0).reshape(x.shape)
+        return d_w_ih, d_w_hh, d_bias, d_x, None
+
+
+def bilstm_train_cuda(w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,
+                      x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Differentiable bidirectional layer ``[B, T, D] -> [B, T, 2H]``,
+    weights as :func:`bilstm_cuda` takes them (:class:`BiLSTMFunction`)."""
+    return BiLSTMFunction.apply(w_ih, w_hh, bias, x, lengths)

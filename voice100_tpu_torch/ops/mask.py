@@ -1,8 +1,8 @@
 """Length masks and the blank-audio level, as serving needs them.
 
 Port of ``voice100_tpu/ops/mask.py:16`` (``sequence_mask``) and of the
-``BLANK_AUDIO`` constant of ``voice100_tpu/ops/augment.py:30``.
-Augmentation itself waits for the training slice.
+``BLANK_AUDIO`` constant of ``voice100_tpu/ops/augment.py:30``
+(augmentation itself is ``ops/augment.py``).
 """
 
 from __future__ import annotations
