@@ -6,7 +6,7 @@ Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds every kernel of the serving and training paths from
+2. builds every kernel of the serve, train and align paths from
    voice100_tpu_torch/csrc/ with nvcc, all sources at once (set-up, timed);
 3. holds the fused log-mel kernel against its plain PyTorch version on
    the card at 8 x 10 s, and times kernel, plain and torch.stft;
@@ -21,20 +21,39 @@ toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
    Function against the plain versions at B=64, T=501, V=29 with a
    repeated-label row, an empty target and an infeasible row, and times
    kernels, plain versions and F.ctc_loss forward/backward;
-7. serves asr_en_base end to end through ASRPipeline on the card (16
+7. holds the align path's shapes: the biLSTM inference kernel at B=64,
+   T=512 (eight batch tiles of its grid), the log-mel kernel on single
+   clips of 1.0, 3.7 and 9.3 s padded to a multiple of 4096 samples, and
+   the CTC Viterbi kernels (forward, backtrace) against their plain twins
+   at B=64, T=512, V=29, S=321 with a repeated-label row, an empty
+   target, a row that cannot align and ragged lengths: moves, score, path
+   and labels must be equal; times kernels and twins;
+8. serves asr_en_base end to end through ASRPipeline on the card (16
    int16 clips of 2-10 s, batch 8, seeded random weights), with the
    kernels' launch counts set to 0 just before and read just after,
    holds its logits and greedy ids against the same pipeline on the CPU,
    and its transcripts to those greedy ids;
-8. trains asr_en_base on the card through Trainer.train_step (batch 64
+9. trains asr_en_base on the card through Trainer.train_step (batch 64
    of 2-10 s clips in the 10 s bucket, augmentation and dropout on, Adam
    1e-3, clip 1.0): one warm-up step, then 10 timed steps with the launch
    counts set to 0 just before and read just after; the loss must be
    finite and fall; prints the card time by layer;
-9. takes 3 training steps from the same weights on the first 8 clips,
-   augmentation and dropout off, on the card and on the CPU's plain path,
-   and holds the first step's gradients and the 3 losses together;
-10. prints one JSON line of per-kernel results, then, last,
+10. takes 3 training steps from the same weights on the first 8 clips,
+    augmentation and dropout off, on the card and on the CPU's plain path,
+    and holds the first step's gradients and the 3 losses together;
+11. force-aligns a dummy_en corpus of 128 int16 WAVs of 2-10 s (random
+    texts of about 14 characters a second) with asr_en_base (seeded random
+    weights saved as a port checkpoint, batch 64) through
+    tools/align_text.cli_main on the card, twice: a cold feature cache,
+    then a warm one; the launch counts of kernels 1, 6, 7 and 8 set to 0
+    just before each run and read just after (6 and 7 once a batch, 8 once
+    a clip cold and never warm); checks the lines, and every batch's
+    labels against the plain Viterbi on the card's own log-probs; prints
+    the throughput of both runs and the card time by layer of one batch;
+12. aligns the first 8 clips from the same warm cache on the card and on
+    the CPU's plain path and holds log-probs, Viterbi scores and paths
+    together;
+13. prints one JSON line of per-kernel results, then, last,
     {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line is printed. Without
@@ -48,8 +67,10 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -102,6 +123,20 @@ CTC_GRAD_TOL = 1e-4
 # gradient by ||g_card - g_cpu|| / ||g_cpu||, and the losses relatively.
 PARITY_GRAD_TOL = 1e-3
 PARITY_LOSS_TOL = 1e-3
+# Align slice: the config's batch (config/asr_en_base.yaml:41), the
+# Viterbi kernels' check shapes (S = 2 * 160 + 1 = 321), single clips of
+# odd lengths for the log-mel kernel, and the synthetic corpus.
+ALIGN_BATCH = 64
+VITERBI_T, VITERBI_L = 512, 160
+CLIP_SECONDS = (1.0, 3.7, 9.3)
+ALIGN_CLIPS = 128
+ALIGN_PARITY_CLIPS = 8
+# Card vs CPU alignment of the same clips from the same cache: Viterbi
+# scores sum ~500 log-probs, each within LOGIT_TOL; near-ties may flip a
+# frame under that tolerance, while an indexing or gate fault moves whole
+# segments of the path.
+ALIGN_SCORE_REL_TOL = 1e-3
+ALIGN_PATH_AGREEMENT = 0.99
 PEAK_F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
@@ -201,13 +236,48 @@ def check_melspec(device):
     }
 
 
-def check_bilstm(device):
+def check_melspec_clips(device):
+    """The log-mel kernel on single clips of odd lengths, each padded with
+    zeros to a multiple of 4096 samples as the feature transform pads it
+    (data/transforms.py), against the plain version."""
+    from voice100_tpu_torch.data.transforms import WAVE_BUCKET
+    from voice100_tpu_torch.ops.melspec import log_mel_spectrogram
+    from voice100_tpu_torch.ops.melspec_cuda import log_mel_spectrogram_cuda
+
+    rng = np.random.default_rng(SEED + 5)
+    worst, shapes = 0.0, []
+    for clip in int16_clips(rng, CLIP_SECONDS):
+        padded = -(-len(clip) // WAVE_BUCKET) * WAVE_BUCKET
+        wav = torch.zeros(padded, device=device)
+        wav[:len(clip)] = torch.from_numpy(clip).to(device).float() * (1.0 / 32768.0)
+        got = log_mel_spectrogram_cuda(wav)
+        ref = log_mel_spectrogram(wav)
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            fail(f"log-mel kernel on one clip of {len(clip)} samples: shape "
+                 f"{tuple(got.shape)} or non-finite values")
+        worst = max(worst, (got - ref).abs().max().item())
+        shapes.append(f"{len(clip)} -> {padded} samples, {got.shape[0]} frames")
+    print(f"log-mel single clips ({'; '.join(shapes)}): max_abs_err {worst:.3e} "
+          f"(tol {MEL_TOL:.0e})", flush=True)
+    if not worst <= MEL_TOL:
+        fail(f"log-mel kernel on single clips disagrees with the plain version: {worst:.3e}")
+    return worst
+
+
+def check_bilstm(device, batch=BATCH, time_steps=501, lengths_list=None):
+    """The biLSTM inference kernel against its plain version for both
+    layer widths of asr_en_base with ragged lengths, timed with the plain
+    version and cuDNN nn.LSTM. The default shapes are one 8 x 10 s serve
+    batch; the align phase runs it at the config's batch of 64 (eight
+    batch tiles of the kernel's grid)."""
     from voice100_tpu_torch.models.layers import BiLSTM
     from voice100_tpu_torch.ops.lstm import bilstm
     from voice100_tpu_torch.ops.lstm_cuda import bilstm_cuda
 
-    hidden, time_steps = 512, 501
-    lengths_list = [501, 463, 420, 377, 250, 128, 17, 1]
+    hidden = 512
+    if lengths_list is None:
+        lengths_list = [501, 463, 420, 377, 250, 128, 17, 1]
     module = BiLSTM(512, hidden, 2, device=device)
     module.reset_parameters(torch.Generator().manual_seed(SEED))
     lengths = torch.tensor(lengths_list, dtype=torch.int32, device=device)
@@ -215,7 +285,7 @@ def check_bilstm(device):
     total = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
     for layer, params in enumerate(module.stacked_layers()):
         d_in = params[0].shape[2]
-        x = torch.randn(BATCH, time_steps, d_in, device=device, generator=gen)
+        x = torch.randn(batch, time_steps, d_in, device=device, generator=gen)
         with torch.no_grad():
             got = bilstm_cuda(*params, x, lengths)
             ref = bilstm(*params, x, lengths)
@@ -244,12 +314,12 @@ def check_bilstm(device):
             plain_ms = time_ms(lambda: bilstm(*params, x, lengths), iters=3, warmup=1)
             library_ms = time_ms(library, iters=5)
         valid = sum(lengths_list)
-        n_bytes = (x.numel() + 2 * 4 * hidden * (d_in + hidden + 2) + BATCH * time_steps
-                   * 2 * hidden) * 4 + BATCH * 4
+        n_bytes = (x.numel() + 2 * 4 * hidden * (d_in + hidden + 2) + batch * time_steps
+                   * 2 * hidden) * 4 + batch * 4
         # the work these lengths need: projections and recurrence of valid steps only
         n_ops = 2 * 2 * valid * 4 * hidden * (d_in + hidden)
         bound, bound_by = bound_ms(n_bytes, n_ops)
-        print(f"biLSTM layer {layer} (B={BATCH}, T={time_steps}, D={d_in}, H={hidden}): "
+        print(f"biLSTM layer {layer} (B={batch}, T={time_steps}, D={d_in}, H={hidden}): "
               f"max_abs_err {err:.3e} (tol {LSTM_TOL:.0e}), nn.LSTM vs plain {library_err:.3e}; "
               f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, nn.LSTM {library_ms:.3f} ms, "
               f"bound {bound:.4f} ms ({bound_by})", flush=True)
@@ -267,7 +337,7 @@ def check_bilstm(device):
         "replaces": "voice100_tpu/ops/lstm_pallas.py:41", "launches": None,
         "max_abs_err": total["err"], "ms": total["ms"], "plain_ms": total["plain_ms"],
         "bound_ms": bound, "bound_by": bound_by, "library_ms": total["library_ms"],
-        "shapes": "both layers of one 8 x 10 s batch: B=8, T=501, H=512, D=512 then 1024",
+        "shapes": f"both layers: B={batch}, T={time_steps}, H=512, D=512 then 1024",
     }
 
 
@@ -531,6 +601,100 @@ def check_ctc(device):
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": timings[f"{key}_library_ms"],
             "shapes": shapes + (" forward" if key == "alpha" else " backward"),
+        })
+    return entries
+
+
+def check_viterbi(device):
+    """The Viterbi kernels (forward, backtrace) against their plain twins
+    at B=64, T=512, V=29, L=160 (S=321) with ragged input lengths, a row of
+    one repeated label, an empty target, a row that cannot align (100
+    frames for 160 labels) and a row with nonzero labels past its target
+    length. Max and one float32 add are exact, so moves, last row, score,
+    path and labels must be equal."""
+    from voice100_tpu_torch.ops.ctc import (ctc_prep, ctc_viterbi_align, viterbi_backtrace,
+                                            viterbi_final, viterbi_forward)
+    from voice100_tpu_torch.ops.viterbi_cuda import (ctc_viterbi_align_cuda,
+                                                     viterbi_backtrace_cuda, viterbi_forward_cuda)
+
+    batch, time_steps, vocab, label_len = ALIGN_BATCH, VITERBI_T, ASR_EN_BASE["vocab_size"], VITERBI_L
+    rng = np.random.default_rng(SEED + 6)
+    input_lengths = rng.integers(time_steps // 3, time_steps + 1, size=batch)
+    target_lengths = np.minimum(rng.integers(1, label_len + 1, size=batch), input_lengths // 2)
+    input_lengths[0], target_lengths[0] = time_steps, label_len
+    targets = rng.integers(1, vocab, size=(batch, label_len))
+    targets[np.arange(label_len)[None, :] >= target_lengths[:, None]] = 0
+    targets[1], target_lengths[1] = 7, label_len                 # one repeated label
+    target_lengths[2] = 0                                        # empty target
+    input_lengths[3], target_lengths[3] = 100, label_len         # cannot align
+    targets[4] = rng.integers(1, vocab, size=label_len)          # labels past its length
+    logits = torch.from_numpy(rng.standard_normal((batch, time_steps, vocab)) * 2.0)
+    log_probs = torch.log_softmax(logits.float(), dim=-1).to(device)
+    targets, input_lengths, target_lengths = (torch.from_numpy(a).to(device) for a in (
+        targets, input_lengths, target_lengths))
+
+    z, _, valid = ctc_prep(targets, target_lengths)
+    s_len = z.shape[1]
+    moves, last = viterbi_forward_cuda(log_probs, z, valid, input_lengths)
+    moves_ref, last_ref = viterbi_forward(log_probs, z, valid, input_lengths)
+    final_pos, score = viterbi_final(last, target_lengths)
+    path, labels = viterbi_backtrace_cuda(moves, final_pos, input_lengths, z)
+    path_ref, labels_ref = viterbi_backtrace(moves_ref, final_pos, input_lengths, z)
+    whole = ctc_viterbi_align_cuda(log_probs, targets, input_lengths, target_lengths)
+    whole_ref = ctc_viterbi_align(log_probs, targets, input_lengths, target_lengths)
+    torch.cuda.synchronize()
+    equal = {
+        "moves": torch.equal(moves, moves_ref), "last_row": torch.equal(last, last_ref),
+        "path": torch.equal(path, path_ref), "labels": torch.equal(labels, labels_ref),
+        "align_score": torch.equal(whole.score, whole_ref.score),
+        "align_path": torch.equal(whole.path, whole_ref.path),
+        "align_labels": torch.equal(whole.labels, whole_ref.labels),
+    }
+    infeasible = whole.score[3].item()
+    err = (last - last_ref).abs().max().item()
+
+    timings = {
+        "forward_ms": time_ms(lambda: viterbi_forward_cuda(log_probs, z, valid, input_lengths),
+                              iters=20),
+        "forward_plain_ms": time_ms(lambda: viterbi_forward(log_probs, z, valid, input_lengths),
+                                    iters=3, warmup=1),
+        "backtrace_ms": time_ms(lambda: viterbi_backtrace_cuda(moves, final_pos, input_lengths,
+                                                               z), iters=20),
+        "backtrace_plain_ms": time_ms(lambda: viterbi_backtrace(moves, final_pos, input_lengths,
+                                                                z), iters=3, warmup=1),
+    }
+    print(f"CTC Viterbi (B={batch}, T={time_steps}, V={vocab}, S={s_len}): equal to the plain "
+          f"twins {equal}; last-row max_abs_err {err:.3e}; infeasible row score {infeasible:.3e}; "
+          + ", ".join(f"{k} {v:.4f}" for k, v in timings.items()), flush=True)
+    if not all(equal.values()):
+        fail(f"Viterbi kernels differ from their plain twins: {equal}")
+    if infeasible > -1e29:
+        fail(f"Viterbi: the row that cannot align scored {infeasible:.3e}")
+
+    # least work. Forward: the log_probs rows of the active steps read (a
+    # held step reads none), the moves written, z and the lengths read and
+    # the last row written once; about 4 operations a state of an active
+    # step (two compares, a select, an add). Backtrace: one byte of moves
+    # read a step, path and labels written.
+    steps = input_lengths.clamp(max=time_steps)
+    active_states = int(((steps - 1).clamp(min=0) * s_len).sum())
+    fwd_bytes = (int(steps.sum()) * vocab * 4 + moves.numel() + 3 * batch * s_len * 4
+                 + batch * 4)
+    bt_bytes = int(steps.sum()) + 2 * batch * time_steps * 4 + 2 * batch * 4 + batch * s_len * 4
+    shapes = (f"B={batch}, T={time_steps}, V={vocab}, S={s_len}, {int(steps.sum())} active "
+              f"steps; no library call computes a Viterbi alignment")
+    entries = []
+    for name, source_line, key, n_bytes, n_ops in (
+            ("viterbi_forward", "voice100_tpu/ops/ctc_pallas.py:405", "forward", fwd_bytes,
+             4 * active_states),
+            ("viterbi_backtrace", "voice100_tpu/ops/ctc_pallas.py:440", "backtrace", bt_bytes,
+             2 * int(steps.sum()))):
+        bound, bound_by = bound_ms(n_bytes, n_ops)
+        entries.append({
+            "name": name, "route": "cuda", "source": "voice100_tpu_torch/csrc/viterbi.cu",
+            "replaces": source_line, "launches": None, "max_abs_err": err if key == "forward" else 0.0,
+            "ms": timings[f"{key}_ms"], "plain_ms": timings[f"{key}_plain_ms"],
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None, "shapes": shapes,
         })
     return entries
 
@@ -810,6 +974,250 @@ def train_parity(device):
         fail(f"train parity: first-step gradients differ by {grad_err:.3e} (relative norm)")
 
 
+ALIGN_KERNELS = ("bilstm_recurrence", "viterbi_forward", "viterbi_backtrace", "log_mel")
+
+
+def align_counters():
+    from voice100_tpu_torch.ops.lstm_cuda import bilstm_cuda
+    from voice100_tpu_torch.ops.melspec_cuda import log_mel_spectrogram_cuda
+    from voice100_tpu_torch.ops.viterbi_cuda import viterbi_backtrace_cuda, viterbi_forward_cuda
+
+    return dict(zip(ALIGN_KERNELS, (bilstm_cuda, viterbi_forward_cuda, viterbi_backtrace_cuda,
+                                    log_mel_spectrogram_cuda)))
+
+
+def write_align_corpus(root: str):
+    """A dummy_en corpus (the registry's layout) of ALIGN_CLIPS int16 WAVs
+    of 2-10 s, noise under a slow envelope, each with a text of random
+    letters and spaces, about 14 characters a second and at most 150;
+    the config asr_en_base with dataset dummy_en; seeded random weights
+    saved as a port checkpoint. Returns (the align CLI's arguments as a
+    dict, the texts, the clip lengths in samples)."""
+    import yaml
+    from voice100_tpu_torch.dsp.wav import write_wav
+    from voice100_tpu_torch.models import AudioToAlignText
+    from voice100_tpu_torch.training import TrainState, save_checkpoint
+
+    rng = np.random.default_rng(SEED + 8)
+    seconds = rng.uniform(2.0, 10.0, size=ALIGN_CLIPS)
+    clips = int16_clips(rng, seconds)
+    data_dir = os.path.join(root, "data")
+    wavs = os.path.join(data_dir, "dummy-speech-en", "wavs")
+    os.makedirs(wavs)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz  "))
+    texts = []
+    for i, (sec, clip) in enumerate(zip(seconds, clips)):
+        chars = rng.choice(letters, size=min(int(round(sec * 14)), 150))
+        chars[0] = chars[-1] = "a"
+        texts.append("".join(chars))
+        write_wav(os.path.join(wavs, f"clip{i:04d}.wav"), clip, SAMPLE_RATE)
+    ids = [f"clip{i:04d}" for i in range(ALIGN_CLIPS)]
+    with open(os.path.join(data_dir, "dummy-speech-en", "metadata.csv"), "w") as f:
+        f.writelines(f"{c}|{t}|{t}\n" for c, t in zip(ids, texts))
+    with open(os.path.join(data_dir, "dummy_en-train.txt"), "w") as f:
+        f.writelines(f"{c}|{t}\n" for c, t in zip(ids, texts))
+    with open("config/asr_en_base.yaml") as f:
+        config = yaml.safe_load(f)
+    config["data"]["init_args"]["dataset"] = "dummy_en"
+    config_path = os.path.join(root, "asr_en_base_dummy_en.yaml")
+    with open(config_path, "w") as f:
+        yaml.safe_dump(config, f)
+    model = AudioToAlignText(**ASR_EN_BASE, device="cpu",
+                             generator=torch.Generator().manual_seed(SEED + 9))
+    ckpt = os.path.join(root, "asr_en_base_random.pt")
+    save_checkpoint(ckpt, TrainState(model, torch.optim.Adam(model.parameters())))
+    args = {"config": config_path, "checkpoint": ckpt, "data_dir": data_dir,
+            "cache_dir": os.path.join(root, "cache"),
+            "output": os.path.join(root, "dummy_en-align-train.txt")}
+    return args, texts, [len(c) for c in clips]
+
+
+def check_align_lines(path, texts, samples):
+    """128 lines, the clips' texts in order, and counts of 2 len(text) + 1
+    slots summing to each clip's logit length; returns the lines."""
+    from voice100_tpu_torch.models.layers import conv_stack_output_length
+
+    with open(path) as f:
+        lines = [line.rstrip("\n").split("|") for line in f]
+    if len(lines) != ALIGN_CLIPS:
+        fail(f"align: {len(lines)} lines for {ALIGN_CLIPS} clips")
+    for i, ((text, aligntext, counts), want, n) in enumerate(zip(lines, texts, samples)):
+        counts = [int(c) for c in counts.split()]
+        frames = conv_stack_output_length(ASR_EN_BASE["encoder_settings"], n // 160 + 1)
+        if text != want or len(counts) != 2 * len(text) + 1 or sum(counts) != frames \
+                or len(aligntext) != frames:
+            fail(f"align: line {i} has text {text[:20]!r}..., {len(counts)} counts summing to "
+                 f"{sum(counts)}, for {len(want)} characters and {frames} frames")
+    return lines
+
+
+def align(device, card, workdir):
+    """Forced alignment of a 128-clip corpus through the align CLI on the
+    card, twice: a cold feature cache (the log-mel kernel once a clip),
+    then a warm one, timed; launch counts set to 0 just before each run
+    and read just after. Then each batch's labels against the plain
+    Viterbi on the card's own log-probs, and the card time by layer of
+    one batch."""
+    from voice100_tpu_torch.tools.align_text import cli_main
+
+    args, texts, samples = write_align_corpus(workdir)
+    argv = [item for key, value in args.items() for item in (f"--{key}", value)]
+    audio_sec = sum(samples) / SAMPLE_RATE
+    counters = align_counters()
+    runs = {}
+    for run in ("cold", "warm"):
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        start = time.perf_counter()
+        cli_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        runs[run] = {"wall_s": wall, "audio_s_per_s": audio_sec / wall,
+                     "launches": {name: fn.launches for name, fn in counters.items()}}
+        lines = check_align_lines(args["output"], texts, samples)
+    batches = -(-ALIGN_CLIPS // ALIGN_BATCH)
+    print(f"align asr_en_base: {ALIGN_CLIPS} clips, {audio_sec:.2f} s of audio, batch "
+          f"{ALIGN_BATCH} on {card}: " + "; ".join(
+              f"{run} cache {r['wall_s']:.3f} s, {r['audio_s_per_s']:.1f} audio s/s, launches "
+              f"{r['launches']}" for run, r in runs.items()), flush=True)
+    for run, r in runs.items():
+        got = r["launches"]
+        if got["viterbi_forward"] != batches or got["viterbi_backtrace"] != batches:
+            fail(f"align ({run}): the Viterbi kernels launched {got}, not once a batch")
+        if got["bilstm_recurrence"] == 0:
+            fail(f"align ({run}): the biLSTM kernel never launched")
+    if runs["cold"]["launches"]["log_mel"] != ALIGN_CLIPS or runs["warm"]["launches"]["log_mel"]:
+        fail(f"align: the log-mel kernel launched {runs['cold']['launches']['log_mel']} times cold "
+             f"and {runs['warm']['launches']['log_mel']} warm, not once a clip and then never")
+    align_batches_vs_plain(device, args, lines)
+    return runs, args
+
+
+def build_align(args, device, batch_size=None):
+    """The CLI's model (weights loaded) and predict data module."""
+    from voice100_tpu_torch.training import load_model_weights
+    from voice100_tpu_torch.training.cli import build_from_config, load_config
+
+    overrides = {"data_dir": args["data_dir"], "cache_dir": args["cache_dir"]}
+    if batch_size:
+        overrides["batch_size"] = batch_size
+    model, data = build_from_config(load_config(args["config"]), overrides, device=device)
+    load_model_weights(args["checkpoint"], model)
+    data.setup("predict")
+    return model.eval(), data
+
+
+def align_batches_vs_plain(device, args, lines):
+    """Each batch of the run again: the kernels' labels against the plain
+    Viterbi on the same card log-probs, and against the written aligned
+    text; then the card time by layer of the first batch."""
+    from voice100_tpu_torch.ops.ctc import ctc_prep, ctc_viterbi_align, viterbi_final
+    from voice100_tpu_torch.ops.viterbi_cuda import viterbi_backtrace_cuda, viterbi_forward_cuda
+    from voice100_tpu_torch.tools.align_text import fetch_alignment, upload_batch as upload
+
+    model, data = build_align(args, device)
+    tokenizer = data.text_transform
+    row = 0
+    for batch, n_real in data.predict_dataloader().iter_with_counts():
+        audio, audio_len, text, text_len = upload(batch, device)
+        with torch.inference_mode():
+            logits, logits_len = model(audio, audio_len)
+            log_probs = torch.log_softmax(logits, dim=-1)
+            res, _ = model.ctc_best_path(audio, audio_len, text, text_len)
+            ref = ctc_viterbi_align(log_probs, text, logits_len,
+                                    torch.minimum(logits_len, text_len))
+        if not (torch.equal(res.labels, ref.labels) and torch.equal(res.path, ref.path)
+                and torch.equal(res.score, ref.score)):
+            fail(f"align: the kernels' alignment of the batch at row {row} differs from the "
+                 f"plain Viterbi on the same log-probs")
+        _, labels, n_frames = fetch_alignment(res, logits_len)
+        for i in range(n_real):
+            if tokenizer.decode(labels[i, :n_frames[i]]) != lines[row + i][1]:
+                fail(f"align: line {row + i}'s aligned text is not the kernels' labels")
+        row += n_real
+    print(f"align: labels, paths and scores of all {row} rows equal the plain Viterbi on the "
+          f"card's log-probs, and the written aligned texts", flush=True)
+
+    loader = data.predict_dataloader()
+    start = time.perf_counter()
+    batch, n_real = next(loader.iter_with_counts())
+    data_ms = (time.perf_counter() - start) * 1e3
+    audio, audio_len, text, text_len = upload(batch, device)
+    with torch.inference_mode():
+        logits, logits_len = model(audio, audio_len)
+        lp = torch.log_softmax(logits, dim=-1)
+        text_cap = torch.minimum(logits_len, text_len)
+        z, _, valid = ctc_prep(text, text_cap)
+        moves, last = viterbi_forward_cuda(lp, z, valid, logits_len)
+        final_pos, _ = viterbi_final(last, text_cap)
+        res, _ = model.ctc_best_path(audio, audio_len, text, text_len)
+        parts = {
+            "data_load_collate_host": data_ms,
+            "upload": time_ms(lambda: upload(batch, device)),
+            "model_forward": time_ms(lambda: model(audio, audio_len), iters=5),
+            "log_softmax": time_ms(lambda: torch.log_softmax(logits, dim=-1)),
+            "viterbi_forward_kernel": time_ms(lambda: viterbi_forward_cuda(lp, z, valid,
+                                                                          logits_len)),
+            "viterbi_backtrace_kernel": time_ms(lambda: viterbi_backtrace_cuda(
+                moves, final_pos, logits_len, z)),
+        }
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        _, labels, n_frames = fetch_alignment(res, logits_len)
+        out = [tokenizer.decode(labels[i, :n_frames[i]]) for i in range(n_real)]
+        parts["fetch_and_write_host"] = (time.perf_counter() - start) * 1e3
+    print("align_stages_ms " + json.dumps({"batch": list(audio.shape), "rows": n_real,
+                                           "lines": len(out), **parts}), flush=True)
+    return parts
+
+
+def align_parity(device, args, workdir):
+    """The first 8 clips through run_align on the card and on the CPU's
+    plain path, from the same warm cache, and their log-probs, Viterbi
+    scores and paths side by side."""
+    from voice100_tpu_torch.data.datasets import SubsetDataset
+    from voice100_tpu_torch.tools.align_text import run_align, upload_batch as upload
+
+    sides = []
+    for where in (device, "cpu"):
+        model, data = build_align(args, where, batch_size=ALIGN_PARITY_CLIPS)
+        data.predict_ds = SubsetDataset(data.predict_ds, range(ALIGN_PARITY_CLIPS))
+        batch, _ = next(data.predict_dataloader().iter_with_counts())
+        audio, audio_len, text, text_len = upload(batch, where)
+        start = time.perf_counter()
+        with torch.inference_mode():
+            logits, logits_len = model(audio, audio_len)
+            log_probs = torch.log_softmax(logits, dim=-1).cpu()
+            res, _ = model.ctc_best_path(audio, audio_len, text, text_len)
+        out = os.path.join(workdir, f"parity-{len(sides)}.txt")
+        run_align(model, data, out, device=where)
+        with open(out) as f:
+            sides.append((log_probs, logits_len.cpu(), res.score.cpu(), res.path.cpu(),
+                          f.read().splitlines(), time.perf_counter() - start))
+    (lp, n, score, path, lines, card_s), (lp_c, n_c, score_c, path_c, lines_c, cpu_s) = sides
+    if not torch.equal(n, n_c):
+        fail("align parity: logit lengths differ between card and CPU")
+    valid = torch.arange(lp.shape[1])[None, :] < n[:, None]
+    lp_err = (lp - lp_c).abs()[valid].max().item()
+    score_err = ((score - score_c).abs() / score_c.abs()).max().item()
+    agree = (path == path_c)[valid].float().mean().item()
+    same_lines = sum(a == b for a, b in zip(lines, lines_c))
+    print(f"align parity, card vs CPU plain path ({ALIGN_PARITY_CLIPS} clips, "
+          f"{int(valid.sum())} frames): log-probs max_abs_err {lp_err:.3e} (tol {LOGIT_TOL:.0e}); "
+          f"scores max rel err {score_err:.3e} (tol {ALIGN_SCORE_REL_TOL:.0e}); paths equal on "
+          f"{agree:.4%} of frames (min {ALIGN_PATH_AGREEMENT:.0%}); run_align lines equal "
+          f"{same_lines}/{len(lines_c)}; card {card_s:.2f} s, CPU {cpu_s:.2f} s", flush=True)
+    if not lp_err <= LOGIT_TOL:
+        fail(f"align parity: log-probs differ by {lp_err:.3e}")
+    if not score_err <= ALIGN_SCORE_REL_TOL:
+        fail(f"align parity: Viterbi scores differ by {score_err:.3e} relative")
+    if not agree >= ALIGN_PATH_AGREEMENT:
+        fail(f"align parity: paths agree on {agree:.4%} of frames only")
+    return {"log_probs_max_abs_err": lp_err, "score_max_rel_err": score_err,
+            "path_agreement": agree}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -832,14 +1240,31 @@ def main() -> None:
     device = resolve_device("cuda")
     serving = [check_melspec(device), check_bilstm(device)]
     training = check_lstm_train(device) + check_ctc(device)
-    launches = serve(device, card)
-    launches.update(train(device, card))
+    # the align path's shapes: kernel 1 at the config's batch of 64 (eight
+    # batch tiles), kernel 8 on one clip at a time, kernels 6 and 7
+    lengths = np.random.default_rng(SEED + 7).integers(1, VITERBI_T + 1, size=ALIGN_BATCH)
+    lengths[0], lengths[1] = VITERBI_T, 1
+    serving[1]["align_batch"] = check_bilstm(device, ALIGN_BATCH, VITERBI_T,
+                                             [int(n) for n in lengths])
+    serving[0]["single_clip_max_abs_err"] = check_melspec_clips(device)
+    aligning = check_viterbi(device)
+    by_path = {"serve": serve(device, card), "train": train(device, card)}
     train_parity(device)
-    for entry in serving + training:
-        entry["launches"] = launches[entry["name"]]
+    with tempfile.TemporaryDirectory() as workdir:
+        runs, args = align(device, card, workdir)
+        by_path.update({f"align_{run}": r["launches"] for run, r in runs.items()})
+        parity = align_parity(device, args, workdir)
+    # "launches" counts the path each kernel was ported for (the timed
+    # align run for kernels 6 and 7); every path's counts stand beside it
+    for entries, path in ((serving, "serve"), (training, "train"), (aligning, "align_warm")):
+        for entry in entries:
+            entry["launches"] = by_path[path][entry["name"]]
+            entry["launches_by_path"] = {p: c[entry["name"]] for p, c in by_path.items()
+                                         if entry["name"] in c}
     for entry in training:
         entry["launches_per_step"] = entry["launches"] / TIMED_STEPS
-    print(json.dumps({"kernels": serving + training}), flush=True)
+    print("align_summary " + json.dumps({"runs": runs, "parity": parity}), flush=True)
+    print(json.dumps({"kernels": serving + training + aligning}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

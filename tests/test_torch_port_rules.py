@@ -54,10 +54,13 @@ def test_sources_have_no_jax_imports(path):
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():
+    from voice100_tpu_torch.data import AudioTextDataModule, MelSpectrogramAudioTransform
     from voice100_tpu_torch.device import resolve_device
     from voice100_tpu_torch.inference import ASRPipeline
     from voice100_tpu_torch.models import AudioToAlignText
     from voice100_tpu_torch.models.layers import BiLSTM, ConvStack
+    from voice100_tpu_torch.ops import viterbi_cuda
+    from voice100_tpu_torch.tools.align_text import cli_main, run_align
 
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour on a machine without CUDA")
@@ -74,6 +77,26 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         ASRPipeline(model)
     assert ASRPipeline(model, device="cpu").device.type == "cpu"
+    # the align slice: the data module's log-mel transform, the align tool
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AudioTextDataModule(vocoder="mel")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MelSpectrogramAudioTransform()
+    data = AudioTextDataModule(vocoder="mel", device="cpu")
+    assert data.audio_transform.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_align(model, data, os.devnull)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_main(["--config", str(ROOT / "config" / "asr_en_base.yaml"), "--checkpoint", "none"])
+    # the Viterbi kernels' wrapper takes the device of its tensors: the plain
+    # twins on the CPU, without a launch; another device raises
+    lp = torch.log_softmax(torch.randn(2, 9, 29), dim=-1)
+    args = (torch.tensor([[3, 4], [5, 0]]), torch.tensor([9, 7]), torch.tensor([2, 1]))
+    launches = viterbi_cuda.viterbi_forward_cuda.launches
+    res = viterbi_cuda.ctc_viterbi_align_cuda(lp, *args)
+    assert res.path.device.type == "cpu" and viterbi_cuda.viterbi_forward_cuda.launches == launches
+    with pytest.raises(ValueError, match="device"):
+        viterbi_cuda.ctc_viterbi_align_cuda(lp.to("meta"), *args)
 
 
 def test_chip_smoke_drives_asr_en_base_at_full_width():

@@ -9,16 +9,21 @@ Each kernel keeps a plain PyTorch version beside it, which its wrapper
 runs for tensors on the CPU.
 
 This package imports neither ``jax`` nor anything of ``voice100_tpu``:
-what it needs from there is copied (``text/tokenizers.py``) or rebuilt
-(the DFT and mel constants in ``ops/melspec.py``).
+what it needs from there is copied (``text/tokenizers.py``, ``dsp/``,
+``data/datasets.py``, ``data/registry.py``) or rebuilt (the DFT and mel
+constants in ``ops/melspec.py``).
 
 Ported so far: ASR v2 serving (``inference.ASRPipeline`` ->
 ``models.AudioToAlignText.greedy_decode``), with the fused log-mel and
-the biLSTM inference recurrence as hand-written kernels; and ASR v2
+the biLSTM inference recurrence as hand-written kernels; ASR v2
 training (``training.Trainer`` -> ``models.AudioToAlignText.compute_loss``:
 augmentation, model, CTC loss, backward, gradient clip, Adam), with the
 biLSTM train forward and backward (``csrc/bilstm_train.cu``) and the CTC
-lattice forward and adjoint (``csrc/ctc.cu``) as hand-written kernels.
+lattice forward and adjoint (``csrc/ctc.cu``) as hand-written kernels;
+and ASR v2 forced alignment (``tools.align_text`` ->
+``models.AudioToAlignText.ctc_best_path``) over the mel data path
+(``data/``), with the CTC Viterbi forward and backtrace
+(``csrc/viterbi.cu``) as hand-written kernels.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 see :func:`voice100_tpu_torch.device.resolve_device`.

@@ -30,7 +30,7 @@ __all__ = ["KERNELS", "build", "load", "check", "library_path"]
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("melspec", "bilstm", "bilstm_train", "ctc")
+KERNELS = ("melspec", "bilstm", "bilstm_train", "ctc", "viterbi")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -1,10 +1,10 @@
 """v2 ASR model: AudioToAlignText, inference and training loss.
 
-Port of ``voice100_tpu/models/asr_v2.py:29-71, 89-95``: conv encoder
-(time downsampled by its strides), stacked biLSTM, dense projection to
-the vocabulary; batch-major logits ``[B, T, V]``; the CTC training loss
-with spectrogram augmentation. ``ctc_best_path`` waits for the
-alignment slice.
+Port of ``voice100_tpu/models/asr_v2.py``: conv encoder (time
+downsampled by its strides), stacked biLSTM, dense projection to the
+vocabulary; batch-major logits ``[B, T, V]``; the CTC training loss with
+spectrogram augmentation; greedy decoding; and batched CTC Viterbi
+forced alignment (``ctc_best_path``).
 """
 
 from __future__ import annotations
@@ -17,7 +17,9 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.augment import apply_augment, draw_augment
+from ..ops.ctc import ViterbiResult
 from ..ops.ctc_cuda import ctc_loss_cuda
+from ..ops.viterbi_cuda import ctc_viterbi_align_cuda
 from .layers import BiLSTM, ConvSetting, ConvStack, conv_stack_output_length, uniform_
 
 __all__ = ["AudioToAlignText"]
@@ -45,6 +47,8 @@ class AudioToAlignText(nn.Module):
     ) -> None:
         super().__init__()
         device = resolve_device(device)
+        self.audio_size = audio_size
+        self.vocab_size = vocab_size
         self.learning_rate = learning_rate
         self.encoder_settings = tuple(tuple(s) for s in encoder_settings)
         self.encoder = ConvStack(audio_size, self.encoder_settings, device=device)
@@ -88,6 +92,20 @@ class AudioToAlignText(nn.Module):
         logits, logits_len = self(audio, audio_len, generator)
         log_probs = torch.log_softmax(logits, dim=-1)
         return ctc_loss_cuda(log_probs, text, logits_len, text_len)
+
+    @torch.inference_mode()
+    def ctc_best_path(self, audio: torch.Tensor, audio_len: torch.Tensor, text: torch.Tensor,
+                      text_len: torch.Tensor) -> Tuple[ViterbiResult, torch.Tensor]:
+        """Batched forced alignment: the model, log-softmax, and the CTC
+        Viterbi kernels over the logit lengths. ``text_len`` is capped at
+        the logit lengths, which guards very short audio (labels past the
+        cap stay in ``text`` and the lattice masks them). Returns the
+        Viterbi result and the logit lengths. Runs in inference mode, so
+        the biLSTM takes its inference kernel."""
+        logits, logits_len = self(audio, audio_len)
+        log_probs = torch.log_softmax(logits, dim=-1)
+        text_len = torch.minimum(logits_len, text_len.to(logits_len.device))
+        return ctc_viterbi_align_cuda(log_probs, text, logits_len, text_len), logits_len
 
     def greedy_decode(self, audio: torch.Tensor,
                       audio_len: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,3 +1,3 @@
 """Tensor ops of the port: the log-mel front end, masks, augmentation,
-the biLSTM and the CTC loss, each CUDA kernel beside its plain PyTorch
-version."""
+the biLSTM, the CTC loss and the CTC Viterbi alignment, each CUDA kernel
+beside its plain PyTorch version."""

@@ -15,14 +15,23 @@ tensors on the CPU. :func:`ctc_loss` here differentiates the plain
 lattice with autograd; the training path uses
 :func:`voice100_tpu_torch.ops.ctc_cuda.ctc_loss_cuda`, whose backward is
 the adjoint kernel.
+
+CTC Viterbi forced alignment (``voice100_tpu/ops/ctc.py:220-336``) is
+split into the plain twins of its two kernels (``ops/viterbi_cuda.py``):
+:func:`viterbi_forward`, the max-semiring lattice recording the move
+into each state, and :func:`viterbi_backtrace`, the walk back from the
+final state that :func:`viterbi_final` picks between them.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 __all__ = ["NEG_INF", "ctc_prep", "ctc_alpha", "ctc_alpha_adjoint", "ll_from_alpha",
-           "reduce_loss", "ctc_loss"]
+           "reduce_loss", "ctc_loss", "ViterbiResult", "check_viterbi_args", "viterbi_forward",
+           "viterbi_final", "viterbi_backtrace", "ctc_viterbi_align"]
 
 NEG_INF = -1e30
 
@@ -36,7 +45,7 @@ def ctc_prep(targets: torch.Tensor, target_lengths: torch.Tensor):
     s_len = 2 * label_len + 1
     z = targets.new_zeros(batch, s_len, dtype=torch.int64)
     z[:, 1::2] = targets
-    z_prev2 = torch.cat([z.new_zeros(batch, 2), z[:, :-2]], dim=1)
+    z_prev2 = torch.cat([z.new_zeros(batch, 2), z], dim=1)[:, :s_len]
     can_skip = (z != 0) & (z != z_prev2)
     s_idx = torch.arange(s_len, device=targets.device)
     valid = s_idx[None, :] < (2 * target_lengths.to(targets.device)[:, None] + 1)
@@ -51,8 +60,8 @@ def _lse3(a0, a1, a2):
 
 
 def _shift(a: torch.Tensor, k: int) -> torch.Tensor:
-    """``a[:, s - k]``, ``NEG_INF`` for ``s < k``."""
-    return torch.cat([a.new_full((a.shape[0], k), NEG_INF), a[:, :-k]], dim=1)
+    """``a[:, s - k]``, ``NEG_INF`` for ``s < k`` (any ``S``, 1 included)."""
+    return torch.cat([a.new_full((a.shape[0], k), NEG_INF), a], dim=1)[:, :a.shape[1]]
 
 
 def _left(a: torch.Tensor, k: int, fill: float) -> torch.Tensor:
@@ -170,3 +179,107 @@ def ctc_loss(log_probs: torch.Tensor, targets: torch.Tensor, input_lengths: torc
     alpha = ctc_alpha(log_probs.float(), z, can_skip, valid, input_lengths)
     ll, _, _ = ll_from_alpha(alpha[-1], target_lengths)
     return reduce_loss(ll, target_lengths, reduction, zero_infinity).to(log_probs.dtype)
+
+
+class ViterbiResult(NamedTuple):
+    score: torch.Tensor   # [B] best path log-prob
+    path: torch.Tensor    # [B, T] int32 position in the blank-interleaved lattice
+    labels: torch.Tensor  # [B, T] int32 label id per frame (the aligned text)
+
+
+def check_viterbi_args(blank: int, max_move: int) -> None:
+    """The Viterbi takes the JAX kernels' rule only: blank 0 and
+    ``max_move=3`` (``voice100_tpu/ops/ctc.py:244-245``)."""
+    if blank != 0:
+        raise ValueError(f"the CTC Viterbi takes blank 0 only, got {blank}")
+    if max_move != 3:
+        raise ValueError(f"the CTC Viterbi takes max_move=3 only, got {max_move}")
+
+
+def viterbi_forward(log_probs: torch.Tensor, z: torch.Tensor, valid: torch.Tensor,
+                    input_lengths: torch.Tensor):
+    """Max-semiring forward (kernel 6's plain version; ``_vit_fwd_kernel``,
+    ``ctc_pallas.py:405-437``). Returns ``(moves [T, B, S] uint8,
+    alpha_last [B, S] float32)``.
+
+    ``alpha[0]`` is the emission of the first two states (where valid).
+    Step ``t >= 1`` picks, per state, the best of ``alpha[t-1]`` at ``s``,
+    ``s-1`` and ``s-2`` (moves 0, 1, 2); a 2-move may not land on a blank,
+    the shifts fill with ``NEG_INF``, and the updates are strict ``>`` in
+    the order 0, 1, 2, so ties go to the smallest move. It adds the
+    emission ``log_probs[b, t, z_s]``, sets invalid states to ``NEG_INF``
+    and, once ``t >= input_lengths[b]``, holds the row and records move 0.
+    ``moves[t]`` is the move into ``t``; ``moves[0]`` is 0.
+    """
+    batch, time, _ = log_probs.shape
+    s_len = z.shape[1]
+    lp_z = torch.gather(log_probs, 2, z[:, None, :].expand(batch, time, s_len))  # [B, T, S]
+    first2 = torch.arange(s_len, device=z.device)[None, :] < 2
+    is_blank = z == 0
+    alpha = torch.where(first2 & valid, lp_z[:, 0], NEG_INF)
+    active = torch.arange(time, device=z.device)[:, None] < input_lengths.to(z.device)[None, :]
+    moves = torch.zeros(time, batch, s_len, dtype=torch.uint8, device=z.device)
+    for t in range(1, time):
+        best, move = alpha, torch.zeros_like(moves[t])
+        for k, cand in ((1, _shift(alpha, 1)),
+                        (2, torch.where(is_blank, NEG_INF, _shift(alpha, 2)))):
+            better = cand > best
+            best = torch.where(better, cand, best)
+            move = torch.where(better, k, move)
+        new = torch.where(valid, best + lp_z[:, t], NEG_INF)
+        on = active[t][:, None]
+        alpha = torch.where(on, new, alpha)
+        moves[t] = torch.where(on, move, 0)
+    return moves, alpha
+
+
+def viterbi_final(alpha_last: torch.Tensor, target_lengths: torch.Tensor):
+    """The final state and the score (``ctc_pallas.py:526-534``): the
+    last blank ``2L`` only when its score is strictly greater than that
+    of the last label ``2L - 1`` (clamped at 0 for ``L = 0``), else the
+    last label. Returns ``(final_pos [B] int64, score [B])``."""
+    end = 2 * target_lengths.to(alpha_last.device).long()
+    prev = (end - 1).clamp(min=0)
+    a_last = alpha_last.gather(1, end[:, None])[:, 0]
+    a_prev = alpha_last.gather(1, prev[:, None])[:, 0]
+    take_last = a_last > a_prev
+    return torch.where(take_last, end, prev), torch.where(take_last, a_last, a_prev)
+
+
+def viterbi_backtrace(moves: torch.Tensor, final_pos: torch.Tensor, input_lengths: torch.Tensor,
+                      z: torch.Tensor):
+    """The best path from the moves (kernel 7's plain version;
+    ``_vit_bt_kernel``, ``ctc_pallas.py:440-460, 559-564``): from
+    ``final_pos`` at ``T-1`` walk ``pos_{t-1} = pos_t - moves[t, b, pos_t]``
+    (held steps record move 0, so the walk stays put past each length).
+    Returns ``(path, labels)``, ``[B, T]`` int32, ``labels = z[path]``,
+    both zeroed from each input length on."""
+    time, batch, _ = moves.shape
+    pos = final_pos.to(moves.device).long()
+    path = torch.zeros(batch, time, dtype=torch.int64, device=moves.device)
+    for t in range(time - 1, -1, -1):
+        path[:, t] = pos
+        # a move never passes state 0 (the shifts fill with NEG_INF and
+        # ties keep move 0); the clamp keeps the index in range regardless
+        pos = (pos - moves[t].gather(1, pos[:, None])[:, 0].long()).clamp(min=0)
+    frames = torch.arange(time, device=moves.device)[None, :]
+    in_frame = frames < input_lengths.to(moves.device)[:, None]
+    path = torch.where(in_frame, path, 0)
+    labels = torch.where(in_frame, z.to(moves.device).gather(1, path), 0)
+    return path.int(), labels.int()
+
+
+def ctc_viterbi_align(log_probs: torch.Tensor, targets: torch.Tensor, input_lengths: torch.Tensor,
+                      target_lengths: torch.Tensor, blank: int = 0,
+                      max_move: int = 3) -> ViterbiResult:
+    """Batched CTC forced alignment, plain PyTorch (``ctc.py:226-336``):
+    ``log_probs [B, T, V]`` (the lattice runs in float32), ``targets
+    [B, L]``, lengths ``[B]``. Per frame the lattice position advances 0,
+    1 or 2 slots and a 2-slot advance may not land on a blank; frames from
+    each input length on are zeroed."""
+    check_viterbi_args(blank, max_move)
+    z, _, valid = ctc_prep(targets, target_lengths)
+    moves, alpha_last = viterbi_forward(log_probs.float(), z, valid, input_lengths)
+    final_pos, score = viterbi_final(alpha_last, target_lengths)
+    path, labels = viterbi_backtrace(moves, final_pos, input_lengths, z)
+    return ViterbiResult(score, path, labels)

@@ -1,8 +1,8 @@
 """Training of the port: task adapter, trainer and checkpoints (ASR v2)."""
 
-from .checkpoint import TrainState, restore_checkpoint, save_checkpoint
+from .checkpoint import TrainState, load_model_weights, restore_checkpoint, save_checkpoint
 from .tasks import Task, make_task
 from .trainer import Trainer, TrainerConfig
 
 __all__ = ["Task", "make_task", "Trainer", "TrainerConfig", "TrainState",
-           "save_checkpoint", "restore_checkpoint"]
+           "save_checkpoint", "restore_checkpoint", "load_model_weights"]

@@ -1,8 +1,11 @@
 """Checkpoint save and restore through ``torch.save``.
 
-Port of ``voice100_tpu/training/checkpoint.py:20-55``: a checkpoint holds
-the model's state dict, the optimizer's state dict, and the step, epoch
-and best monitored value of a :class:`TrainState`.
+Port of ``voice100_tpu/training/checkpoint.py:20-55, 87-95``: a checkpoint
+holds the model's state dict, the optimizer's state dict, and the step,
+epoch and best monitored value of a :class:`TrainState`;
+:func:`load_model_weights` reads back the model's weights alone. An orbax
+checkpoint of the JAX package cannot be read without jax; weights cross
+over through ``tools/weights.py``.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["TrainState", "save_checkpoint", "restore_checkpoint"]
+__all__ = ["TrainState", "save_checkpoint", "restore_checkpoint", "load_model_weights"]
 
 
 @dataclass
@@ -49,3 +52,13 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     state.optimizer.load_state_dict(saved["optimizer"])
     return dataclasses.replace(state, step=int(saved["step"]), epoch=int(saved["epoch"]),
                                best_monitor=float(saved["best_monitor"]))
+
+
+def load_model_weights(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Load the model weights of a checkpoint that :func:`save_checkpoint`
+    wrote into ``model``, in place, on the model's device; returns the
+    model (the counterpart of ``load_variables``)."""
+    device = next(model.parameters()).device
+    saved = torch.load(os.path.abspath(path), map_location=device, weights_only=True)
+    model.load_state_dict(saved["model"])
+    return model
