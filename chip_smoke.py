@@ -9,14 +9,21 @@ toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
 2. builds every kernel of the serve, train and align paths from
    voice100_tpu_torch/csrc/ with nvcc, all sources at once (set-up, timed);
 3. holds the fused log-mel kernel against its plain PyTorch version on
-   the card at 8 x 10 s, and times kernel, plain and torch.stft;
+   the card at 8 x 10 s, checks that one call is one launch and cuts no
+   frames in PyTorch, and times kernel and torch.stft in turns (event
+   and device time) and the plain version;
 4. holds the biLSTM inference kernel against its plain version at
    B=8, T=501, H=512 for both layer widths of asr_en_base (input 512 and
-   1024) with ragged lengths, and times kernel, plain and cuDNN nn.LSTM;
+   1024) with ragged lengths, and times kernel and cuDNN nn.LSTM in
+   turns (event and device time) and the plain version;
 5. holds the biLSTM training kernels (state-saving forward, dG backward)
    and their autograd Function against the plain versions and torch
-   autograd at the train shapes, B=64, T=501, H=512, both input widths,
-   and times kernels, plain versions and cuDNN nn.LSTM forward/backward;
+   autograd at the train shapes, B=64, T=501, H=512, both input widths;
+   times each kernel against cuDNN nn.LSTM's forward or backward in
+   turns, and the Function's whole backward (kernel 3 and the dW/dx
+   GEMMs) against cuDNN's, event and device time, and the plain
+   versions; checks that the backward raises, launching nothing, where
+   its cooperative grid cannot be resident (H=544: 136 blocks);
 6. holds the CTC lattice kernels (alpha forward, adjoint) and the loss
    Function against the plain versions at B=64, T=501, V=29 with a
    repeated-label row, an empty target and an infeasible row, and times
@@ -36,8 +43,9 @@ toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
 9. trains asr_en_base on the card through Trainer.train_step (batch 64
    of 2-10 s clips in the 10 s bucket, augmentation and dropout on, Adam
    1e-3, clip 1.0): one warm-up step, then 10 timed steps with the launch
-   counts set to 0 just before and read just after; the loss must be
-   finite and fall; prints the card time by layer;
+   counts set to 0 just before and read just after (kernel 3 twice a
+   layer a step); the loss must be finite and fall; prints the card time
+   by layer;
 10. takes 3 training steps from the same weights on the first 8 clips,
     augmentation and dropout off, on the card and on the CPU's plain path,
     and holds the first step's gradients and the 3 losses together;
@@ -58,9 +66,13 @@ toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
 
 Any failed check exits non-zero before the last line is printed. Without
 CUDA, or without the voice100_tpu_torch package beside it, it exits
-non-zero at once. Times are CUDA-event times with the L2 cache warm; the
-bounds use the H100 SXM data sheet's peaks (67 TFLOP/s float32 outside
-the tensor cores, 3.35 TB/s HBM), which assume a 700 W power limit.
+non-zero at once. Times are CUDA-event times with the L2 cache warm
+(``ms``: per call, of back-to-back calls) and, where a kernel is held
+against a library call, the card's own time per call from torch.profiler
+(``device_ms``: the summed durations of the kernels, copies and memsets
+it ran), which leaves out the host's enqueue. The bounds use the H100
+SXM data sheet's peaks (67 TFLOP/s float32 outside the tensor cores,
+3.35 TB/s HBM), which assume a 700 W power limit.
 """
 
 from __future__ import annotations
@@ -88,8 +100,9 @@ ASR_EN_BASE = dict(
     decoder_hidden_size=512,
 )
 # Tolerances, max abs error, both sides float32 on the card.
-# log-mel: sums of 512 taps in another order (window folded into the DFT
-# constants); the plain float32 path is 4.7e-5 from float64 at 8 x 10 s.
+# log-mel: the kernel's FFT against the plain version's dense float32 DFT
+# products; the plain path is 4.7e-5 from float64 at 8 x 10 s, the FFT's
+# rounding smaller (log2 of 256 stages a bin, not 512-term sums).
 MEL_TOL = 1e-3
 # biLSTM outputs lie in [-1, 1]; 512-term dot products in another order,
 # carried through 501 steps of a contracting recurrence.
@@ -139,6 +152,8 @@ ALIGN_SCORE_REL_TOL = 1e-3
 ALIGN_PATH_AGREEMENT = 0.99
 PEAK_F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# kernel and library call timed in turns: rounds, each of `iters` calls
+TURN_ROUNDS = 5
 
 
 def fail(message: str) -> None:
@@ -165,6 +180,58 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_profile(fn, calls: int = 2):
+    """The card's time per call of ``fn``: the durations of the kernels,
+    copies and memsets torch.profiler records on the card over ``calls``
+    calls after one warm-up call, in total and by kernel name. ``(None,
+    {})`` where the profiler records no device activity or fails."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    by_name = {}
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for evt in prof.events():
+            if evt.device_type == DeviceType.CUDA:
+                by_name[evt.name] = (by_name.get(evt.name, 0.0)
+                                     + evt.time_range.elapsed_us() * 1e-3 / calls)
+    except Exception as err:  # the profiler is a measurement aid, not a check
+        print(f"torch.profiler failed ({err!r}): device time not measured", flush=True)
+        return None, {}
+    return (sum(by_name.values()) if by_name else None), by_name
+
+
+def timed_in_turns(fns, iters: int, rounds: int = TURN_ROUNDS):
+    """Each callable of ``fns`` ({name: fn}) timed in turns within this
+    call: ``rounds`` rounds, each timing ``iters`` back-to-back calls of
+    every function with CUDA events, the order reversed every other
+    round; the median per call (``ms``), then the card's own time per
+    call (``device_ms``, :func:`device_profile`) and its split by kernel
+    name (``kernels``)."""
+    for fn in fns.values():
+        fn()
+    samples = {name: [] for name in fns}
+    order = list(fns)
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            samples[name].append(time_ms(fns[name], iters=iters, warmup=0))
+    out = {}
+    for name, fn in fns.items():
+        device, kernels = device_profile(fn)
+        out[name] = {"ms": float(np.median(samples[name])), "device_ms": device,
+                     "kernels": kernels}
+    return out
+
+
+def fmt_ms(value) -> str:
+    return "not measured" if value is None else f"{value:.4f}"
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -186,13 +253,24 @@ def int16_clips(rng, seconds):
 
 
 def check_melspec(device):
+    from voice100_tpu_torch.ops import melspec
     from voice100_tpu_torch.ops.melspec import log_mel_spectrogram, mel_filterbank
     from voice100_tpu_torch.ops.melspec_cuda import log_mel_spectrogram_cuda
 
     rng = np.random.default_rng(SEED)
     pcm = np.stack(int16_clips(rng, [10.0] * BATCH))
     wav = torch.from_numpy(pcm).to(device).float() * (1.0 / 32768.0)
-    got = log_mel_spectrogram_cuda(wav)
+    # one call is one launch, and no frames are cut in PyTorch on the way
+    framed, frame_signal = [], melspec.frame_signal
+    melspec.frame_signal = lambda *a, **k: framed.append(1) or frame_signal(*a, **k)
+    try:
+        before = log_mel_spectrogram_cuda.launches
+        got = log_mel_spectrogram_cuda(wav)
+        one_call = log_mel_spectrogram_cuda.launches - before
+    finally:
+        melspec.frame_signal = frame_signal
+    if one_call != 1 or framed:
+        fail(f"log-mel: one call made {one_call} launches and {len(framed)} frame_signal calls")
     ref = log_mel_spectrogram(wav)
     torch.cuda.synchronize()
     if got.shape != ref.shape or not torch.isfinite(got).all():
@@ -209,9 +287,9 @@ def check_melspec(device):
         return torch.log(power.transpose(1, 2) @ fb + 1e-6)
 
     library_err = (library() - ref).abs().max().item()
-    ms = time_ms(lambda: log_mel_spectrogram_cuda(wav), iters=20)
+    turns = timed_in_turns({"kernel": lambda: log_mel_spectrogram_cuda(wav),
+                            "library": library}, iters=20)
     plain_ms = time_ms(lambda: log_mel_spectrogram(wav), iters=20)
-    library_ms = time_ms(library, iters=20)
     rows = got.shape[0] * got.shape[1]
     # The least work of the function, not of this kernel's design (which
     # does the DFT as two dense 512 x 257 products, ~4.2 GFLOP here): a
@@ -223,16 +301,20 @@ def check_melspec(device):
     n_bytes = (wav.numel() + rows * 64 + 400 + fb_nnz) * 4
     n_ops = rows * (400 + 2.5 * 512 * 9 + 3 * 257 + 2 * fb_nnz + 64)
     bound, bound_by = bound_ms(n_bytes, n_ops)
+    kernel, lib = turns["kernel"], turns["library"]
     print(f"log-mel {BATCH} x 10 s ({rows} frames): max_abs_err {err:.3e} (tol {MEL_TOL:.0e}), "
-          f"torch.stft vs plain {library_err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"torch.stft {library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})", flush=True)
+          f"torch.stft vs plain {library_err:.3e}; one launch a call; in turns: kernel "
+          f"{kernel['ms']:.4f} ms (device {fmt_ms(kernel['device_ms'])}), torch.stft + mel + log "
+          f"{lib['ms']:.4f} ms (device {fmt_ms(lib['device_ms'])}); plain {plain_ms:.4f} ms, "
+          f"bound {bound:.4f} ms ({bound_by})", flush=True)
     if not err <= MEL_TOL:
         fail(f"log-mel kernel disagrees with the plain version: {err:.3e} > {MEL_TOL:.0e}")
     return {
         "name": "log_mel", "route": "cuda", "source": "voice100_tpu_torch/csrc/melspec.cu",
         "replaces": "voice100_tpu/ops/melspec_pallas.py:64", "launches": None,
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-        "bound_by": bound_by, "library_ms": library_ms,
+        "max_abs_err": err, "ms": kernel["ms"], "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": bound_by, "library_ms": lib["ms"], "device_ms": kernel["device_ms"],
+        "library_device_ms": lib["device_ms"],
     }
 
 
@@ -282,7 +364,8 @@ def check_bilstm(device, batch=BATCH, time_steps=501, lengths_list=None):
     module.reset_parameters(torch.Generator().manual_seed(SEED))
     lengths = torch.tensor(lengths_list, dtype=torch.int32, device=device)
     gen = torch.Generator(device=device).manual_seed(SEED)
-    total = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    total = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "device_ms": 0.0,
+             "library_device_ms": 0.0, "bytes": 0.0, "ops": 0.0}
     for layer, params in enumerate(module.stacked_layers()):
         d_in = params[0].shape[2]
         x = torch.randn(batch, time_steps, d_in, device=device, generator=gen)
@@ -310,9 +393,12 @@ def check_bilstm(device, batch=BATCH, time_steps=501, lengths_list=None):
                     out, batch_first=True, total_length=time_steps)[0]
 
             library_err = (library() - ref).abs().max().item()
-            ms = time_ms(lambda: bilstm_cuda(*params, x, lengths), iters=5)
+            turns = timed_in_turns({"kernel": lambda: bilstm_cuda(*params, x, lengths),
+                                    "library": library}, iters=2)
             plain_ms = time_ms(lambda: bilstm(*params, x, lengths), iters=3, warmup=1)
-            library_ms = time_ms(library, iters=5)
+            ms, library_ms = turns["kernel"]["ms"], turns["library"]["ms"]
+            device_ms = turns["kernel"]["device_ms"]
+            library_device_ms = turns["library"]["device_ms"]
         valid = sum(lengths_list)
         n_bytes = (x.numel() + 2 * 4 * hidden * (d_in + hidden + 2) + batch * time_steps
                    * 2 * hidden) * 4 + batch * 4
@@ -321,15 +407,17 @@ def check_bilstm(device, batch=BATCH, time_steps=501, lengths_list=None):
         bound, bound_by = bound_ms(n_bytes, n_ops)
         print(f"biLSTM layer {layer} (B={batch}, T={time_steps}, D={d_in}, H={hidden}): "
               f"max_abs_err {err:.3e} (tol {LSTM_TOL:.0e}), nn.LSTM vs plain {library_err:.3e}; "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, nn.LSTM {library_ms:.3f} ms, "
+              f"in turns: kernel {ms:.3f} ms (device {fmt_ms(device_ms)}), nn.LSTM "
+              f"{library_ms:.3f} ms (device {fmt_ms(library_device_ms)}); plain {plain_ms:.3f} ms, "
               f"bound {bound:.4f} ms ({bound_by})", flush=True)
         if not err <= LSTM_TOL:
             fail(f"biLSTM kernel layer {layer} disagrees with the plain version: "
                  f"{err:.3e} > {LSTM_TOL:.0e}")
         total["err"] = max(total["err"], err)
         for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+                           ("device_ms", device_ms), ("library_device_ms", library_device_ms),
                            ("bytes", n_bytes), ("ops", n_ops)):
-            total[key] += value
+            total[key] = None if value is None or total[key] is None else total[key] + value
     bound, bound_by = bound_ms(total["bytes"], total["ops"])
     return {
         "name": "bilstm_recurrence", "route": "cuda",
@@ -337,6 +425,7 @@ def check_bilstm(device, batch=BATCH, time_steps=501, lengths_list=None):
         "replaces": "voice100_tpu/ops/lstm_pallas.py:41", "launches": None,
         "max_abs_err": total["err"], "ms": total["ms"], "plain_ms": total["plain_ms"],
         "bound_ms": bound, "bound_by": bound_by, "library_ms": total["library_ms"],
+        "device_ms": total["device_ms"], "library_device_ms": total["library_device_ms"],
         "shapes": f"both layers: B={batch}, T={time_steps}, H=512, D=512 then 1024",
     }
 
@@ -368,8 +457,10 @@ def check_lstm_train(device):
     module = BiLSTM(512, hidden, 2, device=device)
     module.reset_parameters(torch.Generator().manual_seed(SEED))
     gen = torch.Generator(device=device).manual_seed(SEED)
-    fwd = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
-    bwd = dict(fwd)
+    fwd = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "device_ms": 0.0,
+           "library_device_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    bwd = dict(fwd, function_ms=0.0, function_device_ms=0.0, gate_pass_device_ms=0.0,
+               recurrence_device_ms=0.0)
     for layer, (w_ih, w_hh, bias) in enumerate(module.stacked_layers()):
         d_in = w_ih.shape[2]
         x = torch.randn(TRAIN_BATCH, time_steps, d_in, device=device, generator=gen)
@@ -414,18 +505,39 @@ def check_lstm_train(device):
 
         y = library_fwd()
         inputs = [x_leaf, *lstm.parameters()]
+        # the like-for-like pair: the Function's whole backward (kernel 3 and
+        # the dW/dx GEMMs) against cuDNN's (dx and dW too)
+        leaves = [t.detach().clone().requires_grad_() for t in (w_ih, w_hh, bias, x)]
+        y_port = bilstm_train_cuda(*leaves, lengths)
+        fwd_turns = timed_in_turns({
+            "kernel": lambda: bilstm_train_fwd_cuda(xg, w_hh, lengths),
+            "library": library_fwd}, iters=3)
+        bwd_turns = timed_in_turns({
+            "kernel": lambda: bilstm_train_bwd_cuda(xg, w_hh, lengths, h_prev, c_prev, dout),
+            "library": lambda: torch.autograd.grad(y, inputs, dout, retain_graph=True),
+            "function": lambda: torch.autograd.grad(y_port, leaves, dout, retain_graph=True),
+        }, iters=3)
+        del y, y_port
+        by_launch = {part: sum(v for k, v in bwd_turns["kernel"]["kernels"].items()
+                               if f"lstm_train_bwd_{part}_kernel" in k) or None
+                     for part in ("gates", "recurrence")}
         timings = {
-            "fwd_ms": time_ms(lambda: bilstm_train_fwd_cuda(xg, w_hh, lengths), iters=5),
+            "fwd_ms": fwd_turns["kernel"]["ms"],
+            "fwd_device_ms": fwd_turns["kernel"]["device_ms"],
             "fwd_plain_ms": time_ms(lambda: bilstm_train_fwd(xg, w_hh, lengths), iters=2, warmup=1),
-            "fwd_library_ms": time_ms(library_fwd, iters=5),
-            "bwd_ms": time_ms(lambda: bilstm_train_bwd_cuda(xg, w_hh, lengths, h_prev, c_prev,
-                                                            dout), iters=5),
+            "fwd_library_ms": fwd_turns["library"]["ms"],
+            "fwd_library_device_ms": fwd_turns["library"]["device_ms"],
+            "bwd_ms": bwd_turns["kernel"]["ms"],
+            "bwd_device_ms": bwd_turns["kernel"]["device_ms"],
+            "bwd_gate_pass_device_ms": by_launch["gates"],
+            "bwd_recurrence_device_ms": by_launch["recurrence"],
             "bwd_plain_ms": time_ms(lambda: bilstm_train_bwd(xg, w_hh, lengths, h_prev, c_prev,
                                                              dout), iters=2, warmup=1),
-            "bwd_library_ms": time_ms(lambda: torch.autograd.grad(y, inputs, dout,
-                                                                  retain_graph=True), iters=5),
+            "bwd_library_ms": bwd_turns["library"]["ms"],
+            "bwd_library_device_ms": bwd_turns["library"]["device_ms"],
+            "bwd_function_ms": bwd_turns["function"]["ms"],
+            "bwd_function_device_ms": bwd_turns["function"]["device_ms"],
         }
-        del y
         # least work of each function at these lengths (valid rows only):
         # forward, h W_hh^T of both directions (8 H^2 flops a row) reading
         # xg and writing out, h_prev and c_prev; backward, the gate
@@ -439,16 +551,18 @@ def check_lstm_train(device):
                 (fwd, fwd_err, fwd_bytes, 2 * valid * 8 * hidden * hidden, "fwd"),
                 (bwd, dg_abs, bwd_bytes, 2 * valid * 16 * hidden * hidden, "bwd")):
             total["err"] = max(total["err"], err)
-            total["ms"] += timings[f"{key}_ms"]
-            total["plain_ms"] += timings[f"{key}_plain_ms"]
-            total["library_ms"] += timings[f"{key}_library_ms"]
             total["bytes"] += n_bytes
             total["ops"] += n_ops
+            for name in total:
+                value = timings.get(f"{key}_{name}")
+                if name.endswith("ms"):
+                    total[name] = None if value is None or total[name] is None \
+                        else total[name] + value
         print(f"biLSTM train layer {layer} (B={TRAIN_BATCH}, T={time_steps}, D={d_in}, H={hidden}, "
               f"{valid} valid rows): forward out/states max_abs_err {fwd_err:.3e} "
               f"(tol {LSTM_STATE_TOL:.0e}), dG rel err {dg_err:.3e}, Function gradients rel err "
-              f"{grad_err:.3e} (tol {GRAD_REL_TOL:.0e}); "
-              + ", ".join(f"{k} {v:.3f}" for k, v in timings.items()), flush=True)
+              f"{grad_err:.3e} (tol {GRAD_REL_TOL:.0e}); kernel and library in turns: "
+              + ", ".join(f"{k} {fmt_ms(v)}" for k, v in timings.items()), flush=True)
         if not fwd_err <= LSTM_STATE_TOL:
             fail(f"biLSTM train forward kernel layer {layer} disagrees with the plain version: "
                  f"{fwd_err:.3e} > {LSTM_STATE_TOL:.0e}")
@@ -468,9 +582,46 @@ def check_lstm_train(device):
             "replaces": source_line, "launches": None, "max_abs_err": total["err"],
             "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": bound,
             "bound_by": bound_by, "library_ms": total["library_ms"],
+            "device_ms": total["device_ms"], "library_device_ms": total["library_device_ms"],
             "shapes": shapes + f"; library: cuDNN {what}, packed",
         })
+    entries[1]["device_ms_by_launch"] = {"gate_pass": bwd["gate_pass_device_ms"],
+                                         "recurrence": bwd["recurrence_device_ms"]}
+    entries[1]["whole_backward"] = {
+        "what": "BiLSTMFunction backward (kernel 3 + dW/dx GEMMs) vs cuDNN backward",
+        "ms": bwd["function_ms"], "device_ms": bwd["function_device_ms"],
+        "library_ms": bwd["library_ms"], "library_device_ms": bwd["library_device_ms"]}
+    check_bwd_not_resident(device)
     return entries
+
+
+def check_bwd_not_resident(device):
+    """Kernel 3's recurrence is one cooperative grid of 2 H / 8 blocks, one
+    an SM: at H=544 (136 blocks) on a card of fewer SMs the wrapper must
+    raise before launching anything, with no other path taken."""
+    from voice100_tpu_torch.ops.lstm_cuda import bilstm_train_bwd_cuda
+
+    hidden, batch, time_steps = 544, 2, 5
+    blocks = 2 * hidden // 8
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if sms >= blocks:
+        print(f"kernel 3 residency check skipped: {sms} SMs hold {blocks} blocks", flush=True)
+        return
+    zeros = lambda *shape: torch.zeros(*shape, device=device)  # noqa: E731
+    before = bilstm_train_bwd_cuda.launches
+    try:
+        bilstm_train_bwd_cuda(zeros(2, batch, time_steps, 4 * hidden),
+                              zeros(2, 4 * hidden, hidden), torch.tensor([5, 3], device=device),
+                              zeros(2, batch, time_steps, hidden),
+                              zeros(2, batch, time_steps, hidden),
+                              zeros(batch, time_steps, 2 * hidden))
+    except RuntimeError as err:
+        if bilstm_train_bwd_cuda.launches != before:
+            fail("kernel 3 launched before finding its grid cannot be resident")
+        print(f"kernel 3 at H={hidden} ({blocks} blocks, {sms} SMs) raised, launching "
+              f"nothing: {err}", flush=True)
+        return
+    fail(f"kernel 3 at H={hidden} ran although {blocks} blocks cannot be resident on {sms} SMs")
 
 
 def ctc_targets(rng, seconds, vocab):
@@ -729,6 +880,10 @@ def serve(device, card):
     for name, count in launches.items():
         if count == 0:
             fail(f"the serving path never launched the {name} kernel")
+    n_batches = sum(1 for _ in gpu_pipe.batches(clips))
+    if launches["log_mel"] != n_batches:
+        fail(f"serve: the log-mel kernel launched {launches['log_mel']} times for "
+             f"{n_batches} batches, not once a batch")
 
     start = time.perf_counter()
     cpu_texts = cpu_pipe.transcribe(clips)
@@ -879,6 +1034,11 @@ def train(device, card):
     for name, count in launches.items():
         if count == 0:
             fail(f"the training path never launched the {name} kernel")
+    # kernel 3: a gate pass and one cooperative recurrence a layer a step
+    want = 2 * ASR_EN_BASE["decoder_num_layers"] * TIMED_STEPS
+    if launches["bilstm_train_bwd"] != want:
+        fail(f"train: kernel 3 launched {launches['bilstm_train_bwd']} times in "
+             f"{TIMED_STEPS} steps, not {want}")
     train_stages(trainer, task, state, batch, gen)
     return launches
 

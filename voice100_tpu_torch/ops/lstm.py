@@ -149,15 +149,18 @@ def bilstm_train_bwd(xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor
     (kernel 3's plain version; ``_kernel_train_bwd``,
     ``lstm_pallas.py:267-321``).
 
-    Walks the loop steps in reverse, recomputing each step's gates from
-    the saved pre-update states and carrying ``(dh, dc)``: the output
-    gradient enters as ``v * (dh + dout)``, and a frozen step (``v = 0``)
-    passes ``dh`` and ``dc`` through unchanged. ``dout`` is ``[B, T, 2H]``,
-    the gradient of :func:`bilstm_train_fwd`'s ``out``.
+    Two phases, split as the data dependencies split and as the kernel
+    splits them. First the gates of every step at once,
+    ``xg + h_prev W_hh^T`` from the saved pre-update states: they do not
+    depend on the adjoint. Then the loop steps in reverse, carrying only
+    ``(dh, dc)``: the output gradient enters as ``v * (dh + dout)``, and a
+    frozen step (``v = 0``) passes ``dh`` and ``dc`` through unchanged.
+    ``dout`` is ``[B, T, 2H]``, the gradient of :func:`bilstm_train_fwd`'s
+    ``out``.
     """
     _, batch, time, gates4 = xg.shape
     hidden = gates4 // 4
-    w_hh_t = w_hh.transpose(1, 2)
+    all_gates = xg + torch.matmul(h_prev, w_hh.transpose(1, 2)[:, None])  # [2, B, T, 4H]
     valid = _valid_steps(time, lengths, xg.device)
     dout = dout.reshape(batch, time, 2, hidden).permute(2, 0, 1, 3)  # [2, B, T, H]
     dh = xg.new_zeros(2, batch, hidden)
@@ -165,8 +168,7 @@ def bilstm_train_bwd(xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor
     dgs = [None] * time
     for s in range(time - 1, -1, -1):
         c_p = _at_step(c_prev, s)
-        gates = _at_step(xg, s) + torch.bmm(_at_step(h_prev, s), w_hh_t)
-        gi, gf, gg, go = gates.chunk(4, dim=-1)
+        gi, gf, gg, go = _at_step(all_gates, s).chunk(4, dim=-1)
         i, f, g, o = torch.sigmoid(gi), torch.sigmoid(gf), torch.tanh(gg), torch.sigmoid(go)
         tanh_c = torch.tanh(f * c_p + i * g)
         v = valid[s]

@@ -13,10 +13,12 @@
 The input projection ``x @ W_ih^T + b_ih + b_hh`` stays a
 ``torch.matmul``, outside the kernels as in the JAX wrappers, and so do
 the weight and input gradients of the backward (``dW_ih = dG^T x``,
-``dW_hh = dG^T h_prev``, ``db = sum dG``, ``dx = dG W_ih``). The kernels
-launch once a time step (the backward twice) for both directions, and
-these wrappers loop over time on the current stream; see the notes at
-the top of the CUDA sources for what bounds them.
+``dW_hh = dG^T h_prev``, ``db = sum dG``, ``dx = dG W_ih``). The
+inference and train-forward kernels launch once a time step for both
+directions, and their wrappers loop over time on the current stream; the
+train backward launches twice a layer (a gate pass, then one cooperative
+launch for the whole reverse recurrence). See the notes at the top of
+the CUDA sources for what bounds them.
 
 For tensors on the CPU each wrapper runs its plain version from
 :mod:`voice100_tpu_torch.ops.lstm`. For CUDA tensors it launches the
@@ -39,6 +41,7 @@ __all__ = ["bilstm_cuda", "bilstm_train_fwd_cuda", "bilstm_train_bwd_cuda",
 _UNITS = 8           # hidden units per block (csrc/bilstm.cu)
 _TRAIN_MULTIPLE = 32  # hidden must be a multiple of this (csrc/bilstm_train.cu)
 _SMEM_LIMIT = 48 * 1024
+_SMEM_OPTIN_LIMIT = 232448  # the H100's shared memory a block can opt into
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -57,10 +60,16 @@ def _train_lib():
     if lib.lstm_train_fwd_step_f32.argtypes is None:
         lib.lstm_train_fwd_step_f32.argtypes = [_P] * 10 + [_I] * 4 + [_P]
         lib.lstm_train_fwd_step_f32.restype = _I
-        lib.lstm_train_bwd_step_f32.argtypes = [_P] * 9 + [_I] * 4 + [_P]
-        lib.lstm_train_bwd_step_f32.restype = _I
+        lib.lstm_train_bwd_gates_f32.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+        lib.lstm_train_bwd_gates_f32.restype = _I
+        lib.lstm_train_bwd_recurrence_f32.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+        lib.lstm_train_bwd_recurrence_f32.restype = _I
         lib.lstm_train_smem_bytes.argtypes = [_I]
         lib.lstm_train_smem_bytes.restype = _I
+        lib.lstm_train_bwd_smem_bytes.argtypes = [_I, _I]
+        lib.lstm_train_bwd_smem_bytes.restype = _I
+        lib.lstm_train_bwd_check.argtypes = [_I, _I]
+        lib.lstm_train_bwd_check.restype = _I
     return lib
 
 
@@ -174,25 +183,39 @@ def bilstm_train_bwd_cuda(xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.T
                           h_prev: torch.Tensor, c_prev: torch.Tensor,
                           dout: torch.Tensor) -> torch.Tensor:
     """dG ``[2, B, T, 4H]`` (kernels ``csrc/bilstm_train.cu``, two
-    launches a step: gate recompute and adjoint, then ``dh = dG W_hh``),
-    as the plain :func:`voice100_tpu_torch.ops.lstm.bilstm_train_bwd`."""
+    launches: the gate pass ``xg + h_prev W_hh^T`` over the valid rows,
+    written into the dG buffer, then one cooperative launch for the whole
+    reverse recurrence, which overwrites it with dG), as the plain
+    :func:`voice100_tpu_torch.ops.lstm.bilstm_train_bwd`.
+
+    Raises ``ValueError`` for shapes whose ``W_hh`` columns and carry do
+    not fit one block's shared memory, and ``RuntimeError`` when the
+    device cannot launch the recurrence cooperatively with all its
+    ``2 H / 8`` blocks resident; there is no other path.
+    """
     if xg.device.type == "cpu":
         return bilstm_train_bwd(xg, w_hh, lengths, h_prev, c_prev, dout)
     name = "bilstm_train_bwd_cuda"
     lib, batch, time, hidden, lengths = _train_setup(name, xg, w_hh, lengths)
     _check_cuda(name, (h_prev, c_prev, dout),
                 ((2, batch, time, hidden),) * 2 + ((batch, time, 2 * hidden),))
-    carry = torch.zeros(2, 2, batch, hidden, device=xg.device)       # [dh/dc, dir]
+    if lib.lstm_train_bwd_smem_bytes(batch, hidden) > _SMEM_OPTIN_LIMIT:
+        raise ValueError(f"{name}: the recurrence cannot hold W_hh's columns and the carry of "
+                         f"batch {batch}, hidden {hidden} resident in one block's shared memory")
     dg = torch.empty_like(xg)
-    ptrs = [xg.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(), h_prev.data_ptr(),
-            c_prev.data_ptr(), dout.data_ptr(), carry[0].data_ptr(), carry[1].data_ptr(),
-            dg.data_ptr()]
     with torch.cuda.device(xg.device):
+        check(lib, lib.lstm_train_bwd_check(batch, hidden), f"{name} (cooperative launch)")
         stream = torch.cuda.current_stream().cuda_stream
-        for s in range(time - 1, -1, -1):
-            status = lib.lstm_train_bwd_step_f32(*ptrs, batch, time, hidden, s, stream)
-            check(lib, status, "lstm_train_bwd_step_f32")
-            bilstm_train_bwd_cuda.launches += 2
+        status = lib.lstm_train_bwd_gates_f32(xg.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(),
+                                              h_prev.data_ptr(), dg.data_ptr(), batch, time,
+                                              hidden, stream)
+        check(lib, status, "lstm_train_bwd_gates_f32")
+        bilstm_train_bwd_cuda.launches += 1
+        status = lib.lstm_train_bwd_recurrence_f32(w_hh.data_ptr(), lengths.data_ptr(),
+                                                   c_prev.data_ptr(), dout.data_ptr(),
+                                                   dg.data_ptr(), batch, time, hidden, stream)
+        check(lib, status, "lstm_train_bwd_recurrence_f32")
+        bilstm_train_bwd_cuda.launches += 1
     return dg
 
 
@@ -205,7 +228,7 @@ class BiLSTMFunction(torch.autograd.Function):
 
     Forward: ``xg`` by ``torch.matmul``, then the state-saving
     recurrence; ``xg``, the states, ``x`` and the lengths are saved.
-    Backward: the dG kernel, then ``dW_ih = dG^T x``,
+    Backward: the dG kernels (two launches), then ``dW_ih = dG^T x``,
     ``dW_hh = dG^T h_prev``, ``d bias = sum dG`` and ``dx = dG W_ih`` as
     plain products. The bias is ``b_ih + b_hh``, so both get ``sum dG``.
     """
