@@ -12,40 +12,46 @@ toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
    the card at 8 x 10 s, checks that one call is one launch and cuts no
    frames in PyTorch, and times kernel and torch.stft in turns (event
    and device time) and the plain version;
-4. holds the biLSTM inference kernel against its plain version at
-   B=8, T=501, H=512 for both layer widths of asr_en_base (input 512 and
-   1024) with ragged lengths, and times kernel and cuDNN nn.LSTM in
-   turns (event and device time) and the plain version;
-5. holds the biLSTM training kernels (state-saving forward, dG backward)
-   and their autograd Function against the plain versions and torch
-   autograd at the train shapes, B=64, T=501, H=512, both input widths;
-   times each kernel against cuDNN nn.LSTM's forward or backward in
-   turns, and the Function's whole backward (kernel 3 and the dW/dx
-   GEMMs) against cuDNN's, event and device time, and the plain
-   versions; checks that the backward raises, launching nothing, where
-   its cooperative grid cannot be resident (H=544: 136 blocks);
+4. holds the biLSTM inference kernel (one persistent launch a layer)
+   against its plain version at B=8, T=501, H=512 for both layer widths
+   of asr_en_base (input 512 and 1024) with ragged lengths, checks one
+   launch a call, and times kernel and cuDNN nn.LSTM in turns (event and
+   device time) and the plain version;
+5. holds the biLSTM training kernels (state-saving forward, one launch a
+   call; dG backward) and their autograd Function against the plain
+   versions and torch autograd at the train shapes, B=64, T=501, H=512,
+   both input widths; times each kernel against cuDNN nn.LSTM's forward
+   or backward in turns, and the Function's whole backward (kernel 3 and
+   the dW/dx GEMMs) against cuDNN's, event and device time, and the
+   plain versions; checks that kernels 1, 2 and 3 raise, launching
+   nothing, where their cooperative grids cannot be resident (H=544: 136
+   blocks);
 6. holds the CTC lattice kernels (alpha forward, adjoint) and the loss
    Function against the plain versions at B=64, T=501, V=29 with a
    repeated-label row, an empty target and an infeasible row, and times
-   kernels, plain versions and F.ctc_loss forward/backward;
+   each kernel in turns with F.ctc_loss's forward or backward (event and
+   device time) and the plain versions;
 7. holds the align path's shapes: the biLSTM inference kernel at B=64,
-   T=512 (eight batch tiles of its grid), the log-mel kernel on single
-   clips of 1.0, 3.7 and 9.3 s padded to a multiple of 4096 samples, and
-   the CTC Viterbi kernels (forward, backtrace) against their plain twins
-   at B=64, T=512, V=29, S=321 with a repeated-label row, an empty
-   target, a row that cannot align and ragged lengths: moves, score, path
-   and labels must be equal; times kernels and twins;
+   T=512, kernels 1 and 2 at B=128, T=501, H=256 (asr_en_small's batch
+   and width; two 64-row passes, a 64-block grid, a zero-length row), the
+   log-mel kernel on single clips of 1.0, 3.7 and 9.3 s padded to a
+   multiple of 4096 samples, and the CTC Viterbi kernels (forward,
+   backtrace) against their plain twins at B=64, T=512, V=29, S=321 with
+   a repeated-label row, an empty target, a row that cannot align and
+   ragged lengths: moves, score, path and labels must be equal; times
+   kernels (event and device time) and twins;
 8. serves asr_en_base end to end through ASRPipeline on the card (16
    int16 clips of 2-10 s, batch 8, seeded random weights), with the
-   kernels' launch counts set to 0 just before and read just after,
+   kernels' launch counts set to 0 just before and read just after (the
+   log-mel kernel once a batch, the biLSTM kernel once a layer a batch),
    holds its logits and greedy ids against the same pipeline on the CPU,
    and its transcripts to those greedy ids;
 9. trains asr_en_base on the card through Trainer.train_step (batch 64
    of 2-10 s clips in the 10 s bucket, augmentation and dropout on, Adam
    1e-3, clip 1.0): one warm-up step, then 10 timed steps with the launch
-   counts set to 0 just before and read just after (kernel 3 twice a
-   layer a step); the loss must be finite and fall; prints the card time
-   by layer;
+   counts set to 0 just before and read just after (kernel 2 once and
+   kernel 3 twice a layer a step); the loss must be finite and fall;
+   prints the card time by layer;
 10. takes 3 training steps from the same weights on the first 8 clips,
     augmentation and dropout off, on the card and on the CPU's plain path,
     and holds the first step's gradients and the 3 losses together;
@@ -54,10 +60,11 @@ toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
     weights saved as a port checkpoint, batch 64) through
     tools/align_text.cli_main on the card, twice: a cold feature cache,
     then a warm one; the launch counts of kernels 1, 6, 7 and 8 set to 0
-    just before each run and read just after (6 and 7 once a batch, 8 once
-    a clip cold and never warm); checks the lines, and every batch's
-    labels against the plain Viterbi on the card's own log-probs; prints
-    the throughput of both runs and the card time by layer of one batch;
+    just before each run and read just after (1 once a layer a batch, 6
+    and 7 once a batch, 8 once a clip cold and never warm); checks the
+    lines, and every batch's labels against the plain Viterbi on the
+    card's own log-probs; prints the throughput of both runs and the card
+    time by layer of one batch;
 12. aligns the first 8 clips from the same warm cache on the card and on
     the CPU's plain path and holds log-probs, Viterbi scores and paths
     together;
@@ -70,7 +77,8 @@ non-zero at once. Times are CUDA-event times with the L2 cache warm
 (``ms``: per call, of back-to-back calls) and, where a kernel is held
 against a library call, the card's own time per call from torch.profiler
 (``device_ms``: the summed durations of the kernels, copies and memsets
-it ran), which leaves out the host's enqueue. The bounds use the H100
+it ran; also for kernels 6 and 7, which have none), which leaves out the
+host's enqueue. The bounds use the H100
 SXM data sheet's peaks (67 TFLOP/s float32 outside the tensor cores,
 3.35 TB/s HBM), which assume a 700 W power limit.
 """
@@ -350,9 +358,9 @@ def check_melspec_clips(device):
 def check_bilstm(device, batch=BATCH, time_steps=501, lengths_list=None):
     """The biLSTM inference kernel against its plain version for both
     layer widths of asr_en_base with ragged lengths, timed with the plain
-    version and cuDNN nn.LSTM. The default shapes are one 8 x 10 s serve
-    batch; the align phase runs it at the config's batch of 64 (eight
-    batch tiles of the kernel's grid)."""
+    version and cuDNN nn.LSTM; one call must be one launch. The default
+    shapes are one 8 x 10 s serve batch; the align phase runs it at the
+    config's batch of 64 (one 64-row pass of the kernel's product)."""
     from voice100_tpu_torch.models.layers import BiLSTM
     from voice100_tpu_torch.ops.lstm import bilstm
     from voice100_tpu_torch.ops.lstm_cuda import bilstm_cuda
@@ -365,16 +373,20 @@ def check_bilstm(device, batch=BATCH, time_steps=501, lengths_list=None):
     lengths = torch.tensor(lengths_list, dtype=torch.int32, device=device)
     gen = torch.Generator(device=device).manual_seed(SEED)
     total = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "device_ms": 0.0,
-             "library_device_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+             "library_device_ms": 0.0, "recurrence_device_ms": 0.0, "bytes": 0.0, "ops": 0.0}
     for layer, params in enumerate(module.stacked_layers()):
         d_in = params[0].shape[2]
         x = torch.randn(batch, time_steps, d_in, device=device, generator=gen)
         with torch.no_grad():
+            before = bilstm_cuda.launches
             got = bilstm_cuda(*params, x, lengths)
+            one_call = bilstm_cuda.launches - before
             ref = bilstm(*params, x, lengths)
             torch.cuda.synchronize()
             if not torch.isfinite(got).all():
                 fail(f"biLSTM kernel layer {layer}: non-finite outputs")
+            if one_call != 1:
+                fail(f"biLSTM kernel layer {layer}: one call made {one_call} launches, not 1")
             err = (got - ref).abs().max().item()
 
             lstm = torch.nn.LSTM(d_in, hidden, bidirectional=True, batch_first=True,
@@ -399,6 +411,9 @@ def check_bilstm(device, batch=BATCH, time_steps=501, lengths_list=None):
             ms, library_ms = turns["kernel"]["ms"], turns["library"]["ms"]
             device_ms = turns["kernel"]["device_ms"]
             library_device_ms = turns["library"]["device_ms"]
+            # the persistent launch alone, without the projection and the order
+            recurrence_ms = sum(v for k, v in turns["kernel"]["kernels"].items()
+                                if "bilstm_persistent_kernel" in k) or None
         valid = sum(lengths_list)
         n_bytes = (x.numel() + 2 * 4 * hidden * (d_in + hidden + 2) + batch * time_steps
                    * 2 * hidden) * 4 + batch * 4
@@ -407,7 +422,9 @@ def check_bilstm(device, batch=BATCH, time_steps=501, lengths_list=None):
         bound, bound_by = bound_ms(n_bytes, n_ops)
         print(f"biLSTM layer {layer} (B={batch}, T={time_steps}, D={d_in}, H={hidden}): "
               f"max_abs_err {err:.3e} (tol {LSTM_TOL:.0e}), nn.LSTM vs plain {library_err:.3e}; "
-              f"in turns: kernel {ms:.3f} ms (device {fmt_ms(device_ms)}), nn.LSTM "
+              f"one launch a call; "
+              f"in turns: kernel {ms:.3f} ms (device {fmt_ms(device_ms)}, of which the persistent "
+              f"launch {fmt_ms(recurrence_ms)}), nn.LSTM "
               f"{library_ms:.3f} ms (device {fmt_ms(library_device_ms)}); plain {plain_ms:.3f} ms, "
               f"bound {bound:.4f} ms ({bound_by})", flush=True)
         if not err <= LSTM_TOL:
@@ -416,7 +433,8 @@ def check_bilstm(device, batch=BATCH, time_steps=501, lengths_list=None):
         total["err"] = max(total["err"], err)
         for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
                            ("device_ms", device_ms), ("library_device_ms", library_device_ms),
-                           ("bytes", n_bytes), ("ops", n_ops)):
+                           ("recurrence_device_ms", recurrence_ms), ("bytes", n_bytes),
+                           ("ops", n_ops)):
             total[key] = None if value is None or total[key] is None else total[key] + value
     bound, bound_by = bound_ms(total["bytes"], total["ops"])
     return {
@@ -426,8 +444,55 @@ def check_bilstm(device, batch=BATCH, time_steps=501, lengths_list=None):
         "max_abs_err": total["err"], "ms": total["ms"], "plain_ms": total["plain_ms"],
         "bound_ms": bound, "bound_by": bound_by, "library_ms": total["library_ms"],
         "device_ms": total["device_ms"], "library_device_ms": total["library_device_ms"],
+        "recurrence_device_ms": total["recurrence_device_ms"],
         "shapes": f"both layers: B={batch}, T={time_steps}, H=512, D=512 then 1024",
     }
+
+
+def check_forward_b128(device):
+    """Kernels 1 and 2 at asr_en_small's shapes (config/asr_en_small.yaml:
+    H=256, conv width 256, batch 128): two 64-row passes of the product and
+    a 64-block grid, ragged lengths with a zero-length row, both layer
+    widths, against their plain twins; kernel 1 timed with its plain twin
+    (cuDNN's packed nn.LSTM takes no zero-length row)."""
+    from voice100_tpu_torch.models.layers import BiLSTM
+    from voice100_tpu_torch.ops.lstm import bilstm, bilstm_train_fwd, project_inputs
+    from voice100_tpu_torch.ops.lstm_cuda import bilstm_cuda, bilstm_train_fwd_cuda
+
+    batch, time_steps, hidden = 128, 501, 256
+    lengths_np = np.random.default_rng(SEED + 10).integers(1, time_steps + 1, size=batch)
+    lengths_np[0], lengths_np[1], lengths_np[2] = time_steps, 0, 1
+    lengths = torch.tensor(lengths_np, dtype=torch.int32, device=device)
+    module = BiLSTM(hidden, hidden, 2, device=device)
+    module.reset_parameters(torch.Generator().manual_seed(SEED))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    errs = {"bilstm_recurrence": 0.0, "bilstm_train_fwd": 0.0}
+    ms = plain_ms = 0.0
+    for layer, (w_ih, w_hh, bias) in enumerate(module.stacked_layers()):
+        x = torch.randn(batch, time_steps, w_ih.shape[2], device=device, generator=gen)
+        with torch.no_grad():
+            got = bilstm_cuda(w_ih, w_hh, bias, x, lengths)
+            ref = bilstm(w_ih, w_hh, bias, x, lengths)
+            xg = project_inputs(w_ih, bias, x).contiguous()
+            got_t = bilstm_train_fwd_cuda(xg, w_hh, lengths)
+            ref_t = bilstm_train_fwd(xg, w_hh, lengths)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all() or not all(torch.isfinite(t).all() for t in got_t):
+                fail(f"biLSTM kernels at B={batch}, H={hidden}, layer {layer}: non-finite outputs")
+            errs["bilstm_recurrence"] = max(errs["bilstm_recurrence"],
+                                            (got - ref).abs().max().item())
+            errs["bilstm_train_fwd"] = max(errs["bilstm_train_fwd"], max(
+                (a - b).abs().max().item() for a, b in zip(got_t, ref_t)))
+            ms += time_ms(lambda: bilstm_cuda(w_ih, w_hh, bias, x, lengths), iters=3)
+            plain_ms += time_ms(lambda: bilstm(w_ih, w_hh, bias, x, lengths), iters=2, warmup=1)
+    print(f"biLSTM kernels 1 and 2 at B={batch}, T={time_steps}, H={hidden} (a zero-length "
+          f"row, both layers): max_abs_err kernel 1 {errs['bilstm_recurrence']:.3e} (tol "
+          f"{LSTM_TOL:.0e}), kernel 2 out/states {errs['bilstm_train_fwd']:.3e} (tol "
+          f"{LSTM_STATE_TOL:.0e}); kernel 1 {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+    if not errs["bilstm_recurrence"] <= LSTM_TOL or not errs["bilstm_train_fwd"] <= LSTM_STATE_TOL:
+        fail(f"biLSTM kernels at B={batch}, H={hidden} disagree with the plain twins: {errs}")
+    return {"shapes": f"B={batch}, T={time_steps}, H={hidden}, both layers, a zero-length row",
+            "max_abs_err": errs, "kernel_1_ms": ms, "kernel_1_plain_ms": plain_ms}
 
 
 def rel_err(got, ref) -> float:
@@ -467,7 +532,11 @@ def check_lstm_train(device):
         dout = torch.randn(TRAIN_BATCH, time_steps, 2 * hidden, device=device, generator=gen)
         with torch.no_grad():
             xg = project_inputs(w_ih, bias, x).contiguous()
+            before = bilstm_train_fwd_cuda.launches
             got = bilstm_train_fwd_cuda(xg, w_hh, lengths)
+            if bilstm_train_fwd_cuda.launches - before != 1:
+                fail(f"biLSTM train forward kernel layer {layer}: one call made "
+                     f"{bilstm_train_fwd_cuda.launches - before} launches, not 1")
             ref = bilstm_train_fwd(xg, w_hh, lengths)
             torch.cuda.synchronize()
             if not all(torch.isfinite(t).all() for t in got):
@@ -591,37 +660,48 @@ def check_lstm_train(device):
         "what": "BiLSTMFunction backward (kernel 3 + dW/dx GEMMs) vs cuDNN backward",
         "ms": bwd["function_ms"], "device_ms": bwd["function_device_ms"],
         "library_ms": bwd["library_ms"], "library_device_ms": bwd["library_device_ms"]}
-    check_bwd_not_resident(device)
+    check_not_resident(device)
     return entries
 
 
-def check_bwd_not_resident(device):
-    """Kernel 3's recurrence is one cooperative grid of 2 H / 8 blocks, one
-    an SM: at H=544 (136 blocks) on a card of fewer SMs the wrapper must
-    raise before launching anything, with no other path taken."""
-    from voice100_tpu_torch.ops.lstm_cuda import bilstm_train_bwd_cuda
+def check_not_resident(device):
+    """Kernels 1, 2 and 3's recurrence are each one cooperative grid of
+    2 H / 8 blocks, one an SM: at H=544 (136 blocks) on a card of fewer SMs
+    each wrapper must raise before launching anything, with no other path
+    taken."""
+    from voice100_tpu_torch.ops.lstm_cuda import (bilstm_cuda, bilstm_train_bwd_cuda,
+                                                  bilstm_train_fwd_cuda)
 
     hidden, batch, time_steps = 544, 2, 5
     blocks = 2 * hidden // 8
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     if sms >= blocks:
-        print(f"kernel 3 residency check skipped: {sms} SMs hold {blocks} blocks", flush=True)
+        print(f"residency checks skipped: {sms} SMs hold {blocks} blocks", flush=True)
         return
     zeros = lambda *shape: torch.zeros(*shape, device=device)  # noqa: E731
-    before = bilstm_train_bwd_cuda.launches
-    try:
-        bilstm_train_bwd_cuda(zeros(2, batch, time_steps, 4 * hidden),
-                              zeros(2, 4 * hidden, hidden), torch.tensor([5, 3], device=device),
-                              zeros(2, batch, time_steps, hidden),
-                              zeros(2, batch, time_steps, hidden),
-                              zeros(batch, time_steps, 2 * hidden))
-    except RuntimeError as err:
-        if bilstm_train_bwd_cuda.launches != before:
-            fail("kernel 3 launched before finding its grid cannot be resident")
-        print(f"kernel 3 at H={hidden} ({blocks} blocks, {sms} SMs) raised, launching "
-              f"nothing: {err}", flush=True)
-        return
-    fail(f"kernel 3 at H={hidden} ran although {blocks} blocks cannot be resident on {sms} SMs")
+    lengths = torch.tensor([5, 3], device=device)
+    state = zeros(2, batch, time_steps, hidden)
+    calls = {
+        "kernel 1": (bilstm_cuda, lambda: bilstm_cuda(
+            zeros(2, 4 * hidden, 8), zeros(2, 4 * hidden, hidden), zeros(2, 4 * hidden),
+            zeros(batch, time_steps, 8), lengths)),
+        "kernel 2": (bilstm_train_fwd_cuda, lambda: bilstm_train_fwd_cuda(
+            zeros(2, batch, time_steps, 4 * hidden), zeros(2, 4 * hidden, hidden), lengths)),
+        "kernel 3": (bilstm_train_bwd_cuda, lambda: bilstm_train_bwd_cuda(
+            zeros(2, batch, time_steps, 4 * hidden), zeros(2, 4 * hidden, hidden), lengths,
+            state, state, zeros(batch, time_steps, 2 * hidden))),
+    }
+    for name, (wrapper, call) in calls.items():
+        before = wrapper.launches
+        try:
+            call()
+        except RuntimeError as err:
+            if wrapper.launches != before:
+                fail(f"{name} launched before finding its grid cannot be resident")
+            print(f"{name} at H={hidden} ({blocks} blocks, {sms} SMs) raised, launching "
+                  f"nothing: {err}", flush=True)
+            continue
+        fail(f"{name} at H={hidden} ran although {blocks} blocks cannot be resident on {sms} SMs")
 
 
 def ctc_targets(rng, seconds, vocab):
@@ -705,24 +785,32 @@ def check_ctc(device):
     library_loss = library_fwd()
     library_diff = abs(library_loss.item() - ctc_loss_cuda(
         log_probs, targets, input_lengths, target_lengths).item())
+    # each kernel in turns with F.ctc_loss's forward or backward (event and
+    # device time)
+    alpha_turns = timed_in_turns({
+        "kernel": lambda: ctc_alpha_cuda(log_probs, z, can_skip, valid, input_lengths),
+        "library": library_fwd}, iters=20)
+    adjoint_turns = timed_in_turns({
+        "kernel": lambda: ctc_alpha_adjoint_cuda(alpha_ref, seed, can_skip, valid, input_lengths),
+        "library": lambda: torch.autograd.grad(library_loss, lp_leaf, retain_graph=True)},
+        iters=20)
     timings = {
-        "alpha_ms": time_ms(lambda: ctc_alpha_cuda(log_probs, z, can_skip, valid, input_lengths),
-                            iters=20),
         "alpha_plain_ms": time_ms(lambda: ctc_alpha(log_probs, z, can_skip, valid,
                                                     input_lengths), iters=3, warmup=1),
-        "alpha_library_ms": time_ms(library_fwd, iters=20),
-        "adjoint_ms": time_ms(lambda: ctc_alpha_adjoint_cuda(alpha_ref, seed, can_skip, valid,
-                                                             input_lengths), iters=20),
         "adjoint_plain_ms": time_ms(lambda: ctc_alpha_adjoint(alpha_ref, seed, can_skip, valid,
                                                               input_lengths), iters=3, warmup=1),
-        "adjoint_library_ms": time_ms(lambda: torch.autograd.grad(library_loss, lp_leaf,
-                                                                  retain_graph=True), iters=20),
     }
+    for key, turns in (("alpha", alpha_turns), ("adjoint", adjoint_turns)):
+        timings.update({f"{key}_ms": turns["kernel"]["ms"],
+                        f"{key}_device_ms": turns["kernel"]["device_ms"],
+                        f"{key}_library_ms": turns["library"]["ms"],
+                        f"{key}_library_device_ms": turns["library"]["device_ms"]})
     print(f"CTC lattice (B={batch}, T={time_steps}, V={vocab}, S={s_len}): alpha rel err "
           f"{alpha_err:.3e}, ll rel err {ll_err:.3e} (tol {CTC_REL_TOL:.0e}), adjoint rel err "
           f"{adj_err:.3e} (tol {CTC_REL_TOL:.0e}), loss gradient max_abs_err {grad_err:.3e} "
-          f"(tol {CTC_GRAD_TOL:.0e}); |F.ctc_loss - kernel loss| {library_diff:.3e}; "
-          + ", ".join(f"{k} {v:.4f}" for k, v in timings.items()), flush=True)
+          f"(tol {CTC_GRAD_TOL:.0e}); |F.ctc_loss - kernel loss| {library_diff:.3e}; kernel and "
+          f"F.ctc_loss in turns: " + ", ".join(f"{k} {fmt_ms(v)}" for k, v in timings.items()),
+          flush=True)
     if not max(alpha_err, ll_err, adj_err) <= CTC_REL_TOL:
         fail(f"CTC kernels disagree with the plain versions: alpha {alpha_err:.3e}, "
              f"ll {ll_err:.3e}, adjoint {adj_err:.3e} > {CTC_REL_TOL:.0e}")
@@ -751,6 +839,8 @@ def check_ctc(device):
             "ms": timings[f"{key}_ms"], "plain_ms": timings[f"{key}_plain_ms"],
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": timings[f"{key}_library_ms"],
+            "device_ms": timings[f"{key}_device_ms"],
+            "library_device_ms": timings[f"{key}_library_device_ms"],
             "shapes": shapes + (" forward" if key == "alpha" else " backward"),
         })
     return entries
@@ -804,19 +894,22 @@ def check_viterbi(device):
     infeasible = whole.score[3].item()
     err = (last - last_ref).abs().max().item()
 
+    kernels = {
+        "forward": lambda: viterbi_forward_cuda(log_probs, z, valid, input_lengths),
+        "backtrace": lambda: viterbi_backtrace_cuda(moves, final_pos, input_lengths, z),
+    }
     timings = {
-        "forward_ms": time_ms(lambda: viterbi_forward_cuda(log_probs, z, valid, input_lengths),
-                              iters=20),
         "forward_plain_ms": time_ms(lambda: viterbi_forward(log_probs, z, valid, input_lengths),
                                     iters=3, warmup=1),
-        "backtrace_ms": time_ms(lambda: viterbi_backtrace_cuda(moves, final_pos, input_lengths,
-                                                               z), iters=20),
         "backtrace_plain_ms": time_ms(lambda: viterbi_backtrace(moves, final_pos, input_lengths,
                                                                 z), iters=3, warmup=1),
     }
+    for key, fn in kernels.items():
+        timings[f"{key}_ms"] = time_ms(fn, iters=20)
+        timings[f"{key}_device_ms"] = device_profile(fn)[0]
     print(f"CTC Viterbi (B={batch}, T={time_steps}, V={vocab}, S={s_len}): equal to the plain "
           f"twins {equal}; last-row max_abs_err {err:.3e}; infeasible row score {infeasible:.3e}; "
-          + ", ".join(f"{k} {v:.4f}" for k, v in timings.items()), flush=True)
+          + ", ".join(f"{k} {fmt_ms(v)}" for k, v in timings.items()), flush=True)
     if not all(equal.values()):
         fail(f"Viterbi kernels differ from their plain twins: {equal}")
     if infeasible > -1e29:
@@ -845,7 +938,8 @@ def check_viterbi(device):
             "name": name, "route": "cuda", "source": "voice100_tpu_torch/csrc/viterbi.cu",
             "replaces": source_line, "launches": None, "max_abs_err": err if key == "forward" else 0.0,
             "ms": timings[f"{key}_ms"], "plain_ms": timings[f"{key}_plain_ms"],
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None, "shapes": shapes,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "device_ms": timings[f"{key}_device_ms"], "library_device_ms": None, "shapes": shapes,
         })
     return entries
 
@@ -884,6 +978,10 @@ def serve(device, card):
     if launches["log_mel"] != n_batches:
         fail(f"serve: the log-mel kernel launched {launches['log_mel']} times for "
              f"{n_batches} batches, not once a batch")
+    # kernel 1: one persistent launch a layer a batch
+    if launches["bilstm_recurrence"] != ASR_EN_BASE["decoder_num_layers"] * n_batches:
+        fail(f"serve: the biLSTM kernel launched {launches['bilstm_recurrence']} times for "
+             f"{n_batches} batches, not once a layer a batch")
 
     start = time.perf_counter()
     cpu_texts = cpu_pipe.transcribe(clips)
@@ -946,8 +1044,9 @@ def stages(pipe, clips):
             "bilstm": time_ms(lambda: model.lstm(x, x_len), iters=5),
             "dense_argmax": time_ms(lambda: model.dense(h).argmax(-1)),
         }
-        # host time to enqueue the biLSTM's 2 x 501 launches: when it is
-        # close to the card time above, the card waits on the host loop
+        # host time to enqueue the biLSTM (two projections, two persistent
+        # launches): when it is close to the card time above, the card
+        # waits on the host
         torch.cuda.synchronize()
         start = time.perf_counter()
         for _ in range(5):
@@ -1034,11 +1133,13 @@ def train(device, card):
     for name, count in launches.items():
         if count == 0:
             fail(f"the training path never launched the {name} kernel")
-    # kernel 3: a gate pass and one cooperative recurrence a layer a step
-    want = 2 * ASR_EN_BASE["decoder_num_layers"] * TIMED_STEPS
-    if launches["bilstm_train_bwd"] != want:
-        fail(f"train: kernel 3 launched {launches['bilstm_train_bwd']} times in "
-             f"{TIMED_STEPS} steps, not {want}")
+    # kernel 2: one persistent launch a layer a step; kernel 3: a gate pass
+    # and one cooperative recurrence a layer a step
+    for name, per_layer in (("bilstm_train_fwd", 1), ("bilstm_train_bwd", 2)):
+        want = per_layer * ASR_EN_BASE["decoder_num_layers"] * TIMED_STEPS
+        if launches[name] != want:
+            fail(f"train: {name} launched {launches[name]} times in {TIMED_STEPS} steps, "
+                 f"not {want}")
     train_stages(trainer, task, state, batch, gen)
     return launches
 
@@ -1245,8 +1346,9 @@ def align(device, card, workdir):
         got = r["launches"]
         if got["viterbi_forward"] != batches or got["viterbi_backtrace"] != batches:
             fail(f"align ({run}): the Viterbi kernels launched {got}, not once a batch")
-        if got["bilstm_recurrence"] == 0:
-            fail(f"align ({run}): the biLSTM kernel never launched")
+        if got["bilstm_recurrence"] != ASR_EN_BASE["decoder_num_layers"] * batches:
+            fail(f"align ({run}): the biLSTM kernel launched {got['bilstm_recurrence']} times, "
+                 f"not once a layer a batch")
     if runs["cold"]["launches"]["log_mel"] != ALIGN_CLIPS or runs["warm"]["launches"]["log_mel"]:
         fail(f"align: the log-mel kernel launched {runs['cold']['launches']['log_mel']} times cold "
              f"and {runs['warm']['launches']['log_mel']} warm, not once a clip and then never")
@@ -1406,6 +1508,11 @@ def main() -> None:
     lengths[0], lengths[1] = VITERBI_T, 1
     serving[1]["align_batch"] = check_bilstm(device, ALIGN_BATCH, VITERBI_T,
                                              [int(n) for n in lengths])
+    # kernels 1 and 2 at asr_en_small's batch of 128 and H=256
+    b128 = check_forward_b128(device)
+    serving[1]["b128_h256"] = dict(b128, max_abs_err=b128["max_abs_err"]["bilstm_recurrence"])
+    training[0]["b128_h256"] = {"shapes": b128["shapes"],
+                                "max_abs_err": b128["max_abs_err"]["bilstm_train_fwd"]}
     serving[0]["single_clip_max_abs_err"] = check_melspec_clips(device)
     aligning = check_viterbi(device)
     by_path = {"serve": serve(device, card), "train": train(device, card)}

@@ -23,10 +23,10 @@ from voice100_tpu_torch.ops import lstm_cuda
 D_IN, HIDDEN, TIME = 8, 16, 12
 
 
-def _params(seed, d_in=D_IN, layers=1):
+def _params(seed, d_in=D_IN, layers=1, hidden=HIDDEN):
     from voice100_tpu.ops.lstm import init_lstm_params
 
-    return init_lstm_params(jax.random.PRNGKey(seed), d_in, HIDDEN, layers)
+    return init_lstm_params(jax.random.PRNGKey(seed), d_in, hidden, layers)
 
 
 def _torch(tree):
@@ -37,32 +37,45 @@ def _stacked(layer):
     return tlstm.stack_directions(_torch(layer))
 
 
-def _inputs(seed, lengths):
-    x = np.random.default_rng(seed).standard_normal((len(lengths), TIME, D_IN))
+def _inputs(seed, lengths, time=TIME):
+    x = np.random.default_rng(seed).standard_normal((len(lengths), time, D_IN))
     return x.astype(np.float32), np.asarray(lengths, np.int32)
 
 
 LENGTHS = [[TIME, 7, 3], [1, TIME, 5], [TIME, TIME], [1]]
+# The persistent kernels' edge shapes, as (lengths, hidden, time): a batch
+# above one 64-row pass of their product at a width they take (H a multiple
+# of 32), T=1, all rows of one length short of T, a zero-length row.
+_B70 = np.random.default_rng(70).integers(0, TIME + 1, size=70)
+_B70[:2] = TIME, 0
+EDGE_CASES = [
+    pytest.param(_B70.tolist(), 32, TIME, id="b70_h32"),
+    pytest.param([1, 0, 1], HIDDEN, 1, id="t1"),
+    pytest.param([9, 9, 9, 9], HIDDEN, TIME, id="equal_lengths"),
+    pytest.param([TIME, 0, 5], HIDDEN, TIME, id="zero_length_row"),
+]
+CASES = [pytest.param(lengths, HIDDEN, TIME, id=f"lengths{i}")
+         for i, lengths in enumerate(LENGTHS)] + EDGE_CASES
 
 
-@pytest.mark.parametrize("lengths", LENGTHS)
-def test_plain_bilstm_matches_scan(lengths):
+@pytest.mark.parametrize("lengths,hidden,time", CASES)
+def test_plain_bilstm_matches_scan(lengths, hidden, time):
     from voice100_tpu.ops.lstm import bilstm
 
-    params = _params(0)[0]
-    x, lens = _inputs(1, lengths)
+    params = _params(0, hidden=hidden)[0]
+    x, lens = _inputs(1, lengths, time)
     ref = np.asarray(bilstm(params, jnp.asarray(x), jnp.asarray(lens)))
     got = tlstm.bilstm(*_stacked(params), torch.from_numpy(x), torch.from_numpy(lens)).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("lengths", LENGTHS[:2])
-def test_plain_bilstm_matches_pallas_interpret(monkeypatch, lengths):
+@pytest.mark.parametrize("lengths,hidden,time", CASES[:2] + EDGE_CASES)
+def test_plain_bilstm_matches_pallas_interpret(monkeypatch, lengths, hidden, time):
     from voice100_tpu.ops.lstm_pallas import bilstm_pallas
 
     monkeypatch.setenv("VOICE100_TPU_LSTM_XG_DTYPE", "float32")
-    params = _params(2)[0]
-    x, lens = _inputs(3, lengths)
+    params = _params(2, hidden=hidden)[0]
+    x, lens = _inputs(3, lengths, time)
     ref = np.asarray(bilstm_pallas(params, jnp.asarray(x), jnp.asarray(lens), interpret=True))
     got = tlstm.bilstm(*_stacked(params), torch.from_numpy(x), torch.from_numpy(lens)).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
@@ -126,6 +139,24 @@ def test_module_restacks_weights_after_a_load():
     torch.testing.assert_close(w_ih[0], state["weight_ih_l0"], rtol=0, atol=0)
     torch.testing.assert_close(bias[0], state["bias_ih_l0"] + state["bias_hh_l0"],
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("lengths", [[5, 0, 12, 7, 7, 1], [3], [0, 0], _B70.tolist(),
+                                     list(range(20))[::-1]])
+def test_length_order_makes_the_valid_rows_a_prefix(lengths):
+    """The persistent kernels walk the rows in ``length_order``: at every
+    loop step the valid rows of both directions (forward ``length > s``,
+    backward ``length > T-1-s``) must be a prefix of it."""
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    order = lstm_cuda.length_order(lens)
+    assert order.dtype == torch.int32 and sorted(order.tolist()) == list(range(len(lengths)))
+    sorted_lens = lens[order.long()].tolist()
+    assert sorted_lens == sorted(lengths, reverse=True)
+    time = max(lengths) + 2
+    for s in range(time):
+        for ts in (s, time - 1 - s):
+            valid = [n > ts for n in sorted_lens]
+            assert valid == sorted(valid, reverse=True), (s, ts)
 
 
 def test_wrapper_rejects_other_devices():

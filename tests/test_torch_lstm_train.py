@@ -26,22 +26,34 @@ from voice100_tpu_torch.ops import lstm_cuda
 
 D_IN, HIDDEN, TIME = 8, 16, 12
 LENGTHS = [[TIME, 7, 3], [1, TIME, 5, 9]]
+# The persistent forward kernel's edge shapes, as (lengths, hidden, time):
+# a batch above one 64-row pass of its product at a width it takes (H a
+# multiple of 32), T=1, all rows of one length short of T, a zero-length row.
+_B70 = np.random.default_rng(70).integers(0, TIME + 1, size=70)
+_B70[:2] = TIME, 0
+CASES = [pytest.param(lengths, HIDDEN, TIME, id=f"lengths{i}")
+         for i, lengths in enumerate(LENGTHS)] + [
+    pytest.param(_B70.tolist(), 32, TIME, id="b70_h32"),
+    pytest.param([1, 0, 1], HIDDEN, 1, id="t1"),
+    pytest.param([9, 9, 9, 9], HIDDEN, TIME, id="equal_lengths"),
+    pytest.param([TIME, 0, 5], HIDDEN, TIME, id="zero_length_row"),
+]
 
 
-def _params(seed, d_in=D_IN, layers=1):
+def _params(seed, d_in=D_IN, layers=1, hidden=HIDDEN):
     from voice100_tpu.ops.lstm import init_lstm_params
 
-    return init_lstm_params(jax.random.PRNGKey(seed), d_in, HIDDEN, layers)
+    return init_lstm_params(jax.random.PRNGKey(seed), d_in, hidden, layers)
 
 
 def _torch(tree):
     return jax.tree_util.tree_map(lambda a: torch.from_numpy(np.array(a)), tree)
 
 
-def _case(seed, lengths):
+def _case(seed, lengths, hidden=HIDDEN, time=TIME):
     rng = np.random.default_rng(seed)
-    x = rng.standard_normal((len(lengths), TIME, D_IN)).astype(np.float32)
-    dout = rng.standard_normal((len(lengths), TIME, 2 * HIDDEN)).astype(np.float32)
+    x = rng.standard_normal((len(lengths), time, D_IN)).astype(np.float32)
+    dout = rng.standard_normal((len(lengths), time, 2 * hidden)).astype(np.float32)
     return x, np.asarray(lengths, np.int32), dout
 
 
@@ -62,12 +74,12 @@ def _to_source(fwd, bwd):
                      np.swapaxes(np.asarray(bwd)[::-1], 0, 1)])
 
 
-@pytest.mark.parametrize("lengths", LENGTHS)
-def test_plain_train_fwd_matches_pallas_interpret(lengths):
+@pytest.mark.parametrize("lengths,hidden,time", CASES)
+def test_plain_train_fwd_matches_pallas_interpret(lengths, hidden, time):
     from voice100_tpu.ops.lstm_pallas import _lstm_train_fwd_pair
 
-    layer = _params(0)[0]
-    x, lens, _ = _case(1, lengths)
+    layer = _params(0, hidden=hidden)[0]
+    x, lens, _ = _case(1, lengths, hidden, time)
     xg_f, xg_b, whh2, lj = _jax_pair_inputs(layer, x, lens)
     (out_f, hs_f, cs_f), (out_b, hs_b, cs_b) = _lstm_train_fwd_pair(
         xg_f, xg_b, whh2, lj, block_t=1, interpret=True)
@@ -80,19 +92,19 @@ def test_plain_train_fwd_matches_pallas_interpret(lengths):
     np.testing.assert_allclose(c_prev.numpy(), _to_source(cs_f, cs_b), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("lengths", LENGTHS)
-def test_plain_train_bwd_matches_pallas_interpret(lengths):
+@pytest.mark.parametrize("lengths,hidden,time", CASES)
+def test_plain_train_bwd_matches_pallas_interpret(lengths, hidden, time):
     from voice100_tpu.ops.lstm_pallas import _lstm_train_bwd_pair, _lstm_train_fwd_pair
 
-    layer = _params(2)[0]
-    x, lens, dout = _case(3, lengths)
+    layer = _params(2, hidden=hidden)[0]
+    x, lens, dout = _case(3, lengths, hidden, time)
     xg_f, xg_b, whh2, lj = _jax_pair_inputs(layer, x, lens)
     (_, hs_f, cs_f), (_, hs_b, cs_b) = _lstm_train_fwd_pair(
         xg_f, xg_b, whh2, lj, block_t=1, interpret=True)
     dj = jnp.asarray(dout)
     dg_f, dg_b = _lstm_train_bwd_pair(
         xg_f, xg_b, whh2, lj, {"fwd": (hs_f, cs_f), "bwd": (hs_b, cs_b)},
-        jnp.swapaxes(dj[..., :HIDDEN], 0, 1), jnp.swapaxes(dj[..., HIDDEN:], 0, 1)[::-1],
+        jnp.swapaxes(dj[..., :hidden], 0, 1), jnp.swapaxes(dj[..., hidden:], 0, 1)[::-1],
         block_t=1, interpret=True)
 
     w_ih, w_hh, bias = tlstm.stack_directions(_torch(layer))

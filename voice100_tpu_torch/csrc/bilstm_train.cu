@@ -8,7 +8,8 @@
 // touches source time ts = s for the forward direction and T-1-s for the
 // backward one, so every [2, B, T, *] array below is indexed by source time.
 //
-// Forward, one launch a step (lstm_train_fwd_step_kernel):
+// Forward, one persistent cooperative launch a layer (the kernel of
+// bilstm_persistent.cuh with the state saves):
 //     h_prev[d, b, ts] = h,  c_prev[d, b, ts] = c       (state entering the step)
 //     gates = xg[d, b, ts] + h @ W_hh[d]^T              (gate order i, f, g, o)
 //     c' = sig(f) c + sig(i) tanh(g),  h' = sig(o) tanh(c')
@@ -32,16 +33,12 @@
 // What is hard on Hopper. The TPU kernels keep both directions' W_hh
 // (8 MB float32 at H = 512) in VMEM and walk time on a sequential grid.
 // Here 8 MB is far beyond an SM's 227 KB and blocks run in no order. The
-// forward takes a launch a step, ordered by the stream, and reads W_hh from
-// the 50 MB L2 every step. The backward step has two products with
-// opposite contraction axes: the gate recompute h_prev W_hh^T splits by
-// gate rows, but dh = dG W_hh contracts over all 4H gate rows, so every
-// block needs every other block's dG of the same step.
+// backward step has two products with opposite contraction axes: the gate
+// recompute h_prev W_hh^T splits by gate rows, but dh = dG W_hh contracts
+// over all 4H gate rows, so every block needs every other block's dG of
+// the same step.
 //
-// What the design does. Forward: a block owns the 4 * UNITS gate rows of
-// UNITS hidden units, so the cell update needs no reduction across blocks;
-// grid = (H / UNITS, 2, ceil(B / BATCH_TILE)), BATCH_TILE = 16 rows of h in
-// the default 48 KB of shared memory.
+// What the design does. Forward: see bilstm_persistent.cuh.
 // Backward: the gate recompute leaves the sequential loop altogether and
 // becomes one tiled product over all valid rows (bound by its float32
 // operations, 8 H^2 flops a row): 128 x 128 output tiles, 8 x 8 a thread
@@ -63,107 +60,9 @@
 // __ldg. Accurate expf/tanhf, no fast math: the JAX kernels run float32 at
 // Precision.HIGHEST.
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
+#include "bilstm_persistent.cuh"
 
 namespace {
-
-constexpr int UNITS = 8;                      // hidden units per block
-constexpr int ROWS = 4 * UNITS;               // gate rows per block
-constexpr int BATCH_TILE = 16;                // batch rows per block
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int ROWS_PER_WARP = ROWS / WARPS;
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
-
-__device__ __forceinline__ int source_time(int d, int s, int time) {
-  return d == 0 ? s : time - 1 - s;
-}
-
-// gs[b * ROWS + q] = (hs[b] . W_hh[d, row(q)]) for the block's gate rows q,
-// where hs holds BATCH_TILE rows of h in shared memory.
-__device__ __forceinline__ void gate_products(const float* __restrict__ w_hh, const float* hs,
-                                              float* gs, int d, int u0, int hidden) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int q = warp * ROWS_PER_WARP; q < (warp + 1) * ROWS_PER_WARP; ++q) {
-    // gate row q of this block: gate q / UNITS of unit u0 + q % UNITS
-    const int row = (q / UNITS) * hidden + u0 + q % UNITS;
-    const float* w = w_hh + (static_cast<size_t>(d) * 4 * hidden + row) * hidden;
-    float acc[BATCH_TILE];
-#pragma unroll
-    for (int b = 0; b < BATCH_TILE; ++b) acc[b] = 0.f;
-    for (int k = lane; k < hidden; k += 32) {
-      const float wk = __ldg(w + k);
-#pragma unroll
-      for (int b = 0; b < BATCH_TILE; ++b) acc[b] = fmaf(wk, hs[b * hidden + k], acc[b]);
-    }
-#pragma unroll
-    for (int b = 0; b < BATCH_TILE; ++b) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], off);
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int b = 0; b < BATCH_TILE; ++b) gs[b * ROWS + q] = acc[b];
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-lstm_train_fwd_step_kernel(const float* __restrict__ xg,       // [2, B, T, 4H]
-                           const float* __restrict__ w_hh,     // [2, 4H, H]
-                           const int* __restrict__ lengths,    // [B]
-                           const float* __restrict__ h_in,     // [2, B, H]
-                           const float* __restrict__ c_in,     // [2, B, H]
-                           float* __restrict__ h_out,          // [2, B, H]
-                           float* __restrict__ c_out,          // [2, B, H]
-                           float* __restrict__ out,            // [B, T, 2H]
-                           float* __restrict__ h_prev,         // [2, B, T, H]
-                           float* __restrict__ c_prev,         // [2, B, T, H]
-                           int batch, int time, int hidden, int s) {
-  extern __shared__ float smem[];
-  float* hs = smem;                          // [BATCH_TILE, H]: h entering the step
-  float* gs = smem + BATCH_TILE * hidden;    // [BATCH_TILE, ROWS]
-  const int u0 = blockIdx.x * UNITS;
-  const int d = blockIdx.y;
-  const int b0 = blockIdx.z * BATCH_TILE;
-  const int nb = min(BATCH_TILE, batch - b0);
-  const int tid = threadIdx.x;
-
-  const float* hp = h_in + (static_cast<size_t>(d) * batch + b0) * hidden;
-  for (int i = tid; i < BATCH_TILE * hidden; i += THREADS) hs[i] = i < nb * hidden ? hp[i] : 0.f;
-  __syncthreads();
-  gate_products(w_hh, hs, gs, d, u0, hidden);
-  __syncthreads();
-
-  if (tid < nb * UNITS) {
-    const int bl = tid / UNITS;
-    const int j = tid % UNITS;
-    const int b = b0 + bl;
-    const int u = u0 + j;
-    const int ts = source_time(d, s, time);
-    const size_t row = (static_cast<size_t>(d) * batch + b) * time + ts;   // [2, B, T] index
-    const float* x = xg + row * 4 * hidden;
-    const float* g = gs + bl * ROWS;
-    const float gi = sigmoid(x[u] + g[j]);
-    const float gf = sigmoid(x[hidden + u] + g[UNITS + j]);
-    const float gg = tanhf(x[2 * hidden + u] + g[2 * UNITS + j]);
-    const float go = sigmoid(x[3 * hidden + u] + g[3 * UNITS + j]);
-    const size_t st = (static_cast<size_t>(d) * batch + b) * hidden + u;
-    const float hp_u = hs[bl * hidden + u];
-    const float cp_u = c_in[st];
-    const float c = gf * cp_u + gi * gg;
-    const float h = go * tanhf(c);
-    const bool valid = ts < lengths[b];
-    h_prev[row * hidden + u] = hp_u;
-    c_prev[row * hidden + u] = cp_u;
-    h_out[st] = valid ? h : hp_u;
-    c_out[st] = valid ? c : cp_u;
-    out[(static_cast<size_t>(b) * time + ts) * 2 * hidden + d * hidden + u] = valid ? h : 0.f;
-  }
-}
 
 // ---- backward (1): the gate pass, a tiled float32 product ----
 
@@ -183,26 +82,6 @@ constexpr int REC_BT = 64;           // batch rows per pass of the dh product: t
 constexpr int REC_Q = 32;            // gate rows of dG per staged chunk
 constexpr int REC_Q_PAD = REC_Q + 4;
 constexpr int REC_STAGE = REC_BT * REC_Q_PAD;  // floats of one chunk buffer
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool fill) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = fill ? 16 : 0;  // 0: write zeros, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(gmem), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
-}
-
-__device__ __forceinline__ void prefetch_l2(const void* gmem) {
-  asm volatile("prefetch.global.L2 [%0];\n" :: "l"(gmem));
-}
 
 __global__ void __launch_bounds__(GEMM_THREADS)
 lstm_train_bwd_gates_kernel(const float* __restrict__ xg,       // [2, B, T, 4H]
@@ -446,25 +325,29 @@ extern "C" const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Dynamic shared memory of the forward launch.
-extern "C" int lstm_train_smem_bytes(int hidden) {
-  return static_cast<int>((BATCH_TILE * hidden + BATCH_TILE * ROWS) * sizeof(float));
+// Dynamic shared memory of one block of the forward launch.
+extern "C" int lstm_train_fwd_smem_bytes(int batch, int hidden) {
+  return persistent::smem_bytes(batch, hidden);
 }
 
-// Forward loop step s of both directions: reads the state (h_in, c_in),
-// writes the new state (h_out, c_out), the outputs and the pre-update
-// states at source time. Arrays are contiguous device arrays of the shapes
-// above (float32, lengths int32); hidden is a multiple of 32 and
-// lstm_train_smem_bytes(hidden) <= 48 KB. Returns cudaGetLastError().
-extern "C" int lstm_train_fwd_step_f32(const float* xg, const float* w_hh, const int* lengths,
-                                       const float* h_in, const float* c_in, float* h_out,
-                                       float* c_out, float* out, float* h_prev, float* c_prev,
-                                       int batch, int time, int hidden, int s, void* stream) {
-  const dim3 grid(hidden / UNITS, 2, (batch + BATCH_TILE - 1) / BATCH_TILE);
-  lstm_train_fwd_step_kernel<<<grid, THREADS, lstm_train_smem_bytes(hidden),
-                               static_cast<cudaStream_t>(stream)>>>(
-      xg, w_hh, lengths, h_in, c_in, h_out, c_out, out, h_prev, c_prev, batch, time, hidden, s);
-  return static_cast<int>(cudaGetLastError());
+// 0 if the forward launch can run with all 2 * hidden / 8 blocks resident
+// on the current device, else a CUDA error (see persistent::check).
+extern "C" int lstm_train_fwd_check(int batch, int hidden) {
+  return persistent::check<true>(batch, hidden);
+}
+
+// The forward of the whole layer: reads xg, w_hh, lengths and order (the
+// rows by descending length, int32), uses xchg [2, 2, B, H] (float32) and
+// ready [2 * hidden / 8] (int32) as scratch (any contents), writes the
+// outputs and the pre-update states at source time. Arrays are contiguous
+// device arrays of the shapes above; hidden is a multiple of 32. Returns
+// lstm_train_fwd_check's error without launching, else the launch's.
+extern "C" int lstm_train_fwd_f32(const float* xg, const float* w_hh, const int* lengths,
+                                  const int* order, float* xchg, int* ready, float* out,
+                                  float* h_prev, float* c_prev, int batch, int time, int hidden,
+                                  void* stream) {
+  return persistent::launch<true>(xg, w_hh, lengths, order, xchg, ready, out, h_prev, c_prev,
+                                  batch, time, hidden, stream);
 }
 
 // Dynamic shared memory of the backward recurrence launch: the resident

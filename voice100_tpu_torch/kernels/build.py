@@ -6,8 +6,10 @@ plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
-The library's name carries a hash of its source and flags, so an edited
-source is rebuilt and a stale library is never loaded. Libraries go to
+The library's name carries a hash of its source, of every header of
+``csrc/`` the source includes (directly or through another header) and
+of the flags, so an edited source or header is rebuilt and a stale
+library is never loaded. Libraries go to
 ``voice100_tpu_torch/_build/`` (listed in ``.gitignore``) at first use.
 Every C entry returns ``cudaGetLastError()`` after its launch; the
 wrappers raise when it is not 0.
@@ -18,14 +20,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
-__all__ = ["KERNELS", "build", "load", "check", "library_path"]
+__all__ = ["KERNELS", "build", "load", "check", "library_path", "sources"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -37,6 +40,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -52,10 +56,24 @@ def _nvcc() -> str:
     return found
 
 
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every file of ``csrc/`` it includes with
+    ``#include "..."``, directly or through another, in first-seen order."""
+    seen: List[str] = []
+    todo = [f"{name}.cu"]
+    while todo:
+        file = todo.pop(0)
+        if file not in seen:
+            seen.append(file)
+            todo += _INCLUDE.findall((CSRC / file).read_text())
+    return [CSRC / file for file in seen]
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:

@@ -14,11 +14,18 @@ The input projection ``x @ W_ih^T + b_ih + b_hh`` stays a
 ``torch.matmul``, outside the kernels as in the JAX wrappers, and so do
 the weight and input gradients of the backward (``dW_ih = dG^T x``,
 ``dW_hh = dG^T h_prev``, ``db = sum dG``, ``dx = dG W_ih``). The
-inference and train-forward kernels launch once a time step for both
-directions, and their wrappers loop over time on the current stream; the
-train backward launches twice a layer (a gate pass, then one cooperative
-launch for the whole reverse recurrence). See the notes at the top of
-the CUDA sources for what bounds them.
+inference and train-forward kernels are one persistent cooperative
+launch a layer for both directions (``csrc/bilstm_persistent.cuh``); the
+wrappers pass the batch rows ordered by descending length
+(:func:`length_order`), so the rows valid at a step are a prefix in both
+directions, and scratch for the exchange of ``h`` and the blocks' step
+flags. The train backward launches twice a layer (a gate pass, then
+one cooperative launch for the whole reverse recurrence). Each
+cooperative grid holds ``2 H / 8`` blocks, one an SM, with ``H`` a
+multiple of 32: where it cannot be resident (``H > 528`` on 132 SMs) or
+its shared memory does not fit, the wrapper raises before launching
+anything. See the notes at the top of the CUDA sources for what bounds
+the kernels.
 
 For tensors on the CPU each wrapper runs its plain version from
 :mod:`voice100_tpu_torch.ops.lstm`. For CUDA tensors it launches the
@@ -36,40 +43,37 @@ from ..kernels.build import check, load
 from .lstm import bilstm, bilstm_train_bwd, bilstm_train_fwd, project_inputs
 
 __all__ = ["bilstm_cuda", "bilstm_train_fwd_cuda", "bilstm_train_bwd_cuda",
-           "BiLSTMFunction", "bilstm_train_cuda"]
+           "BiLSTMFunction", "bilstm_train_cuda", "length_order"]
 
-_UNITS = 8           # hidden units per block (csrc/bilstm.cu)
-_TRAIN_MULTIPLE = 32  # hidden must be a multiple of this (csrc/bilstm_train.cu)
-_SMEM_LIMIT = 48 * 1024
+_MULTIPLE = 32  # hidden must be a multiple of this (the kernels' k chunks and tiles)
 _SMEM_OPTIN_LIMIT = 232448  # the H100's shared memory a block can opt into
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _lib():
     lib = load("bilstm")
-    if lib.bilstm_step_f32.argtypes is None:
-        lib.bilstm_step_f32.argtypes = [_P] * 8 + [_I] * 4 + [_P]
-        lib.bilstm_step_f32.restype = _I
-        lib.bilstm_step_smem_bytes.argtypes = [_I]
-        lib.bilstm_step_smem_bytes.restype = _I
+    if lib.bilstm_f32.argtypes is None:
+        lib.bilstm_f32.argtypes = [_P] * 7 + [_I] * 3 + [_P]
+        lib.bilstm_f32.restype = _I
+        for fn in (lib.bilstm_smem_bytes, lib.bilstm_check):
+            fn.argtypes = [_I, _I]
+            fn.restype = _I
     return lib
 
 
 def _train_lib():
     lib = load("bilstm_train")
-    if lib.lstm_train_fwd_step_f32.argtypes is None:
-        lib.lstm_train_fwd_step_f32.argtypes = [_P] * 10 + [_I] * 4 + [_P]
-        lib.lstm_train_fwd_step_f32.restype = _I
+    if lib.lstm_train_fwd_f32.argtypes is None:
+        lib.lstm_train_fwd_f32.argtypes = [_P] * 9 + [_I] * 3 + [_P]
+        lib.lstm_train_fwd_f32.restype = _I
         lib.lstm_train_bwd_gates_f32.argtypes = [_P] * 5 + [_I] * 3 + [_P]
         lib.lstm_train_bwd_gates_f32.restype = _I
         lib.lstm_train_bwd_recurrence_f32.argtypes = [_P] * 5 + [_I] * 3 + [_P]
         lib.lstm_train_bwd_recurrence_f32.restype = _I
-        lib.lstm_train_smem_bytes.argtypes = [_I]
-        lib.lstm_train_smem_bytes.restype = _I
-        lib.lstm_train_bwd_smem_bytes.argtypes = [_I, _I]
-        lib.lstm_train_bwd_smem_bytes.restype = _I
-        lib.lstm_train_bwd_check.argtypes = [_I, _I]
-        lib.lstm_train_bwd_check.restype = _I
+        for fn in (lib.lstm_train_fwd_smem_bytes, lib.lstm_train_fwd_check,
+                   lib.lstm_train_bwd_smem_bytes, lib.lstm_train_bwd_check):
+            fn.argtypes = [_I, _I]
+            fn.restype = _I
     return lib
 
 
@@ -94,7 +98,12 @@ def bilstm_cuda(w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,
     ``bias [2, 4H]`` hold the forward then the backward direction, as
     :func:`voice100_tpu_torch.ops.lstm.stack_directions` gives them;
     ``lengths [B]`` are the valid lengths. Same semantics as the plain
-    :func:`bilstm`.
+    :func:`bilstm`. One launch (``csrc/bilstm.cu``).
+
+    Raises ``ValueError`` for ``H`` not a multiple of 32 or a batch whose
+    carry does not fit one block's shared memory, and ``RuntimeError``
+    when the device cannot launch the recurrence cooperatively with all
+    its ``2 H / 8`` blocks resident; there is no other path.
     """
     if x.device.type == "cpu":
         return bilstm(w_ih, w_hh, bias, x, lengths)
@@ -111,68 +120,80 @@ def bilstm_cuda(w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,
         raise ValueError("bilstm_cuda: w_hh must be contiguous")
     if lengths.shape != (batch,):
         raise ValueError(f"bilstm_cuda: lengths must be [{batch}], got {tuple(lengths.shape)}")
-    lib = _lib()
-    if hidden % _UNITS or lib.bilstm_step_smem_bytes(hidden) > _SMEM_LIMIT:
-        raise ValueError(f"bilstm_cuda: hidden {hidden} must be a multiple of "
-                         f"{_UNITS} and fit the kernel's shared memory")
-
     xg = project_inputs(w_ih, bias, x).contiguous()                  # [2, B, T, 4H]
-    lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
-    state = torch.zeros(2, 2, 2, batch, hidden, device=x.device)     # [ping-pong, h/c, dir]
-    out = torch.empty(batch, time, 2 * hidden, device=x.device)
-    ptrs = [xg.data_ptr(), w_hh.data_ptr(), lengths.data_ptr()]
-    bufs = [(state[p, 0].data_ptr(), state[p, 1].data_ptr()) for p in (0, 1)]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for t in range(time):
-            (h_in, c_in), (h_out, c_out) = bufs[t % 2], bufs[1 - t % 2]
-            status = lib.bilstm_step_f32(*ptrs, h_in, c_in, h_out, c_out, out.data_ptr(),
-                                         batch, time, hidden, t, stream)
-            check(lib, status, "bilstm_step_f32")
-            bilstm_cuda.launches += 1
+    out, _ = _forward("bilstm_cuda", xg, w_hh, lengths, save_states=False)
+    bilstm_cuda.launches += 1
     return out
 
 
 bilstm_cuda.launches = 0
 
 
-def _train_setup(name: str, xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor):
+def length_order(lengths: torch.Tensor) -> torch.Tensor:
+    """The batch rows ordered by descending length (int32, ties in row
+    order): the order the persistent kernels walk, in which the rows valid
+    at loop step ``s`` are a prefix for both directions (forward:
+    ``length > s``; backward: ``length > T-1-s``)."""
+    return torch.argsort(lengths, descending=True, stable=True).to(torch.int32)
+
+
+def _layer_setup(name: str, xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor):
+    """Checks of a layer's recurrence inputs; ``(batch, time, hidden,
+    lengths as int32 on the card)``."""
     _, batch, time, gates4 = xg.shape
     hidden = gates4 // 4
     _check_cuda(name, (xg, w_hh), ((2, batch, time, gates4), (2, gates4, hidden)))
     if lengths.shape != (batch,):
         raise ValueError(f"{name}: lengths must be [{batch}], got {tuple(lengths.shape)}")
-    lib = _train_lib()
-    if hidden % _TRAIN_MULTIPLE or lib.lstm_train_smem_bytes(hidden) > _SMEM_LIMIT:
-        raise ValueError(f"{name}: hidden {hidden} must be a multiple of "
-                         f"{_TRAIN_MULTIPLE} and fit the kernel's shared memory")
-    lengths = lengths.to(device=xg.device, dtype=torch.int32).contiguous()
-    return lib, batch, time, hidden, lengths
+    if hidden % _MULTIPLE:
+        raise ValueError(f"{name}: hidden {hidden} must be a multiple of {_MULTIPLE}")
+    return batch, time, hidden, lengths.to(device=xg.device, dtype=torch.int32).contiguous()
+
+
+def _check_resident(name: str, lib, prefix: str, batch: int, hidden: int) -> None:
+    """Raise unless the cooperative grid of the library's ``prefix``
+    entries fits one block's shared memory and can be resident."""
+    if getattr(lib, f"{prefix}_smem_bytes")(batch, hidden) > _SMEM_OPTIN_LIMIT:
+        raise ValueError(f"{name}: W_hh's slice and the carry of batch {batch}, hidden "
+                         f"{hidden} do not fit one block's shared memory")
+    check(lib, getattr(lib, f"{prefix}_check")(batch, hidden), f"{name} (cooperative launch)")
+
+
+def _forward(name: str, xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor,
+             save_states: bool):
+    """One persistent launch of the forward recurrence: kernel 1
+    (``out [B, T, 2H]``, ``[]``) or, with ``save_states``, kernel 2
+    (``out``, ``[h_prev, c_prev]``, each ``[2, B, T, H]``). Raises before
+    launching anything when the grid cannot be resident."""
+    batch, time, hidden, lengths = _layer_setup(name, xg, w_hh, lengths)
+    lib, prefix = (_train_lib(), "lstm_train_fwd") if save_states else (_lib(), "bilstm")
+    device = xg.device
+    order = length_order(lengths)
+    xchg = torch.empty(2, 2, batch, hidden, device=device)        # [ping-pong, dir, B, H]
+    ready = torch.empty(2 * hidden // 8, dtype=torch.int32, device=device)  # a flag a block
+    out = torch.empty(batch, time, 2 * hidden, device=device)
+    states = [torch.empty(2, batch, time, hidden, device=device) for _ in range(2)] \
+        if save_states else []
+    with torch.cuda.device(device):
+        _check_resident(name, lib, prefix, batch, hidden)
+        status = getattr(lib, f"{prefix}_f32")(
+            xg.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(), order.data_ptr(),
+            xchg.data_ptr(), ready.data_ptr(), out.data_ptr(), *[t.data_ptr() for t in states],
+            batch, time, hidden, torch.cuda.current_stream().cuda_stream)
+        check(lib, status, f"{prefix}_f32")
+    return out, states
 
 
 def bilstm_train_fwd_cuda(xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor):
-    """The state-saving recurrence (kernel ``csrc/bilstm_train.cu``):
-    ``xg [2, B, T, 4H]``, ``w_hh [2, 4H, H]`` -> ``out [B, T, 2H]``,
+    """The state-saving recurrence (kernel ``csrc/bilstm_train.cu``, one
+    launch): ``xg [2, B, T, 4H]``, ``w_hh [2, 4H, H]`` -> ``out [B, T, 2H]``,
     ``h_prev, c_prev [2, B, T, H]``, as the plain
-    :func:`voice100_tpu_torch.ops.lstm.bilstm_train_fwd`."""
+    :func:`voice100_tpu_torch.ops.lstm.bilstm_train_fwd`. Raises as
+    :func:`bilstm_cuda` does."""
     if xg.device.type == "cpu":
         return bilstm_train_fwd(xg, w_hh, lengths)
-    lib, batch, time, hidden, lengths = _train_setup("bilstm_train_fwd_cuda", xg, w_hh, lengths)
-    state = torch.zeros(2, 2, 2, batch, hidden, device=xg.device)    # [ping-pong, h/c, dir]
-    out = torch.empty(batch, time, 2 * hidden, device=xg.device)
-    h_prev = torch.empty(2, batch, time, hidden, device=xg.device)
-    c_prev = torch.empty_like(h_prev)
-    ptrs = [xg.data_ptr(), w_hh.data_ptr(), lengths.data_ptr()]
-    bufs = [(state[p, 0].data_ptr(), state[p, 1].data_ptr()) for p in (0, 1)]
-    saved = [out.data_ptr(), h_prev.data_ptr(), c_prev.data_ptr()]
-    with torch.cuda.device(xg.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for s in range(time):
-            (h_in, c_in), (h_out, c_out) = bufs[s % 2], bufs[1 - s % 2]
-            status = lib.lstm_train_fwd_step_f32(*ptrs, h_in, c_in, h_out, c_out, *saved,
-                                                 batch, time, hidden, s, stream)
-            check(lib, status, "lstm_train_fwd_step_f32")
-            bilstm_train_fwd_cuda.launches += 1
+    out, (h_prev, c_prev) = _forward("bilstm_train_fwd_cuda", xg, w_hh, lengths, save_states=True)
+    bilstm_train_fwd_cuda.launches += 1
     return out, h_prev, c_prev
 
 
@@ -196,15 +217,13 @@ def bilstm_train_bwd_cuda(xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.T
     if xg.device.type == "cpu":
         return bilstm_train_bwd(xg, w_hh, lengths, h_prev, c_prev, dout)
     name = "bilstm_train_bwd_cuda"
-    lib, batch, time, hidden, lengths = _train_setup(name, xg, w_hh, lengths)
+    batch, time, hidden, lengths = _layer_setup(name, xg, w_hh, lengths)
     _check_cuda(name, (h_prev, c_prev, dout),
                 ((2, batch, time, hidden),) * 2 + ((batch, time, 2 * hidden),))
-    if lib.lstm_train_bwd_smem_bytes(batch, hidden) > _SMEM_OPTIN_LIMIT:
-        raise ValueError(f"{name}: the recurrence cannot hold W_hh's columns and the carry of "
-                         f"batch {batch}, hidden {hidden} resident in one block's shared memory")
+    lib = _train_lib()
     dg = torch.empty_like(xg)
     with torch.cuda.device(xg.device):
-        check(lib, lib.lstm_train_bwd_check(batch, hidden), f"{name} (cooperative launch)")
+        _check_resident(name, lib, "lstm_train_bwd", batch, hidden)
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.lstm_train_bwd_gates_f32(xg.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(),
                                               h_prev.data_ptr(), dg.data_ptr(), batch, time,
