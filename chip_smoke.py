@@ -28,9 +28,14 @@ toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
    blocks);
 6. holds the CTC lattice kernels (alpha forward, adjoint) and the loss
    Function against the plain versions at B=64, T=501, V=29 with a
-   repeated-label row, an empty target and an infeasible row, and times
-   each kernel in turns with F.ctc_loss's forward or backward (event and
-   device time) and the plain versions;
+   repeated-label row, an empty target and an infeasible row, and on
+   edge batches (an input of one frame, a row held for most of T, 150
+   labels, an empty label axis, S=1201 and S=4095); checks that the
+   wrapper's limits equal ctc.cu's and that S past them raises, launching
+   nothing; times each kernel in turns with F.ctc_loss's forward or
+   backward (event and device time), the plain versions and the loss
+   backward's vocabulary scatter; then tools/probe_ctc.py splits the steps
+   of kernels 4-7 by cause and gives each one's chain floor;
 7. holds the align path's shapes: the biLSTM inference kernel at B=64,
    T=512, kernels 1 and 2 at B=128, T=501, H=256 (asr_en_small's batch
    and width; two 64-row passes, a 64-block grid, a zero-length row), the
@@ -50,7 +55,8 @@ toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
    of 2-10 s clips in the 10 s bucket, augmentation and dropout on, Adam
    1e-3, clip 1.0): one warm-up step, then 10 timed steps with the launch
    counts set to 0 just before and read just after (kernel 2 once and
-   kernel 3 twice a layer a step); the loss must be finite and fall;
+   kernel 3 twice a layer a step, kernels 4 and 5 once a step); the loss
+   must be finite and fall;
    prints the card time by layer;
 10. takes 3 training steps from the same weights on the first 8 clips,
     augmentation and dropout off, on the card and on the CPU's plain path,
@@ -78,7 +84,9 @@ non-zero at once. Times are CUDA-event times with the L2 cache warm
 against a library call, the card's own time per call from torch.profiler
 (``device_ms``: the summed durations of the kernels, copies and memsets
 it ran; also for kernels 6 and 7, which have none), which leaves out the
-host's enqueue. The bounds use the H100
+host's enqueue; ``device_ms`` is "not measured" (null) where the profiler
+recorded another number of events of one of the port's kernels than its
+wrappers counted launches (``events_launches``). The bounds use the H100
 SXM data sheet's peaks (67 TFLOP/s float32 outside the tensor cores,
 3.35 TB/s HBM), which assume a 700 W power limit.
 """
@@ -188,17 +196,43 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def counted_kernels():
+    """The port's kernels by a part of their names on the card, each with
+    the wrappers that count its launches (kernels 1 and 2 share one
+    template)."""
+    from voice100_tpu_torch.ops.ctc_cuda import ctc_alpha_adjoint_cuda, ctc_alpha_cuda
+    from voice100_tpu_torch.ops.lstm_cuda import (bilstm_cuda, bilstm_train_bwd_cuda,
+                                                  bilstm_train_fwd_cuda)
+    from voice100_tpu_torch.ops.melspec_cuda import log_mel_spectrogram_cuda
+    from voice100_tpu_torch.ops.viterbi_cuda import viterbi_backtrace_cuda, viterbi_forward_cuda
+
+    return {"log_mel_kernel": (log_mel_spectrogram_cuda,),
+            "bilstm_persistent_kernel": (bilstm_cuda, bilstm_train_fwd_cuda),
+            "lstm_train_bwd_": (bilstm_train_bwd_cuda,),
+            "ctc_alpha_kernel": (ctc_alpha_cuda,), "ctc_adjoint_kernel": (ctc_alpha_adjoint_cuda,),
+            "viterbi_fwd_kernel": (viterbi_forward_cuda,),
+            "viterbi_bt_kernel": (viterbi_backtrace_cuda,)}
+
+
 def device_profile(fn, calls: int = 2):
     """The card's time per call of ``fn``: the durations of the kernels,
     copies and memsets torch.profiler records on the card over ``calls``
-    calls after one warm-up call, in total and by kernel name. ``(None,
-    {})`` where the profiler records no device activity or fails."""
+    calls after one warm-up call, in total and by kernel name, and for
+    each of the port's kernels that ran, ``[events recorded, launches its
+    wrappers counted]`` over those calls. The time is None ("not
+    measured") where the profiler records no device activity or fails, or
+    where it recorded another number of events of one of the port's
+    kernels than its wrappers launched: it has dropped events of a
+    cooperative launch before."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    kernels = counted_kernels()
     by_name = {}
+    before = {w: w.launches for ws in kernels.values() for w in ws}
+    events = dict.fromkeys(kernels, 0)
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -208,10 +242,20 @@ def device_profile(fn, calls: int = 2):
             if evt.device_type == DeviceType.CUDA:
                 by_name[evt.name] = (by_name.get(evt.name, 0.0)
                                      + evt.time_range.elapsed_us() * 1e-3 / calls)
+                for part in kernels:
+                    events[part] += part in evt.name
     except Exception as err:  # the profiler is a measurement aid, not a check
         print(f"torch.profiler failed ({err!r}): device time not measured", flush=True)
-        return None, {}
-    return (sum(by_name.values()) if by_name else None), by_name
+        return None, {}, {}
+    counts = {part: [events[part], sum(w.launches - before[w] for w in ws)]
+              for part, ws in kernels.items()}
+    counts = {part: c for part, c in counts.items() if any(c)}
+    dropped = {part: c for part, c in counts.items() if c[0] != c[1]}
+    if dropped:
+        print(f"torch.profiler recorded [events, launches] {dropped}: device time not "
+              f"measured", flush=True)
+        return None, by_name, counts
+    return (sum(by_name.values()) if by_name else None), by_name, counts
 
 
 def timed_in_turns(fns, iters: int, rounds: int = TURN_ROUNDS):
@@ -230,9 +274,9 @@ def timed_in_turns(fns, iters: int, rounds: int = TURN_ROUNDS):
             samples[name].append(time_ms(fns[name], iters=iters, warmup=0))
     out = {}
     for name, fn in fns.items():
-        device, kernels = device_profile(fn)
+        device, kernels, counts = device_profile(fn)
         out[name] = {"ms": float(np.median(samples[name])), "device_ms": device,
-                     "kernels": kernels}
+                     "kernels": kernels, "events_launches": counts}
     return out
 
 
@@ -322,7 +366,7 @@ def check_melspec(device):
         "replaces": "voice100_tpu/ops/melspec_pallas.py:64", "launches": None,
         "max_abs_err": err, "ms": kernel["ms"], "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": bound_by, "library_ms": lib["ms"], "device_ms": kernel["device_ms"],
-        "library_device_ms": lib["device_ms"],
+        "library_device_ms": lib["device_ms"], "events_launches": kernel["events_launches"],
     }
 
 
@@ -374,6 +418,7 @@ def check_bilstm(device, batch=BATCH, time_steps=501, lengths_list=None):
     gen = torch.Generator(device=device).manual_seed(SEED)
     total = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "device_ms": 0.0,
              "library_device_ms": 0.0, "recurrence_device_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    counts = []
     for layer, params in enumerate(module.stacked_layers()):
         d_in = params[0].shape[2]
         x = torch.randn(batch, time_steps, d_in, device=device, generator=gen)
@@ -411,6 +456,7 @@ def check_bilstm(device, batch=BATCH, time_steps=501, lengths_list=None):
             ms, library_ms = turns["kernel"]["ms"], turns["library"]["ms"]
             device_ms = turns["kernel"]["device_ms"]
             library_device_ms = turns["library"]["device_ms"]
+            counts.append(turns["kernel"]["events_launches"])
             # the persistent launch alone, without the projection and the order
             recurrence_ms = sum(v for k, v in turns["kernel"]["kernels"].items()
                                 if "bilstm_persistent_kernel" in k) or None
@@ -444,7 +490,7 @@ def check_bilstm(device, batch=BATCH, time_steps=501, lengths_list=None):
         "max_abs_err": total["err"], "ms": total["ms"], "plain_ms": total["plain_ms"],
         "bound_ms": bound, "bound_by": bound_by, "library_ms": total["library_ms"],
         "device_ms": total["device_ms"], "library_device_ms": total["library_device_ms"],
-        "recurrence_device_ms": total["recurrence_device_ms"],
+        "recurrence_device_ms": total["recurrence_device_ms"], "events_launches": counts,
         "shapes": f"both layers: B={batch}, T={time_steps}, H=512, D=512 then 1024",
     }
 
@@ -526,6 +572,7 @@ def check_lstm_train(device):
            "library_device_ms": 0.0, "bytes": 0.0, "ops": 0.0}
     bwd = dict(fwd, function_ms=0.0, function_device_ms=0.0, gate_pass_device_ms=0.0,
                recurrence_device_ms=0.0)
+    counts = {"fwd": [], "bwd": []}
     for layer, (w_ih, w_hh, bias) in enumerate(module.stacked_layers()):
         d_in = w_ih.shape[2]
         x = torch.randn(TRAIN_BATCH, time_steps, d_in, device=device, generator=gen)
@@ -587,6 +634,8 @@ def check_lstm_train(device):
             "function": lambda: torch.autograd.grad(y_port, leaves, dout, retain_graph=True),
         }, iters=3)
         del y, y_port
+        counts["fwd"].append(fwd_turns["kernel"]["events_launches"])
+        counts["bwd"].append(bwd_turns["kernel"]["events_launches"])
         by_launch = {part: sum(v for k, v in bwd_turns["kernel"]["kernels"].items()
                                if f"lstm_train_bwd_{part}_kernel" in k) or None
                      for part in ("gates", "recurrence")}
@@ -641,10 +690,11 @@ def check_lstm_train(device):
     shapes = (f"both layers of one train batch: B={TRAIN_BATCH}, T={time_steps}, H={hidden}, "
               f"{valid} valid rows of {TRAIN_BATCH * time_steps}")
     entries = []
-    for total, name, source_line, what in (
-            (fwd, "bilstm_train_fwd", "voice100_tpu/ops/lstm_pallas.py:232", "nn.LSTM forward"),
+    for total, name, source_line, what, key in (
+            (fwd, "bilstm_train_fwd", "voice100_tpu/ops/lstm_pallas.py:232", "nn.LSTM forward",
+             "fwd"),
             (bwd, "bilstm_train_bwd", "voice100_tpu/ops/lstm_pallas.py:267",
-             "nn.LSTM backward (dx and dW too)")):
+             "nn.LSTM backward (dx and dW too)", "bwd")):
         bound, bound_by = bound_ms(total["bytes"], total["ops"])
         entries.append({
             "name": name, "route": "cuda", "source": "voice100_tpu_torch/csrc/bilstm_train.cu",
@@ -652,7 +702,7 @@ def check_lstm_train(device):
             "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": bound,
             "bound_by": bound_by, "library_ms": total["library_ms"],
             "device_ms": total["device_ms"], "library_device_ms": total["library_device_ms"],
-            "shapes": shapes + f"; library: cuDNN {what}, packed",
+            "events_launches": counts[key], "shapes": shapes + f"; library: cuDNN {what}, packed",
         })
     entries[1]["device_ms_by_launch"] = {"gate_pass": bwd["gate_pass_device_ms"],
                                          "recurrence": bwd["recurrence_device_ms"]}
@@ -711,9 +761,141 @@ def ctc_targets(rng, seconds, vocab):
     return targets, target_lengths
 
 
-def check_ctc(device):
+def loss_seed(alpha, target_lengths):
+    """The seed the loss gives the adjoint, dLL/d alpha[T-1]: on the two end
+    states, zero on infeasible rows as zero_infinity makes it (there every
+    log-sum-exp weight is 1 and the adjoint would grow like 3^t). Returns
+    the seed and the rows that are feasible."""
+    from voice100_tpu_torch.ops.ctc import NEG_INF, ll_from_alpha
+
+    ll, a_last, a_prev = ll_from_alpha(alpha[-1], target_lengths)
+    feasible = ll > NEG_INF / 2
+    end = 2 * target_lengths
+    seed = torch.zeros(alpha.shape[1], alpha.shape[2], device=alpha.device)
+    seed.scatter_add_(1, end[:, None], torch.exp(a_last - ll)[:, None])
+    seed.scatter_add_(1, (end - 1).clamp(min=0)[:, None],
+                      torch.where(target_lengths > 0, torch.exp(a_prev - ll), 0.0)[:, None])
+    return seed * feasible[:, None], feasible
+
+
+def ctc_errors(log_probs, targets, input_lengths, target_lengths):
+    """Kernels 4 and 5 and the loss Function against their plain versions
+    on one batch: alpha and ll (error over max(1, |value|), finite
+    entries), the adjoint from the loss's seed (error over the max
+    magnitude), the loss gradient (max abs), and the infeasible rows'
+    gradient (max abs, exactly 0 when right). Fails where the reachable
+    states differ or a value is not finite."""
     from voice100_tpu_torch.ops.ctc import (NEG_INF, ctc_alpha, ctc_alpha_adjoint, ctc_loss,
                                             ctc_prep, ll_from_alpha)
+    from voice100_tpu_torch.ops.ctc_cuda import (ctc_alpha_adjoint_cuda, ctc_alpha_cuda,
+                                                 ctc_loss_cuda)
+
+    z, can_skip, valid = ctc_prep(targets, target_lengths)
+    alpha = ctc_alpha_cuda(log_probs, z, can_skip, valid, input_lengths)
+    alpha_ref = ctc_alpha(log_probs, z, can_skip, valid, input_lengths)
+    torch.cuda.synchronize()
+    finite = alpha_ref > NEG_INF / 2
+    if not torch.equal(alpha > NEG_INF / 2, finite) or not torch.isfinite(alpha).all():
+        fail("CTC alpha kernel: its reachable states differ from the plain version's")
+    err = {"alpha": ((alpha - alpha_ref).abs() / alpha_ref.abs().clamp(min=1.0))[finite].max().item()
+           if bool(finite.any()) else 0.0,
+           "alpha_abs": (alpha - alpha_ref).abs()[finite].max().item() if bool(finite.any())
+           else 0.0}
+    ll = ll_from_alpha(alpha[-1], target_lengths)[0]
+    seed, feasible = loss_seed(alpha_ref, target_lengths)
+    ll_ref = ll_from_alpha(alpha_ref[-1], target_lengths)[0]
+    err["ll"] = (((ll - ll_ref).abs() / ll_ref.abs().clamp(min=1.0))[feasible].max().item()
+                 if bool(feasible.any()) else 0.0)
+    if not bool((ll[~feasible] < NEG_INF / 2).all()):
+        fail("CTC: an infeasible row is feasible on the card")
+    adj = ctc_alpha_adjoint_cuda(alpha_ref, seed, can_skip, valid, input_lengths)
+    adj_ref = ctc_alpha_adjoint(alpha_ref, seed, can_skip, valid, input_lengths)
+    if not torch.isfinite(adj).all():
+        fail("CTC adjoint kernel: non-finite values")
+    err["adjoint"] = rel_err(adj, adj_ref) if bool(adj_ref.abs().max() > 0) else \
+        adj.abs().max().item()
+    err["adjoint_abs"] = (adj - adj_ref).abs().max().item()
+    grads = []
+    for fn in (ctc_loss_cuda, ctc_loss):
+        leaf = log_probs.clone().requires_grad_()
+        fn(leaf, targets, input_lengths, target_lengths).backward()
+        grads.append(leaf.grad)
+    err["grad"] = (grads[0] - grads[1]).abs().max().item()
+    err["infeasible_rows"] = [int(i) for i in torch.nonzero(~feasible).flatten()]
+    err["infeasible_grad"] = (grads[0][~feasible].abs().max().item()
+                              if err["infeasible_rows"] else 0.0)
+    return err, (z, can_skip, valid, alpha_ref, seed)
+
+
+def ctc_edge_batches(device):
+    """Batches at the edges of the kernels' loops and limits, seeded:
+    an input of one frame, no target, a row held for all but 5 of 501
+    steps, one label repeated, the longest target the train phase draws
+    (150 labels, S = 301), all in one batch; a batch with an empty label
+    axis (S = 1); and lattices of 2 and 4 states a thread (S = 1201 and
+    S = 4095, the largest below MAX_STATES = 4096)."""
+    rng = np.random.default_rng(SEED + 11)
+    vocab = ASR_EN_BASE["vocab_size"]
+
+    def batch(time_steps, input_lengths, target_lengths, repeat_row=None):
+        label_len = max(target_lengths) if max(target_lengths) else 0
+        targets = rng.integers(1, vocab, size=(len(target_lengths), label_len))
+        for i in range(1, label_len):             # no equal neighbours: every row can align
+            same = targets[:, i] == targets[:, i - 1]
+            targets[same, i] = targets[same, i] % (vocab - 1) + 1
+        if repeat_row is not None:
+            targets[repeat_row] = 7
+        tl = np.asarray(target_lengths)
+        targets[np.arange(label_len)[None, :] >= tl[:, None]] = 0
+        logits = torch.from_numpy(rng.standard_normal((len(tl), time_steps, vocab)) * 2.0)
+        return (torch.log_softmax(logits.float(), dim=-1).to(device),
+                torch.from_numpy(targets).to(device),
+                torch.tensor(input_lengths, device=device), torch.from_numpy(tl).to(device))
+
+    return {
+        "edges (il=1; tl=0; held 496 of 501; one repeated label; 150 labels)":
+            batch(501, [1, 400, 5, 501, 501, 480], [1, 0, 2, 100, 150, 60], repeat_row=3),
+        "empty label axis (S=1)": batch(64, [64, 1, 30], [0, 0, 0]),
+        "S=1201 (2 states a thread)": batch(700, [700, 650], [600, 300]),
+        "S=4095 (4 states a thread)": batch(2100, [2100, 2100], [2047, 1000]),
+    }
+
+
+def check_ctc_limits(device):
+    """The wrapper's limits (MAX_STATES and the shared-memory formulas)
+    equal the library's, and an S past them raises ValueError on the card,
+    launching nothing."""
+    from voice100_tpu_torch.ops import ctc_cuda
+
+    lib = ctc_cuda._lib()
+    if lib.ctc_max_states() != ctc_cuda.MAX_STATES or any(
+            lib.ctc_alpha_smem_bytes(s, v) != ctc_cuda.alpha_smem_bytes(s, v)
+            or lib.ctc_adjoint_smem_bytes(s) != ctc_cuda.adjoint_smem_bytes(s)
+            for s in (1, 281, 4095, 4096) for v in (1, 29, 200, 5000)):
+        fail("CTC: the wrapper's limits differ from ctc.cu's")
+    s_len = ctc_cuda.MAX_STATES + 2
+    z = torch.zeros(2, s_len, dtype=torch.int64, device=device)
+    before = (ctc_cuda.ctc_alpha_cuda.launches, ctc_cuda.ctc_alpha_adjoint_cuda.launches)
+    for call in (lambda: ctc_cuda.ctc_alpha_cuda(torch.zeros(2, 5, 7, device=device), z,
+                                                 z.bool(), z.bool(), torch.tensor([5, 4])),
+                 lambda: ctc_cuda.ctc_alpha_adjoint_cuda(
+                     torch.zeros(5, 2, s_len, device=device), torch.zeros(2, s_len, device=device),
+                     z.bool(), z.bool(), torch.tensor([5, 4]))):
+        try:
+            call()
+        except ValueError:
+            continue
+        fail(f"CTC: S={s_len} did not raise")
+    if (ctc_cuda.ctc_alpha_cuda.launches, ctc_cuda.ctc_alpha_adjoint_cuda.launches) != before:
+        fail(f"CTC: S={s_len} launched a kernel before raising")
+    print(f"CTC limits: S <= {ctc_cuda.MAX_STATES}, shared memory at that S "
+          f"{ctc_cuda.alpha_smem_bytes(ctc_cuda.MAX_STATES, ASR_EN_BASE['vocab_size'])} / "
+          f"{ctc_cuda.adjoint_smem_bytes(ctc_cuda.MAX_STATES)} bytes, equal to ctc.cu's; "
+          f"S={s_len} raised ValueError, launching nothing", flush=True)
+
+
+def check_ctc(device):
+    from voice100_tpu_torch.ops.ctc import ctc_alpha, ctc_alpha_adjoint
     from voice100_tpu_torch.ops.ctc_cuda import (ctc_alpha_adjoint_cuda, ctc_alpha_cuda,
                                                  ctc_loss_cuda)
 
@@ -734,46 +916,14 @@ def check_ctc(device):
         targets, input_lengths, target_lengths))
     batch = TRAIN_BATCH
 
-    z, can_skip, valid = ctc_prep(targets, target_lengths)
+    err, (z, can_skip, valid, alpha_ref, seed) = ctc_errors(log_probs, targets, input_lengths,
+                                                            target_lengths)
     s_len = z.shape[1]
-    alpha = ctc_alpha_cuda(log_probs, z, can_skip, valid, input_lengths)
-    alpha_ref = ctc_alpha(log_probs, z, can_skip, valid, input_lengths)
-    torch.cuda.synchronize()
-    finite = alpha_ref > NEG_INF / 2
-    if not torch.equal(alpha > NEG_INF / 2, finite) or not torch.isfinite(alpha).all():
-        fail("CTC alpha kernel: its reachable states differ from the plain version's")
-    alpha_err = ((alpha - alpha_ref).abs() / alpha_ref.abs().clamp(min=1.0))[finite].max().item()
-    alpha_abs = (alpha - alpha_ref).abs()[finite].max().item()
-    ll = ll_from_alpha(alpha[-1], target_lengths)[0]
-    ll_ref, a_last, a_prev = ll_from_alpha(alpha_ref[-1], target_lengths)
-    feasible = ll_ref > NEG_INF / 2
-    ll_err = ((ll - ll_ref).abs() / ll_ref.abs().clamp(min=1.0))[feasible].max().item()
-    if bool(feasible[3]) or not bool((ll[~feasible] < NEG_INF / 2).all()):
-        fail("CTC: the infeasible row is not infeasible on both sides")
-
-    # the seed the loss gives: dLL/d alpha[T-1] on the two end states,
-    # zero on the infeasible row as zero_infinity makes it (there every
-    # log-sum-exp weight is 1 and the adjoint would grow like 3^t)
-    end = 2 * target_lengths
-    seed = torch.zeros(batch, s_len, device=device)
-    seed.scatter_add_(1, end[:, None], torch.exp(a_last - ll_ref)[:, None])
-    seed.scatter_add_(1, (end - 1).clamp(min=0)[:, None],
-                      torch.where(target_lengths > 0, torch.exp(a_prev - ll_ref), 0.0)[:, None])
-    seed = seed * feasible[:, None]
-    adj = ctc_alpha_adjoint_cuda(alpha_ref, seed, can_skip, valid, input_lengths)
-    adj_ref = ctc_alpha_adjoint(alpha_ref, seed, can_skip, valid, input_lengths)
-    adj_err = rel_err(adj, adj_ref)
-    adj_abs = (adj - adj_ref).abs().max().item()
-
-    grads = []
-    for fn in (ctc_loss_cuda, ctc_loss):
-        leaf = log_probs.clone().requires_grad_()
-        fn(leaf, targets, input_lengths, target_lengths).backward()
-        grads.append(leaf.grad)
-    grad_err = (grads[0] - grads[1]).abs().max().item()
-    if grads[0][3].abs().max().item() != 0.0:
-        fail("CTC: the infeasible row's gradient is not exactly zero")
-    del grads
+    if err["infeasible_rows"] != [3] or err["infeasible_grad"] != 0.0:
+        fail(f"CTC: infeasible rows {err['infeasible_rows']} (row 3 only expected), their "
+             f"gradient {err['infeasible_grad']:.1e} (exactly 0 expected)")
+    edges = {name: ctc_errors(*case)[0] for name, case in ctc_edge_batches(device).items()}
+    check_ctc_limits(device)
 
     lp_leaf = log_probs.clone().requires_grad_()
     lp_tbv = lp_leaf.transpose(0, 1)
@@ -794,11 +944,21 @@ def check_ctc(device):
         "kernel": lambda: ctc_alpha_adjoint_cuda(alpha_ref, seed, can_skip, valid, input_lengths),
         "library": lambda: torch.autograd.grad(library_loss, lp_leaf, retain_graph=True)},
         iters=20)
+    # the vocabulary scatter of CTCLogLikelihood.backward on the adjoint's output
+    grad_e = ctc_alpha_adjoint_cuda(alpha_ref, seed, can_skip, valid, input_lengths)
+    index = z[:, None, :].expand(batch, time_steps, s_len)
+
+    def scatter():
+        grad_lp = torch.zeros(batch, time_steps, vocab, device=device)
+        return grad_lp.scatter_add_(2, index, grad_e.permute(1, 0, 2))
+
     timings = {
         "alpha_plain_ms": time_ms(lambda: ctc_alpha(log_probs, z, can_skip, valid,
                                                     input_lengths), iters=3, warmup=1),
         "adjoint_plain_ms": time_ms(lambda: ctc_alpha_adjoint(alpha_ref, seed, can_skip, valid,
                                                               input_lengths), iters=3, warmup=1),
+        "vocab_scatter_ms": time_ms(scatter, iters=20),
+        "vocab_scatter_device_ms": device_profile(scatter)[0],
     }
     for key, turns in (("alpha", alpha_turns), ("adjoint", adjoint_turns)):
         timings.update({f"{key}_ms": turns["kernel"]["ms"],
@@ -806,16 +966,25 @@ def check_ctc(device):
                         f"{key}_library_ms": turns["library"]["ms"],
                         f"{key}_library_device_ms": turns["library"]["device_ms"]})
     print(f"CTC lattice (B={batch}, T={time_steps}, V={vocab}, S={s_len}): alpha rel err "
-          f"{alpha_err:.3e}, ll rel err {ll_err:.3e} (tol {CTC_REL_TOL:.0e}), adjoint rel err "
-          f"{adj_err:.3e} (tol {CTC_REL_TOL:.0e}), loss gradient max_abs_err {grad_err:.3e} "
-          f"(tol {CTC_GRAD_TOL:.0e}); |F.ctc_loss - kernel loss| {library_diff:.3e}; kernel and "
-          f"F.ctc_loss in turns: " + ", ".join(f"{k} {fmt_ms(v)}" for k, v in timings.items()),
+          f"{err['alpha']:.3e}, ll rel err {err['ll']:.3e} (tol {CTC_REL_TOL:.0e}), adjoint rel "
+          f"err {err['adjoint']:.3e} (tol {CTC_REL_TOL:.0e}), loss gradient max_abs_err "
+          f"{err['grad']:.3e} (tol {CTC_GRAD_TOL:.0e}), infeasible row's gradient "
+          f"{err['infeasible_grad']:.1e}; |F.ctc_loss - kernel loss| {library_diff:.3e}; kernel "
+          f"and F.ctc_loss in turns: " + ", ".join(f"{k} {fmt_ms(v)}" for k, v in timings.items()),
           flush=True)
-    if not max(alpha_err, ll_err, adj_err) <= CTC_REL_TOL:
-        fail(f"CTC kernels disagree with the plain versions: alpha {alpha_err:.3e}, "
-             f"ll {ll_err:.3e}, adjoint {adj_err:.3e} > {CTC_REL_TOL:.0e}")
-    if not grad_err <= CTC_GRAD_TOL:
-        fail(f"CTC loss gradient disagrees with the plain version: {grad_err:.3e}")
+    for name, e in edges.items():
+        print(f"CTC edge batch {name}: alpha {e['alpha']:.3e}, ll {e['ll']:.3e}, adjoint "
+              f"{e['adjoint']:.3e} (tol {CTC_REL_TOL:.0e}), loss gradient {e['grad']:.3e} "
+              f"(tol {CTC_GRAD_TOL:.0e}), infeasible rows' gradient {e['infeasible_grad']:.1e}",
+              flush=True)
+    for name, e in {"train batch": err, **edges}.items():
+        if not max(e["alpha"], e["ll"], e["adjoint"]) <= CTC_REL_TOL:
+            fail(f"CTC kernels disagree with the plain versions on the {name}: alpha "
+                 f"{e['alpha']:.3e}, ll {e['ll']:.3e}, adjoint {e['adjoint']:.3e} > "
+                 f"{CTC_REL_TOL:.0e}")
+        if not e["grad"] <= CTC_GRAD_TOL or e["infeasible_grad"] != 0.0:
+            fail(f"CTC loss gradient disagrees with the plain version on the {name}: "
+                 f"{e['grad']:.3e}, infeasible rows {e['infeasible_grad']:.1e}")
 
     # least work, bytes-bound both: the forward reads log_probs and the
     # lattice constants and writes alpha; the adjoint reads alpha, the
@@ -827,22 +996,27 @@ def check_ctc(device):
     shapes = (f"one train batch: B={batch}, T={time_steps}, V={vocab}, S={s_len}, "
               f"{active_states} active lattice states; library: F.ctc_loss")
     entries = []
-    for name, source_line, key, n_bytes, err in (
+    for name, source_line, key, n_bytes, abs_err in (
             ("ctc_alpha", "voice100_tpu/ops/ctc_pallas.py:64", "alpha",
-             log_probs.numel() * 4 + const_bytes + lattice_bytes, alpha_abs),
+             log_probs.numel() * 4 + const_bytes + lattice_bytes, err["alpha_abs"]),
             ("ctc_adjoint", "voice100_tpu/ops/ctc_pallas.py:88", "adjoint",
-             2 * lattice_bytes + const_bytes + batch * s_len * 4, adj_abs)):
+             2 * lattice_bytes + const_bytes + batch * s_len * 4, err["adjoint_abs"])):
         bound, bound_by = bound_ms(n_bytes, 10 * active_states)
+        turns = alpha_turns if key == "alpha" else adjoint_turns
         entries.append({
             "name": name, "route": "cuda", "source": "voice100_tpu_torch/csrc/ctc.cu",
-            "replaces": source_line, "launches": None, "max_abs_err": err,
+            "replaces": source_line, "launches": None, "max_abs_err": abs_err,
             "ms": timings[f"{key}_ms"], "plain_ms": timings[f"{key}_plain_ms"],
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": timings[f"{key}_library_ms"],
             "device_ms": timings[f"{key}_device_ms"],
             "library_device_ms": timings[f"{key}_library_device_ms"],
+            "events_launches": turns["kernel"]["events_launches"],
+            "edge_rel_err": {n: e[key] for n, e in edges.items()},
             "shapes": shapes + (" forward" if key == "alpha" else " backward"),
         })
+    entries[1]["vocab_scatter"] = {"ms": timings["vocab_scatter_ms"],
+                                   "device_ms": timings["vocab_scatter_device_ms"]}
     return entries
 
 
@@ -904,9 +1078,10 @@ def check_viterbi(device):
         "backtrace_plain_ms": time_ms(lambda: viterbi_backtrace(moves, final_pos, input_lengths,
                                                                 z), iters=3, warmup=1),
     }
+    counts = {}
     for key, fn in kernels.items():
         timings[f"{key}_ms"] = time_ms(fn, iters=20)
-        timings[f"{key}_device_ms"] = device_profile(fn)[0]
+        timings[f"{key}_device_ms"], _, counts[key] = device_profile(fn)
     print(f"CTC Viterbi (B={batch}, T={time_steps}, V={vocab}, S={s_len}): equal to the plain "
           f"twins {equal}; last-row max_abs_err {err:.3e}; infeasible row score {infeasible:.3e}; "
           + ", ".join(f"{k} {fmt_ms(v)}" for k, v in timings.items()), flush=True)
@@ -940,6 +1115,7 @@ def check_viterbi(device):
             "ms": timings[f"{key}_ms"], "plain_ms": timings[f"{key}_plain_ms"],
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
             "device_ms": timings[f"{key}_device_ms"], "library_device_ms": None, "shapes": shapes,
+            "events_launches": counts[key],
         })
     return entries
 
@@ -1134,9 +1310,11 @@ def train(device, card):
         if count == 0:
             fail(f"the training path never launched the {name} kernel")
     # kernel 2: one persistent launch a layer a step; kernel 3: a gate pass
-    # and one cooperative recurrence a layer a step
-    for name, per_layer in (("bilstm_train_fwd", 1), ("bilstm_train_bwd", 2)):
-        want = per_layer * ASR_EN_BASE["decoder_num_layers"] * TIMED_STEPS
+    # and one cooperative recurrence a layer a step; kernels 4 and 5 once a step
+    layers = ASR_EN_BASE["decoder_num_layers"]
+    for name, per_step in (("bilstm_train_fwd", layers), ("bilstm_train_bwd", 2 * layers),
+                           ("ctc_alpha", 1), ("ctc_adjoint", 1)):
+        want = per_step * TIMED_STEPS
         if launches[name] != want:
             fail(f"train: {name} launched {launches[name]} times in {TIMED_STEPS} steps, "
                  f"not {want}")
@@ -1515,6 +1693,15 @@ def main() -> None:
                                 "max_abs_err": b128["max_abs_err"]["bilstm_train_fwd"]}
     serving[0]["single_clip_max_abs_err"] = check_melspec_clips(device)
     aligning = check_viterbi(device)
+    # each CTC and Viterbi kernel's step split by cause, and its chain floor
+    from voice100_tpu_torch.tools.probe_ctc import probe
+
+    steps = probe()
+    print("probe_ctc " + json.dumps(steps), flush=True)
+    for entry, key in zip(training[2:] + aligning, ("alpha", "adjoint", "viterbi_forward",
+                                                     "viterbi_backtrace")):
+        entry["step_us_by_variant"] = steps["us_per_step"][key]
+        entry["chain_floor_ms"] = steps["chain_floor_ms"][key]
     by_path = {"serve": serve(device, card), "train": train(device, card)}
     train_parity(device)
     with tempfile.TemporaryDirectory() as workdir:

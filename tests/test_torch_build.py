@@ -10,6 +10,7 @@ anchors in the committed kernels.
 
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -88,3 +89,17 @@ def test_probe_anchors_are_found_in_the_committed_kernels(kind, source):
     variants = getattr(probe_bilstm, f"{kind}_variants")((build.CSRC / source).read_text())
     assert "full" in variants and len(variants) >= 6
     assert all(text != variants["full"] for name, text in variants.items() if name != "full")
+
+
+@pytest.mark.parametrize("kind,source", [("ctc", "ctc.cu"), ("viterbi", "viterbi.cu")])
+def test_ctc_probe_anchors_are_found_in_the_committed_kernels(kind, source):
+    """The CTC step probe cuts parts of kernels 4-7 by text anchors: each
+    anchor must occur once, every variant must differ from the kernel, and
+    a cut may not leave a loop whose body is the barrier after it."""
+    from voice100_tpu_torch.tools import probe_ctc
+
+    variants = getattr(probe_ctc, f"{kind}_variants")((build.CSRC / source).read_text())
+    assert "full" in variants and len(variants) >= 3
+    assert all(text != variants["full"] for name, text in variants.items() if name != "full")
+    for name, text in variants.items():
+        assert not re.search(r"\)\s*\n\s*__syncthreads\(\);", text), name

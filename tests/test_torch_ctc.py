@@ -45,8 +45,41 @@ def _repeats_case():
     return lp, tgt, np.asarray([24, 10, 24, 12, 20], np.int32), np.asarray([9, 9, 9, 9, 0], np.int32)
 
 
+def _edges_case():
+    """Rows at the edges of the kernels' time loops: an input of one frame
+    (row 0), no target (row 1), a row held for all but 3 of its 40 frames
+    (row 2), one label repeated (row 3), and a full-length row (row 4)."""
+    rng = np.random.RandomState(7)
+    lp = np.asarray(jax.nn.log_softmax(jnp.asarray(rng.randn(5, 40, 9).astype(np.float32))))
+    tgt = rng.randint(1, 9, size=(5, 6)).astype(np.int32)
+    tgt[3] = 4
+    il = np.asarray([1, 17, 3, 40, 40], np.int32)
+    tl = np.asarray([1, 0, 1, 6, 6], np.int32)
+    tgt[np.arange(6)[None, :] >= tl[:, None]] = 0
+    return lp, tgt, il, tl
+
+
+def _empty_labels_case():
+    """A batch whose label axis is empty: S = 1, the blank alone."""
+    rng = np.random.RandomState(8)
+    lp = np.asarray(jax.nn.log_softmax(jnp.asarray(rng.randn(3, 12, 5).astype(np.float32))))
+    return lp, np.zeros((3, 0), np.int32), np.asarray([12, 1, 7], np.int32), np.zeros(3, np.int32)
+
+
+def _long_case():
+    """The longest target the train phase of chip_smoke.py draws (150
+    labels, S = 301) in 320 frames, beside a short row."""
+    rng = np.random.RandomState(9)
+    lp = np.asarray(jax.nn.log_softmax(jnp.asarray(rng.randn(2, 320, 29).astype(np.float32))))
+    tgt = rng.randint(1, 29, size=(2, 150)).astype(np.int32)
+    tl = np.asarray([150, 40], np.int32)
+    tgt[1, 40:] = 0
+    return lp, tgt, np.asarray([320, 200], np.int32), tl
+
+
 CASES = {"random0": lambda: _random_case(0), "random1": lambda: _random_case(1),
-         "repeats": _repeats_case}
+         "repeats": _repeats_case, "edges": _edges_case, "empty_labels": _empty_labels_case,
+         "long": _long_case}
 
 
 def _t(*arrays):
@@ -76,8 +109,9 @@ def test_plain_alpha_matches_pallas_interpret(case):
     np.testing.assert_allclose(got.numpy(), np.asarray(alpha)[..., :s_len], rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_plain_adjoint_matches_pallas_interpret(case):
+def _adjoints(case):
+    """The plain adjoint and the Pallas one (interpret mode) on the unpadded
+    states, both seeded with uniform(0.1, 1) on every state."""
     from voice100_tpu.ops.ctc_pallas import _ctc_bwd_call
 
     lp, tgt, il, tl = CASES[case]()
@@ -91,7 +125,26 @@ def test_plain_adjoint_matches_pallas_interpret(case):
     _, can_skip, valid = tctc.ctc_prep(torch.from_numpy(tgt), tlt)
     got = tctc.ctc_alpha_adjoint(torch.from_numpy(np.array(alpha)[..., :s_len]),
                                  torch.from_numpy(seed[:, :s_len]), can_skip, valid, ilt)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want)[..., :s_len], rtol=1e-5, atol=1e-6)
+    return got.numpy(), np.asarray(want)[..., :s_len]
+
+
+@pytest.mark.parametrize("case", sorted(set(CASES) - {"long"}))
+def test_plain_adjoint_matches_pallas_interpret(case):
+    got, want = _adjoints(case)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_plain_adjoint_matches_pallas_interpret_on_the_long_lattice():
+    """S = 301 over 320 steps. A seed on every state (not the loss's two end
+    states) makes the adjoint grow to ~1e2, and 320 steps of sums of
+    positive terms, each through another exp/log implementation, drift by
+    a few float32 ulps a step: entrywise up to 6e-5 relative on small
+    entries. So the lattice is held as chip_smoke.py holds kernel 5: max
+    abs error over the max magnitude within 1e-5 (measured 2e-6); an
+    indexing or gate fault moves whole entries."""
+    got, want = _adjoints("long")
+    assert np.isfinite(got).all() and np.abs(want).max() > 1.0
+    assert np.abs(got - want).max() / np.abs(want).max() <= 1e-5
 
 
 def _port_loss(lp, tgt, il, tl):
@@ -182,3 +235,21 @@ def test_wrappers_reject_other_devices_and_blank():
     with pytest.raises(ValueError):
         ctc_cuda.ctc_loss_cuda(torch.zeros(1, 3, 4), torch.ones(1, 1, dtype=torch.int32),
                                torch.tensor([3]), torch.tensor([1]), blank=1)
+
+
+def test_wrappers_reject_lattices_past_the_kernels_limit_launching_nothing():
+    """An ``S`` past ``MAX_STATES`` (or the shared memory it would need)
+    raises before any library is loaded or kernel launched: no GPU needed."""
+    s_len = ctc_cuda.MAX_STATES + 2
+    assert ctc_cuda.adjoint_smem_bytes(ctc_cuda.MAX_STATES) <= ctc_cuda._SMEM_LIMIT
+    assert ctc_cuda.alpha_smem_bytes(ctc_cuda.MAX_STATES, 29) <= ctc_cuda._SMEM_LIMIT
+    z = torch.zeros(2, s_len, dtype=torch.int64, device="meta")
+    before = (ctc_cuda.ctc_alpha_cuda.launches, ctc_cuda.ctc_alpha_adjoint_cuda.launches)
+    with pytest.raises(ValueError, match="lattice states"):
+        ctc_cuda.ctc_alpha_cuda(torch.empty(2, 5, 7, device="meta"), z, z.bool(), z.bool(),
+                                torch.tensor([5, 4]))
+    with pytest.raises(ValueError, match="lattice states"):
+        ctc_cuda.ctc_alpha_adjoint_cuda(torch.empty(5, 2, s_len, device="meta"),
+                                        torch.empty(2, s_len, device="meta"), z.bool(), z.bool(),
+                                        torch.tensor([5, 4]))
+    assert (ctc_cuda.ctc_alpha_cuda.launches, ctc_cuda.ctc_alpha_adjoint_cuda.launches) == before

@@ -203,3 +203,68 @@ def test_clip_by_global_norm_follows_optax(scale):
     np.testing.assert_allclose(norm.item(), np.sqrt(sum((g ** 2).sum() for g in grads)), rtol=1e-6)
     for p, w in zip(params, want):
         np.testing.assert_allclose(p.grad.numpy(), np.asarray(w), rtol=1e-6, atol=1e-7)
+
+
+def _loader_items(n, seed):
+    """In-memory ``(features, tokens)`` items of ragged lengths, as the
+    feature cache gives them: float16 log-mels and int32 ids (one item
+    with an empty target)."""
+    rng = np.random.default_rng(seed)
+    items = []
+    for i in range(n):
+        frames = int(rng.integers(12, FRAMES + 1))
+        tokens = rng.integers(1, VOCAB, size=0 if i == 3 else int(rng.integers(1, 4)))
+        items.append((rng.normal(-4.0, 2.0, (frames, MELS)).astype(np.float16),
+                      tokens.astype(np.int32)))
+    return items
+
+
+def _loader(items, **kwargs):
+    from voice100_tpu_torch.data.collate import collate_audio_text
+    from voice100_tpu_torch.data.loader import DataLoader
+
+    return DataLoader(items, batch_size=BATCH, collate_fn=collate_audio_text, prefetch=0,
+                      **kwargs)
+
+
+def test_evaluate_weights_real_rows_only_under_pad_to_full(jax_model):
+    """11 items in batches of 4: the last batch holds 3 real rows and, with
+    ``pad_to_full``, one repeat, which must neither reach the loss nor
+    carry weight (``voice100_tpu/training/trainer.py:807-849``)."""
+    items = _loader_items(11, seed=6)
+    model = _port_model(jax_model[1])
+    task = make_task(model)
+    state = TrainState(model, task.make_optimizer())
+    trainer = Trainer(TrainerConfig())
+    padded, unpadded = (trainer.evaluate(task, state, _loader(items, pad_to_full=pad))
+                        for pad in (True, False))
+    assert [n for _, n in _loader(items).iter_with_counts()] == [4, 4, 3]
+    np.testing.assert_allclose(padded["loss"], unpadded["loss"], rtol=1e-6, atol=1e-6)
+    # the same as weighting each item's batch loss by hand over the unpadded batches
+    batches = list(_loader(items, pad_to_full=False))
+    want = sum(task.loss(b, train=False)[0].item() * len(b[0][1]) for b in batches) / 11
+    np.testing.assert_allclose(unpadded["loss"], want, rtol=1e-6)
+
+
+def test_fit_sets_the_loaders_epoch_before_each_epoch(jax_model):
+    """``fit`` over a shuffled loader visits each epoch's batches in the
+    order the loader gives after ``set_epoch(epoch)``
+    (``voice100_tpu/training/trainer.py:614``), not epoch 0's again."""
+    items = _loader_items(10, seed=7)
+    loader = _loader(items, shuffle=True, seed=11)
+    trainer = Trainer(TrainerConfig(max_epochs=2, log_every_n_steps=100))
+    seen, train_step = [], trainer.train_step
+
+    def recording_step(task, state, batch, *args, **kwargs):
+        seen.append(np.asarray(batch[0][0]).tobytes())
+        return train_step(task, state, batch, *args, **kwargs)
+
+    trainer.train_step = recording_step
+    state = trainer.fit(_port_model(jax_model[1]), loader)
+    assert (state.step, state.epoch) == (6, 2)
+    want = []
+    for epoch in (0, 1):
+        loader.set_epoch(epoch)
+        want.append([np.asarray(b[0][0]).tobytes() for b in loader])
+    assert want[0] != want[1]
+    assert seen == want[0] + want[1]

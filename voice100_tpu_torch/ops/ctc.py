@@ -65,8 +65,8 @@ def _shift(a: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _left(a: torch.Tensor, k: int, fill: float) -> torch.Tensor:
-    """``a[:, s + k]``, ``fill`` for ``s + k >= S``."""
-    return torch.cat([a[:, k:], a.new_full((a.shape[0], k), fill)], dim=1)
+    """``a[:, s + k]``, ``fill`` for ``s + k >= S`` (any ``S``, 1 included)."""
+    return torch.cat([a[:, k:], a.new_full((a.shape[0], k), fill)], dim=1)[:, :a.shape[1]]
 
 
 def ctc_alpha(log_probs: torch.Tensor, z: torch.Tensor, can_skip: torch.Tensor,

@@ -17,6 +17,15 @@ emissions ``log_probs[b, t, z_s]`` itself; the adjoint's output
 versions of :mod:`voice100_tpu_torch.ops.ctc`; for CUDA tensors they
 launch the kernels or raise, and never fall back. Each wrapper counts
 its kernel launches in its ``launches`` attribute.
+
+Limits: a block walks one sample, the forward with up to four lattice
+states a thread of 1024, the adjoint with up to eight a thread of each of
+its two groups of 512, so ``S = 2L + 1 <= MAX_STATES`` (4096, labels up
+to 2047); and each launch's shared memory (:func:`alpha_smem_bytes`: the
+lattice row and two chunks of ``log_probs`` rows; :func:`adjoint_smem_bytes`:
+a ring of eight alpha rows and the ``ge`` and ``pre`` rows) must fit the
+card's opt-in 227 KB a block. Both are checked before anything is loaded
+or launched, and raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -28,11 +37,34 @@ import torch
 from ..kernels.build import check, load
 from .ctc import ctc_alpha, ctc_alpha_adjoint, ctc_prep, ll_from_alpha, reduce_loss
 
-__all__ = ["ctc_alpha_cuda", "ctc_alpha_adjoint_cuda", "CTCLogLikelihood", "ctc_ll",
-           "ctc_loss_cuda"]
+__all__ = ["MAX_STATES", "alpha_smem_bytes", "adjoint_smem_bytes", "ctc_alpha_cuda",
+           "ctc_alpha_adjoint_cuda", "CTCLogLikelihood", "ctc_ll", "ctc_loss_cuda"]
 
-_SMEM_LIMIT = 48 * 1024
+# csrc/ctc.cu's MAX_STATES, ALPHA_RING and PAD (its ctc_max_states and
+# *_smem_bytes exports give the same numbers; chip_smoke.py holds them)
+MAX_STATES = 4096
+_RING, _PAD = 8, 2
+# the opt-in dynamic shared memory of one block on sm_90
+_SMEM_LIMIT = 232448
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def alpha_chunk(vocab: int) -> int:
+    """Steps of ``log_probs`` rows a forward chunk holds: up to 4096
+    floats, at most 32 steps."""
+    return min(max(4096 // max(vocab, 1), 1), 32)
+
+
+def alpha_smem_bytes(s_len: int, vocab: int) -> int:
+    """Shared memory of a forward launch: the double-buffered row and two
+    chunks of ``log_probs`` rows."""
+    return (2 * (_PAD + s_len) + 2 * alpha_chunk(vocab) * vocab) * 4
+
+
+def adjoint_smem_bytes(s_len: int) -> int:
+    """Shared memory of an adjoint launch: the ring of alpha rows and the
+    double-buffered ``ge`` and ``pre`` rows."""
+    return (_RING * (_PAD + s_len) + 4 * s_len) * 4
 
 
 def _lib():
@@ -42,9 +74,12 @@ def _lib():
         lib.ctc_alpha_f32.restype = _I
         lib.ctc_adjoint_f32.argtypes = [_P] * 6 + [_I] * 3 + [_P]
         lib.ctc_adjoint_f32.restype = _I
-        for name in ("ctc_alpha_smem_bytes", "ctc_adjoint_smem_bytes"):
-            getattr(lib, name).argtypes = [_I]
-            getattr(lib, name).restype = _I
+        lib.ctc_alpha_smem_bytes.argtypes = [_I, _I]
+        lib.ctc_alpha_smem_bytes.restype = _I
+        lib.ctc_adjoint_smem_bytes.argtypes = [_I]
+        lib.ctc_adjoint_smem_bytes.restype = _I
+        lib.ctc_max_states.argtypes = []
+        lib.ctc_max_states.restype = _I
     return lib
 
 
@@ -52,9 +87,14 @@ def _int32(t: torch.Tensor, device) -> torch.Tensor:
     return t.to(device=device, dtype=torch.int32).contiguous()
 
 
-def _check(name: str, tensors, shapes, smem_fn: str, s_len: int):
-    """Validate the float tensors, then load the library and check that
-    ``s_len`` states fit the launch's shared memory; returns the library."""
+def _check(name: str, tensors, shapes, s_len: int, smem_bytes: int):
+    """Check that ``s_len`` states fit the kernel (``MAX_STATES``) and the
+    launch's ``smem_bytes`` the card, validate the float tensors, then
+    load the library and return it."""
+    if not 1 <= s_len <= MAX_STATES or smem_bytes > _SMEM_LIMIT:
+        raise ValueError(f"{name}: {s_len} lattice states do not fit the kernel (at most "
+                         f"{MAX_STATES}, and {smem_bytes} bytes of shared memory of "
+                         f"{_SMEM_LIMIT} with these classes)")
     device = tensors[0].device
     if device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {device}")
@@ -63,10 +103,7 @@ def _check(name: str, tensors, shapes, smem_fn: str, s_len: int):
             raise ValueError(f"{name}: float tensors must be contiguous float32 on {device}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    lib = _lib()
-    if getattr(lib, smem_fn)(s_len) > _SMEM_LIMIT:
-        raise ValueError(f"{name}: {s_len} lattice states do not fit the kernel's shared memory")
-    return lib
+    return _lib()
 
 
 def ctc_alpha_cuda(log_probs: torch.Tensor, z: torch.Tensor, can_skip: torch.Tensor,
@@ -80,7 +117,7 @@ def ctc_alpha_cuda(log_probs: torch.Tensor, z: torch.Tensor, can_skip: torch.Ten
     batch, time, vocab = log_probs.shape
     s_len = z.shape[1]
     lib = _check("ctc_alpha_cuda", (log_probs,), ((batch, time, vocab),),
-                 "ctc_alpha_smem_bytes", s_len)
+                 s_len, alpha_smem_bytes(s_len, vocab))
     device = log_probs.device
     z32, skip32, valid32 = (_int32(t, device) for t in (z, can_skip, valid))
     lens = _int32(input_lengths, device)
@@ -107,7 +144,7 @@ def ctc_alpha_adjoint_cuda(alpha: torch.Tensor, g_seed: torch.Tensor, can_skip: 
         return ctc_alpha_adjoint(alpha, g_seed, can_skip, valid, input_lengths)
     time, batch, s_len = alpha.shape
     lib = _check("ctc_alpha_adjoint_cuda", (alpha, g_seed), ((time, batch, s_len), (batch, s_len)),
-                 "ctc_adjoint_smem_bytes", s_len)
+                 s_len, adjoint_smem_bytes(s_len))
     device = alpha.device
     skip32, valid32 = _int32(can_skip, device), _int32(valid, device)
     lens = _int32(input_lengths, device)

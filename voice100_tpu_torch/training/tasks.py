@@ -35,10 +35,11 @@ class Task:
         """``(loss, {"loss": loss})`` of one batch. ``train`` turns on the
         model's training mode (dropout) and augmentation, both drawing
         from ``generator``; with ``train=False`` neither runs. Tensors of
-        the batch move to the model's device."""
+        the batch, or the numpy arrays of the port's collates, move to the
+        model's device."""
         device = next(self.model.parameters()).device
         (audio, audio_len), (text, text_len) = batch
-        args = [_upcast(t.to(device, non_blocking=True))
+        args = [_upcast(torch.as_tensor(t).to(device, non_blocking=True))
                 for t in (audio, audio_len, text, text_len)]
         self.model.train(train)
         loss = self.model.compute_loss(*args, deterministic=not train, generator=generator)

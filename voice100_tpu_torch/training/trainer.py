@@ -14,9 +14,11 @@ and scales whenever ``norm > max``).
 
 Not ported yet: meshes and data parallelism, the device feature cache
 and multi-step dispatch, profiling, bf16 uploads and the ``bf16``
-precision path, the validation CER/WER, signal handling, and the data
-shell (datamodule, loader, prefetcher): :meth:`Trainer.fit` takes
-iterables of collated batches.
+precision path, the validation CER/WER, signal handling, and the
+``fit`` CLI. :meth:`Trainer.fit` takes iterables of collated batches,
+the port's ``DataLoader`` among them: it sets the loader's epoch before
+each epoch (``set_epoch``), and :meth:`Trainer.evaluate` cuts the rows
+that ``pad_to_full`` repeats (``iter_with_counts``).
 """
 
 from __future__ import annotations
@@ -63,6 +65,16 @@ def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
     return norm
 
 
+def _iter_counted(batches):
+    """``(batch, n_real)`` pairs: the loader's own counts where it has
+    them, else every row of each batch."""
+    if hasattr(batches, "iter_with_counts"):
+        yield from batches.iter_with_counts()
+    else:
+        for batch in batches:
+            yield batch, int(batch[0][0].shape[0])
+
+
 class Trainer:
     def __init__(self, config: TrainerConfig) -> None:
         if str(config.precision) != "32":
@@ -103,15 +115,21 @@ class Trainer:
 
     @torch.no_grad()
     def evaluate(self, task: Task, state: TrainState, batches: Iterable) -> Dict[str, float]:
-        """Metrics over ``batches``, each batch weighted by its rows."""
+        """Metrics over ``batches``, each batch weighted by its real rows,
+        so the result does not depend on ``pad_to_full``: a loader with
+        ``iter_with_counts`` says how many leading rows of each batch are
+        real, and the repeated rows after them are cut before the loss
+        (``voice100_tpu/training/trainer.py:807-849`` on one process).
+        Other iterables count every row."""
         totals: Dict[str, float] = {}
         count = 0
-        for batch in batches:
+        for batch, n_real in _iter_counted(batches):
+            if n_real < int(batch[0][0].shape[0]):
+                batch = tuple(tuple(t[:n_real] for t in pair) for pair in batch)
             _, metrics = task.loss(batch, train=False)
-            rows = int(batch[0][0].shape[0])
             for k, v in metrics.items():
-                totals[k] = totals.get(k, 0.0) + float(v) * rows
-            count += rows
+                totals[k] = totals.get(k, 0.0) + float(v) * n_real
+            count += n_real
         return {k: v / max(count, 1) for k, v in totals.items()}
 
     def fit(self, model, train_batches: Iterable, val_batches: Optional[Iterable] = None,
@@ -119,7 +137,9 @@ class Trainer:
         """Train ``model`` for ``max_epochs`` over ``train_batches``, an
         iterable of collated ``((audio, audio_len), (text, text_len))``
         batches that can be iterated once per epoch (a list, or a
-        re-iterable loader); ``restore_from`` resumes from a checkpoint."""
+        re-iterable loader, whose ``set_epoch(epoch)`` is called before
+        each epoch, as ``voice100_tpu/training/trainer.py:614`` does);
+        ``restore_from`` resumes from a checkpoint."""
         cfg = self.config
         task = make_task(model)
         state = TrainState(model, task.make_optimizer())
@@ -128,6 +148,8 @@ class Trainer:
         device = next(model.parameters()).device
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
         for epoch in range(state.epoch, cfg.max_epochs):
+            if hasattr(train_batches, "set_epoch"):
+                train_batches.set_epoch(epoch)
             start = time.time()
             running = None
             for batch in train_batches:
