@@ -35,16 +35,23 @@ toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
    nothing; times each kernel in turns with F.ctc_loss's forward or
    backward (event and device time), the plain versions and the loss
    backward's vocabulary scatter; then tools/probe_ctc.py splits the steps
-   of kernels 4-7 by cause and gives each one's chain floor;
+   of kernels 4 and 5 and of the Viterbi launch (kernels 6 and 7) by cause
+   and gives each one's chain floor;
 7. holds the align path's shapes: the biLSTM inference kernel at B=64,
    T=512, kernels 1 and 2 at B=128, T=501, H=256 (asr_en_small's batch
    and width; two 64-row passes, a 64-block grid, a zero-length row), the
    log-mel kernel on single clips of 1.0, 3.7 and 9.3 s padded to a
-   multiple of 4096 samples, and the CTC Viterbi kernels (forward,
-   backtrace) against their plain twins at B=64, T=512, V=29, S=321 with
-   a repeated-label row, an empty target, a row that cannot align and
-   ragged lengths: moves, score, path and labels must be equal; times
-   kernels (event and device time) and twins;
+   multiple of 4096 samples, and the CTC Viterbi launch (kernels 6 and 7
+   and the final state in one launch) against the plain versions at B=64,
+   T=512, V=29, S=321 with a repeated-label row, an empty target, a row
+   that cannot align, inputs of one frame and of none and ragged lengths,
+   on a batch with an empty label axis (S=1), at the 40 s bucket's shape
+   (B=8, T=2001, S=1121, four warps a sample, 9 states a lane), at S=3071
+   and with a vocabulary of 1000 classes (S=2001, rows not staged in shared
+   memory): unpacked moves, last row, score, path and labels must be
+   equal; checks that S
+   past the limit raises, launching nothing; times the launch (event and
+   device time; each phase alone from the probe) and the plain versions;
 8. serves asr_en_base end to end through ASRPipeline on the card (16
    int16 clips of 2-10 s, batch 8, seeded random weights), with the
    kernels' launch counts set to 0 just before and read just after (the
@@ -65,12 +72,12 @@ toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
     texts of about 14 characters a second) with asr_en_base (seeded random
     weights saved as a port checkpoint, batch 64) through
     tools/align_text.cli_main on the card, twice: a cold feature cache,
-    then a warm one; the launch counts of kernels 1, 6, 7 and 8 set to 0
-    just before each run and read just after (1 once a layer a batch, 6
-    and 7 once a batch, 8 once a clip cold and never warm); checks the
-    lines, and every batch's labels against the plain Viterbi on the
-    card's own log-probs; prints the throughput of both runs and the card
-    time by layer of one batch;
+    then a warm one; the launch counts of kernels 1, 8 and the Viterbi
+    launch set to 0 just before each run and read just after (1 once a
+    layer a batch, the Viterbi once a batch, 8 once a clip cold and never
+    warm); checks the lines, and every batch's labels against the plain
+    Viterbi on the card's own log-probs; prints the throughput of both
+    runs and the card time by layer of one batch;
 12. aligns the first 8 clips from the same warm cache on the card and on
     the CPU's plain path and holds log-probs, Viterbi scores and paths
     together;
@@ -83,7 +90,7 @@ non-zero at once. Times are CUDA-event times with the L2 cache warm
 (``ms``: per call, of back-to-back calls) and, where a kernel is held
 against a library call, the card's own time per call from torch.profiler
 (``device_ms``: the summed durations of the kernels, copies and memsets
-it ran; also for kernels 6 and 7, which have none), which leaves out the
+it ran; also for the Viterbi launch, which has none), which leaves out the
 host's enqueue; ``device_ms`` is "not measured" (null) where the profiler
 recorded another number of events of one of the port's kernels than its
 wrappers counted launches (``events_launches``). The bounds use the H100
@@ -153,7 +160,7 @@ CTC_GRAD_TOL = 1e-4
 PARITY_GRAD_TOL = 1e-3
 PARITY_LOSS_TOL = 1e-3
 # Align slice: the config's batch (config/asr_en_base.yaml:41), the
-# Viterbi kernels' check shapes (S = 2 * 160 + 1 = 321), single clips of
+# Viterbi launch's check shape (S = 2 * 160 + 1 = 321), single clips of
 # odd lengths for the log-mel kernel, and the synthetic corpus.
 ALIGN_BATCH = 64
 VITERBI_T, VITERBI_L = 512, 160
@@ -204,14 +211,13 @@ def counted_kernels():
     from voice100_tpu_torch.ops.lstm_cuda import (bilstm_cuda, bilstm_train_bwd_cuda,
                                                   bilstm_train_fwd_cuda)
     from voice100_tpu_torch.ops.melspec_cuda import log_mel_spectrogram_cuda
-    from voice100_tpu_torch.ops.viterbi_cuda import viterbi_backtrace_cuda, viterbi_forward_cuda
+    from voice100_tpu_torch.ops.viterbi_cuda import viterbi_align_lattice_cuda
 
     return {"log_mel_kernel": (log_mel_spectrogram_cuda,),
             "bilstm_persistent_kernel": (bilstm_cuda, bilstm_train_fwd_cuda),
             "lstm_train_bwd_": (bilstm_train_bwd_cuda,),
             "ctc_alpha_kernel": (ctc_alpha_cuda,), "ctc_adjoint_kernel": (ctc_alpha_adjoint_cuda,),
-            "viterbi_fwd_kernel": (viterbi_forward_cuda,),
-            "viterbi_bt_kernel": (viterbi_backtrace_cuda,)}
+            "viterbi_align_kernel": (viterbi_align_lattice_cuda,)}
 
 
 def device_profile(fn, calls: int = 2):
@@ -1020,103 +1026,211 @@ def check_ctc(device):
     return entries
 
 
-def check_viterbi(device):
-    """The Viterbi kernels (forward, backtrace) against their plain twins
-    at B=64, T=512, V=29, L=160 (S=321) with ragged input lengths, a row of
-    one repeated label, an empty target, a row that cannot align (100
-    frames for 160 labels) and a row with nonzero labels past its target
-    length. Max and one float32 add are exact, so moves, last row, score,
-    path and labels must be equal."""
+def viterbi_errors(log_probs, targets, input_lengths, target_lengths):
+    """The Viterbi launch against the plain versions on one batch: the
+    unpacked moves over the whole [T, B, S], the last row, score, path and
+    labels, and ctc_viterbi_align_cuda against ctc_viterbi_align, each
+    equal or not; the last row's max abs error; the outputs."""
     from voice100_tpu_torch.ops.ctc import (ctc_prep, ctc_viterbi_align, viterbi_backtrace,
                                             viterbi_final, viterbi_forward)
-    from voice100_tpu_torch.ops.viterbi_cuda import (ctc_viterbi_align_cuda,
-                                                     viterbi_backtrace_cuda, viterbi_forward_cuda)
-
-    batch, time_steps, vocab, label_len = ALIGN_BATCH, VITERBI_T, ASR_EN_BASE["vocab_size"], VITERBI_L
-    rng = np.random.default_rng(SEED + 6)
-    input_lengths = rng.integers(time_steps // 3, time_steps + 1, size=batch)
-    target_lengths = np.minimum(rng.integers(1, label_len + 1, size=batch), input_lengths // 2)
-    input_lengths[0], target_lengths[0] = time_steps, label_len
-    targets = rng.integers(1, vocab, size=(batch, label_len))
-    targets[np.arange(label_len)[None, :] >= target_lengths[:, None]] = 0
-    targets[1], target_lengths[1] = 7, label_len                 # one repeated label
-    target_lengths[2] = 0                                        # empty target
-    input_lengths[3], target_lengths[3] = 100, label_len         # cannot align
-    targets[4] = rng.integers(1, vocab, size=label_len)          # labels past its length
-    logits = torch.from_numpy(rng.standard_normal((batch, time_steps, vocab)) * 2.0)
-    log_probs = torch.log_softmax(logits.float(), dim=-1).to(device)
-    targets, input_lengths, target_lengths = (torch.from_numpy(a).to(device) for a in (
-        targets, input_lengths, target_lengths))
+    from voice100_tpu_torch.ops.viterbi_cuda import (ctc_viterbi_align_cuda, unpack_moves,
+                                                     viterbi_align_lattice_cuda)
 
     z, _, valid = ctc_prep(targets, target_lengths)
-    s_len = z.shape[1]
-    moves, last = viterbi_forward_cuda(log_probs, z, valid, input_lengths)
+    score, path, labels, packed, last = viterbi_align_lattice_cuda(
+        log_probs, z, valid, input_lengths, target_lengths)
     moves_ref, last_ref = viterbi_forward(log_probs, z, valid, input_lengths)
-    final_pos, score = viterbi_final(last, target_lengths)
-    path, labels = viterbi_backtrace_cuda(moves, final_pos, input_lengths, z)
-    path_ref, labels_ref = viterbi_backtrace(moves_ref, final_pos, input_lengths, z)
+    final_ref, score_ref = viterbi_final(last_ref, target_lengths)
+    path_ref, labels_ref = viterbi_backtrace(moves_ref, final_ref, input_lengths, z)
     whole = ctc_viterbi_align_cuda(log_probs, targets, input_lengths, target_lengths)
     whole_ref = ctc_viterbi_align(log_probs, targets, input_lengths, target_lengths)
     torch.cuda.synchronize()
     equal = {
-        "moves": torch.equal(moves, moves_ref), "last_row": torch.equal(last, last_ref),
+        "moves": torch.equal(unpack_moves(packed, input_lengths, z.shape[1],
+                                          log_probs.shape[1]), moves_ref),
+        "last_row": torch.equal(last, last_ref), "score": torch.equal(score, score_ref),
         "path": torch.equal(path, path_ref), "labels": torch.equal(labels, labels_ref),
         "align_score": torch.equal(whole.score, whole_ref.score),
         "align_path": torch.equal(whole.path, whole_ref.path),
         "align_labels": torch.equal(whole.labels, whole_ref.labels),
     }
-    infeasible = whole.score[3].item()
-    err = (last - last_ref).abs().max().item()
+    return equal, (last - last_ref).abs().max().item(), (z, valid, score)
 
-    kernels = {
-        "forward": lambda: viterbi_forward_cuda(log_probs, z, valid, input_lengths),
-        "backtrace": lambda: viterbi_backtrace_cuda(moves, final_pos, input_lengths, z),
-    }
+
+def viterbi_batch(rng, batch, time_steps, label_len, vocab=ASR_EN_BASE["vocab_size"]):
+    """Seeded log-probs [B, T, V], random targets (ids 1..V-1, zeros past
+    each target length), input lengths in [T/3, T] and target lengths at
+    most half of them; row 0 takes the full T and label_len labels."""
+    input_lengths = rng.integers(time_steps // 3, time_steps + 1, size=batch)
+    target_lengths = np.minimum(rng.integers(1, label_len + 1, size=batch), input_lengths // 2)
+    input_lengths[0], target_lengths[0] = time_steps, label_len
+    targets = rng.integers(1, vocab, size=(batch, label_len))
+    targets[np.arange(label_len)[None, :] >= target_lengths[:, None]] = 0
+    logits = torch.from_numpy(rng.standard_normal((batch, time_steps, vocab)) * 2.0)
+    return torch.log_softmax(logits.float(), dim=-1), targets, input_lengths, target_lengths
+
+
+def on_card(device, log_probs, *arrays):
+    return (log_probs.to(device),) + tuple(torch.from_numpy(np.asarray(a)).to(device)
+                                           for a in arrays)
+
+
+def check_viterbi_limit(device):
+    """An S one past MAX_STATES raises ValueError on the card, launching
+    nothing."""
+    from voice100_tpu_torch.ops import viterbi_cuda
+
+    s_len = viterbi_cuda.MAX_STATES + 1
+    z = torch.zeros(2, s_len, dtype=torch.int32, device=device)
+    lengths = torch.tensor([5, 4], dtype=torch.int32, device=device)
+    before = viterbi_cuda.viterbi_align_lattice_cuda.launches
+    try:
+        viterbi_cuda.viterbi_align_lattice_cuda(torch.zeros(2, 5, 7, device=device), z, z,
+                                                lengths, lengths)
+    except ValueError as err:
+        if viterbi_cuda.viterbi_align_lattice_cuda.launches != before:
+            fail(f"Viterbi: S={s_len} launched before raising")
+        return f"S={s_len} raised ValueError ({err}), launching nothing"
+    fail(f"Viterbi: S={s_len} did not raise")
+
+
+def check_viterbi(device, probe_us):
+    """The Viterbi launch (kernels 6 and 7 and the final state) against the
+    plain versions at B=64, T=512, V=29, L=160 (S=321) with ragged input
+    lengths, a row of one repeated label, an empty target, a row that
+    cannot align (100 frames for 160 labels), a row with nonzero labels
+    past its target length, an input of one frame and one of no frames;
+    then a batch with an empty label axis (S=1), the 40 s bucket's shape
+    (B=8, T=2001, 560 labels: S=1121, 9 states a lane), the largest S
+    (3071: six warps a sample, 16 states a lane) and a vocabulary of 1000
+    classes (S=2001, about the largest S the two-kernel pair took there;
+    its rows do not fit the shared-memory ring); and that S past the limit
+    raises. Max and one float32 add are exact, so the unpacked
+    moves, last row, score, path and labels must be equal. ``probe_us``:
+    probe_ctc.py's Viterbi variants, microseconds a step at this shape."""
+    from voice100_tpu_torch.ops.ctc import viterbi_backtrace, viterbi_final, viterbi_forward
+    from voice100_tpu_torch.ops.viterbi_cuda import (viterbi_align_lattice_cuda,
+                                                     viterbi_launch_smem, viterbi_layout)
+    from voice100_tpu_torch.tools.probe_ctc import VITERBI_SHAPE
+
+    batch, time_steps, vocab, label_len = ALIGN_BATCH, VITERBI_T, ASR_EN_BASE["vocab_size"], VITERBI_L
+    rng = np.random.default_rng(SEED + 6)
+    log_probs, targets, input_lengths, target_lengths = viterbi_batch(rng, batch, time_steps,
+                                                                      label_len)
+    targets[1], target_lengths[1] = 7, label_len                 # one repeated label
+    target_lengths[2] = 0                                        # empty target
+    input_lengths[3], target_lengths[3] = 100, label_len         # cannot align
+    targets[4] = rng.integers(1, vocab, size=label_len)          # labels past its length
+    input_lengths[5], target_lengths[5] = 1, 1                   # one frame
+    input_lengths[6], target_lengths[6] = 0, 2                   # no frames
+    main = on_card(device, log_probs, targets, input_lengths, target_lengths)
+    log_probs, targets, input_lengths, target_lengths = main
+    equal, err, (z, valid, score) = viterbi_errors(*main)
+    s_len = z.shape[1]
+    infeasible = score[3].item()
+
+    others = {"empty label axis (S=1)": on_card(
+        device, viterbi_batch(rng, 4, 64, 1)[0], np.zeros((4, 0), np.int64),
+        [64, 1, 0, 30], [0, 0, 0, 0])}
+    for name, (b, t, labels, v) in (
+            ("40 s bucket (B=8, T=2001, S=1121)", (8, 2001, 560, vocab)),
+            ("largest S (B=2, T=1600, S=3071)", (2, 1600, 1535, vocab)),
+            ("1000 classes (B=4, T=400, S=2001)", (4, 400, 1000, 1000))):
+        lp, tgt, il, tl = viterbi_batch(rng, b, t, labels, v)
+        others[name] = on_card(device, lp, tgt, il, tl)
+    edges = {}
+    for name, case in others.items():
+        e_equal, e_err, (e_z, e_valid, _) = viterbi_errors(*case)
+        lay = viterbi_layout(e_z.shape[1])
+        ring, _ = viterbi_launch_smem(e_z.shape[1], case[0].shape[2], lay.warps)
+        args32 = [t.int().contiguous() for t in (e_z, e_valid, case[2], case[3])]
+        edges[name] = {"equal": e_equal, "last_row_max_abs_err": e_err, "k": lay.k,
+                       "warps": lay.warps, "ring": ring, "launch_ms": time_ms(
+                           lambda: viterbi_align_lattice_cuda(case[0], *args32), iters=5)}
+    limit = check_viterbi_limit(device)
+
+    # the launch as the main path makes it, and the plain versions
+    z32, valid32, il32, tl32 = (t.int().contiguous() for t in (z, valid, input_lengths,
+                                                               target_lengths))
+
+    def launch():
+        return viterbi_align_lattice_cuda(log_probs, z32, valid32, il32, tl32)
+
+    moves, last = viterbi_forward(log_probs, z, valid, input_lengths)
+    final_pos, _ = viterbi_final(last, target_lengths)
     timings = {
+        "launch_ms": time_ms(launch, iters=20),
         "forward_plain_ms": time_ms(lambda: viterbi_forward(log_probs, z, valid, input_lengths),
                                     iters=3, warmup=1),
         "backtrace_plain_ms": time_ms(lambda: viterbi_backtrace(moves, final_pos, input_lengths,
                                                                 z), iters=3, warmup=1),
     }
-    counts = {}
-    for key, fn in kernels.items():
-        timings[f"{key}_ms"] = time_ms(fn, iters=20)
-        timings[f"{key}_device_ms"], _, counts[key] = device_profile(fn)
-    print(f"CTC Viterbi (B={batch}, T={time_steps}, V={vocab}, S={s_len}): equal to the plain "
-          f"twins {equal}; last-row max_abs_err {err:.3e}; infeasible row score {infeasible:.3e}; "
+    # the profiler has recorded none or one of the two events of this
+    # launch in some runs: up to three tries before "not measured"
+    for _ in range(3):
+        timings["launch_device_ms"], _, counts = device_profile(launch)
+        if timings["launch_device_ms"] is not None:
+            break
+    print(f"CTC Viterbi launch (B={batch}, T={time_steps}, V={vocab}, S={s_len}, "
+          f"{viterbi_layout(s_len)}): equal to the plain versions {equal}; last-row max_abs_err "
+          f"{err:.3e}; infeasible row score {infeasible:.3e}; "
           + ", ".join(f"{k} {fmt_ms(v)}" for k, v in timings.items()), flush=True)
-    if not all(equal.values()):
-        fail(f"Viterbi kernels differ from their plain twins: {equal}")
+    for name, e in edges.items():
+        print(f"CTC Viterbi edge batch {name}: k={e['k']}, {e['warps']} warp(s) a sample, rows "
+              f"{'in the shared-memory ring' if e['ring'] else 'from device memory'}; equal "
+              f"{e['equal']}; last-row max_abs_err {e['last_row_max_abs_err']:.3e}; launch "
+              f"{e['launch_ms']:.4f} ms", flush=True)
+    print(f"CTC Viterbi limit: {limit}", flush=True)
+    for name, eq in {"check batch": equal, **{n: e["equal"] for n, e in edges.items()}}.items():
+        if not all(eq.values()):
+            fail(f"Viterbi launch differs from the plain versions on the {name}: {eq}")
     if infeasible > -1e29:
         fail(f"Viterbi: the row that cannot align scored {infeasible:.3e}")
 
-    # least work. Forward: the log_probs rows of the active steps read (a
-    # held step reads none), the moves written, z and the lengths read and
-    # the last row written once; about 4 operations a state of an active
-    # step (two compares, a select, an add). Backtrace: one byte of moves
-    # read a step, path and labels written.
-    steps = input_lengths.clamp(max=time_steps)
-    active_states = int(((steps - 1).clamp(min=0) * s_len).sum())
-    fwd_bytes = (int(steps.sum()) * vocab * 4 + moves.numel() + 3 * batch * s_len * 4
-                 + batch * 4)
-    bt_bytes = int(steps.sum()) + 2 * batch * time_steps * 4 + 2 * batch * 4 + batch * s_len * 4
-    shapes = (f"B={batch}, T={time_steps}, V={vocab}, S={s_len}, {int(steps.sum())} active "
-              f"steps; no library call computes a Viterbi alignment")
+    # least work of each phase on the inputs probe_ctc.py timed it on (every
+    # row the full T and all its labels, so every step moves all S states),
+    # whatever the kernel's own layout. Forward phase: the log_probs rows,
+    # z, valid and the lengths read, the moves written at 2 bits a state of
+    # a moved step, the last row and the score written; about 4 operations
+    # a state of a moved step (two compares, a select, an add). Backtrace
+    # phase: one move (2 bits) a moved step, z and the lengths read, path
+    # and labels written; 2 operations a step.
+    p_batch, p_time, p_vocab, p_labels = VITERBI_SHAPE
+    p_states, p_moved = 2 * p_labels + 1, p_batch * (p_time - 1)
+    fwd_bytes = (p_batch * p_time * p_vocab * 4 + 3 * p_batch * p_states * 4 + 3 * p_batch * 4
+                 + p_moved * p_states / 4)
+    bt_bytes = p_moved / 4 + p_batch * p_states * 4 + p_batch * 4 + 2 * p_batch * p_time * 4
+    active = int(input_lengths.clamp(min=0, max=time_steps).sum())
+    shapes = (f"ms, bound_ms and chain_floor_ms: probe_ctc.py's inputs (B={p_batch}, "
+              f"T={p_time}, V={p_vocab}, S={p_states}, every row T: {p_moved} moved steps); "
+              f"launch_ms and device_ms: the check batch (B={batch}, T={time_steps}, V={vocab}, "
+              f"S={s_len}, ragged: {active} active steps), as plain_ms; no library call "
+              f"computes a Viterbi alignment")
+    # each phase timed alone by probe_ctc.py
+    phase_ms = {v: us * p_time * 1e-3 for v, us in probe_us.items()}
     entries = []
-    for name, source_line, key, n_bytes, n_ops in (
-            ("viterbi_forward", "voice100_tpu/ops/ctc_pallas.py:405", "forward", fwd_bytes,
-             4 * active_states),
-            ("viterbi_backtrace", "voice100_tpu/ops/ctc_pallas.py:440", "backtrace", bt_bytes,
-             2 * int(steps.sum()))):
+    for name, source_line, variant, n_bytes, n_ops, abs_err, plain in (
+            ("viterbi_forward", "voice100_tpu/ops/ctc_pallas.py:405", "no_backtrace", fwd_bytes,
+             4 * p_moved * p_states, err, timings["forward_plain_ms"]),
+            ("viterbi_backtrace", "voice100_tpu/ops/ctc_pallas.py:440", "no_forward", bt_bytes,
+             2 * p_batch * p_time, 0.0, timings["backtrace_plain_ms"])):
         bound, bound_by = bound_ms(n_bytes, n_ops)
         entries.append({
             "name": name, "route": "cuda", "source": "voice100_tpu_torch/csrc/viterbi.cu",
-            "replaces": source_line, "launches": None, "max_abs_err": err if key == "forward" else 0.0,
-            "ms": timings[f"{key}_ms"], "plain_ms": timings[f"{key}_plain_ms"],
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
-            "device_ms": timings[f"{key}_device_ms"], "library_device_ms": None, "shapes": shapes,
-            "events_launches": counts[key],
+            "replaces": source_line, "counter": "viterbi_align", "launches": None,
+            "max_abs_err": abs_err, "ms": phase_ms[variant],
+            "ms_is": f"this phase of the one launch: probe_ctc.py's {variant} variant",
+            "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "launch_probe_ms": phase_ms["full"],
+            "launch_ms": timings["launch_ms"], "device_ms": timings["launch_device_ms"],
+            "device_ms_is": "the whole launch (both phases and the final state)",
+            "library_device_ms": None, "events_launches": counts, "shapes": shapes,
+            "step_us_by_variant": probe_us,
         })
+    entries[0]["chain_floor_ms"] = phase_ms["chain_floor"]
+    entries[1]["chain_floor_ms"] = phase_ms["walk_only"]
+    entries[0]["edge_batches"] = edges
+    entries[0]["limit"] = limit
     return entries
 
 
@@ -1413,15 +1527,15 @@ def train_parity(device):
         fail(f"train parity: first-step gradients differ by {grad_err:.3e} (relative norm)")
 
 
-ALIGN_KERNELS = ("bilstm_recurrence", "viterbi_forward", "viterbi_backtrace", "log_mel")
+ALIGN_KERNELS = ("bilstm_recurrence", "viterbi_align", "log_mel")
 
 
 def align_counters():
     from voice100_tpu_torch.ops.lstm_cuda import bilstm_cuda
     from voice100_tpu_torch.ops.melspec_cuda import log_mel_spectrogram_cuda
-    from voice100_tpu_torch.ops.viterbi_cuda import viterbi_backtrace_cuda, viterbi_forward_cuda
+    from voice100_tpu_torch.ops.viterbi_cuda import viterbi_align_lattice_cuda
 
-    return dict(zip(ALIGN_KERNELS, (bilstm_cuda, viterbi_forward_cuda, viterbi_backtrace_cuda,
+    return dict(zip(ALIGN_KERNELS, (bilstm_cuda, viterbi_align_lattice_cuda,
                                     log_mel_spectrogram_cuda)))
 
 
@@ -1522,8 +1636,8 @@ def align(device, card, workdir):
               f"{r['launches']}" for run, r in runs.items()), flush=True)
     for run, r in runs.items():
         got = r["launches"]
-        if got["viterbi_forward"] != batches or got["viterbi_backtrace"] != batches:
-            fail(f"align ({run}): the Viterbi kernels launched {got}, not once a batch")
+        if got["viterbi_align"] != batches:
+            fail(f"align ({run}): the Viterbi kernel launched {got}, not once a batch")
         if got["bilstm_recurrence"] != ASR_EN_BASE["decoder_num_layers"] * batches:
             fail(f"align ({run}): the biLSTM kernel launched {got['bilstm_recurrence']} times, "
                  f"not once a layer a batch")
@@ -1552,8 +1666,8 @@ def align_batches_vs_plain(device, args, lines):
     """Each batch of the run again: the kernels' labels against the plain
     Viterbi on the same card log-probs, and against the written aligned
     text; then the card time by layer of the first batch."""
-    from voice100_tpu_torch.ops.ctc import ctc_prep, ctc_viterbi_align, viterbi_final
-    from voice100_tpu_torch.ops.viterbi_cuda import viterbi_backtrace_cuda, viterbi_forward_cuda
+    from voice100_tpu_torch.ops.ctc import ctc_prep, ctc_viterbi_align
+    from voice100_tpu_torch.ops.viterbi_cuda import viterbi_align_lattice_cuda
     from voice100_tpu_torch.tools.align_text import fetch_alignment, upload_batch as upload
 
     model, data = build_align(args, device)
@@ -1589,18 +1703,14 @@ def align_batches_vs_plain(device, args, lines):
         lp = torch.log_softmax(logits, dim=-1)
         text_cap = torch.minimum(logits_len, text_len)
         z, _, valid = ctc_prep(text, text_cap)
-        moves, last = viterbi_forward_cuda(lp, z, valid, logits_len)
-        final_pos, _ = viterbi_final(last, text_cap)
         res, _ = model.ctc_best_path(audio, audio_len, text, text_len)
         parts = {
             "data_load_collate_host": data_ms,
             "upload": time_ms(lambda: upload(batch, device)),
             "model_forward": time_ms(lambda: model(audio, audio_len), iters=5),
             "log_softmax": time_ms(lambda: torch.log_softmax(logits, dim=-1)),
-            "viterbi_forward_kernel": time_ms(lambda: viterbi_forward_cuda(lp, z, valid,
-                                                                          logits_len)),
-            "viterbi_backtrace_kernel": time_ms(lambda: viterbi_backtrace_cuda(
-                moves, final_pos, logits_len, z)),
+            "viterbi_align_kernel": time_ms(lambda: viterbi_align_lattice_cuda(
+                lp, z, valid, logits_len, text_cap)),
         }
         torch.cuda.synchronize()
         start = time.perf_counter()
@@ -1681,7 +1791,7 @@ def main() -> None:
     serving = [check_melspec(device), check_bilstm(device)]
     training = check_lstm_train(device) + check_ctc(device)
     # the align path's shapes: kernel 1 at the config's batch of 64 (eight
-    # batch tiles), kernel 8 on one clip at a time, kernels 6 and 7
+    # batch tiles), kernel 8 on one clip at a time; the Viterbi launch below
     lengths = np.random.default_rng(SEED + 7).integers(1, VITERBI_T + 1, size=ALIGN_BATCH)
     lengths[0], lengths[1] = VITERBI_T, 1
     serving[1]["align_batch"] = check_bilstm(device, ALIGN_BATCH, VITERBI_T,
@@ -1692,16 +1802,16 @@ def main() -> None:
     training[0]["b128_h256"] = {"shapes": b128["shapes"],
                                 "max_abs_err": b128["max_abs_err"]["bilstm_train_fwd"]}
     serving[0]["single_clip_max_abs_err"] = check_melspec_clips(device)
-    aligning = check_viterbi(device)
-    # each CTC and Viterbi kernel's step split by cause, and its chain floor
+    # each CTC kernel's and the Viterbi launch's step split by cause, and
+    # the chain floors; the Viterbi check reads its phases from it
     from voice100_tpu_torch.tools.probe_ctc import probe
 
     steps = probe()
     print("probe_ctc " + json.dumps(steps), flush=True)
-    for entry, key in zip(training[2:] + aligning, ("alpha", "adjoint", "viterbi_forward",
-                                                     "viterbi_backtrace")):
+    for entry, key in zip(training[2:], ("alpha", "adjoint")):
         entry["step_us_by_variant"] = steps["us_per_step"][key]
         entry["chain_floor_ms"] = steps["chain_floor_ms"][key]
+    aligning = check_viterbi(device, steps["us_per_step"]["viterbi"])
     by_path = {"serve": serve(device, card), "train": train(device, card)}
     train_parity(device)
     with tempfile.TemporaryDirectory() as workdir:
@@ -1709,12 +1819,14 @@ def main() -> None:
         by_path.update({f"align_{run}": r["launches"] for run, r in runs.items()})
         parity = align_parity(device, args, workdir)
     # "launches" counts the path each kernel was ported for (the timed
-    # align run for kernels 6 and 7); every path's counts stand beside it
+    # align run for kernels 6 and 7, the phases of one launch); every
+    # path's counts stand beside it
     for entries, path in ((serving, "serve"), (training, "train"), (aligning, "align_warm")):
         for entry in entries:
-            entry["launches"] = by_path[path][entry["name"]]
-            entry["launches_by_path"] = {p: c[entry["name"]] for p, c in by_path.items()
-                                         if entry["name"] in c}
+            counter = entry.pop("counter", entry["name"])
+            entry["launches"] = by_path[path][counter]
+            entry["launches_by_path"] = {p: c[counter] for p, c in by_path.items()
+                                         if counter in c}
     for entry in training:
         entry["launches_per_step"] = entry["launches"] / TIMED_STEPS
     print("align_summary " + json.dumps({"runs": runs, "parity": parity}), flush=True)

@@ -88,13 +88,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         run_align(model, data, os.devnull)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli_main(["--config", str(ROOT / "config" / "asr_en_base.yaml"), "--checkpoint", "none"])
-    # the Viterbi kernels' wrapper takes the device of its tensors: the plain
+    # the Viterbi kernel's wrapper takes the device of its tensors: the plain
     # twins on the CPU, without a launch; another device raises
     lp = torch.log_softmax(torch.randn(2, 9, 29), dim=-1)
     args = (torch.tensor([[3, 4], [5, 0]]), torch.tensor([9, 7]), torch.tensor([2, 1]))
-    launches = viterbi_cuda.viterbi_forward_cuda.launches
+    launches = viterbi_cuda.viterbi_align_lattice_cuda.launches
     res = viterbi_cuda.ctc_viterbi_align_cuda(lp, *args)
-    assert res.path.device.type == "cpu" and viterbi_cuda.viterbi_forward_cuda.launches == launches
+    assert (res.path.device.type == "cpu"
+            and viterbi_cuda.viterbi_align_lattice_cuda.launches == launches)
     with pytest.raises(ValueError, match="device"):
         viterbi_cuda.ctc_viterbi_align_cuda(lp.to("meta"), *args)
 

@@ -185,27 +185,133 @@ def test_twins_match_numpy_oracle():
 
 
 def test_wrappers_run_the_twins_on_cpu_without_launching():
-    lp, tgt, il, tl = _pallas_case()
-    before = (viterbi_cuda.viterbi_forward_cuda.launches,
-              viterbi_cuda.viterbi_backtrace_cuda.launches)
-    got = viterbi_cuda.ctc_viterbi_align_cuda(*_t(lp, tgt, il, tl))
-    want = _port(lp, tgt, il, tl)
-    for a, b in zip(got, want):
+    """On CPU tensors the one-launch wrapper returns the plain versions'
+    score, path, labels and last row, and the moves in its scratch layout,
+    and counts no launch; ctc_viterbi_align_cuda returns the plain
+    alignment."""
+    lp, tgt, il, tl = _t(*_pallas_case())
+    before = viterbi_cuda.viterbi_align_lattice_cuda.launches
+    got = viterbi_cuda.ctc_viterbi_align_cuda(lp, tgt, il, tl)
+    for a, b in zip(got, _port(*_pallas_case())):
         assert torch.equal(a, b)
-    assert (viterbi_cuda.viterbi_forward_cuda.launches,
-            viterbi_cuda.viterbi_backtrace_cuda.launches) == before
+    z, _, valid = tctc.ctc_prep(tgt, tl)
+    score, path, labels, packed, last = viterbi_cuda.viterbi_align_lattice_cuda(lp, z, valid, il,
+                                                                                 tl)
+    moves, last_ref = tctc.viterbi_forward(lp, z, valid, il)
+    assert torch.equal(score, got.score) and torch.equal(path, got.path)
+    assert torch.equal(labels, got.labels) and torch.equal(last, last_ref)
+    assert torch.equal(viterbi_cuda.unpack_moves(packed, il, z.shape[1], lp.shape[1]), moves)
+    assert viterbi_cuda.viterbi_align_lattice_cuda.launches == before
 
 
 def test_wrappers_reject_other_devices_and_rules():
     lp = torch.empty(2, 5, 7, device="meta")
     z = torch.zeros(2, 3, dtype=torch.int64, device="meta")
-    with pytest.raises(ValueError):
-        viterbi_cuda.viterbi_forward_cuda(lp, z, z.bool(), torch.tensor([5, 4]))
-    with pytest.raises(ValueError):
-        viterbi_cuda.viterbi_backtrace_cuda(torch.empty(5, 2, 3, dtype=torch.uint8, device="meta"),
-                                            torch.tensor([2, 2]), torch.tensor([5, 4]), z)
+    lengths = torch.tensor([5, 4])
+    with pytest.raises(ValueError, match="device"):
+        viterbi_cuda.viterbi_align_lattice_cuda(lp, z, z.bool(), lengths, lengths)
+    past = torch.zeros(2, viterbi_cuda.MAX_STATES + 1, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="lattice states"):
+        viterbi_cuda.viterbi_align_lattice_cuda(lp, past, past.bool(), lengths, lengths)
+    # a vocabulary whose two chunks of rows do not fit shared memory passes
+    # the size checks (the kernel reads its emissions from device memory)
+    # and reaches the device check
+    wide = torch.empty(2, 5, 1000, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        viterbi_cuda.viterbi_align_lattice_cuda(wide, z, z.bool(), lengths, lengths)
     args = _t(*_pallas_case())
     with pytest.raises(ValueError, match="blank 0"):
         tctc.ctc_viterbi_align(*args, blank=1)
     with pytest.raises(ValueError, match="max_move=3"):
         viterbi_cuda.ctc_viterbi_align_cuda(*args, max_move=4)
+
+
+PACK_STATES = (1, 2, 31, 32, 33, 321, 1121, viterbi_cuda.MAX_STATES)
+
+
+def _ragged(rng, batch, time):
+    lengths = rng.integers(0, time + 3, size=batch)
+    lengths[0], lengths[1] = time, 1
+    return torch.from_numpy(lengths)
+
+
+@pytest.mark.parametrize("s_len", PACK_STATES)
+def test_pack_unpack_round_trips_the_plain_forward_moves(s_len):
+    """The plain forward's moves (0 at t = 0 and from each ragged input
+    length on) come back bit for bit from their packed layout, at every
+    number of states a lane and warps a sample."""
+    rng = np.random.default_rng(s_len)
+    batch, time, vocab = 4, 37, 7
+    lp = torch.log_softmax(torch.from_numpy(rng.standard_normal((batch, time, vocab))).float(), -1)
+    z = torch.from_numpy(rng.integers(0, vocab, size=(batch, s_len)))
+    z[:, 0::2] = 0
+    valid = torch.arange(s_len)[None, :] < torch.from_numpy(rng.integers(1, s_len + 1, size=batch))[:, None]
+    il = _ragged(rng, batch, time)
+    moves, _ = tctc.viterbi_forward(lp, z, valid, il)
+    packed = viterbi_cuda.pack_moves(moves)
+    lay = viterbi_cuda.viterbi_layout(s_len)
+    assert packed.dtype == torch.int32
+    assert tuple(packed.shape) == (batch, -(-(time - 1) // viterbi_cuda.CHUNK), lay.words,
+                                   viterbi_cuda.CHUNK)
+    assert torch.equal(viterbi_cuda.unpack_moves(packed, il, s_len, time), moves)
+
+
+@pytest.mark.parametrize("s_len", PACK_STATES)
+def test_pack_unpack_round_trips_every_move_value(s_len):
+    """Moves 0, 1 and 2 in every bit position of a word, the top one
+    included (its sign bit in int32), round-trip; rows the kernel does not
+    write (t = 0, t >= length) unpack as 0 whatever the scratch holds."""
+    rng = np.random.default_rng(s_len + 1)
+    batch, time = 3, 70
+    il = _ragged(rng, batch, time)
+    moves = torch.from_numpy(rng.integers(0, 3, size=(time, batch, s_len))).to(torch.uint8)
+    t = torch.arange(time)[:, None]
+    moves *= ((t >= 1) & (t < il[None, :]))[:, :, None]
+    packed = viterbi_cuda.pack_moves(moves)
+    assert torch.equal(viterbi_cuda.unpack_moves(packed, il, s_len, time), moves)
+    garbage = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, size=packed.shape)).int()
+    keep = (torch.arange(packed.shape[1] * viterbi_cuda.CHUNK) + 1).view(1, -1, 1) < il.view(-1, 1, 1)
+    keep = keep.view(batch, packed.shape[1], viterbi_cuda.CHUNK, 1).transpose(2, 3)
+    assert torch.equal(viterbi_cuda.unpack_moves(torch.where(keep, packed, garbage), il, s_len,
+                                                 time), moves)
+
+
+def _old_max_states(vocab):
+    """The largest S the two-kernel Viterbi took: its forward's shared
+    memory, 4 S + chunk V floats with chunk = min(32, max(1, 4096 // V)),
+    within 48 KB (0 where no S fits)."""
+    chunk = min(32, max(1, 4096 // vocab))
+    return max(0, (48 * 1024 // 4 - chunk * vocab) // 4)
+
+
+def test_layout_covers_every_lattice_up_to_the_limit():
+    """Every S up to MAX_STATES is covered by its lanes (k states each, at
+    least K_MIN, at most K_MAX, the fewest that cover it) and warps (WARPS,
+    more only past 32 * WARPS * K_MAX states); one past the limit raises.
+    No S the two-kernel Viterbi took, at any vocabulary it took (up to
+    12,287 classes), gets a launch whose shared memory misses the card's
+    limit: the ring of rows where it fits, else none."""
+    vc = viterbi_cuda
+    for s_len in range(1, vc.MAX_STATES + 1):
+        lay = vc.viterbi_layout(s_len)
+        assert vc.K_MIN <= lay.k <= vc.K_MAX and vc.WARPS <= lay.warps <= vc.MAX_WARPS
+        assert 32 * lay.k * lay.warps >= s_len and lay.words == 32 * lay.warps
+        assert lay.k == vc.K_MIN or 32 * (lay.k - 1) * lay.warps < s_len
+        assert lay.warps == vc.WARPS or 32 * vc.K_MAX * (lay.warps - 1) < s_len
+    for s_len in (0, vc.MAX_STATES + 1):
+        with pytest.raises(ValueError):
+            vc.viterbi_layout(s_len)
+    for vocab in (1, 29, 44, 71, 128, 256, 512, 800, 880, 1000, 4096, 8000, 12000, 12287):
+        top = _old_max_states(vocab)
+        assert top <= vc.MAX_STATES
+        for s_len in (*range(1, top + 1, 7), top):
+            if s_len < 1:
+                continue
+            warps = vc.viterbi_layout(s_len).warps
+            ring, smem = vc.viterbi_launch_smem(s_len, vocab, warps)
+            assert smem <= 232448 and smem == vc.viterbi_smem_bytes(s_len, vocab, warps, ring)
+            assert ring == (vc.viterbi_smem_bytes(s_len, vocab, warps) <= 232448), (s_len, vocab)
+    # without the ring every S up to the limit fits, at any vocabulary
+    for s_len in range(1, vc.MAX_STATES + 1):
+        warps = vc.viterbi_layout(s_len).warps
+        assert vc.viterbi_smem_bytes(s_len, 100000, warps, ring=False) <= 232448

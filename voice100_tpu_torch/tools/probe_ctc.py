@@ -7,7 +7,8 @@ Builds variants of ``csrc/ctc.cu`` and ``csrc/viterbi.cu`` into a temporary
 directory, each with one part of the step cut out, and times one launch of
 each with CUDA events (median of 5). The variants other than ``full``
 compute wrong outputs and exist only to be timed. ``chip_smoke.py`` runs
-it after its CTC and Viterbi checks.
+it after its CTC check and before its Viterbi check, which reports the
+Viterbi launch's phases from it.
 
 The CTC loss kernels at the train shape (B=64, T=501, V=29, 140 labels:
 S=281; every row the full T, so every block walks every step):
@@ -22,18 +23,26 @@ S=281; every row the full T, so every block walks every step):
   weights computed: the three-FMA chain alone, and the stream); ``no_store``;
   ``chain_floor`` (stream, arithmetic and store cut).
 
-The Viterbi kernels at the align check's shape (B=64, T=512, V=29, 160
-labels: S=321, every row the full T): forward (kernel 6) ``full`` and
-``chain_floor`` (no emission staging, no move store, no emission add: the
-neighbour max, the store to shared memory and the barrier); backtrace
-(kernel 7) ``full`` and ``chain_floor`` (no staging of the moves from
-device memory and no path written: the walk of thread 0 over shared
-memory and the chunk barriers).
+The Viterbi launch (kernels 6 and 7, ``csrc/viterbi.cu``) at the align
+check's shape (B=64, T=512, V=29, 160 labels: S=321, every row the full
+T): ``full``; ``no_backtrace`` (the walk cut: the forward phase, the
+final state and the zero fill); ``no_forward`` (the time loop cut: the
+backtrace phase, walking the moves a ``full`` launch left in the same
+buffer); ``no_emission_stage`` (no cp.async of the ``log_probs``
+chunks); ``no_move_store`` (zeros stored in place of the packed moves of
+the whole chunks, so the moves are not computed there); ``walk_only``
+(``no_forward`` without the loads of the packed rows: the walk over
+shared memory); ``chain_floor`` (the neighbour exchange and the max
+only: no emissions, no moves, no backtrace); and ``full_<n>_warps``, the
+kernel launched with n warps a sample in place of the layout's (fewer or
+more states a lane): 1 and 2 warps with the ``full`` build, 8 with a build
+whose ``MAX_WARPS`` admits them.
 
 ``chain_floor`` times ``T`` is the least time each kernel's dependent
-chain of steps can take as written. Prints one line a variant and a JSON
-object ``{"card", "shapes", "us_per_step": {kernel: {variant: us}},
-"chain_floor_ms": {kernel: ms}}``.
+chain of steps can take as written (for the Viterbi, its forward's).
+Prints one line a variant and a JSON object ``{"card", "shapes",
+"us_per_step": {kernel: {variant: us}}, "chain_floor_ms": {kernel:
+ms}}``.
 """
 
 from __future__ import annotations
@@ -61,12 +70,13 @@ _WEIGHTS = "if (t >= 2 && t <= len) {"
 _PRE = "if (t >= 3) {"
 _GRAD_STORE = "out[s] = (t > 1 || s < 2) ? ge[j] : 0.f;"
 # ... and in viterbi.cu
-_VIT_STAGE = "lpc[i] = lpb[static_cast<size_t>(t0) * vocab + i];"
-_VIT_MOVE = "mrow[s] = m;"
-_VIT_EMIT = "next[s] = vs[s] ? best + e[zs[s]] : NEG;"
-_BT_LOAD = "v[u] = (i < total && c < S) ? moves[(static_cast<size_t>(lo + r) * batch + b) * S + c] : 0;"
-_BT_PATH = "pb[lo + i] = p;\n      lb[lo + i] = zb[p];"
-
+_VIT_STAGE = "cp_async4(dst + i, src + i);"
+_VIT_LOOP = "for (int c = 0; 1 + c * CH < len; ++c) {"
+_VIT_EMIT = "out = valid ? best + e : NEG;"
+_VIT_MOVE = "make_uint4(words[4 * q], words[4 * q + 1], words[4 * q + 2], words[4 * q + 3]);"
+_BT_FETCH = "for (int q = 0; q < CH / 4; ++q) pre[q] = src[q];"
+_BT_WALK = "int cb = len >= 2 ? (len - 2) / CH : -1;"
+_MAX_WARPS = "constexpr int MAX_WARPS = 6;"
 
 def ctc_variants(src: str):
     """Variants of ``ctc.cu``'s text, by name, for both kernels: the
@@ -93,15 +103,22 @@ def ctc_variants(src: str):
 
 def viterbi_variants(src: str):
     """Variants of ``viterbi.cu``'s text, by name."""
-    _check_anchors(src, (_VIT_STAGE, _VIT_MOVE, _VIT_EMIT, _BT_LOAD, _BT_PATH), "viterbi.cu")
+    _check_anchors(src, (_VIT_STAGE, _VIT_LOOP, _VIT_EMIT, _VIT_MOVE, _BT_FETCH, _BT_WALK,
+                         _MAX_WARPS), "viterbi.cu")
+    no_forward = src.replace(_VIT_LOOP, _VIT_LOOP.replace("< len", "< 1"))
     return {
         "full": src,
-        # the staging loop keeps an empty body: its barrier stays outside it
-        "forward_chain_floor": src.replace(_VIT_STAGE, ";").replace(_VIT_MOVE, "")
-                                  .replace(_VIT_EMIT, "next[s] = best;"),
-        "backtrace_chain_floor": src.replace(_BT_LOAD, "v[u] = 0;").replace(_BT_PATH, ""),
+        "no_backtrace": src.replace(_BT_WALK, "int cb = -1;"),
+        "no_forward": no_forward,
+        "no_emission_stage": src.replace(_VIT_STAGE, ";"),
+        "no_move_store": src.replace(_VIT_MOVE, "make_uint4(0u, 0u, 0u, 0u);"),
+        "walk_only": no_forward.replace(_BT_FETCH, "for (int q = 0; q < CH / 4; ++q) "
+                                                   "pre[q] = make_uint4(0u, 0u, 0u, 0u);"),
+        "chain_floor": src.replace(_VIT_STAGE, ";").replace(_VIT_EMIT, "out = best;")
+                          .replace(_VIT_MOVE, "make_uint4(0u, 0u, 0u, 0u);")
+                          .replace(_BT_WALK, "int cb = -1;"),
+        "full_8_warps": src.replace(_MAX_WARPS, "constexpr int MAX_WARPS = 8;"),
     }
-
 
 def _lattice_inputs(batch: int, time: int, vocab: int, labels: int, seed: int):
     """Seeded log-probs [B, T, V], labels [B, labels] with no two equal
@@ -173,46 +190,52 @@ def probe_ctc(workdir: Path):
     return result, shapes
 
 
+# the Viterbi launch's inputs: batch, steps, classes and labels of every row
+VITERBI_SHAPE = (64, 512, 29, 160)
+
+
 def probe_viterbi(workdir: Path):
-    batch, time, vocab, labels = 64, 512, 29, 160
+    from ..ops.viterbi_cuda import CHUNK, viterbi_launch_smem, viterbi_layout
+
+    batch, time, vocab, labels = VITERBI_SHAPE
     lp, tl, il, z, _, valid = _lattice_inputs(batch, time, vocab, labels, seed=1)
     s_len = z.shape[1]
+    lay = viterbi_layout(s_len)
     stream = torch.cuda.current_stream().cuda_stream
-    moves = torch.empty(time, batch, s_len, dtype=torch.uint8, device="cuda")
-    last = torch.empty(batch, s_len, device="cuda")
+    tl32 = tl.int().contiguous()
+    score = torch.empty(batch, device="cuda")
     path = torch.empty(batch, time, dtype=torch.int32, device="cuda")
     labels_out = torch.empty_like(path)
+    last = torch.empty(batch, s_len, device="cuda")
+    packed = {}
     libs = _build(workdir / "viterbi", "viterbi.cu", "viterbi.cu",
                   viterbi_variants((CSRC / "viterbi.cu").read_text()))
     for lib in libs.values():
-        lib.viterbi_fwd_f32.argtypes = [_P] * 6 + [_I] * 4 + [_P]
-        lib.viterbi_fwd_f32.restype = _I
-        lib.viterbi_backtrace_i32.argtypes = [_P] * 6 + [_I] * 3 + [_P]
-        lib.viterbi_backtrace_i32.restype = _I
+        lib.viterbi_align_f32.argtypes = [_P] * 10 + [_I] * 8 + [_P]
+        lib.viterbi_align_f32.restype = _I
 
-    def run_forward(lib):
-        return lib.viterbi_fwd_f32(lp.data_ptr(), z.data_ptr(), valid.data_ptr(), il.data_ptr(),
-                                   moves.data_ptr(), last.data_ptr(), batch, time, vocab, s_len,
-                                   stream)
+    def run(lib, warps=lay.warps):
+        k = max(2, -(-s_len // (32 * warps)))
+        if warps not in packed:
+            packed[warps] = torch.empty(batch, -(-(time - 1) // CHUNK), 32 * warps, CHUNK,
+                                        dtype=torch.int32, device="cuda")
+        ring, smem = viterbi_launch_smem(s_len, vocab, warps)
+        return lib.viterbi_align_f32(
+            lp.data_ptr(), z.data_ptr(), valid.data_ptr(), il.data_ptr(), tl32.data_ptr(),
+            score.data_ptr(), path.data_ptr(), labels_out.data_ptr(), packed[warps].data_ptr(),
+            last.data_ptr(), batch, time, vocab, s_len, k, warps, int(ring), smem, stream)
 
-    run_forward(libs["full"])
-    moves_in = moves.clone()
-    final_pos = (2 * tl).int().contiguous()
-
-    def run_backtrace(lib):
-        return lib.viterbi_backtrace_i32(moves_in.data_ptr(), final_pos.data_ptr(), il.data_ptr(),
-                                         z.data_ptr(), path.data_ptr(), labels_out.data_ptr(),
-                                         batch, time, s_len, stream)
-
-    result = {}
-    for kernel, run in (("viterbi_forward", run_forward), ("viterbi_backtrace", run_backtrace)):
-        short = kernel.removeprefix("viterbi_")
-        us = {name.removeprefix(f"{short}_"): _time(lib, lambda: run(lib)) * 1e3 / time
-              for name, lib in libs.items() if name == "full" or name.startswith(f"{short}_")}
-        result[kernel] = us
-        _report(kernel, us)
-    return result, f"Viterbi B={batch}, T={time}, V={vocab}, S={s_len}, every row T"
-
+    # no_forward and walk_only walk the moves this launch leaves in `packed`
+    _time(libs["full"], lambda: run(libs["full"]))
+    us = {name: _time(lib, lambda: run(lib, 8 if name == "full_8_warps" else lay.warps)) * 1e3
+          / time for name, lib in libs.items()}
+    # the full build with fewer warps a sample
+    for warps in (1, 2):
+        us[f"full_{warps}_warps"] = _time(libs["full"],
+                                          lambda: run(libs["full"], warps)) * 1e3 / time
+    _report("viterbi", us)
+    return {"viterbi": us}, (f"Viterbi B={batch}, T={time}, V={vocab}, S={s_len} (k={lay.k}, "
+                             f"{lay.warps} warps a sample), every row T")
 
 def probe() -> dict:
     """Build and time every variant; the result as ``main`` prints it."""
@@ -222,7 +245,7 @@ def probe() -> dict:
         ctc, ctc_shapes = probe_ctc(Path(workdir))
         viterbi, viterbi_shapes = probe_viterbi(Path(workdir))
     us = {**ctc, **viterbi}
-    steps = {"alpha": 501, "adjoint": 501, "viterbi_forward": 512, "viterbi_backtrace": 512}
+    steps = {"alpha": 501, "adjoint": 501, "viterbi": 512}
     return {"card": card, "shapes": f"{ctc_shapes}; {viterbi_shapes}", "us_per_step": us,
             "chain_floor_ms": {k: v["chain_floor"] * steps[k] * 1e-3 for k, v in us.items()}}
 
