@@ -81,7 +81,22 @@ toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
 12. aligns the first 8 clips from the same warm cache on the card and on
     the CPU's plain path and holds log-probs, Viterbi scores and paths
     together;
-13. prints one JSON line of per-kernel results, then, last,
+13. trains asr_en_base through the training CLI (training/cli.py main,
+    what ``python -m voice100_tpu_torch`` runs): ``fit`` for 3 epochs on
+    the same corpus with a cold feature cache (116 train clips, 2 steps an
+    epoch at batch 64; 12 val clips), then ``validate``, ``test`` and
+    ``predict`` on the last.pt it wrote, with the launch counts set to 0
+    just before each subcommand and read just after (fit: kernel 8 once a
+    clip, kernels 2-5 as in step 9; every evaluated batch, in fit,
+    validate and test: kernel 1 twice a layer, for the loss and the CER
+    decode, and kernel 4 once, for the loss; predict: kernel 1 once a
+    layer a batch; nothing else); checks
+    the log (fit_start, three epoch records with finite val_loss, val_cer
+    and val_wer, a falling train loss), best.pt and last.pt, validate's
+    loss against the last epoch's (1e-5 relative) and every predicted line
+    against the card's own greedy decode; prints the fit's host-clock
+    seconds an epoch and audio seconds a second;
+14. prints one JSON line of per-kernel results, then, last,
     {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line is printed. Without
@@ -1645,7 +1660,7 @@ def align(device, card, workdir):
         fail(f"align: the log-mel kernel launched {runs['cold']['launches']['log_mel']} times cold "
              f"and {runs['warm']['launches']['log_mel']} warm, not once a clip and then never")
     align_batches_vs_plain(device, args, lines)
-    return runs, args
+    return runs, args, samples
 
 
 def build_align(args, device, batch_size=None):
@@ -1768,6 +1783,140 @@ def align_parity(device, args, workdir):
             "path_agreement": agree}
 
 
+CLI_EPOCHS = 3
+# validate on last.pt against the last epoch's val_loss: the same weights,
+# batch and kernels, so only a stale weight (the biLSTM's stacked-weight
+# cache) or a different val split could move it by more
+CLI_VAL_REL_TOL = 1e-5
+
+
+def cli_counters():
+    return {**align_counters(), **train_counters()}
+
+
+def cli_phase(device, card, workdir, align_args, samples):
+    """asr_en_base through the training CLI on the card (training/cli.py
+    ``main``, as ``python -m voice100_tpu_torch`` runs it): ``fit`` for
+    CLI_EPOCHS epochs on the align corpus with a cold feature cache, then
+    ``validate``, ``test`` and ``predict`` on the ``last.pt`` it wrote; the
+    launch counts set to 0 just before each subcommand and read just
+    after. Checks the log, the checkpoints, the validate loss against the
+    last epoch's and the predictions against the card's own greedy
+    decode."""
+    import yaml
+    from voice100_tpu_torch.training import load_model_weights
+    from voice100_tpu_torch.training.cli import build_from_config, load_config, main
+
+    config = load_config(align_args["config"])
+    config["trainer"].update(max_epochs=CLI_EPOCHS, log_every_n_steps=1)
+    cfg = os.path.join(workdir, "asr_en_base_dummy_en_fit.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump(config, f)
+    ckpt = os.path.join(workdir, "fit_ckpt")
+    log = os.path.join(workdir, "fit_log.jsonl")
+    common = ["--config", cfg, "--data_dir", align_args["data_dir"],
+              "--cache_dir", os.path.join(workdir, "fit_cache"), "--checkpoint_dir", ckpt,
+              "--device", str(device)]
+    last = os.path.join(ckpt, "last.pt")
+    predictions = os.path.join(workdir, "predictions.txt")
+    counters = cli_counters()
+    runs, results = {}, {}
+    for sub, extra in (("fit", ["--log_path", log]), ("validate", ["--restore_from", last]),
+                       ("test", ["--restore_from", last]),
+                       ("predict", ["--restore_from", last, "--output", predictions])):
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        start = time.perf_counter()
+        results[sub] = main([sub, *common, *extra])
+        torch.cuda.synchronize()
+        runs[sub] = {"wall_s": time.perf_counter() - start,
+                     "launches": {name: fn.launches for name, fn in counters.items()}}
+
+    model, data = build_from_config(config, {"data_dir": align_args["data_dir"],
+                                             "cache_dir": os.path.join(workdir, "fit_cache")},
+                                    device=device)
+    data.setup("fit")
+    n_train, n_val = len(data.train_ds), len(data.valid_ds)
+    train_sec = sum(samples[i] for i in data.train_ds._dataset._indices) / SAMPLE_RATE
+    bs, layers = data.batch_size, ASR_EN_BASE["decoder_num_layers"]
+    steps, val_batches = CLI_EPOCHS * -(-n_train // bs), -(-n_val // bs)
+    all_batches = -(-ALIGN_CLIPS // bs)
+    # an evaluated batch: kernel 1 twice a layer (the loss and the CER
+    # decode are two forwards) and kernel 4 once (the loss)
+    evals = val_batches * CLI_EPOCHS
+    want = {
+        "fit": {"log_mel": ALIGN_CLIPS, "bilstm_recurrence": 2 * layers * evals,
+                "bilstm_train_fwd": layers * steps, "bilstm_train_bwd": 2 * layers * steps,
+                "ctc_alpha": steps + evals, "ctc_adjoint": steps, "viterbi_align": 0},
+        "validate": {"bilstm_recurrence": 2 * layers * val_batches, "ctc_alpha": val_batches},
+        "test": {"bilstm_recurrence": 2 * layers * all_batches, "ctc_alpha": all_batches},
+        "predict": {"bilstm_recurrence": layers * all_batches},
+    }
+    for sub, counts in want.items():
+        full = dict.fromkeys(counters, 0)
+        full.update(counts)
+        if runs[sub]["launches"] != full:
+            fail(f"cli {sub}: launches {runs[sub]['launches']}, not {full}")
+
+    with open(log) as f:
+        records = [json.loads(line) for line in f]
+    starts = [r for r in records if r.get("event") == "fit_start"]
+    epochs = [r for r in records if "train_time_s" in r]
+    step_losses = [r["train_loss"] for r in records
+                   if "train_loss" in r and "train_time_s" not in r]
+    keys = ("val_loss", "val_cer", "val_wer")
+    if len(starts) != 1 or len(epochs) != CLI_EPOCHS or not all(
+            np.isfinite(r.get(k, np.nan)) for r in epochs for k in keys):
+        fail(f"cli fit: log has {len(starts)} fit_start records and epoch records {epochs}")
+    per_epoch = steps // CLI_EPOCHS
+    if len(step_losses) != steps or not np.all(np.isfinite(step_losses)) or not (
+            np.mean(step_losses[-per_epoch:]) < np.mean(step_losses[:per_epoch])):
+        fail(f"cli fit: the train loss is not finite or does not fall: {step_losses}")
+    for name in ("best.pt", "last.pt"):
+        if not os.path.isfile(os.path.join(ckpt, name)):
+            fail(f"cli fit: {name} was not written")
+    val, last_val = results["validate"], epochs[-1]["val_loss"]
+    val_err = abs(val["loss"] - last_val) / abs(last_val)
+    if not val_err <= CLI_VAL_REL_TOL:
+        fail(f"cli validate: val_loss {val['loss']} on last.pt, the last epoch logged {last_val}")
+
+    load_model_weights(last, model)
+    model.eval()
+    data.setup("predict")
+    tokenizer = data.text_transform
+    want_lines = []
+    with torch.no_grad():
+        for batch, n_real in data.predict_dataloader().iter_with_counts():
+            (audio, audio_len), _ = batch
+            ids, out_len = model.greedy_decode(torch.from_numpy(audio).to(device).float(),
+                                               torch.from_numpy(audio_len).to(device))
+            ids, out_len = ids.cpu().numpy(), out_len.cpu().numpy()
+            want_lines += [tokenizer.merge_repeated(tokenizer.decode(ids[i, :out_len[i]]))
+                           for i in range(n_real)]
+    with open(predictions) as f:
+        lines = f.read().splitlines()
+    if len(lines) != ALIGN_CLIPS or lines != want_lines:
+        fail(f"cli predict: {len(lines)} lines for {ALIGN_CLIPS} clips, "
+             f"{sum(a == b for a, b in zip(lines, want_lines))} equal to the card's greedy decode")
+
+    fit_s = runs["fit"]["wall_s"]
+    print(f"cli asr_en_base on {card}: fit {CLI_EPOCHS} epochs ({n_train} train clips, "
+          f"{train_sec:.2f} s of audio, {n_val} val clips, batch {bs}, cold feature cache) "
+          f"{fit_s:.3f} s, {fit_s / CLI_EPOCHS:.3f} s an epoch by host clock with validation; "
+          f"train time by epoch " + ", ".join(
+              f"{r['train_time_s']} s ({train_sec / max(r['train_time_s'], 1e-9):.1f} audio s/s)"
+              for r in epochs) + f"; step losses {[round(v, 4) for v in step_losses]}; "
+          f"val_loss by epoch {[round(r['val_loss'], 4) for r in epochs]}", flush=True)
+    print(f"cli validate on last.pt: val_loss {val['loss']:.6f} against the last epoch's "
+          f"{last_val:.6f} (rel err {val_err:.2e}, tol {CLI_VAL_REL_TOL:.0e}), val_cer "
+          f"{val['cer']:.4f} ({epochs[-1]['val_cer']:.4f} logged); test {results['test']}; "
+          f"predict wrote {len(lines)} lines, all equal to the card's greedy decode", flush=True)
+    print("cli_runs " + json.dumps({sub: {"wall_s": r["wall_s"], "launches": r["launches"]}
+                                    for sub, r in runs.items()}), flush=True)
+    return {sub: r["launches"] for sub, r in runs.items()}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -1815,9 +1964,11 @@ def main() -> None:
     by_path = {"serve": serve(device, card), "train": train(device, card)}
     train_parity(device)
     with tempfile.TemporaryDirectory() as workdir:
-        runs, args = align(device, card, workdir)
+        runs, args, samples = align(device, card, workdir)
         by_path.update({f"align_{run}": r["launches"] for run, r in runs.items()})
         parity = align_parity(device, args, workdir)
+        by_path.update({f"cli_{sub}": launches
+                        for sub, launches in cli_phase(device, card, workdir, args, samples).items()})
     # "launches" counts the path each kernel was ported for (the timed
     # align run for kernels 6 and 7, the phases of one launch); every
     # path's counts stand beside it

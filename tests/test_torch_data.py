@@ -117,7 +117,7 @@ def test_loader_worker_pool_is_not_ported():
     from voice100_tpu_torch.data.collate import collate_audio_text
     from voice100_tpu_torch.data.loader import DataLoader
 
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         DataLoader(_items(), 4, collate_audio_text, num_workers=2)
 
 

@@ -38,6 +38,8 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'voice100_tpu')]\n"
         "assert len(names) >= 12, names\n"
+        "assert {'voice100_tpu_torch.__main__', 'voice100_tpu_torch.ops.metrics',\n"
+        "        'voice100_tpu_torch.training.cli'} <= set(names), names\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n"
     )

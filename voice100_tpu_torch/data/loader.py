@@ -11,7 +11,7 @@ ahead.
 
 One process (``process_index`` 0 of 1). The spawned worker pool
 (``num_workers > 0``) waits for the data shell of the port (``ROADMAP.md``
-queue 1, item 13) and raises ``NotImplementedError``.
+queue 1, item 8) and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,7 +24,9 @@ import numpy as np
 
 from .collate import bucket_extent
 
-__all__ = ["DataLoader"]
+__all__ = ["DataLoader", "PREFETCH_THREAD"]
+
+PREFETCH_THREAD = "voice100-loader-prefetch"  # the name of the producer thread
 
 
 class DataLoader:
@@ -35,7 +37,7 @@ class DataLoader:
         if num_workers > 0:
             raise NotImplementedError("the loader's worker pool (num_workers > 0) is not ported "
                                       "yet; it waits for the data shell (ROADMAP.md queue 1, "
-                                      "item 13)")
+                                      "item 8)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn
@@ -146,7 +148,7 @@ class DataLoader:
             finally:
                 put(sentinel)
 
-        thread = threading.Thread(target=producer, daemon=True)
+        thread = threading.Thread(target=producer, name=PREFETCH_THREAD, daemon=True)
         thread.start()
         try:
             while True:

@@ -21,7 +21,7 @@ from .wav import read_wav
 
 __all__ = ["load_audio", "NATIVE_DECODERS_ITEM"]
 
-NATIVE_DECODERS_ITEM = "ROADMAP.md, queue 1, item 13 (data shell: native FLAC/MP3 decoders)"
+NATIVE_DECODERS_ITEM = "ROADMAP.md, queue 1, item 8 (data shell: native FLAC/MP3 decoders)"
 
 
 def _read_any(path: str):

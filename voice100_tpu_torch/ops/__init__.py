@@ -1,3 +1,4 @@
 """Tensor ops of the port: the log-mel front end, masks, augmentation,
 the biLSTM, the CTC loss and the CTC Viterbi alignment, each CUDA kernel
-beside its plain PyTorch version."""
+beside its plain PyTorch version; and the host-side error rates
+(``metrics``)."""

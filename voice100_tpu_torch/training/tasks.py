@@ -37,13 +37,18 @@ class Task:
         from ``generator``; with ``train=False`` neither runs. Tensors of
         the batch, or the numpy arrays of the port's collates, move to the
         model's device."""
+        self.model.train(train)
+        loss = self.model.compute_loss(*self.upload(batch), deterministic=not train,
+                                       generator=generator)
+        return loss, {"loss": loss}
+
+    def upload(self, batch) -> Tuple[torch.Tensor, ...]:
+        """``(audio, audio_len, text, text_len)`` of a collated batch on the
+        model's device, half-precision features widened to float32."""
         device = next(self.model.parameters()).device
         (audio, audio_len), (text, text_len) = batch
-        args = [_upcast(torch.as_tensor(t).to(device, non_blocking=True))
-                for t in (audio, audio_len, text, text_len)]
-        self.model.train(train)
-        loss = self.model.compute_loss(*args, deterministic=not train, generator=generator)
-        return loss, {"loss": loss}
+        return tuple(_upcast(torch.as_tensor(t).to(device, non_blocking=True))
+                     for t in (audio, audio_len, text, text_len))
 
     def make_optimizer(self) -> torch.optim.Optimizer:
         """Adam at ``model.learning_rate`` with torch's defaults (b1 0.9,
