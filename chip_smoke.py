@@ -96,7 +96,27 @@ toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
     loss against the last epoch's (1e-5 relative) and every predicted line
     against the card's own greedy decode; prints the fit's host-clock
     seconds an epoch and audio seconds a second;
-14. prints one JSON line of per-kernel results, then, last,
+14. serves TTS v2 at config/align_en_base.yaml and config/tts_en_base.yaml
+    width through TTSPipeline on the card (seeded random weights saved as
+    port checkpoints and loaded through training/cli.py load_model, the
+    align model's output bias set for ~3.3 aligned frames a character,
+    constant WORLD statistics): 16 English texts of 21-239 characters in
+    one batch (text bucket 256, frame bucket 2048), with the launch counts
+    set to 0 just before one synthesize call and read just after (kernel 1
+    once a layer of each model, 4 in all, nothing else); the median wall
+    time of 5 warm calls, float32 and int16, every call's float32
+    waveforms equal to the first's, int16 equal to round(clip(float) *
+    32767) +/- 1; the time of each stage; the card against the CPU's plain
+    path on 4 of the texts, stage by stage on the card's inputs of each
+    stage and the same noise (durations, aligned ids and lengths,
+    features, pulse positions, waveform); kernel 1 against its plain
+    version and nn.LSTM at the run's align (B=16, T=256, H=256) and audio
+    encoder (B=16, T=2048, H=512) shapes;
+15. holds kernel 1 at the TTS configs' training batch (B=128, T=512,
+    H=512, a zero-length row): its shared memory a block, 156,672 B,
+    within the 232,448 B opt-in, and its outputs against the plain
+    version;
+16. prints one JSON line of per-kernel results, then, last,
     {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line is printed. Without
@@ -188,6 +208,68 @@ ALIGN_PARITY_CLIPS = 8
 # segments of the path.
 ALIGN_SCORE_REL_TOL = 1e-3
 ALIGN_PATH_AGREEMENT = 0.99
+# TTS serving: config/align_en_base.yaml and config/tts_en_base.yaml at full
+# width, seeded random weights saved as port checkpoints and loaded through
+# training.cli.load_model.
+ALIGN_EN_BASE = dict(vocab_size=29, num_layers=2, hidden_size=256, num_outputs=2)
+TTS_EN_BASE = dict(vocab_size=29, f0_size=1, logspc_size=25, codeap_size=1,
+                   encoder_num_layers=2, encoder_hidden_size=512,
+                   decoder_settings=((512, False, 5, 1, 2, False), (512, True, 5, 2, 2, False),
+                                     (512, False, 5, 1, 2, False)))
+# the align model's output bias: durations of about (0.3, 3.0) aligned
+# frames a character, 3.3 in all (66 ms: LJSpeech's ~15 characters a second)
+TTS_DURATION_BIAS = (float(np.log(1.3)), float(np.log(4.0)))
+# constant WORLDNorm statistics (no stat file is in the repository): F0 about
+# 150 +/- 30 Hz, a mel-cepstrum of a plausible level and tilt, codeap -15 dB
+TTS_STATS = {"f0_mean": [150.0], "f0_std": [30.0],
+             "logspc_mean": [-4.0, 0.6, -0.1] + [0.0] * 22,
+             "logspc_std": [0.5, 0.3] + [0.1] * 23,
+             "codeap_mean": [-15.0], "codeap_std": [5.0]}
+# 16 English sentences of 21-239 characters; the 2nd and 4th are the
+# sample texts of voice100_tpu/tools/update_samples.py:119-127
+TTS_TEXTS = [
+    "The birch canoe slid on the smooth planks.",
+    "beginnings are apt to be determinative and when reinforced by continuous applications "
+    "of similar influence",
+    "In the early evening the committee met again, and after a long discussion of the "
+    "accounts, the reports of the treasurer and the letters from the county, it resolved "
+    "that the old bridge should be repaired before the winter floods came down.",
+    "which had restored the courage of noirtier for ever since he had conversed with the "
+    "priest his violent despair had yielded to a calm resignation which surprised all who "
+    "knew his excessive affection",
+    "Glue the sheet to the dark blue background.",
+    "It's easy to tell the depth of a well.",
+    "The printing press changed the way that books were made and sold across the whole of "
+    "Europe.",
+    "These days a chicken leg is a rare dish.",
+    "He had been told that the witness would arrive on the morning train, but by noon nobody "
+    "had seen him at the station or in the town.",
+    "Rice is often served in round bowls.",
+    "The juice of lemons makes fine punch, and the box was thrown beside the parked truck "
+    "while the hogs were fed chopped corn and garbage.",
+    "Four hours of steady work faced us.",
+    "The report described the condition of the prison in great detail, from the crowded yards "
+    "and the narrow cells to the poor food and the lack of any useful employment for the "
+    "prisoners.",
+    "A large size in stockings is hard to sell.",
+    "Yes, we will see you.",
+    "The secret service agents moved quickly through the crowd, watching the windows of the "
+    "buildings along the route and the faces of the people who lined the street on both sides.",
+]
+TTS_PARITY_TEXTS = 4  # the first four: 42-239 characters, the 2048 frame bucket
+TTS_TIMED_CALLS = 5
+# card vs CPU, stage by stage on the card's inputs of each stage: durations
+# (exp of log-durations from two biLSTM layers summed in another order)
+# relatively; features (the audio model's float32 differences scaled by the
+# statistics, F0 by 30 Hz) absolutely; the waveform of the same features and
+# noise (float32 DFT products in another order) relative to its peak
+TTS_DURATION_REL_TOL = 1e-3
+TTS_FEATURE_TOL = 2e-3
+TTS_WAVE_TOL = 1e-3
+# aligned ids may differ where a cursor value lies this close to an integer
+TTS_CURSOR_TIE = 1e-5
+# kernel 1's shared memory a block at B=128, H=512 (persistent::smem_bytes)
+TTS_B128_SMEM = 156672
 PEAK_F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 # kernel and library call timed in turns: rounds, each of `iters` calls
@@ -420,20 +502,22 @@ def check_melspec_clips(device):
     return worst
 
 
-def check_bilstm(device, batch=BATCH, time_steps=501, lengths_list=None):
+def check_bilstm(device, batch=BATCH, time_steps=501, lengths_list=None, hidden=512,
+                 input_size=512):
     """The biLSTM inference kernel against its plain version for both
-    layer widths of asr_en_base with ragged lengths, timed with the plain
-    version and cuDNN nn.LSTM; one call must be one launch. The default
-    shapes are one 8 x 10 s serve batch; the align phase runs it at the
-    config's batch of 64 (one 64-row pass of the kernel's product)."""
+    layer widths of a 2-layer biLSTM (input ``input_size``, then 2 H) with
+    ragged lengths, timed with the plain version and cuDNN nn.LSTM; one
+    call must be one launch. The default shapes are one 8 x 10 s serve
+    batch of asr_en_base; the align phase runs it at the config's batch of
+    64 (one 64-row pass of the kernel's product), the TTS phase at the
+    align and audio models' shapes."""
     from voice100_tpu_torch.models.layers import BiLSTM
     from voice100_tpu_torch.ops.lstm import bilstm
     from voice100_tpu_torch.ops.lstm_cuda import bilstm_cuda
 
-    hidden = 512
     if lengths_list is None:
         lengths_list = [501, 463, 420, 377, 250, 128, 17, 1]
-    module = BiLSTM(512, hidden, 2, device=device)
+    module = BiLSTM(input_size, hidden, 2, device=device)
     module.reset_parameters(torch.Generator().manual_seed(SEED))
     lengths = torch.tensor(lengths_list, dtype=torch.int32, device=device)
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -512,7 +596,8 @@ def check_bilstm(device, batch=BATCH, time_steps=501, lengths_list=None):
         "bound_ms": bound, "bound_by": bound_by, "library_ms": total["library_ms"],
         "device_ms": total["device_ms"], "library_device_ms": total["library_device_ms"],
         "recurrence_device_ms": total["recurrence_device_ms"], "events_launches": counts,
-        "shapes": f"both layers: B={batch}, T={time_steps}, H=512, D=512 then 1024",
+        "shapes": f"both layers: B={batch}, T={time_steps}, H={hidden}, D={input_size} then "
+                  f"{2 * hidden}",
     }
 
 
@@ -560,6 +645,47 @@ def check_forward_b128(device):
         fail(f"biLSTM kernels at B={batch}, H={hidden} disagree with the plain twins: {errs}")
     return {"shapes": f"B={batch}, T={time_steps}, H={hidden}, both layers, a zero-length row",
             "max_abs_err": errs, "kernel_1_ms": ms, "kernel_1_plain_ms": plain_ms}
+
+
+def check_bilstm_b128_h512(device):
+    """Kernel 1 at the TTS configs' training batch (config/tts_en_base.yaml:
+    H=512, batch 128): its shared memory a block within the opt-in limit,
+    ragged lengths with a zero-length row, both layer widths, against the
+    plain version on the card."""
+    from voice100_tpu_torch.models.layers import BiLSTM
+    from voice100_tpu_torch.ops.lstm import bilstm
+    from voice100_tpu_torch.ops.lstm_cuda import _SMEM_OPTIN_LIMIT, _lib, bilstm_cuda
+
+    batch, time_steps, hidden = 128, 512, 512
+    smem = _lib().bilstm_smem_bytes(batch, hidden)
+    if smem != TTS_B128_SMEM or smem > _SMEM_OPTIN_LIMIT:
+        fail(f"kernel 1 at B={batch}, H={hidden}: {smem} B of shared memory a block, not "
+             f"{TTS_B128_SMEM} within the {_SMEM_OPTIN_LIMIT} B opt-in")
+    lengths_np = np.random.default_rng(SEED + 11).integers(1, time_steps + 1, size=batch)
+    lengths_np[0], lengths_np[1], lengths_np[2] = time_steps, 0, 1
+    lengths = torch.tensor(lengths_np, dtype=torch.int32, device=device)
+    module = BiLSTM(hidden, hidden, 2, device=device)
+    module.reset_parameters(torch.Generator().manual_seed(SEED + 11))
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    err, ms = 0.0, 0.0
+    for layer, (w_ih, w_hh, bias) in enumerate(module.stacked_layers()):
+        x = torch.randn(batch, time_steps, w_ih.shape[2], device=device, generator=gen)
+        with torch.no_grad():
+            got = bilstm_cuda(w_ih, w_hh, bias, x, lengths)
+            ref = bilstm(w_ih, w_hh, bias, x, lengths)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                fail(f"kernel 1 at B={batch}, H={hidden}, layer {layer}: non-finite outputs")
+            err = max(err, (got - ref).abs().max().item())
+            ms += time_ms(lambda: bilstm_cuda(w_ih, w_hh, bias, x, lengths), iters=3)
+    print(f"biLSTM kernel 1 at B={batch}, T={time_steps}, H={hidden} (the TTS configs' training "
+          f"batch; a zero-length row, both layers): {smem} B of shared memory a block (opt-in "
+          f"{_SMEM_OPTIN_LIMIT}); max_abs_err {err:.3e} (tol {LSTM_TOL:.0e}); {ms:.3f} ms",
+          flush=True)
+    if not err <= LSTM_TOL:
+        fail(f"kernel 1 at B={batch}, H={hidden} disagrees with the plain version: {err:.3e}")
+    return {"shapes": f"B={batch}, T={time_steps}, H={hidden}, both layers, a zero-length row",
+            "smem_bytes": smem, "max_abs_err": err, "ms": ms}
 
 
 def rel_err(got, ref) -> float:
@@ -1917,6 +2043,295 @@ def cli_phase(device, card, workdir, align_args, samples):
     return {sub: r["launches"] for sub, r in runs.items()}
 
 
+TTS_STAGE_KEYS = ("phonemize_tokenize", "align_model", "duration_fetch", "cursor_host",
+                  "expansion", "audio_encoder", "decoder_convs", "projection_unnormalize",
+                  "mc2sp", "codeap_host", "synthesis", "fetch")
+
+
+def write_tts_checkpoints(root: str):
+    """Seeded full-width align and audio models, the duration bias and the
+    statistics set, saved as port checkpoints; returns {name: (config,
+    checkpoint)}."""
+    from voice100_tpu_torch.models import AlignTextToAudio, TextToAlignText
+    from voice100_tpu_torch.training import TrainState, save_checkpoint
+
+    paths = {}
+    for i, (name, cls, kwargs, config) in enumerate((
+            ("align", TextToAlignText, ALIGN_EN_BASE, "config/align_en_base.yaml"),
+            ("audio", AlignTextToAudio, TTS_EN_BASE, "config/tts_en_base.yaml"))):
+        model = cls(**kwargs, device="cpu", generator=torch.Generator().manual_seed(SEED + 12 + i))
+        with torch.no_grad():
+            if name == "align":
+                model.dense.bias.copy_(torch.tensor(TTS_DURATION_BIAS))
+            else:
+                for key, value in TTS_STATS.items():
+                    getattr(model.norm, key).copy_(torch.tensor(value))
+        ckpt = os.path.join(root, f"{name}_en_base_random.pt")
+        save_checkpoint(ckpt, TrainState(model, torch.optim.Adam(model.parameters())))
+        paths[name] = (config, ckpt)
+    return paths
+
+
+def tts_stages(pipe, texts, noise=None, timed=False):
+    """TTSPipeline._synthesize_batch stage by stage on one batch: each
+    intermediate (host arrays, and the stage's inputs on the pipeline's
+    device), and with ``timed`` each stage's time (``tts_stages_ms``: card
+    stages by CUDA events, host stages by host clock after a sync)."""
+    from voice100_tpu_torch.inference import _bucket
+    from voice100_tpu_torch.ops.duration import duration_spans
+
+    dev, model, vocoder = pipe.device, pipe.audio_model, pipe.vocoder
+    ms = {}
+
+    def host_ms(fn, reps=5):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return (time.perf_counter() - start) * 1e3 / reps, out
+
+    def card_ms(fn, iters=5):
+        return time_ms(fn, iters=iters, warmup=1) if timed else None
+
+    def encode():
+        return [pipe.tokenizer(pipe.phonemizer(t)) for t in texts]
+
+    out = {}
+    with torch.inference_mode():
+        ms["phonemize_tokenize"], encoded = host_ms(encode)
+        text_bucket = _bucket(max(len(e) for e in encoded), pipe.text_buckets)
+        text = np.zeros((len(texts), text_bucket), np.int32)
+        text_len = np.ones(len(texts), np.int32)
+        for i, e in enumerate(encoded):
+            e = e[:text_bucket]
+            text[i, :len(e)] = e
+            text_len[i] = max(len(e), 1)
+        text_t = torch.from_numpy(text).to(dev)
+        len_t = torch.from_numpy(text_len).to(dev)
+        durations_t = pipe.align_model.predict(text_t, len_t)
+        ms["align_model"] = card_ms(lambda: pipe.align_model.predict(text_t, len_t))
+        ms["duration_fetch"], durations = host_ms(lambda: durations_t.cpu().numpy())
+        ms["cursor_host"], _ = host_ms(lambda: duration_spans(durations))
+        mask = np.arange(text_bucket)[None, :] < text_len[:, None]
+        need = int(np.max((durations * mask[:, :, None]).sum(axis=(1, 2)))) + text_bucket + 16
+        out_len = _bucket(need, pipe.frame_buckets)
+        aligntext, aligntext_len = pipe.align_model.align(text_t, durations, len_t, out_len)
+        ms["expansion"] = card_ms(
+            lambda: pipe.align_model.align(text_t, durations, len_t, out_len))
+        x = model.embedding(aligntext.long())
+        h = model.lstm(x, aligntext_len)
+        ms["audio_encoder"] = card_ms(lambda: model.lstm(model.embedding(aligntext.long()),
+                                                         aligntext_len))
+        y = model.decoder(h)
+        ms["decoder_convs"] = card_ms(lambda: model.decoder(h))
+        f0, feat, codeap = model.predict(aligntext, aligntext_len)
+
+        def tail():
+            p = model.projection(y)
+            f0_, sp_, cap_ = model.norm.unnormalize(p[:, :, 1], p[:, :, 2:27], p[:, :, 28:])
+            return (torch.where(p[:, :, 0] < 0, 0.0, f0_), sp_,
+                    torch.where(p[:, :, 27:28] < 0, 0.0, cap_))
+
+        ms["projection_unnormalize"] = card_ms(tail)
+        ms["mc2sp"] = card_ms(
+            lambda: torch.clamp(torch.exp(feat @ vocoder._mc2sp32) - vocoder.log_offset, min=0.0))
+        ms["codeap_host"], ap = host_ms(lambda: torch.from_numpy(
+            vocoder._aperiodicity(codeap.cpu().numpy()).astype(np.float32)).to(dev))
+        audio_lens = np.minimum(aligntext_len.cpu().numpy() * 2, f0.shape[1])
+        wav_t = None
+        if timed:
+            from voice100_tpu_torch.dsp.world import synthesize_batch
+
+            spc = torch.clamp(torch.exp(feat @ vocoder._mc2sp32) - vocoder.log_offset, min=0.0)
+            ms["synthesis"] = card_ms(lambda: synthesize_batch(f0, spc, ap), iters=3)
+            wav_t = synthesize_batch(f0, spc, ap)
+            ms["fetch"], _ = host_ms(lambda: wav_t.cpu().numpy())
+        wav = vocoder.decode_batch(f0, feat, codeap, audio_lens, noise=noise)
+    out.update(text=text, text_len=text_len, durations=durations, out_len=out_len,
+               aligntext=aligntext.cpu().numpy(), aligntext_len=aligntext_len.cpu().numpy(),
+               f0=f0.cpu().numpy(), feat=feat.cpu().numpy(), codeap=codeap.cpu().numpy(),
+               audio_lens=audio_lens, wav=wav)
+    return out, ms
+
+
+def cursor_ties(durations, text_len, head=5):
+    """By row, the tokens whose cursor values (float64 from ``durations``)
+    lie within TTS_CURSOR_TIE of an integer."""
+    ties = {}
+    for b, n in enumerate(text_len):
+        steps = durations[b, :n].astype(np.float64).reshape(-1).copy()
+        steps[0] = 0.0
+        cursor = head + np.cumsum(steps)
+        near = np.nonzero(np.abs(cursor - np.round(cursor)) < TTS_CURSOR_TIE)[0] // 2
+        if len(near):
+            ties[b] = sorted(set(near.tolist()))
+    return ties
+
+
+def pulse_positions(f0, audio_lens, device):
+    """The pulses synthesis places for ``f0 [B, T]`` muted past each
+    length, on ``device`` (the synthesis module's own steps)."""
+    from voice100_tpu_torch.dsp.world import synthesis
+
+    f0 = torch.from_numpy(f0).to(device)
+    f0 = torch.where(torch.arange(f0.shape[1], device=device)[None] <
+                     torch.from_numpy(audio_lens).to(device)[:, None], f0, 0.0)
+    out_len, max_pulses = synthesis.synthesis_shape(f0.shape[1], SAMPLE_RATE, 10.0, 512)
+    f0_s = synthesis._per_sample_f0(f0, SAMPLE_RATE * 10.0 / 1000.0, out_len)
+    rate = torch.where(f0_s > 0, f0_s, synthesis._DEFAULT_F0).clamp(synthesis._MIN_RATE,
+                                                                    synthesis._MAX_RATE)
+    return synthesis._pulse_positions(rate, SAMPLE_RATE, max_pulses).cpu().numpy()
+
+
+def tts_parity(pipe, cpu_pipe, texts):
+    """The card against the port's CPU path on ``texts``, stage by stage,
+    each stage on the card's inputs of that stage and the same noise
+    (drawn on the CPU from one seed): durations, aligned ids and lengths,
+    features, the pulses and the waveform. End to end (each device's own
+    features) the waveforms are reported, not gated: F0 that differs by
+    float32 rounding moves the phase, and with it some pulses, by a
+    sample."""
+    def gen():
+        return torch.Generator().manual_seed(SEED + 14)
+
+    card, _ = tts_stages(pipe, texts, noise=gen())
+    host, _ = tts_stages(cpu_pipe, texts, noise=gen())
+    err = {}
+    d_card, d_cpu = card["durations"], host["durations"]
+    err["durations_rel"] = float((np.abs(d_card - d_cpu) / np.maximum(1.0, np.abs(d_cpu))).max())
+    if not err["durations_rel"] <= TTS_DURATION_REL_TOL:
+        fail(f"tts parity: durations differ by {err['durations_rel']:.3e} relative")
+    if card["out_len"] != host["out_len"]:
+        fail(f"tts parity: frame buckets {card['out_len']} and {host['out_len']}")
+    ties = cursor_ties(d_cpu, host["text_len"])
+    differ = {b: np.nonzero(card["aligntext"][b] != host["aligntext"][b])[0].tolist()
+              for b in range(len(texts))}
+    differ = {b: v for b, v in differ.items() if v}
+    if any(b not in ties for b in differ):
+        fail(f"tts parity: aligned ids differ at {differ} with no cursor tie ({ties})")
+    if not np.array_equal(card["aligntext_len"], host["aligntext_len"]) and not ties:
+        fail(f"tts parity: aligned lengths {card['aligntext_len']} and {host['aligntext_len']}")
+    # the expansion alone: the card's and the CPU's on the same host durations
+    with torch.inference_mode():
+        same_ids, same_len = cpu_pipe.align_model.align(
+            torch.from_numpy(card["text"]), d_card, torch.from_numpy(card["text_len"]),
+            card["out_len"])
+    if not (np.array_equal(same_ids.numpy(), card["aligntext"])
+            and np.array_equal(same_len.numpy(), card["aligntext_len"])):
+        fail("tts parity: the expansion of the same durations differs between card and CPU")
+    # features: the CPU's audio model on the card's aligned ids
+    with torch.inference_mode():
+        feats = cpu_pipe.audio_model.predict(torch.from_numpy(card["aligntext"]),
+                                             torch.from_numpy(card["aligntext_len"]))
+    err["features"] = max(float(np.abs(a.numpy() - card[k]).max())
+                          for a, k in zip(feats, ("f0", "feat", "codeap")))
+    if not err["features"] <= TTS_FEATURE_TOL:
+        fail(f"tts parity: features differ by {err['features']:.3e} > {TTS_FEATURE_TOL:.0e}")
+    # synthesis: the CPU's vocoder on the card's features, the same noise
+    wav_cpu = cpu_pipe.vocoder.decode_batch(card["f0"], card["feat"], card["codeap"],
+                                            card["audio_lens"], noise=gen())
+    pulses_card = pulse_positions(card["f0"], card["audio_lens"], pipe.device)
+    pulses_cpu = pulse_positions(card["f0"], card["audio_lens"], torch.device("cpu"))
+    if not np.array_equal(pulses_card, pulses_cpu):
+        fail(f"tts parity: pulse positions differ at "
+             f"{int((pulses_card != pulses_cpu).sum())} slots")
+    peak = float(np.abs(wav_cpu).max())
+    err["waveform_over_peak"] = float(np.abs(card["wav"] - wav_cpu).max()) / peak
+    if not np.isfinite(card["wav"]).all() or not err["waveform_over_peak"] <= TTS_WAVE_TOL:
+        fail(f"tts parity: waveforms differ by {err['waveform_over_peak']:.3e} x peak")
+    # end to end, each device on its own features: reported only
+    e2e_card = pulse_positions(card["f0"], card["audio_lens"], pipe.device)
+    e2e_cpu = pulse_positions(host["f0"], host["audio_lens"], torch.device("cpu"))
+    valid = (e2e_card >= 0) | (e2e_cpu >= 0)
+    report = {"errors": err, "cursor_ties": ties, "ids_differ": differ,
+              "pulses": int((pulses_card >= 0).sum()),
+              "end_to_end_pulses_equal": float((e2e_card == e2e_cpu)[valid].mean()),
+              "end_to_end_waveform_over_peak": float(
+                  np.abs(card["wav"] - host["wav"]).max()) / float(np.abs(host["wav"]).max())}
+    print(f"tts parity (card vs CPU, {len(texts)} texts, stage by stage): durations rel "
+          f"{err['durations_rel']:.3e} (tol {TTS_DURATION_REL_TOL:.0e}), aligned ids equal"
+          f"{'' if not differ else f' except at cursor ties {differ}'}, features "
+          f"{err['features']:.3e} (tol {TTS_FEATURE_TOL:.0e}), {report['pulses']} pulses equal, "
+          f"waveform {err['waveform_over_peak']:.3e} x peak (tol {TTS_WAVE_TOL:.0e}); end to "
+          f"end (reported): pulses equal {report['end_to_end_pulses_equal']:.4f}, waveform "
+          f"{report['end_to_end_waveform_over_peak']:.3e} x peak", flush=True)
+    return report
+
+
+def tts_phase(device, card, workdir):
+    """TTS serving at align_en_base and tts_en_base width through
+    TTSPipeline on the card: launches of one call, the wall time of warm
+    calls (float32 and int16), the stages, the card against the CPU, and
+    kernel 1 at the run's shapes."""
+    from voice100_tpu_torch.inference import TTSPipeline
+    from voice100_tpu_torch.ops.lstm_cuda import bilstm_cuda
+    from voice100_tpu_torch.training.cli import load_model
+
+    paths = write_tts_checkpoints(workdir)
+    pipes = {dev: TTSPipeline(load_model(*paths["align"], device=dev),
+                              load_model(*paths["audio"], device=dev),
+                              language="en", use_phone=False, device=dev)
+             for dev in (device, "cpu")}
+    pipe = pipes[device]
+    pipe.synthesize(TTS_TEXTS)  # warm-up: constants, cuDNN plans
+    torch.cuda.synchronize()
+    wrappers = {w for ws in counted_kernels().values() for w in ws}
+    for w in wrappers:
+        w.launches = 0
+    wavs = pipe.synthesize(TTS_TEXTS)
+    torch.cuda.synchronize()
+    launches = {"bilstm_recurrence": bilstm_cuda.launches}
+    others = {w.__name__: w.launches for w in wrappers if w is not bilstm_cuda and w.launches}
+    # one batch of 16: the align model's two layers, the audio encoder's two
+    if launches["bilstm_recurrence"] != 4 or others:
+        fail(f"tts: one synthesize call of one batch launched kernel 1 "
+             f"{launches['bilstm_recurrence']} times, not 4, and {others}")
+    timed = {}
+    for dtype in (np.float32, np.int16):
+        walls = []
+        for _ in range(TTS_TIMED_CALLS):
+            start = time.perf_counter()
+            out = pipe.synthesize(TTS_TEXTS, output_dtype=dtype)
+            walls.append(time.perf_counter() - start)
+            # the same texts and noise give the same waveforms, bit for bit
+            if dtype == np.float32 and not all(map(np.array_equal, out, wavs)):
+                fail("tts: two synthesize calls of the same texts gave different waveforms")
+        audio_s = sum(len(w) for w in out) / SAMPLE_RATE
+        wall = float(np.median(walls))
+        timed[np.dtype(dtype).name] = {"wall_s": wall, "audio_s": audio_s,
+                                       "audio_s_per_s": audio_s / wall, "walls": walls}
+        if dtype == np.int16:
+            pcm = out
+    for w32, w16 in zip(wavs, pcm):
+        if not np.isfinite(w32).all() or w16.dtype != np.int16 or w16.shape != w32.shape:
+            fail("tts: a waveform is not finite, or int16 and float32 differ in shape")
+        expect = np.round(np.clip(w32, -1.0, 1.0) * 32767.0)
+        if np.abs(w16.astype(np.float64) - expect).max() > 1:
+            fail("tts: int16 output is not round(clip(float) * 32767) +/- 1")
+    print(f"tts align_en_base + tts_en_base on {card}: {len(TTS_TEXTS)} texts, one batch; "
+          + "; ".join(f"{k}: synthesize median {v['wall_s'] * 1e3:.2f} ms of {TTS_TIMED_CALLS} "
+                      f"warm calls, {v['audio_s']:.2f} s of audio, {v['audio_s_per_s']:.1f} "
+                      f"audio s/s" for k, v in timed.items())
+          + f"; launches of one call {launches}", flush=True)
+    run, stage_ms = tts_stages(pipe, TTS_TEXTS, timed=True)
+    print("tts_stages_ms " + json.dumps({"texts": len(TTS_TEXTS), "text_bucket":
+                                         int(run["text"].shape[1]), "frame_bucket": run["out_len"],
+                                         **stage_ms}), flush=True)
+    parity = tts_parity(pipe, pipes["cpu"], TTS_TEXTS[:TTS_PARITY_TEXTS])
+    del pipes
+    kernel_shapes = {
+        "tts_align": check_bilstm(device, len(TTS_TEXTS), int(run["text"].shape[1]),
+                                  [int(n) for n in run["text_len"]], hidden=256, input_size=256),
+        "tts_audio": check_bilstm(device, len(TTS_TEXTS), run["out_len"],
+                                  [int(n) for n in run["aligntext_len"]], hidden=512,
+                                  input_size=512),
+    }
+    return launches, kernel_shapes, {"timed": timed, "stages_ms": stage_ms, "parity": parity}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -1969,6 +2384,10 @@ def main() -> None:
         parity = align_parity(device, args, workdir)
         by_path.update({f"cli_{sub}": launches
                         for sub, launches in cli_phase(device, card, workdir, args, samples).items()})
+        by_path["tts"], tts_kernel, tts_summary = tts_phase(device, card, workdir)
+    serving[1].update(tts_kernel)
+    # kernel 1 at the TTS configs' training batch
+    serving[1]["b128_h512"] = check_bilstm_b128_h512(device)
     # "launches" counts the path each kernel was ported for (the timed
     # align run for kernels 6 and 7, the phases of one launch); every
     # path's counts stand beside it
@@ -1981,6 +2400,7 @@ def main() -> None:
     for entry in training:
         entry["launches_per_step"] = entry["launches"] / TIMED_STEPS
     print("align_summary " + json.dumps({"runs": runs, "parity": parity}), flush=True)
+    print("tts_summary " + json.dumps(tts_summary), flush=True)
     print(json.dumps({"kernels": serving + training + aligning}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -117,7 +117,9 @@ def test_configs_the_port_cannot_build_raise_naming_the_class(name):
     from voice100_tpu_torch.training.cli import build_from_config, load_config
 
     config = load_config(os.path.join(ROOT, "config", name))
-    with pytest.raises(ValueError, match="is not ported"):
+    model = config["model"]["class_path"].rsplit(".", 1)[-1]
+    # the TTS models are served (training.cli.load_model) but not trained yet
+    with pytest.raises(NotImplementedError, match=f"{model}: .*not ported yet.*item 6"):
         build_from_config(config, {}, device="cpu")
 
 

@@ -1,4 +1,5 @@
-"""Host DSP of the data path: WAV I/O, resampling, audio loading."""
+"""DSP: the data path's WAV I/O, resampling and audio loading; WORLD
+decoding for TTS serving in ``dsp.world`` (with ``dsp.mcep``)."""
 
 from .audioio import load_audio
 from .resample import resample

@@ -1,11 +1,11 @@
-"""Shared building blocks: conv encoder blocks and the masked biLSTM.
+"""Shared building blocks: conv blocks, the masked biLSTM, WORLDNorm.
 
-Port of ``voice100_tpu/models/layers.py:54-81, 123-213``. Modules take
-and return batch-major ``[B, T, C]`` tensors, as the JAX modules do, and
-keep the parameter names of the torch reference
-(``encoder.{i}.conv.weight``, ``encoder.{i}.layer_norm.{weight,bias}``,
-``lstm.{weight,bias}_{ih,hh}_l{k}[_reverse]``), so state dicts carry
-across (``tools/weights.py``). Transposed conv blocks wait for TTS.
+Port of ``voice100_tpu/models/layers.py``. Modules take and return
+batch-major ``[B, T, C]`` tensors, as the JAX modules do, and keep the
+parameter names of the torch reference (``encoder.{i}.conv.weight``,
+``decoder.{i}.layer_norm.{weight,bias}``,
+``lstm.{weight,bias}_{ih,hh}_l{k}[_reverse]``, ``norm.f0_mean``), so
+state dicts carry across (``tools/weights.py``).
 """
 
 from __future__ import annotations
@@ -24,9 +24,11 @@ from ..ops.lstm_cuda import bilstm_cuda, bilstm_train_cuda
 __all__ = [
     "ConvSetting",
     "ConvLayerBlock",
+    "ConvTransposeLayerBlock",
     "ConvStack",
     "conv_stack_output_length",
     "BiLSTM",
+    "WORLDNorm",
     "uniform_",
 ]
 
@@ -68,17 +70,54 @@ class ConvLayerBlock(nn.Module):
         self.layer_norm.reset_parameters()
 
 
+class ConvTransposeLayerBlock(nn.Module):
+    """ConvTranspose1d + channel LayerNorm (eps 1e-5) + exact GELU on
+    ``[B, T, C]`` (``voice100_tpu/models/layers.py:84-120``); length
+    ``(T - 1) * stride - 2 * padding + kernel_size``. The weight is
+    torch's ``[in, out, k]``; the JAX kernel is the same taps flipped in
+    time (``tools/weights.py``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int, padding: int, bias: bool, device=None) -> None:
+        super().__init__()
+        device = resolve_device(device)
+        self.conv = nn.ConvTranspose1d(in_channels, out_channels, kernel_size, stride=stride,
+                                       padding=padding, bias=bias, device=device)
+        self.layer_norm = nn.LayerNorm(out_channels, eps=1e-5, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # cuDNN runs a transposed conv as a convolution's input gradient,
+        # whose fastest algorithms add with atomics: two calls could differ
+        # in the last bits, and a vocoder pulse downstream move by a sample.
+        # The JAX block is deterministic, so this one asks for a
+        # deterministic algorithm.
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            x = self.conv(x.transpose(1, 2)).transpose(1, 2)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        return F.gelu(self.layer_norm(x))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """torch's default bound 1/sqrt(fan_in), fan_in = out * k for a
+        transposed weight; LayerNorm at 1, 0."""
+        bound = 1.0 / math.sqrt(self.conv.out_channels * self.conv.kernel_size[0])
+        uniform_(self.conv.weight, bound, generator)
+        if self.conv.bias is not None:
+            uniform_(self.conv.bias, bound, generator)
+        self.layer_norm.reset_parameters()
+
+
 class ConvStack(nn.Sequential):
-    """Conv blocks built from settings tuples."""
+    """Conv and transposed conv blocks built from settings tuples."""
 
     def __init__(self, in_channels: int, settings: Sequence[ConvSetting], device=None) -> None:
         device = resolve_device(device)
         blocks = []
         for out_ch, transpose, kernel, stride, padding, bias in settings:
-            if transpose:
-                raise NotImplementedError("transposed conv blocks are not ported yet")
-            blocks.append(ConvLayerBlock(in_channels, out_ch, kernel, stride, padding,
-                                         bias, device=device))
+            cls = ConvTransposeLayerBlock if transpose else ConvLayerBlock
+            blocks.append(cls(in_channels, out_ch, kernel, stride, padding, bias, device=device))
             in_channels = out_ch
         super().__init__(*blocks)
 
@@ -182,3 +221,30 @@ class BiLSTM(nn.Module):
                 keep = torch.empty_like(x).bernoulli_(1.0 - self.dropout, generator=generator)
                 x = torch.where(keep.bool(), x / (1.0 - self.dropout), 0.0)
         return x
+
+
+class WORLDNorm(nn.Module):
+    """Frozen per-feature mean and std of the WORLD streams
+    (``voice100_tpu/models/layers.py:216-261``), as six buffers
+    ``{f0,logspc,codeap}_{mean,std}`` (zeros and ones until a stat file is
+    loaded, ``training.checkpoint.merge_world_stats``)."""
+
+    def __init__(self, logspc_size: int, codeap_size: int, device=None) -> None:
+        super().__init__()
+        device = resolve_device(device)
+        for stream, size in (("f0", 1), ("logspc", logspc_size), ("codeap", codeap_size)):
+            self.register_buffer(f"{stream}_mean", torch.zeros(size, device=device))
+            self.register_buffer(f"{stream}_std", torch.ones(size, device=device))
+
+    def normalize(self, f0, logspc, codeap):
+        return ((f0 - self.f0_mean) / self.f0_std,
+                (logspc - self.logspc_mean) / self.logspc_std,
+                (codeap - self.codeap_mean) / self.codeap_std)
+
+    def unnormalize(self, f0, logspc, codeap):
+        return (self.f0_std * f0 + self.f0_mean,
+                self.logspc_std * logspc + self.logspc_mean,
+                self.codeap_std * codeap + self.codeap_mean)
+
+    def forward(self, f0, logspc, codeap):
+        return self.normalize(f0, logspc, codeap)

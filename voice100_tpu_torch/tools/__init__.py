@@ -1,1 +1,2 @@
-"""Tools of the port: carrying weights across from the JAX package."""
+"""Tools of the port: weight conversion from the JAX package, forced
+alignment, TTS samples and the kernels' probes."""

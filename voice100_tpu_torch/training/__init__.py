@@ -1,8 +1,10 @@
-"""Training of the port: task adapter, trainer and checkpoints (ASR v2)."""
+"""Training of the port: task adapter, trainer and checkpoints (ASR v2),
+and the WORLD statistics loader TTS serving reads."""
 
-from .checkpoint import TrainState, load_model_weights, restore_checkpoint, save_checkpoint
+from .checkpoint import (TrainState, load_model_weights, merge_world_stats, restore_checkpoint,
+                         save_checkpoint)
 from .tasks import Task, make_task
 from .trainer import Trainer, TrainerConfig
 
 __all__ = ["Task", "make_task", "Trainer", "TrainerConfig", "TrainState",
-           "save_checkpoint", "restore_checkpoint", "load_model_weights"]
+           "save_checkpoint", "restore_checkpoint", "load_model_weights", "merge_world_stats"]

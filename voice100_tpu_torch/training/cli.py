@@ -1,6 +1,6 @@
 """YAML CLI: ``python -m voice100_tpu_torch fit --config config/asr_en_base.yaml``.
 
-Port of ``voice100_tpu/training/cli.py`` for the pair the port has,
+Port of ``voice100_tpu/training/cli.py`` for the pair the port trains,
 ``AudioToAlignText`` with ``AudioTextDataModule``: the subcommands
 ``fit``, ``validate``, ``test`` and ``predict`` and the JAX CLI's flags,
 with ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path)
@@ -17,7 +17,9 @@ Checkpoints are the port's ``.pt`` files (``best.pt``, ``last.pt``,
 read ``--restore_from``, else ``best.pt``, else ``last.pt``. An orbax
 checkpoint of the JAX package crosses over through ``tools/weights.py``. Meshes and multi-process runs
 (``--mesh_model_axis`` > 1, ``--distributed``) are not ported yet and
-raise.
+raise, and so do the TTS configs (``TextToAlignText``,
+``AlignTextToAudio``), whose training is not ported. Serving builds those
+models from a config and a checkpoint with :func:`load_model`.
 """
 
 from __future__ import annotations
@@ -32,16 +34,18 @@ import torch
 import yaml
 
 from ..data.datamodule import AudioTextDataModule
-from ..models import AudioToAlignText
+from ..models import AlignTextToAudio, AudioToAlignText, TextToAlignText
 from .checkpoint import load_model_weights
 from .tasks import make_task
 from .trainer import BF16_ITEM, Trainer, TrainerConfig, _host
 
-__all__ = ["load_config", "build_from_config", "build_trainer_config", "main", "cli_main",
-           "UNPORTED"]
+__all__ = ["load_config", "build_from_config", "build_trainer_config", "load_model", "main",
+           "cli_main", "UNPORTED"]
 
 DATA_SHELL_ITEM = "ROADMAP.md queue 1, item 8: the rest of the data shell"
 DISTRIBUTED_ITEM = "ROADMAP.md queue 1, item 10: serving, tools and distributed"
+TTS_TRAINING_ITEM = ("ROADMAP.md queue 1, item 6: TTS training (losses, tasks, "
+                     "AlignTextDataModule), and item 7: the WORLD data path")
 
 # The JAX trainer's settings that the port does not run: a config key
 # -> (the values that ask for nothing the port lacks, the item that ports
@@ -56,7 +60,10 @@ UNPORTED = {
     "steps_per_dispatch": ((1,), DATA_SHELL_ITEM),
 }
 
-_MODEL_CLASSES = {"AudioToAlignText": AudioToAlignText}
+_MODEL_CLASSES = {"AudioToAlignText": AudioToAlignText, "TextToAlignText": TextToAlignText,
+                  "AlignTextToAudio": AlignTextToAudio}
+# models the port serves but does not train yet
+_SERVE_ONLY = (TextToAlignText, AlignTextToAudio)
 _DATA_CLASSES = {"AudioTextDataModule": AudioTextDataModule}
 
 
@@ -93,6 +100,10 @@ def build_from_config(config: Dict[str, Any], overrides: Dict[str, Any], device=
     """``(model, datamodule)`` on ``device`` (default ``cuda``) from a
     config; the model's weights are freshly drawn."""
     model_cls = _resolve_class(config["model"]["class_path"], _MODEL_CLASSES)
+    if issubclass(model_cls, _SERVE_ONLY):
+        raise NotImplementedError(f"{model_cls.__name__}: training and evaluation, and the data "
+                                  f"module of {config['data']['class_path']!r}, are not ported "
+                                  f"yet ({TTS_TRAINING_ITEM}); serve it with load_model")
     data_cls = _resolve_class(config["data"]["class_path"], _DATA_CLASSES)
     model_kwargs = _filter_kwargs(model_cls, dict(config["model"].get("init_args") or {}))
     model = model_cls(**model_kwargs, device=device)
@@ -108,6 +119,21 @@ def build_from_config(config: Dict[str, Any], overrides: Dict[str, Any], device=
                 f"data.{attr}={getattr(data, attr)} (language/use_phone/vocoder determine the "
                 f"data side); fix the config's model.init_args.{attr}")
     return model, data
+
+
+def load_model(config_path: str, ckpt_path: str, device=None) -> torch.nn.Module:
+    """The model of a config's ``model`` section alone, on ``device``
+    (default ``cuda``), with the weights of a port checkpoint (the
+    counterpart of ``voice100_tpu/server.py:315-329``): serving needs no
+    data module or trainer settings, and ``audio_stat`` is dropped (the
+    statistics come with the checkpoint's ``norm`` buffers, or from
+    :func:`voice100_tpu_torch.training.checkpoint.merge_world_stats`)."""
+    model_cfg = load_config(config_path)["model"]
+    cls = _resolve_class(model_cfg["class_path"], _MODEL_CLASSES)
+    kwargs = dict(model_cfg.get("init_args") or {})
+    kwargs.pop("audio_stat", None)
+    model = cls(**_filter_kwargs(cls, kwargs), device=device)
+    return load_model_weights(ckpt_path, model).eval()
 
 
 def build_trainer_config(config: Dict[str, Any], overrides: Dict[str, Any]) -> TrainerConfig:
