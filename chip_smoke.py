@@ -112,11 +112,36 @@ toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
     features, pulse positions, waveform); kernel 1 against its plain
     version and nn.LSTM at the run's align (B=16, T=256, H=256) and audio
     encoder (B=16, T=2048, H=512) shapes;
-15. holds kernel 1 at the TTS configs' training batch (B=128, T=512,
+15. builds every TTS config of config/ on the card through
+    training/cli.py, then trains TTS v2 at config/align_en_base.yaml and
+    config/tts_en_base.yaml width and depth: writes a dummy_en corpus of 144 voiced 16 kHz clips
+    of 2-10 s (harmonics of an F0 moving in 90-260 Hz, unvoiced noise
+    stretches; texts of about 14 characters a second), its align file
+    through tools/align_text.cli_main with the align phase's ASR
+    checkpoint, and its WORLD statistics through tools/calc_stat (the
+    cold host analysis, timed); takes one train batch of 128 from each
+    real data module (AudioTextDataModule world_mcep with aligned text,
+    AlignTextDataModule) and runs Trainer.train_step 1 + 10 times on each
+    model (dropout on), with the launch counts set to 0 just before the
+    timed steps and read just after (kernel 2 once and kernel 3 twice a
+    layer a step, nothing else), then one evaluated batch (kernel 1 once
+    a layer, nothing else); times the audio model's step by stage; holds
+    3 steps from the same weights on 8 rows of each batch, dropout off,
+    on the card and on the CPU's plain path (losses and first-step
+    gradients 1e-3 relative); trains both through the training CLI
+    (``fit`` 2 epochs at a batch_size override of 64, the audio model
+    with --audio_stat, then ``validate`` and ``predict`` on last.pt;
+    launch counts, the log, validate against the last epoch's val_loss
+    1e-5 relative, one prediction a clip); and holds kernels 2 and 3 at
+    the two batches' shapes (B=128, T=512, H=512 with the audio batch's
+    lengths: 156,672 and 221,184 B of shared memory a block; B=128,
+    T=144, H=256 with the align batch's) against their plain versions,
+    timed against cuDNN nn.LSTM's forward and backward in turns;
+16. holds kernel 1 at the TTS configs' training batch (B=128, T=512,
     H=512, a zero-length row): its shared memory a block, 156,672 B,
     within the 232,448 B opt-in, and its outputs against the plain
     version;
-16. prints one JSON line of per-kernel results, then, last,
+17. prints one JSON line of per-kernel results, then, last,
     {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line is printed. Without
@@ -693,26 +718,35 @@ def rel_err(got, ref) -> float:
     return ((got - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
 
 
-def train_lengths(rng, time_steps):
+def train_lengths(rng, time_steps, batch=TRAIN_BATCH):
     """Ragged lengths of a train batch, the full length and 1 included."""
-    lengths = rng.integers(1, time_steps + 1, size=TRAIN_BATCH)
+    lengths = rng.integers(1, time_steps + 1, size=batch)
     lengths[0], lengths[1] = time_steps, 1
     return lengths
 
 
-def check_lstm_train(device):
+def check_lstm_train(device, batch=TRAIN_BATCH, time_steps=501, hidden=512, input_size=512,
+                     lengths_np=None):
+    """The biLSTM training kernels (2 and 3) and their autograd Function
+    against the plain versions and torch autograd, for both layers of a
+    2-layer biLSTM (input ``input_size``, then 2 H), timed against cuDNN
+    nn.LSTM's forward and backward in turns. The default shapes are
+    asr_en_base's train batch; the TTS training phase runs it at the TTS
+    configs' batch of 128. Returns the kernel lines of kernels 2 and 3."""
     from voice100_tpu_torch.models.layers import BiLSTM
     from voice100_tpu_torch.ops.lstm import (bilstm, bilstm_train_bwd, bilstm_train_fwd,
                                              project_inputs)
-    from voice100_tpu_torch.ops.lstm_cuda import (bilstm_train_bwd_cuda, bilstm_train_cuda,
-                                                  bilstm_train_fwd_cuda)
+    from voice100_tpu_torch.ops.lstm_cuda import (_train_lib, bilstm_train_bwd_cuda,
+                                                  bilstm_train_cuda, bilstm_train_fwd_cuda)
 
-    hidden, time_steps = 512, 501
-    lengths_np = train_lengths(np.random.default_rng(SEED + 1), time_steps)
+    if lengths_np is None:
+        lengths_np = train_lengths(np.random.default_rng(SEED + 1), time_steps, batch)
     lengths = torch.tensor(lengths_np, dtype=torch.int32, device=device)
     cpu_lengths = lengths.cpu()
     valid = int(lengths_np.sum())
-    module = BiLSTM(512, hidden, 2, device=device)
+    smem = {"kernel_2": _train_lib().lstm_train_fwd_smem_bytes(batch, hidden),
+            "kernel_3": _train_lib().lstm_train_bwd_smem_bytes(batch, hidden)}
+    module = BiLSTM(input_size, hidden, 2, device=device)
     module.reset_parameters(torch.Generator().manual_seed(SEED))
     gen = torch.Generator(device=device).manual_seed(SEED)
     fwd = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "device_ms": 0.0,
@@ -722,8 +756,8 @@ def check_lstm_train(device):
     counts = {"fwd": [], "bwd": []}
     for layer, (w_ih, w_hh, bias) in enumerate(module.stacked_layers()):
         d_in = w_ih.shape[2]
-        x = torch.randn(TRAIN_BATCH, time_steps, d_in, device=device, generator=gen)
-        dout = torch.randn(TRAIN_BATCH, time_steps, 2 * hidden, device=device, generator=gen)
+        x = torch.randn(batch, time_steps, d_in, device=device, generator=gen)
+        dout = torch.randn(batch, time_steps, 2 * hidden, device=device, generator=gen)
         with torch.no_grad():
             xg = project_inputs(w_ih, bias, x).contiguous()
             before = bilstm_train_fwd_cuda.launches
@@ -809,7 +843,7 @@ def check_lstm_train(device):
         # recompute and dG W_hh (16 H^2 a row) reading xg, the states and
         # dout and writing dG. W_hh is read once.
         w_bytes = w_hh.numel() * 4
-        state_bytes = TRAIN_BATCH * time_steps * 2 * hidden * 4       # one [2, B, T, H] tensor
+        state_bytes = batch * time_steps * 2 * hidden * 4       # one [2, B, T, H] tensor
         fwd_bytes = 2 * valid * 4 * hidden * 4 + w_bytes + 3 * state_bytes
         bwd_bytes = 2 * valid * 7 * hidden * 4 + w_bytes + 4 * state_bytes
         for total, err, n_bytes, n_ops, key in (
@@ -823,8 +857,8 @@ def check_lstm_train(device):
                 if name.endswith("ms"):
                     total[name] = None if value is None or total[name] is None \
                         else total[name] + value
-        print(f"biLSTM train layer {layer} (B={TRAIN_BATCH}, T={time_steps}, D={d_in}, H={hidden}, "
-              f"{valid} valid rows): forward out/states max_abs_err {fwd_err:.3e} "
+        print(f"biLSTM train layer {layer} (B={batch}, T={time_steps}, D={d_in}, H={hidden}, "
+              f"{valid} valid rows, shared memory a block {smem}): forward out/states max_abs_err {fwd_err:.3e} "
               f"(tol {LSTM_STATE_TOL:.0e}), dG rel err {dg_err:.3e}, Function gradients rel err "
               f"{grad_err:.3e} (tol {GRAD_REL_TOL:.0e}); kernel and library in turns: "
               + ", ".join(f"{k} {fmt_ms(v)}" for k, v in timings.items()), flush=True)
@@ -834,8 +868,8 @@ def check_lstm_train(device):
         if not max(dg_err, grad_err) <= GRAD_REL_TOL:
             fail(f"biLSTM train backward layer {layer} disagrees with the plain version: dG "
                  f"{dg_err:.3e}, gradients {grad_err:.3e} > {GRAD_REL_TOL:.0e}")
-    shapes = (f"both layers of one train batch: B={TRAIN_BATCH}, T={time_steps}, H={hidden}, "
-              f"{valid} valid rows of {TRAIN_BATCH * time_steps}")
+    shapes = (f"both layers of one train batch: B={batch}, T={time_steps}, H={hidden}, "
+              f"{valid} valid rows of {batch * time_steps}")
     entries = []
     for total, name, source_line, what, key in (
             (fwd, "bilstm_train_fwd", "voice100_tpu/ops/lstm_pallas.py:232", "nn.LSTM forward",
@@ -857,7 +891,7 @@ def check_lstm_train(device):
         "what": "BiLSTMFunction backward (kernel 3 + dW/dx GEMMs) vs cuDNN backward",
         "ms": bwd["function_ms"], "device_ms": bwd["function_device_ms"],
         "library_ms": bwd["library_ms"], "library_device_ms": bwd["library_device_ms"]}
-    check_not_resident(device)
+    entries[0]["smem_bytes"], entries[1]["smem_bytes"] = smem["kernel_2"], smem["kernel_3"]
     return entries
 
 
@@ -2332,6 +2366,435 @@ def tts_phase(device, card, workdir):
     return launches, kernel_shapes, {"timed": timed, "stages_ms": stage_ms, "parity": parity}
 
 
+# TTS training (config/align_en_base.yaml and config/tts_en_base.yaml at full
+# width and depth, both at their batch of 128): a voiced corpus of 2-10 s
+# clips, 144 of them, so that the 90% train split (130) fills one batch
+TTS_TRAIN_CLIPS = 144
+TTS_TRAIN_BATCH = 128
+TTS_TRAIN_PARITY_ROWS = 8
+# the CLI phase's batch_size override: 3 steps an epoch on 130 train clips
+TTS_CLI_BATCH = 64
+TTS_CLI_EPOCHS = 2
+# the ASR model's output frame (mel hop 10 ms, encoder stride 2) and the
+# WORLD frame period: the seconds a duration or an f0 frame stands for
+ALIGN_FRAME_S, WORLD_FRAME_S = 0.02, 0.01
+TTS_TRAIN_STAGE_KEYS = ("upload", "embed_bilstm_fwd", "decoder_fwd", "projection_loss_fwd",
+                        "projection_loss_bwd", "decoder_bwd", "bilstm_bwd", "embedding_bwd",
+                        "backward_total", "clip_adam")
+
+
+def voiced_clip(rng, seconds):
+    """A 16 kHz int16 clip of ``seconds``: harmonics of an F0 moving in
+    90-260 Hz under a syllable-rate envelope, broken by two to four
+    unvoiced stretches of noise, over a low noise floor."""
+    n = int(seconds * SAMPLE_RATE)
+    t = np.arange(n) / SAMPLE_RATE
+    f0 = 175.0 + 85.0 * np.sin(2 * np.pi * rng.uniform(0.3, 1.5) * t + rng.uniform(0, 2 * np.pi))
+    phase = 2 * np.pi * np.cumsum(f0) / SAMPLE_RATE
+    voiced = sum(np.sin(k * phase + rng.uniform(0, 2 * np.pi)) / k for k in range(1, 16))
+    voiced *= 0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(2.0, 5.0) * t)
+    gate = np.ones(n)
+    for _ in range(int(rng.integers(2, 5))):
+        start = int(rng.uniform(0, 0.9) * n)
+        gate[start:start + int(rng.uniform(0.1, 0.3) * SAMPLE_RATE)] = 0.0
+    noise = rng.standard_normal(n)
+    wav = 0.25 * voiced * gate + noise * (0.08 * (1.0 - gate) + 0.005)
+    return (np.clip(wav, -1.0, 1.0) * 32767).astype(np.int16)
+
+
+def write_voiced_corpus(root: str):
+    """A dummy_en corpus (the registry's layout) of TTS_TRAIN_CLIPS voiced
+    clips of 2-10 s, each with a text of random letters and spaces, about
+    14 characters a second; returns (the data directory, the seconds)."""
+    from voice100_tpu_torch.dsp.wav import write_wav
+
+    rng = np.random.default_rng(SEED + 20)
+    seconds = rng.uniform(2.0, 10.0, size=TTS_TRAIN_CLIPS)
+    seconds[0] = 10.0
+    data_dir = os.path.join(root, "tts_data")
+    wavs = os.path.join(data_dir, "dummy-speech-en", "wavs")
+    os.makedirs(wavs)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz  "))
+    lines = []
+    for i, sec in enumerate(seconds):
+        chars = rng.choice(letters, size=min(int(round(sec * 14)), 150))
+        chars[0] = chars[-1] = "a"
+        lines.append((f"clip{i:04d}", "".join(chars)))
+        write_wav(os.path.join(wavs, f"clip{i:04d}.wav"), voiced_clip(rng, sec), SAMPLE_RATE)
+    with open(os.path.join(data_dir, "dummy-speech-en", "metadata.csv"), "w") as f:
+        f.writelines(f"{c}|{t}|{t}\n" for c, t in lines)
+    with open(os.path.join(data_dir, "dummy_en-train.txt"), "w") as f:
+        f.writelines(f"{c}|{t}\n" for c, t in lines)
+    return data_dir, seconds
+
+
+def zero_counts(counters):
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read_counts(counters):
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def tts_train_models(device, stat_path):
+    """The align and audio models at full width, seeded, on ``device``;
+    the audio model with the corpus's statistics."""
+    from voice100_tpu_torch.models import AlignTextToAudio, TextToAlignText
+    from voice100_tpu_torch.training import merge_world_stats
+
+    align = TextToAlignText(**ALIGN_EN_BASE, device=device,
+                            generator=torch.Generator().manual_seed(SEED + 21))
+    audio = AlignTextToAudio(**TTS_EN_BASE, device=device,
+                             generator=torch.Generator().manual_seed(SEED + 22))
+    return {"align": align, "audio": merge_world_stats(audio, stat_path)}
+
+
+def tts_train_batches(device, data_dir, cache_dir):
+    """One collated train batch of 128 from each real data module, the
+    WORLD cache warm: ``{"align": ..., "audio": ...}`` of numpy batches."""
+    from voice100_tpu_torch.data import AlignTextDataModule, AudioTextDataModule
+
+    modules = {
+        "align": AlignTextDataModule(data_dir=data_dir, dataset="dummy_en",
+                                     batch_size=TTS_TRAIN_BATCH),
+        "audio": AudioTextDataModule(vocoder="world_mcep", dataset="dummy_en", use_align=True,
+                                     data_dir=data_dir, cache_dir=cache_dir,
+                                     batch_size=TTS_TRAIN_BATCH, device=device),
+    }
+    batches = {}
+    for name, data in modules.items():
+        data.setup("fit")
+        batch, n_real = next(data.train_dataloader().iter_with_counts())
+        if n_real != TTS_TRAIN_BATCH:
+            fail(f"tts train: the {name} data module's first batch has {n_real} real rows")
+        batches[name] = batch
+    return batches
+
+
+def batch_audio_seconds(name, batch):
+    """The audio seconds a batch stands for: its durations (ASR frames)
+    or its f0 frames."""
+    if name == "align":
+        return float(batch[1][0].sum()) * ALIGN_FRAME_S
+    return float(batch[0][1].sum()) * WORLD_FRAME_S
+
+
+def tts_train_steps(device, card, models, batches):
+    """Trainer.train_step 1 + TIMED_STEPS times on each model's batch,
+    dropout on, the launch counts set to 0 just before the timed steps and
+    read just after (kernel 2 once and kernel 3 twice a layer a step,
+    nothing else); then one evaluated batch each (kernel 1 once a layer,
+    nothing else). Returns the counts and timings by model."""
+    from voice100_tpu_torch.training import Trainer, TrainerConfig, TrainState, make_task
+
+    counters = cli_counters()
+    out = {}
+    for name, model in models.items():
+        batch = batches[name]
+        trainer = Trainer(TrainerConfig(gradient_clip_val=1.0))
+        task = make_task(model)
+        state = TrainState(model, task.make_optimizer())
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        warm = float(trainer.train_step(task, state, batch, gen)["loss"])
+        zero_counts(counters)
+        losses, step_ms = [], []
+        for _ in range(TIMED_STEPS):
+            start = time.perf_counter()
+            losses.append(float(trainer.train_step(task, state, batch, gen)["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - start) * 1e3)
+        launches = read_counts(counters)
+        layers = model.lstm.num_layers
+        want = dict.fromkeys(counters, 0)
+        want.update(bilstm_train_fwd=layers * TIMED_STEPS,
+                    bilstm_train_bwd=2 * layers * TIMED_STEPS)
+        if launches != want:
+            fail(f"tts train {name}: launches over {TIMED_STEPS} steps {launches}, not {want}")
+        if not all(np.isfinite(losses)) or not np.mean(losses[-3:]) < np.mean(losses[:3]):
+            fail(f"tts train {name}: the loss is not finite or does not fall: {losses}")
+        zero_counts(counters)
+        metrics = trainer.evaluate(task, state, [batch])
+        eval_launches = read_counts(counters)
+        want = dict.fromkeys(counters, 0)
+        want["bilstm_recurrence"] = layers
+        if eval_launches != want or not all(np.isfinite(list(metrics.values()))):
+            fail(f"tts train {name}: an evaluated batch launched {eval_launches}, not {want}, "
+                 f"metrics {metrics}")
+        median = float(np.median(step_ms))
+        audio_s = batch_audio_seconds(name, batch)
+        shape = [list(np.shape(a)) for a in batch[-1 if name == "audio" else 0]]
+        out[name] = {"median_step_ms": median, "step_ms": step_ms, "audio_s": audio_s,
+                     "audio_s_per_s": audio_s / (median * 1e-3), "losses": [warm] + losses,
+                     "eval_metrics": metrics, "text_shape": shape,
+                     "launches": {k: v for k, v in launches.items() if v},
+                     "eval_launches": {k: v for k, v in eval_launches.items() if v}}
+        print(f"tts train {name} ({type(model).__name__}, batch {TTS_TRAIN_BATCH}, text "
+              f"{shape[0]}, {audio_s:.2f} s of audio), dropout on: loss warm-up {warm:.4f}, then "
+              f"{[round(v, 4) for v in losses]}; step median {median:.2f} ms (min "
+              f"{min(step_ms):.2f}, max {max(step_ms):.2f}), {audio_s / (median * 1e-3):.1f} "
+              f"audio s/s on {card}; launches over {TIMED_STEPS} steps {out[name]['launches']}, "
+              f"of one evaluated batch {out[name]['eval_launches']}", flush=True)
+        if name == "audio":
+            out[name]["stages_ms"] = tts_train_stages(task, state, batch, gen)
+    return out
+
+
+def tts_train_stages(task, state, batch, gen):
+    """Card time of each stage of one audio-model step (CUDA events), the
+    backward split by part through autograd.grad on a retained graph."""
+    from voice100_tpu_torch.models.losses import world_loss_v2
+    from voice100_tpu_torch.training.trainer import clip_by_global_norm
+
+    model = state.model.train()
+    f0, f0_len, logspc, codeap, text, text_len = task.upload(batch)
+    hasf0, hascodeap = (f0 >= 30.0).float(), (codeap < -0.2).float()
+    nf0, nspc, ncap = model.norm.normalize(f0, logspc, codeap)
+    f, s, c = model.f0_size, model.logspc_size, model.codeap_size
+
+    def embed_bilstm():
+        emb = model.embedding(text.long())
+        return emb, model.lstm(emb, text_len, gen)
+
+    def projection_loss(d):
+        y = model.projection(d)
+        values = world_loss_v2(f0_len, y[:, :, 0], y[:, :, f], y[:, :, 2 * f:2 * f + s],
+                               y[:, :, 2 * f + s:2 * f + s + c], y[:, :, 2 * f + s + c:],
+                               hasf0, nf0, nspc, hascodeap, ncap)
+        return model.total_loss(values, model.logspc_weight)
+
+    emb, h = embed_bilstm()
+    d = model.decoder(h)
+    loss = projection_loss(d)
+    g_d, g_h, g_emb = torch.autograd.grad(loss, [d, h, emb], retain_graph=True)
+    proj = list(model.projection.parameters())
+    parts = {
+        "upload": time_ms(lambda: task.upload(batch)),
+        "embed_bilstm_fwd": time_ms(embed_bilstm, iters=3),
+        "decoder_fwd": time_ms(lambda: model.decoder(h), iters=3),
+        "projection_loss_fwd": time_ms(lambda: projection_loss(d)),
+        "projection_loss_bwd": time_ms(lambda: torch.autograd.grad(
+            loss, [d, *proj], retain_graph=True)),
+        "decoder_bwd": time_ms(lambda: torch.autograd.grad(
+            d, [h, *model.decoder.parameters()], g_d, retain_graph=True), iters=3),
+        "bilstm_bwd": time_ms(lambda: torch.autograd.grad(
+            h, [emb, *model.lstm.parameters()], g_h, retain_graph=True), iters=3),
+        "embedding_bwd": time_ms(lambda: torch.autograd.grad(
+            emb, list(model.embedding.parameters()), g_emb, retain_graph=True)),
+        "backward_total": time_ms(lambda: torch.autograd.grad(
+            loss, list(model.parameters()), retain_graph=True), iters=3),
+    }
+    loss.backward()
+    parts["clip_adam"] = time_ms(lambda: (clip_by_global_norm(model.parameters(), 1.0),
+                                          state.optimizer.step()))
+    print("tts_train_stages_ms " + json.dumps({"aligntext": list(text.shape),
+                                               "frames": list(f0.shape), **parts}), flush=True)
+    return parts
+
+
+def tts_train_parity(device, batches, stat_path):
+    """Three steps of each model from the same weights on the first rows of
+    its batch, dropout off, on the card and on the CPU's plain path: the
+    losses and the first step's gradients within PARITY_*_TOL."""
+    from voice100_tpu_torch.training import Trainer, TrainerConfig, TrainState, make_task
+
+    out = {}
+    for name, cpu_model in tts_train_models("cpu", stat_path).items():
+        batch = tuple(tuple(np.asarray(a)[:TTS_TRAIN_PARITY_ROWS] for a in pair)
+                      for pair in batches[name])
+        results = []
+        for model in (copy.deepcopy(cpu_model).to(device), cpu_model):
+            trainer = Trainer(TrainerConfig(gradient_clip_val=1.0))
+            task = make_task(model)
+            state = TrainState(model, task.make_optimizer())
+            losses, grads = [], None
+            start = time.perf_counter()
+            for _ in range(PARITY_STEPS):
+                losses.append(float(trainer.train_step(task, state, batch, train=False)["loss"]))
+                if grads is None:
+                    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+            results.append((losses, grads, time.perf_counter() - start))
+        (card_losses, card_grads, card_s), (cpu_losses, cpu_grads, cpu_s) = results
+        grad_err = max(((card_grads[n] - g).norm() / g.norm()).item()
+                       for n, g in cpu_grads.items())
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+        print(f"tts train parity {name}, card vs CPU plain path ({TTS_TRAIN_PARITY_ROWS} rows, "
+              f"{PARITY_STEPS} steps, dropout off): losses card {card_losses}, CPU "
+              f"{cpu_losses}, max rel err {loss_err:.3e} (tol {PARITY_LOSS_TOL:.0e}); first-step "
+              f"gradients max rel-norm err {grad_err:.3e} over {len(cpu_grads)} tensors (tol "
+              f"{PARITY_GRAD_TOL:.0e}); card {card_s:.2f} s, CPU {cpu_s:.2f} s", flush=True)
+        if not all(np.isfinite(card_losses)) or not loss_err <= PARITY_LOSS_TOL:
+            fail(f"tts train parity {name}: card losses {card_losses} vs CPU {cpu_losses}")
+        if not grad_err <= PARITY_GRAD_TOL:
+            fail(f"tts train parity {name}: first-step gradients differ by {grad_err:.3e}")
+        out[name] = {"loss_rel_err": loss_err, "grad_rel_err": grad_err}
+    return out
+
+
+def tts_cli_phase(device, card, workdir, data_dir, cache_dir, stat_path):
+    """align_en_base and tts_en_base (dataset dummy_en) through the training
+    CLI on the card (training/cli.py ``main``): ``fit`` for TTS_CLI_EPOCHS
+    epochs at batch TTS_CLI_BATCH (the audio model with --audio_stat), then
+    ``validate`` and ``predict`` on its last.pt; the launch counts set to 0
+    just before each subcommand and read just after. Checks the launches,
+    the log, validate's loss against the last epoch's and one prediction a
+    clip."""
+    import yaml
+    from voice100_tpu_torch.training.cli import main
+
+    counters = cli_counters()
+    n_val = int(TTS_TRAIN_CLIPS * 0.1)
+    steps = TTS_CLI_EPOCHS * -(-(TTS_TRAIN_CLIPS - n_val) // TTS_CLI_BATCH)
+    val_batches = -(-n_val // TTS_CLI_BATCH)
+    all_batches = -(-TTS_TRAIN_CLIPS // TTS_CLI_BATCH)
+    out = {}
+    for name, config_file, extra in (("align", "config/align_en_base.yaml", []),
+                                     ("audio", "config/tts_en_base.yaml",
+                                      ["--audio_stat", stat_path])):
+        with open(config_file) as f:
+            config = yaml.safe_load(f)
+        config["data"]["init_args"]["dataset"] = "dummy_en"
+        config["trainer"].update(max_epochs=TTS_CLI_EPOCHS, log_every_n_steps=1)
+        cfg = os.path.join(workdir, f"{name}_dummy_en.yaml")
+        with open(cfg, "w") as f:
+            yaml.safe_dump(config, f)
+        ckpt = os.path.join(workdir, f"{name}_fit_ckpt")
+        log = os.path.join(workdir, f"{name}_fit_log.jsonl")
+        last = os.path.join(ckpt, "last.pt")
+        predictions = os.path.join(workdir, f"{name}_predictions.npz")
+        common = ["--config", cfg, "--data_dir", data_dir, "--cache_dir", cache_dir,
+                  "--checkpoint_dir", ckpt, "--batch_size", str(TTS_CLI_BATCH),
+                  "--device", str(device)]
+        runs, results = {}, {}
+        for sub, more in (("fit", ["--log_path", log, *extra]),
+                          ("validate", ["--restore_from", last]),
+                          ("predict", ["--restore_from", last, "--output", predictions])):
+            zero_counts(counters)
+            start = time.perf_counter()
+            results[sub] = main([sub, *common, *more])
+            runs[sub] = {"wall_s": time.perf_counter() - start,
+                         "launches": {k: v for k, v in read_counts(counters).items() if v}}
+        layers = 2
+        want = {"fit": {"bilstm_train_fwd": layers * steps,
+                        "bilstm_train_bwd": 2 * layers * steps,
+                        "bilstm_recurrence": layers * val_batches * TTS_CLI_EPOCHS},
+                "validate": {"bilstm_recurrence": layers * val_batches},
+                "predict": {"bilstm_recurrence": layers * all_batches}}
+        for sub, counts in want.items():
+            if runs[sub]["launches"] != counts:
+                fail(f"tts cli {name} {sub}: launches {runs[sub]['launches']}, not {counts}")
+        with open(log) as f:
+            records = [json.loads(line) for line in f]
+        epochs = [r for r in records if "train_time_s" in r]
+        step_losses = [r["train_loss"] for r in records
+                       if "train_loss" in r and "train_time_s" not in r]
+        if [r.get("event") for r in records if "event" in r] != ["fit_start"] or \
+                len(epochs) != TTS_CLI_EPOCHS or len(step_losses) != steps or \
+                not np.all(np.isfinite(step_losses + [r["val_loss"] for r in epochs])):
+            fail(f"tts cli {name} fit: log events, epochs or losses are wrong: {records}")
+        val, last_val = results["validate"]["loss"], epochs[-1]["val_loss"]
+        val_err = abs(val - last_val) / abs(last_val)
+        if not val_err <= CLI_VAL_REL_TOL:
+            fail(f"tts cli {name} validate: val_loss {val} on last.pt, the last epoch logged "
+                 f"{last_val}")
+        with np.load(predictions, allow_pickle=True) as z:
+            entries = {k: len(z[k]) for k in z.files}
+        want_keys = ["durations"] if name == "align" else ["codeap", "f0", "logspc"]
+        if sorted(entries) != want_keys or set(entries.values()) != {TTS_TRAIN_CLIPS}:
+            fail(f"tts cli {name} predict: entries {entries}, not one a clip of "
+                 f"{TTS_TRAIN_CLIPS} under {want_keys}")
+        print(f"tts cli {name} on {card}: fit {TTS_CLI_EPOCHS} epochs at batch {TTS_CLI_BATCH} "
+              f"(override of the config's 128: {steps // TTS_CLI_EPOCHS} steps an epoch) "
+              f"{runs['fit']['wall_s']:.3f} s, train time by epoch "
+              f"{[r['train_time_s'] for r in epochs]} s, step losses "
+              f"{[round(v, 4) for v in step_losses]}; validate on last.pt {val:.6f} against "
+              f"the last epoch's {last_val:.6f} (rel err {val_err:.2e}, tol "
+              f"{CLI_VAL_REL_TOL:.0e}); predict {entries}; launches "
+              f"{ {sub: r['launches'] for sub, r in runs.items()} }", flush=True)
+        out[name] = runs
+    return out
+
+
+def check_tts_configs_build(device):
+    """Every TTS config of config/ builds its model and data module on the
+    card through training/cli.py build_from_config (the weights drawn
+    there, the statistics file the config names read by fit)."""
+    from voice100_tpu_torch.training.cli import build_from_config, load_config
+
+    names = sorted(f for f in os.listdir("config") if f.startswith(("tts_", "align_")))
+    for name in names:
+        model, data = build_from_config(load_config(os.path.join("config", name)), {},
+                                        device=device)
+        if next(model.parameters()).device.type != "cuda" or data.batch_size != TTS_TRAIN_BATCH:
+            fail(f"tts config {name}: {type(model).__name__} on "
+                 f"{next(model.parameters()).device}, batch {data.batch_size}")
+    print(f"tts configs built on the card: {names}", flush=True)
+    return names
+
+
+def shape_line(entry):
+    """The numbers of a kernel line of check_lstm_train, for another
+    shape's entry under the main line."""
+    keys = ("shapes", "smem_bytes", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms", "events_launches",
+            "device_ms_by_launch", "whole_backward")
+    return {k: entry[k] for k in keys if k in entry}
+
+
+def tts_train_phase(device, card, workdir, align_args):
+    """TTS v2 training at align_en_base and tts_en_base width: the voiced
+    corpus, its align file through the align CLI with the align phase's
+    ASR checkpoint, calc_stat (the cold WORLD analysis, timed), the steps,
+    the stages, the card against the CPU, the CLI, and kernels 2 and 3 at
+    the batches' shapes."""
+    from voice100_tpu_torch.tools.align_text import cli_main as align_main
+    from voice100_tpu_torch.tools.calc_stat import cli_main as stat_main
+
+    configs = check_tts_configs_build(device)
+    data_dir, seconds = write_voiced_corpus(workdir)
+    align_main(["--config", align_args["config"], "--checkpoint", align_args["checkpoint"],
+                "--data_dir", data_dir, "--cache_dir", os.path.join(workdir, "tts_mel_cache")])
+    with open(os.path.join(data_dir, "dummy_en-align-train.txt")) as f:
+        if sum(1 for _ in f) != TTS_TRAIN_CLIPS:
+            fail("tts train: the align CLI wrote another number of lines than clips")
+    cache_dir = os.path.join(workdir, "tts_world_cache")
+    stat_path = os.path.join(workdir, "dummy_en-stat.npz")
+    start = time.perf_counter()
+    stat_main(["--output", stat_path, "--dataset", "dummy_en", "--vocoder", "world_mcep",
+               "--data_dir", data_dir, "--cache_dir", cache_dir])
+    analysis_s = time.perf_counter() - start
+    stats = dict(np.load(stat_path))
+    if not all(np.isfinite(v).all() for v in stats.values()) or not 90 < stats["f0_mean"][0] < 260:
+        fail(f"tts train: calc_stat gave {stats}")
+    print(f"tts train corpus: {TTS_TRAIN_CLIPS} voiced clips, {seconds.sum():.2f} s of audio; "
+          f"calc_stat with a cold WORLD cache (host float64 analysis) {analysis_s:.2f} s, "
+          f"{seconds.sum() / analysis_s:.1f} audio s/s (host clock, this machine's CPU); f0 "
+          f"mean {stats['f0_mean'][0]:.1f} Hz, std {stats['f0_std'][0]:.1f}", flush=True)
+    batches = tts_train_batches(device, data_dir, cache_dir)
+    steps = tts_train_steps(device, card, tts_train_models(device, stat_path), batches)
+    parity = tts_train_parity(device, batches, stat_path)
+    cli = tts_cli_phase(device, card, workdir, data_dir, cache_dir, stat_path)
+    text, text_len = batches["audio"][1]
+    audio_lengths = np.minimum(text_len, 512)
+    align_text, align_len = batches["align"][0]
+    kernels = {
+        "tts_train_audio": check_lstm_train(device, TTS_TRAIN_BATCH, 512, 512, 512,
+                                            audio_lengths),
+        "tts_train_align": check_lstm_train(device, TTS_TRAIN_BATCH, int(align_text.shape[1]),
+                                            256, 256, align_len),
+    }
+    summary = {"configs_built": configs, "corpus_audio_s": float(seconds.sum()),
+               "world_analysis_cold_s": analysis_s,
+               "steps": steps, "parity": parity,
+               "cli": {n: {s: r["wall_s"] for s, r in runs.items()} for n, runs in cli.items()}}
+    by_path = {f"tts_train_{n}": r["launches"] for n, r in steps.items()}
+    by_path.update({f"tts_cli_{n}_{s}": r["launches"] for n, runs in cli.items()
+                    for s, r in runs.items()})
+    return by_path, kernels, summary
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -2354,6 +2817,7 @@ def main() -> None:
     device = resolve_device("cuda")
     serving = [check_melspec(device), check_bilstm(device)]
     training = check_lstm_train(device) + check_ctc(device)
+    check_not_resident(device)
     # the align path's shapes: kernel 1 at the config's batch of 64 (eight
     # batch tiles), kernel 8 on one clip at a time; the Viterbi launch below
     lengths = np.random.default_rng(SEED + 7).integers(1, VITERBI_T + 1, size=ALIGN_BATCH)
@@ -2385,7 +2849,14 @@ def main() -> None:
         by_path.update({f"cli_{sub}": launches
                         for sub, launches in cli_phase(device, card, workdir, args, samples).items()})
         by_path["tts"], tts_kernel, tts_summary = tts_phase(device, card, workdir)
+        tts_train_paths, tts_train_kernels, tts_train_summary = tts_train_phase(
+            device, card, workdir, args)
+    by_path.update(tts_train_paths)
     serving[1].update(tts_kernel)
+    # kernels 2 and 3 at the TTS training batches' shapes
+    for name, (fwd, bwd) in tts_train_kernels.items():
+        training[0][name] = shape_line(fwd)
+        training[1][name] = shape_line(bwd)
     # kernel 1 at the TTS configs' training batch
     serving[1]["b128_h512"] = check_bilstm_b128_h512(device)
     # "launches" counts the path each kernel was ported for (the timed
@@ -2401,6 +2872,9 @@ def main() -> None:
         entry["launches_per_step"] = entry["launches"] / TIMED_STEPS
     print("align_summary " + json.dumps({"runs": runs, "parity": parity}), flush=True)
     print("tts_summary " + json.dumps(tts_summary), flush=True)
+    print("tts_train_summary " + json.dumps(tts_train_summary), flush=True)
+    print(f"chip_smoke: {time.perf_counter() - start:.1f} s from the kernel build to here",
+          flush=True)
     print(json.dumps({"kernels": serving + training + aligning}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

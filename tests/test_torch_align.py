@@ -28,7 +28,7 @@ import jax.numpy as jnp
 import torch
 
 from corpus_fixture import make_dummy_corpus
-from voice100_tpu_torch.models import AudioToAlignText
+from voice100_tpu_torch.models import AudioToAlignText, TextToAlignText
 from voice100_tpu_torch.tools.weights import from_jax_variables
 
 SETTINGS = ((16, False, 3, 2, 1, False),)
@@ -164,10 +164,12 @@ def test_build_from_config_maps_class_paths_and_checks_sizes(tmp_path):
     config["model"]["class_path"] = "voice100_tpu.models.AudioToMel"
     with pytest.raises(ValueError, match="not ported"):
         build_from_config(config, {}, device="cpu")
-    # the TTS models are served (training.cli.load_model) but not trained yet
+    # a TTS model builds too (its vocabulary checked, audio_size not: the
+    # TTS model's is its output width)
     config["model"]["class_path"] = "voice100_tpu.models.TextToAlignText"
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_from_config(config, {}, device="cpu")
+    config["model"]["init_args"] = {"vocab_size": VOCAB, "num_layers": 1, "hidden_size": 32}
+    model, _ = build_from_config(config, {}, device="cpu")
+    assert isinstance(model, TextToAlignText) and model.vocab_size == VOCAB
 
 
 def test_load_model_weights_reads_a_port_checkpoint(jax_model, tmp_path):

@@ -5,9 +5,9 @@
   and hypotheses included;
 * the trainer config from each ``config/asr_*.yaml``, with and without
   the ``--max_epochs``/``--batch_size`` overrides, equals the JAX
-  ``build_from_config``'s on every field both have; configs of models the
-  port does not build, and settings it does not run, raise and say what
-  is missing;
+  ``build_from_config``'s on every field both have; the TTS configs build
+  the JAX CLI's model and data classes at its sizes; settings the port
+  does not run raise and say what is missing;
 * ``validate``, ``test`` and ``predict`` from the same weights: JAX
   variables from ``make_task(model).init(PRNGKey(0), batch)``, saved as a
   JAX checkpoint and, through ``from_jax_variables``, as a port one. The
@@ -114,13 +114,23 @@ def test_trainer_config_matches_jax(name, overrides):
 
 @pytest.mark.parametrize("name", [f for f in CONFIGS if not f.startswith("asr_")])
 def test_configs_the_port_cannot_build_raise_naming_the_class(name):
-    from voice100_tpu_torch.training.cli import build_from_config, load_config
+    """The TTS configs, which raised until their training was ported, now
+    build: the model and data module of the JAX build_from_config's
+    classes and sizes, the statistics file the config names."""
+    from voice100_tpu.training.cli import build_from_config as jax_build
+    from voice100_tpu_torch.training.cli import build_from_config, config_audio_stat, load_config
 
     config = load_config(os.path.join(ROOT, "config", name))
-    model = config["model"]["class_path"].rsplit(".", 1)[-1]
-    # the TTS models are served (training.cli.load_model) but not trained yet
-    with pytest.raises(NotImplementedError, match=f"{model}: .*not ported yet.*item 6"):
-        build_from_config(config, {}, device="cpu")
+    want_model, want_data, _, want_stat = jax_build(config, {})
+    model, data = build_from_config(config, {}, device="cpu")
+    assert type(model).__name__ == type(want_model).__name__
+    assert type(data).__name__ == type(want_data).__name__
+    assert (model.vocab_size, data.vocab_size) == (want_model.vocab_size, want_data.vocab_size)
+    assert getattr(model, "audio_size", None) == getattr(want_model, "audio_size", None)
+    assert getattr(data, "audio_size", None) == getattr(want_data, "audio_size", None)
+    assert data.batch_size == want_data.batch_size == 128
+    assert config_audio_stat(config) == want_stat
+    assert next(model.parameters()).device.type == "cpu"
 
 
 @pytest.mark.parametrize("key,value,item", [

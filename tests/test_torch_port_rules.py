@@ -39,7 +39,10 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'voice100_tpu')]\n"
         "assert len(names) >= 12, names\n"
         "assert {'voice100_tpu_torch.__main__', 'voice100_tpu_torch.ops.metrics',\n"
-        "        'voice100_tpu_torch.training.cli'} <= set(names), names\n"
+        "        'voice100_tpu_torch.training.cli', 'voice100_tpu_torch.models.losses',\n"
+        "        'voice100_tpu_torch.dsp.world.dio', 'voice100_tpu_torch.dsp.world.cheaptrick',\n"
+        "        'voice100_tpu_torch.dsp.world.aperiodicity', 'voice100_tpu_torch.dsp.world.backend',\n"
+        "        'voice100_tpu_torch.tools.calc_stat'} <= set(names), names\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n"
     )
@@ -90,6 +93,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         run_align(model, data, os.devnull)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli_main(["--config", str(ROOT / "config" / "asr_en_base.yaml"), "--checkpoint", "none"])
+    # TTS training's data path: the WORLD data module and calc_stat (the
+    # analysis runs on the host; the vocoder decodes on the device)
+    from voice100_tpu_torch.tools.calc_stat import cli_main as calc_stat_main
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AudioTextDataModule(vocoder="world_mcep")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calc_stat_main(["--output", os.devnull, "--vocoder", "world_mcep"])
+    assert AudioTextDataModule(vocoder="world_mcep", device="cpu").audio_size == 27
     # the Viterbi kernel's wrapper takes the device of its tensors: the plain
     # twins on the CPU, without a launch; another device raises
     lp = torch.log_softmax(torch.randn(2, 9, 29), dim=-1)

@@ -227,7 +227,7 @@ def test_update_samples_writes_wavs(tmp_path, pipes):
 
 
 @pytest.mark.parametrize("config", ["align_en_base.yaml", "tts_en_base.yaml"])
-def test_tts_configs_build_at_full_width_and_fit_raises(config):
+def test_tts_configs_build_at_full_width_and_fit_raises(config, tmp_path):
     from voice100_tpu_torch.training.cli import _MODEL_CLASSES, main
 
     init = yaml.safe_load(open(os.path.join(ROOT, "config", config)))["model"]["init_args"]
@@ -237,8 +237,11 @@ def test_tts_configs_build_at_full_width_and_fit_raises(config):
     model = cls(**{k: tuple(map(tuple, v)) if isinstance(v, list) else v
                    for k, v in init.items()}, device="cpu")
     assert sum(p.numel() for p in model.parameters()) > 1_000_000
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
-        main(["fit", "--config", os.path.join(ROOT, "config", config), "--device", "cpu"])
+    # fit builds it and raises where it reads a corpus that is not there
+    with pytest.raises(FileNotFoundError, match="(?i)ljspeech"):
+        main(["fit", "--config", os.path.join(ROOT, "config", config), "--device", "cpu",
+              "--data_dir", str(tmp_path), "--cache_dir", str(tmp_path / "cache"),
+              "--checkpoint_dir", str(tmp_path / "ckpt")])
 
 
 def test_unported_paths_raise(pipes):

@@ -189,5 +189,9 @@ def test_decode_matches_jax_and_noise_sources():
 
 
 def test_encode_raises():
+    # the host analysis runs (held to the JAX package in
+    # test_torch_world_analysis.py); the device analysis is not ported
+    f0, mcep, codeap = WORLDVocoder(device="cpu", use_mcep=True).encode(np.zeros(1600, np.float32))
+    assert (f0.shape, mcep.shape, codeap.shape) == ((11,), (11, 25), (11, 1))
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
-        WORLDVocoder(device="cpu").encode(np.zeros(1600, np.float32))
+        WORLDVocoder(device="cpu", analysis_backend="jax").encode(np.zeros(1600, np.float32))

@@ -1,14 +1,21 @@
-"""The audio+text data module: dataset, feature cache and stage loaders.
+"""Data modules: dataset, feature cache and stage loaders.
 
-Port of ``AudioTextDataModule`` of ``voice100_tpu/data/datamodule.py:28-205``
-(the reference's voice100/data_modules.py:503-670) for ``vocoder="mel"``:
-tokenizer and collate from the flags, the corpus from the registry, the
-90/10 split seeded with ``seed`` (librispeech uses its dev-clean), the
-feature cache with the JAX package's salt (``mel@float16`` by default), so
-either package reads the other's cache, and the stage loaders. The log-mel
-transform runs on ``device`` (default ``cuda``). The WORLD vocoders,
-their multi-task targets (``use_target``) and ``AlignTextDataModule``
-wait for the TTS slice; ``num_workers > 0`` waits for the data shell.
+Port of ``voice100_tpu/data/datamodule.py`` (the reference's
+voice100/data_modules.py:503-670,685-742):
+
+* ``AudioTextDataModule``: tokenizer and collate from the flags, the
+  corpus from the registry, the 90/10 split seeded with ``seed``
+  (librispeech uses its dev-clean), the feature cache with the JAX
+  package's salt, so either package reads the other's cache, and the
+  stage loaders. ``vocoder="mel"`` runs the log-mel kernel on ``device``
+  (default ``cuda``) and caches float16 (``mel@float16``);
+  ``"world"`` and ``"world_mcep"`` analyse on the host and share one
+  float32 cache (``world@ap-harmonic1``). The multi-task targets
+  (``use_target``) wait for the v1 models.
+* ``AlignTextDataModule``: the duration model's ``{ds}-[phone-]align-
+  train.txt``, a 90/10 split seeded with ``seed``, ``collate_text_align``.
+
+``num_workers > 0`` waits for the data shell.
 """
 
 from __future__ import annotations
@@ -19,13 +26,13 @@ from typing import Optional
 import numpy as np
 
 from ..text import get_tokenizer
-from .collate import get_collate_fn
-from .datasets import SubsetDataset
+from .collate import collate_text_align, get_collate_fn
+from .datasets import AlignTextDataset, SubsetDataset
 from .loader import DataLoader
 from .registry import get_dataset
 from .transforms import EncodedCacheDataset, get_audio_transform
 
-__all__ = ["AudioTextDataModule"]
+__all__ = ["AudioTextDataModule", "AlignTextDataModule"]
 
 
 class AudioTextDataModule:
@@ -39,6 +46,7 @@ class AudioTextDataModule:
         language: str = "en",
         use_align: bool = False,
         use_phone: bool = False,
+        use_target: bool = False,
         data_dir: str = "./data",
         cache_dir: str = "./cache",
         batch_size: int = 128,
@@ -59,13 +67,19 @@ class AudioTextDataModule:
         self.use_phone = use_phone
         self.data_dir = data_dir
         self.cache_dir = cache_dir
-        # the JAX package's salt: the vocoder, the rate when not 16 kHz,
-        # and the cache dtype, so runs that would read other features
-        # never share entries
-        self.cache_salt = vocoder.encode("utf-8")
+        # the JAX package's salt: the vocoder (world and world_mcep share
+        # one mcep-form cache), the rate when not 16 kHz, the WORLD
+        # analysis version and the cache dtype, so runs that would read
+        # other features never share entries
+        self.cache_salt = ("world" if vocoder == "world_mcep" else vocoder).encode("utf-8")
         if sample_rate != 16000:
             self.cache_salt += f"@{sample_rate}".encode("utf-8")
-        # log-mel features are model inputs only: they cache as float16
+        if vocoder in ("world", "world_mcep"):
+            from ..dsp.world import FEATURE_VERSION
+
+            self.cache_salt += f"@{FEATURE_VERSION}".encode("utf-8")
+        # log-mel features are model inputs only: they cache as float16;
+        # WORLD features are supervision targets and stay float32
         if cache_dtype == "auto":
             cache_dtype = "float16" if vocoder == "mel" else None
         self.cache_dtype = cache_dtype
@@ -76,7 +90,7 @@ class AudioTextDataModule:
         self.seed = seed
         # length-bucketed train batches from the cache files' headers
         self.bucket_by_length = bucket_by_length
-        self.collate_fn = get_collate_fn(vocoder)
+        self.collate_fn = get_collate_fn(vocoder, use_target)
         self.audio_transform = get_audio_transform(vocoder, sample_rate, device=device)
         self.text_transform = get_tokenizer(language, use_phone)
         self.train_ds = self.valid_ds = self.test_ds = self.predict_ds = None
@@ -134,6 +148,56 @@ class AudioTextDataModule:
 
     def test_dataloader(self):
         return self._loader(self.test_ds, shuffle=False)
+
+    def predict_dataloader(self):
+        return self._loader(self.predict_ds, shuffle=False)
+
+
+class AlignTextDataModule:
+    """Text and frame-count pairs for the duration model (reference
+    voice100/data_modules.py:685-742): ``{dataset}-align-train.txt`` (or
+    ``-phone-align-``) under ``data_dir``, split 90/10 by
+    ``default_rng(seed).permutation``."""
+
+    def __init__(self, data_dir: str = "./data", dataset: str = "ljspeech",
+                 language: str = "en", use_phone: bool = False, valid_ratio: float = 0.1,
+                 batch_size: int = 256, seed: int = 1234) -> None:
+        self.data_dir = data_dir
+        self.dataset = dataset
+        self.language = language
+        self.use_phone = use_phone
+        self.valid_ratio = valid_ratio
+        self.batch_size = batch_size
+        self.seed = seed
+        self.collate_fn = collate_text_align
+        self.encoder = get_tokenizer(language, use_phone)
+        self.train_ds = self.valid_ds = self.predict_ds = None
+
+    @property
+    def vocab_size(self) -> int:
+        return self.encoder.vocab_size
+
+    def setup(self, stage: Optional[str] = None) -> None:
+        infix = "phone-align" if self.use_phone else "align"
+        ds = AlignTextDataset(os.path.join(self.data_dir, f"{self.dataset}-{infix}-train.txt"),
+                              tokenizer=self.encoder)
+        if stage == "predict":
+            self.predict_ds = ds
+            return
+        total = len(ds)
+        valid_len = int(total * self.valid_ratio)
+        order = np.random.default_rng(self.seed).permutation(total)
+        self.train_ds = SubsetDataset(ds, order[valid_len:])
+        self.valid_ds = SubsetDataset(ds, order[:valid_len])
+
+    def _loader(self, ds, shuffle: bool) -> DataLoader:
+        return DataLoader(ds, self.batch_size, self.collate_fn, shuffle=shuffle, seed=self.seed)
+
+    def train_dataloader(self):
+        return self._loader(self.train_ds, shuffle=True)
+
+    def val_dataloader(self):
+        return self._loader(self.valid_ds, shuffle=False)
 
     def predict_dataloader(self):
         return self._loader(self.predict_ds, shuffle=False)

@@ -1,42 +1,58 @@
-"""WORLD vocoder: decoding (features -> waveform) for TTS serving.
+"""WORLD vocoder: analysis (host NumPy, float64) and decoding.
 
-Port of the decode side of ``voice100_tpu/dsp/world/__init__.py``
-``WORLDVocoder`` (the reference's voice100/vocoder.py:14-102): the same
-rates (16 kHz: n_fft 512, mcep 24, alpha 0.410, codeap 1; 22.05 kHz:
-1024/34/0.455/2) and ``output_dims``. Decoding maps mel-cepstra to log
-spectra by one matmul (float32 on the device), decodes the coded
-aperiodicity on the host in float64 as the JAX package does, and
-synthesizes on the device (:mod:`.synthesis`). WORLD analysis
-(``encode``) is not ported yet.
+Port of ``voice100_tpu/dsp/world/__init__.py`` ``WORLDVocoder`` (the
+reference's voice100/vocoder.py:14-102): the same rates (16 kHz: n_fft
+512, mcep 24, alpha 0.410, codeap 1; 22.05 kHz: 1024/34/0.455/2) and
+``output_dims``. ``encode`` runs the host analysis the JAX package runs
+by default, copied without JAX (:mod:`.dio`, :mod:`.cheaptrick`,
+:mod:`.aperiodicity`), so the features are the JAX package's bit for
+bit; the device analysis is not ported (:mod:`.backend`). Decoding maps
+mel-cepstra to log spectra by one matmul (float32 on the device),
+decodes the coded aperiodicity on the host in float64 as the JAX package
+does, and synthesizes on the device (:mod:`.synthesis`).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from ...device import resolve_device
-from ..mcep import create_mc2sp_matrix
+from ..mcep import create_mc2sp_matrix, create_sp2mc_matrix
+from .aperiodicity import band_aperiodicity, d4c
+from .backend import ANALYSIS_ITEM, require_host_backend
+from .cheaptrick import cheaptrick
 from .codec import decode_aperiodicity, get_num_aperiodicities
+from .dio import dio
 from .synthesis import NoiseSource, synthesis_shape, synthesize_batch
 
-__all__ = ["WORLDVocoder", "decode_aperiodicity", "get_num_aperiodicities",
-           "synthesis_shape", "synthesize_batch", "ANALYSIS_ITEM"]
+__all__ = ["WORLDVocoder", "FEATURE_VERSION", "dio", "cheaptrick", "d4c", "band_aperiodicity",
+           "decode_aperiodicity", "get_num_aperiodicities", "synthesis_shape",
+           "synthesize_batch", "ANALYSIS_ITEM"]
 
-ANALYSIS_ITEM = "ROADMAP.md queue 1, item 7: TTS data and device WORLD analysis"
+# the analysis algorithms' version, keyed into the feature cache's salt
+# (data/datamodule.py): the JAX package's token, so both read one cache
+FEATURE_VERSION = "ap-harmonic1"
 
 
 class WORLDVocoder:
-    """Decode WORLD features ``(f0, logspc or mcep, codeap)`` to waveforms
-    on ``device`` (default ``cuda``; ``"cpu"`` runs on the CPU)."""
+    """Encode waveforms to WORLD features ``(f0, logspc or mcep, codeap)``
+    on the host, and decode them to waveforms on ``device`` (default
+    ``cuda``; ``"cpu"`` runs on the CPU). ``analysis_backend`` (default
+    ``$VOICE100_TPU_WORLD_BACKEND`` or ``"numpy"``) must be ``"numpy"``
+    when ``encode`` runs."""
 
     def __init__(self, sample_rate: int = 16000, frame_period: float = 10.0, n_fft: int = None,
-                 use_mcep: bool = False, log_offset: float = 1e-15, device=None) -> None:
+                 use_mcep: bool = False, log_offset: float = 1e-15, device=None,
+                 analysis_backend: str = None) -> None:
         self.device = resolve_device(device)
         self.sample_rate = sample_rate
         self.frame_period = frame_period
+        self.analysis_backend = analysis_backend or os.environ.get(
+            "VOICE100_TPU_WORLD_BACKEND", "numpy")
         if sample_rate == 16000:
             self.mcep_dim, self.mcep_alpha, self.codeap_dim = 24, 0.410, 1
             self.n_fft = n_fft or 512
@@ -49,6 +65,8 @@ class WORLDVocoder:
         self.log_offset = log_offset
         self.mc2sp_matrix = (create_mc2sp_matrix(self.n_fft, self.mcep_dim, self.mcep_alpha)
                              if use_mcep else None)
+        self.sp2mc_matrix = (create_sp2mc_matrix(self.n_fft, self.mcep_dim, self.mcep_alpha)
+                             if use_mcep else None)
         self._mc2sp32 = (torch.from_numpy(self.mc2sp_matrix.astype(np.float32)).to(self.device)
                          if use_mcep else None)
 
@@ -59,7 +77,19 @@ class WORLDVocoder:
         return 1, self.n_fft // 2 + 1, self.codeap_dim
 
     def encode(self, waveform, f0_floor: float = 80.0, f0_ceil: float = 400.0):
-        raise NotImplementedError(f"WORLD analysis is not ported yet ({ANALYSIS_ITEM})")
+        """waveform -> ``(f0 [T], logspc or mcep [T, D], codeap [T, C])``,
+        float32, computed on the host in float64: DIO F0, the CheapTrick
+        envelope, its log (and mel-cepstrum), the harmonic band
+        aperiodicity."""
+        require_host_backend(self.analysis_backend)
+        x = np.asarray(waveform, dtype=np.float64)
+        f0, positions = dio(x, self.sample_rate, f0_floor=f0_floor, f0_ceil=f0_ceil,
+                            frame_period=self.frame_period)
+        spc = cheaptrick(x, f0, positions, self.sample_rate, self.n_fft)
+        logspc = np.log(spc + self.log_offset)
+        codeap = band_aperiodicity(x, f0, positions, self.sample_rate)
+        feat = logspc @ self.sp2mc_matrix if self.use_mcep else logspc
+        return f0.astype(np.float32), feat.astype(np.float32), codeap.astype(np.float32)
 
     def _aperiodicity(self, codeap: np.ndarray) -> np.ndarray:
         """Coded aperiodicity ``[..., C]`` -> ``[..., n_fft//2+1]`` float64 on

@@ -1,4 +1,4 @@
-"""Models of the port: ASR v2 and the TTS v2 pair (inference)."""
+"""Models of the port: ASR v2 and the TTS v2 pair."""
 
 from .align_v2 import TextToAlignText
 from .asr_v2 import AudioToAlignText

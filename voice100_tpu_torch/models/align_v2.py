@@ -1,10 +1,12 @@
-"""v2 TTS duration model: TextToAlignText, inference.
+"""v2 TTS duration model: TextToAlignText.
 
-Port of ``voice100_tpu/models/align_v2.py`` (serving only; the loss waits
-for TTS training): embedding -> stacked biLSTM -> dense(2), predicting
-per-token ``log(1 + frames)`` pairs (frames before, frames during);
-``predict`` returns ``exp(y) - 1``; ``align`` expands a batch of texts by
-such durations (:func:`voice100_tpu_torch.ops.duration.expand_alignment_batch`).
+Port of ``voice100_tpu/models/align_v2.py``: embedding -> stacked biLSTM
+-> dense(2), predicting per-token ``log(1 + frames)`` pairs (frames
+before, frames during); ``predict`` returns ``exp(y) - 1``; ``align``
+expands a batch of texts by such durations
+(:func:`voice100_tpu_torch.ops.duration.expand_alignment_batch`);
+``compute_loss`` is the masked L1 on ``log(1 + frames)``
+(:func:`voice100_tpu_torch.models.losses.duration_loss`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from torch import nn
 from ..device import resolve_device
 from ..ops.duration import expand_alignment_batch
 from .layers import BiLSTM, uniform_
+from .losses import duration_loss
 
 __all__ = ["TextToAlignText"]
 
@@ -61,11 +64,29 @@ class TextToAlignText(nn.Module):
         uniform_(self.dense.weight, bound, generator)
         uniform_(self.dense.bias, bound, generator)
 
-    def forward(self, text: torch.Tensor, text_len: torch.Tensor) -> torch.Tensor:
+    def forward(self, text: torch.Tensor, text_len: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``([B, L], [B]) -> [B, L, num_outputs]``; in training mode the
-        biLSTM applies its inter-layer dropout."""
+        biLSTM applies its inter-layer dropout, drawing from ``generator``."""
         x = self.embedding(text.long())
-        return self.dense(self.lstm(x, text_len))
+        return self.dense(self.lstm(x, text_len, generator))
+
+    def compute_loss(self, text: torch.Tensor, text_len: torch.Tensor, align: torch.Tensor,
+                     align_len: torch.Tensor, deterministic: bool = True,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Masked L1 on ``log(1 + frames)``. ``align`` arrives flat
+        ``[B, 2L(+1)]`` from the align-text files: its trailing odd slot is
+        dropped and the rest read as ``[B, L', 2]`` pairs. The mask is
+        ``text_len``'s, as in the reference (``align_len`` is not read),
+        over the first ``min(L, L')`` tokens. ``deterministic`` is the
+        JAX signature's; dropout follows the module's training mode."""
+        del align_len, deterministic
+        batch = align.shape[0]
+        usable = (align.shape[1] - 1) // 2 * 2
+        pairs = align[:, :usable].reshape(batch, -1, 2)
+        pred = self(text, text_len, generator)
+        n = min(pred.shape[1], pairs.shape[1])
+        return duration_loss(pred[:, :n], pairs[:, :n], text[:, :n], text_len)
 
     @torch.inference_mode()
     def predict(self, text: torch.Tensor, text_len: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,12 @@
-"""v2 TTS acoustic model: AlignTextToAudio, inference.
+"""v2 TTS acoustic model: AlignTextToAudio.
 
-Port of ``voice100_tpu/models/tts_v2.py`` (serving only; the loss waits
-for TTS training): embedding -> stacked biLSTM -> conv decoder (time
-upsampled x2 by a strided transposed conv) -> dense projection, split
-into ``[hasf0, f0, logspc or mcep, hascodeap, codeap]``; ``predict``
-unnormalizes with the frozen WORLD statistics and gates f0 and codeap
-on the ``has*`` logits.
+Port of ``voice100_tpu/models/tts_v2.py``: embedding -> stacked biLSTM ->
+conv decoder (time upsampled x2 by a strided transposed conv) -> dense
+projection, split into ``[hasf0, f0, logspc or mcep, hascodeap,
+codeap]``; ``predict`` unnormalizes with the frozen WORLD statistics and
+gates f0 and codeap on the ``has*`` logits; ``compute_loss`` is the
+five-stream masked WORLD loss against normalized targets, with the
+voicing targets taken from the raw features.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from torch import nn
 
 from ..device import resolve_device
 from .layers import BiLSTM, ConvSetting, ConvStack, WORLDNorm, conv_stack_output_length, uniform_
+from .losses import WORLDLossValues, world_loss_v2
 
 __all__ = ["AlignTextToAudio"]
 
@@ -85,12 +87,13 @@ class AlignTextToAudio(nn.Module):
         uniform_(self.projection.weight, bound, generator)
         uniform_(self.projection.bias, bound, generator)
 
-    def forward(self, aligntext: torch.Tensor,
-                aligntext_len: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def forward(self, aligntext: torch.Tensor, aligntext_len: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, ...]:
         """``([B, L], [B]) -> (hasf0 [B, T], f0 [B, T], logspc [B, T, S],
-        hascodeap [B, T, C], codeap [B, T, C])``."""
+        hascodeap [B, T, C], codeap [B, T, C])``; in training mode the
+        biLSTM applies its inter-layer dropout, drawing from ``generator``."""
         x = self.embedding(aligntext.long())
-        x = self.lstm(x, aligntext_len)
+        x = self.lstm(x, aligntext_len, generator)
         x = self.projection(self.decoder(x))
         f, s, c = self.f0_size, self.logspc_size, self.codeap_size
         return (x[:, :, 0], x[:, :, f], x[:, :, 2 * f:2 * f + s],
@@ -109,3 +112,29 @@ class AlignTextToAudio(nn.Module):
         f0 = torch.where(hasf0 < 0, 0.0, f0)
         codeap = torch.where(hascodeap < 0, 0.0, codeap)
         return f0, logspc, codeap
+
+    def compute_loss(self, f0: torch.Tensor, f0_len: torch.Tensor, logspc: torch.Tensor,
+                     codeap: torch.Tensor, aligntext: torch.Tensor, aligntext_len: torch.Tensor,
+                     deterministic: bool = True,
+                     generator: Optional[torch.Generator] = None) -> WORLDLossValues:
+        """Per-stream losses of a WORLD batch (``f0 [B, T]``, ``logspc
+        [B, T, S]``, ``codeap [B, T, C]`` raw, masked by ``f0_len``). The
+        voicing targets ``f0 >= 30`` and ``codeap < -0.2`` come from the
+        raw features, the regression targets are normalized; prediction
+        (``2 L`` frames) and targets (the 64-frame time bucket) are cropped
+        to their common length. ``deterministic`` is the JAX signature's;
+        dropout follows the module's training mode."""
+        del deterministic
+        hasf0 = (f0 >= 30.0).to(torch.float32)
+        hascodeap = (codeap < -0.2).to(torch.float32)
+        f0, logspc, codeap = self.norm.normalize(f0, logspc, codeap)
+        hasf0_logits, f0_hat, logspc_hat, hascodeap_logits, codeap_hat = self(
+            aligntext, aligntext_len, generator)
+        return world_loss_v2(f0_len, hasf0_logits, f0_hat, logspc_hat, hascodeap_logits,
+                             codeap_hat, hasf0, f0, logspc, hascodeap, codeap)
+
+    @staticmethod
+    def total_loss(values: WORLDLossValues, logspc_weight: float = 5.0) -> torch.Tensor:
+        """The weighted sum the optimizer sees (reference _tts_v2.py:103-107)."""
+        return (values.hasf0 + values.f0 + values.logspc * logspc_weight + values.hascodeap
+                + values.codeap)

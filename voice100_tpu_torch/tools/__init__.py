@@ -1,2 +1,2 @@
 """Tools of the port: weight conversion from the JAX package, forced
-alignment, TTS samples and the kernels' probes."""
+alignment, WORLD statistics, TTS samples and the kernels' probes."""

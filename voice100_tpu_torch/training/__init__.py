@@ -1,5 +1,5 @@
-"""Training of the port: task adapter, trainer and checkpoints (ASR v2),
-and the WORLD statistics loader TTS serving reads."""
+"""Training of the port: task adapters, trainer and checkpoints (ASR v2
+and the TTS v2 pair), and the WORLD statistics loader."""
 
 from .checkpoint import (TrainState, load_model_weights, merge_world_stats, restore_checkpoint,
                          save_checkpoint)

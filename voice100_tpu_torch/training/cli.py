@@ -1,25 +1,32 @@
 """YAML CLI: ``python -m voice100_tpu_torch fit --config config/asr_en_base.yaml``.
 
-Port of ``voice100_tpu/training/cli.py`` for the pair the port trains,
-``AudioToAlignText`` with ``AudioTextDataModule``: the subcommands
-``fit``, ``validate``, ``test`` and ``predict`` and the JAX CLI's flags,
-with ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path)
-in place of ``--platform``. Configs keep their ``class_path`` strings
-(``voice100_tpu.*``, or the reference's ``voice100.*``); the last
-component names the port's class. Keys a constructor does not take are
-dropped with a note, lists become tuples, ``data_dir``, ``cache_dir``
-and ``batch_size`` can be overridden, and a model whose ``vocab_size``
-or ``audio_size`` disagrees with the data's stops the run.
+Port of ``voice100_tpu/training/cli.py`` for the v2 models the port
+trains: ``AudioToAlignText`` with ``AudioTextDataModule`` (log-mel), and
+the TTS pair, ``TextToAlignText`` with ``AlignTextDataModule`` and
+``AlignTextToAudio`` with ``AudioTextDataModule`` (WORLD features). The
+subcommands ``fit``, ``validate``, ``test`` and ``predict`` and the JAX
+CLI's flags, with ``--device`` (default ``cuda``; ``cpu`` runs the plain
+PyTorch path) in place of ``--platform``. Configs keep their
+``class_path`` strings (``voice100_tpu.*``, or the reference's
+``voice100.*``); the last component names the port's class. Keys a
+constructor does not take are dropped with a note, lists become tuples,
+``data_dir``, ``cache_dir`` and ``batch_size`` can be overridden, and an
+audio-input model whose ``vocab_size`` or ``audio_size`` disagrees with
+the data's stops the run (TTS models use ``audio_size`` for their output
+width). A TTS config's ``audio_stat``, or ``--audio_stat`` over it, names
+the WORLD statistics (``tools/calc_stat.py``) that ``fit`` loads into the
+model's ``norm`` buffers before the first step, where the file exists.
 
 Checkpoints are the port's ``.pt`` files (``best.pt``, ``last.pt``,
 ``epoch_N.pt`` under ``--checkpoint_dir``, default
 ``checkpoints/<config stem>``); ``validate``, ``test`` and ``predict``
-read ``--restore_from``, else ``best.pt``, else ``last.pt``. An orbax
-checkpoint of the JAX package crosses over through ``tools/weights.py``. Meshes and multi-process runs
-(``--mesh_model_axis`` > 1, ``--distributed``) are not ported yet and
-raise, and so do the TTS configs (``TextToAlignText``,
-``AlignTextToAudio``), whose training is not ported. Serving builds those
-models from a config and a checkpoint with :func:`load_model`.
+read ``--restore_from``, else ``best.pt``, else ``last.pt``. ``predict``
+writes CTC transcripts (``.txt``), or per-text durations or per-clip
+WORLD features (``.npz`` of object arrays). An orbax checkpoint of the
+JAX package crosses over through ``tools/weights.py``. Meshes and
+multi-process runs (``--mesh_model_axis`` > 1, ``--distributed``) are
+not ported yet and raise. Serving builds a model from a config and a
+checkpoint alone with :func:`load_model`.
 """
 
 from __future__ import annotations
@@ -33,19 +40,19 @@ from typing import Any, Dict, Optional
 import torch
 import yaml
 
-from ..data.datamodule import AudioTextDataModule
+import numpy as np
+
+from ..data.datamodule import AlignTextDataModule, AudioTextDataModule
 from ..models import AlignTextToAudio, AudioToAlignText, TextToAlignText
-from .checkpoint import load_model_weights
+from .checkpoint import load_model_weights, merge_world_stats
 from .tasks import make_task
 from .trainer import BF16_ITEM, Trainer, TrainerConfig, _host
 
-__all__ = ["load_config", "build_from_config", "build_trainer_config", "load_model", "main",
-           "cli_main", "UNPORTED"]
+__all__ = ["load_config", "build_from_config", "build_trainer_config", "config_audio_stat",
+           "load_model", "main", "cli_main", "UNPORTED"]
 
 DATA_SHELL_ITEM = "ROADMAP.md queue 1, item 8: the rest of the data shell"
 DISTRIBUTED_ITEM = "ROADMAP.md queue 1, item 10: serving, tools and distributed"
-TTS_TRAINING_ITEM = ("ROADMAP.md queue 1, item 6: TTS training (losses, tasks, "
-                     "AlignTextDataModule), and item 7: the WORLD data path")
 
 # The JAX trainer's settings that the port does not run: a config key
 # -> (the values that ask for nothing the port lacks, the item that ports
@@ -62,9 +69,8 @@ UNPORTED = {
 
 _MODEL_CLASSES = {"AudioToAlignText": AudioToAlignText, "TextToAlignText": TextToAlignText,
                   "AlignTextToAudio": AlignTextToAudio}
-# models the port serves but does not train yet
-_SERVE_ONLY = (TextToAlignText, AlignTextToAudio)
-_DATA_CLASSES = {"AudioTextDataModule": AudioTextDataModule}
+_DATA_CLASSES = {"AudioTextDataModule": AudioTextDataModule,
+                 "AlignTextDataModule": AlignTextDataModule}
 
 
 def _resolve_class(class_path: str, table: Dict[str, Any]):
@@ -98,27 +104,37 @@ def load_config(path: str) -> Dict[str, Any]:
 
 def build_from_config(config: Dict[str, Any], overrides: Dict[str, Any], device=None):
     """``(model, datamodule)`` on ``device`` (default ``cuda``) from a
-    config; the model's weights are freshly drawn."""
+    config; the model's weights are freshly drawn. The model's
+    ``audio_stat`` key is left for :func:`config_audio_stat`."""
     model_cls = _resolve_class(config["model"]["class_path"], _MODEL_CLASSES)
-    if issubclass(model_cls, _SERVE_ONLY):
-        raise NotImplementedError(f"{model_cls.__name__}: training and evaluation, and the data "
-                                  f"module of {config['data']['class_path']!r}, are not ported "
-                                  f"yet ({TTS_TRAINING_ITEM}); serve it with load_model")
     data_cls = _resolve_class(config["data"]["class_path"], _DATA_CLASSES)
-    model_kwargs = _filter_kwargs(model_cls, dict(config["model"].get("init_args") or {}))
-    model = model_cls(**model_kwargs, device=device)
+    model_kwargs = dict(config["model"].get("init_args") or {})
+    model_kwargs.pop("audio_stat", None)
+    model = model_cls(**_filter_kwargs(model_cls, model_kwargs), device=device)
     data_kwargs = dict(config["data"].get("init_args") or {})
     data_kwargs.update({k: v for k, v in overrides.items()
                         if k in ("data_dir", "cache_dir", "batch_size")})
-    data = data_cls(**_filter_kwargs(data_cls, data_kwargs), device=device)
-    # out-of-range labels would make the CTC lattice read past the logits
-    for attr in ("vocab_size", "audio_size"):
+    data_kwargs = _filter_kwargs(data_cls, data_kwargs)
+    if "device" in inspect.signature(data_cls.__init__).parameters:
+        data_kwargs["device"] = device
+    data = data_cls(**data_kwargs)
+    # out-of-range labels would make the CTC lattice read past the logits;
+    # audio_size is a shared contract of the audio-input models only (the
+    # TTS model's is its output width, reference models/_tts_v2.py:34)
+    checks = ("vocab_size", "audio_size") if hasattr(model, "greedy_decode") else ("vocab_size",)
+    for attr in checks:
         if getattr(model, attr) != getattr(data, attr):
             raise SystemExit(
                 f"[cli] model.{attr}={getattr(model, attr)} does not match "
                 f"data.{attr}={getattr(data, attr)} (language/use_phone/vocoder determine the "
                 f"data side); fix the config's model.init_args.{attr}")
     return model, data
+
+
+def config_audio_stat(config: Dict[str, Any]) -> Optional[str]:
+    """The WORLD statistics file a config's model names (``audio_stat``),
+    or None."""
+    return (config["model"].get("init_args") or {}).get("audio_stat")
 
 
 def load_model(config_path: str, ckpt_path: str, device=None) -> torch.nn.Module:
@@ -179,23 +195,49 @@ def build_trainer_config(config: Dict[str, Any], overrides: Dict[str, Any]) -> T
 
 
 def _run_predict(model, data, output: str) -> None:
-    """``predict`` for the CTC model (``voice100_tpu/training/cli.py:153-197``):
-    greedy transcripts of the predict loader's real rows, one a line, to
-    ``output`` (``.txt`` appended where missing)."""
+    """``predict`` over the predict loader's real rows
+    (``voice100_tpu/training/cli.py:153-258``): the CTC model writes greedy
+    transcripts, one a line, to ``output`` (``.txt`` appended where
+    missing); the duration model each text's ``durations [len, 2]``, the
+    acoustic model each clip's ``f0``, ``logspc`` and ``codeap`` cut to its
+    output length, as object arrays of an ``.npz`` (appended where
+    missing)."""
     task = make_task(model)
-    tokenizer = data.text_transform
-    path = output if output.endswith(".txt") else output + ".txt"
-    n = 0
     model.eval()
-    with open(path, "w", encoding="utf-8") as f, torch.no_grad():
-        for batch, n_real in data.predict_dataloader().iter_with_counts():
-            audio, audio_len, _, _ = task.upload(batch)
-            ids, out_len = (_host(t) for t in model.greedy_decode(audio, audio_len))
-            for i in range(n_real):
-                f.write(tokenizer.merge_repeated(tokenizer.decode(ids[i, :int(out_len[i])]))
-                        + "\n")
-                n += 1
-    print(f"[predict] wrote {n} transcripts to {path}")
+    if hasattr(type(model), "greedy_decode"):
+        tokenizer = data.text_transform
+        path = output if output.endswith(".txt") else output + ".txt"
+        n = 0
+        with open(path, "w", encoding="utf-8") as f, torch.no_grad():
+            for batch, n_real in data.predict_dataloader().iter_with_counts():
+                audio, audio_len, _, _ = task.upload(batch)
+                ids, out_len = (_host(t) for t in model.greedy_decode(audio, audio_len))
+                for i in range(n_real):
+                    f.write(tokenizer.merge_repeated(
+                        tokenizer.decode(ids[i, :int(out_len[i])])) + "\n")
+                    n += 1
+        print(f"[predict] wrote {n} transcripts to {path}")
+        return
+    path = output if output.endswith(".npz") else output + ".npz"
+    device = next(model.parameters()).device
+    rows = {}
+    for batch, n_real in data.predict_dataloader().iter_with_counts():
+        if isinstance(model, TextToAlignText):
+            text, text_len = (torch.as_tensor(t).to(device) for t in batch[0])
+            outputs = {"durations": model.predict(text, text_len)}
+            lengths = _host(text_len)
+        else:
+            text, text_len = (torch.as_tensor(t).to(device) for t in batch[-1])
+            outputs = dict(zip(("f0", "logspc", "codeap"), model.predict(text, text_len)))
+            lengths = _host(model.output_length(text_len))
+        for name, out in outputs.items():
+            out = _host(out)
+            rows.setdefault(name, []).extend(out[i, :int(lengths[i])] for i in range(n_real))
+    np.savez(path, **{name: np.asarray(r, dtype=object) for name, r in rows.items()})
+    n = len(next(iter(rows.values())))
+    what = "durations for {} texts" if isinstance(model, TextToAlignText) else \
+        "WORLD features for {} clips"
+    print(f"[predict] wrote {what.format(n)} to {path}")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -203,7 +245,8 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("subcommand", choices=["fit", "validate", "test", "predict"])
     parser.add_argument("--config", required=True)
     parser.add_argument("--output", type=str, default=None,
-                        help="predict: output path (.txt, CTC transcripts)")
+                        help="predict: output path (.txt for CTC transcripts, .npz for "
+                             "durations or WORLD features)")
     parser.add_argument("--max_epochs", type=int, default=None)
     parser.add_argument("--data_dir", type=str, default=None)
     parser.add_argument("--cache_dir", type=str, default=None)
@@ -212,6 +255,9 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--restore_from", type=str, default=None,
                         help="a checkpoint of the port (.pt)")
     parser.add_argument("--log_path", type=str, default=None)
+    parser.add_argument("--audio_stat", type=str, default=None,
+                        help="fit: WORLD statistics (.npz of tools/calc_stat) for a TTS "
+                             "model, over the config's audio_stat")
     parser.add_argument("--precision", type=str, default=None,
                         help="32 (default); the bf16 path is not ported yet")
     parser.add_argument("--device", type=str, default=None,
@@ -234,7 +280,8 @@ def _run(args) -> Optional[Dict[str, float]]:
         raise NotImplementedError(f"--distributed: multi-process training is not ported yet "
                                   f"({DISTRIBUTED_ITEM})")
     overrides = {k: v for k, v in vars(args).items()
-                 if v is not None and k not in ("subcommand", "config", "distributed", "device")}
+                 if v is not None and k not in ("subcommand", "config", "distributed", "device",
+                                                "audio_stat")}
     config = load_config(args.config)
     tc = build_trainer_config(config, overrides)
     base = os.path.splitext(os.path.basename(args.config))[0]
@@ -244,6 +291,9 @@ def _run(args) -> Optional[Dict[str, float]]:
     try:
         model, data = build_from_config(config, overrides, device=args.device)
         if args.subcommand == "fit":
+            audio_stat = args.audio_stat or config_audio_stat(config)
+            if audio_stat and os.path.exists(audio_stat):
+                merge_world_stats(model, audio_stat)
             trainer.fit(model, data, restore_from=args.restore_from)
             return None
         ckpt = args.restore_from or next(

@@ -3,7 +3,8 @@
 Port of ``voice100_tpu/training/trainer.py`` for one device: Adam from
 the task, gradient clipping by global norm, a JSON log record at the
 start of a fit, every ``log_every_n_steps`` steps and at each epoch's
-end, the validation loss, CER and WER, best/last/periodic checkpoints,
+end, the validation loss (and CER and WER for CTC models),
+best/last/periodic checkpoints, the WORLD identity-statistics warning,
 and a graceful stop (SIGTERM, SIGINT or :meth:`Trainer.request_stop`).
 
 :meth:`Trainer.fit` takes a data module, as the JAX trainer does: it
@@ -49,6 +50,9 @@ from .tasks import Task, make_task
 __all__ = ["Trainer", "TrainerConfig", "TrainState", "clip_by_global_norm"]
 
 BF16_ITEM = "ROADMAP.md queue 1, item 5: the bf16 precision path"
+# the JAX trainer's words (voice100_tpu/training/trainer.py:293-297)
+IDENTITY_STATS_WARNING = ("WORLD norm stats are identity; run tools.calc_stat and pass "
+                          "--audio_stat, or the f0 stream will dominate the TTS loss")
 
 
 @dataclass
@@ -232,10 +236,14 @@ class Trainer:
         from a checkpoint (the epoch it saved, from that epoch's start).
 
         ``data`` is a data module (``setup("fit")``, then its train and
-        val loaders; ``voice100_tpu/training/trainer.py:233-370``), or an
-        sized iterable of collated ``((audio, audio_len), (text, text_len))``
-        batches that can be iterated once an epoch (a list, or a
-        re-iterable loader) with ``val_batches`` beside it.
+        val loaders; ``voice100_tpu/training/trainer.py:233-370``), or a
+        sized iterable of collated batches in the model's task layout
+        (``training/tasks.py``) that can be iterated once an epoch (a
+        list, or a re-iterable loader) with ``val_batches`` beside it.
+
+        A model with WORLD statistics (``norm``) that are still the
+        identity after any restore logs the JAX trainer's warning record
+        first: calc_stat was never run.
 
         On a stop request the current step finishes, ``{"event":
         "stopped"}`` is logged, ``last.pt`` saved and the state returned."""
@@ -255,6 +263,11 @@ class Trainer:
         if restore_from:
             state = restore_checkpoint(restore_from, state)
         device = next(model.parameters()).device
+        norm = getattr(model, "norm", None)
+        if norm is not None and float((norm.f0_std - 1.0).abs().max()) < 1e-6:
+            # identity statistics mean calc_stat never ran: the raw f0
+            # stream (hundreds of Hz) then dominates the WORLD loss
+            self._log({"event": "warning", "message": IDENTITY_STATS_WARNING})
         self._log({"event": "fit_start", "params": sum(p.numel() for p in model.parameters()),
                    "steps_per_epoch": len(train_batches), "device": str(device)})
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
