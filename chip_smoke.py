@@ -137,11 +137,36 @@ toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
     lengths: 156,672 and 221,184 B of shared memory a block; B=128,
     T=144, H=256 with the align batch's) against their plain versions,
     timed against cuDNN nn.LSTM's forward and backward in turns;
-16. holds kernel 1 at the TTS configs' training batch (B=128, T=512,
+16. runs the phone configs end to end (``phone_phase``): writes 96 FLAC
+    clips of 2-8 s in the real corpora's layouts (48 LJSpeech at
+    22.05 kHz, 40 LibriSpeech train-clean-100 and 8 dev-clean at 16 kHz;
+    tests/flac_fixture.py's bit writer, verbatim frames of 4096 samples)
+    with English transcripts that need the G2P's number, currency,
+    abbreviation and heteronym rules; phonemizes them with the port's
+    prepare_dataset (twice: equal files) and times the G2P a text; checks
+    that two ``fit`` runs of config/asr_en_phone_base.yaml on the card and
+    one on the CPU start from equal weights (its seed_everything); trains
+    it through the training CLI (cli_phase: ``fit`` 2 epochs from a cold
+    cache on ljspeech,librispeech, 80 train and 8 val clips at batch 64,
+    then ``validate``, ``test``, ``predict``; launch counts checked), timing
+    the loader's native ``prefetch`` against one batch decode call and the
+    per-item decode; aligns the LJSpeech corpus with the checkpoint it
+    wrote through the align CLI from the warm cache (align: kernel 1 twice,
+    the Viterbi once, the labels against the plain Viterbi), writing
+    ljspeech-phone-align-train.txt; serves align_en_phone_base +
+    tts_en_phone_base (16 English texts) and align_ja_phone_base +
+    tts_ja_phone_base (8 Japanese texts with kanji, kana and numerals)
+    through TTSPipeline(use_phone=True) (tts_phase: 4 kernel-1 launches a
+    call, 2 warm calls, the stages, the card against the CPU on 2 texts);
+    and, where libmp3lame and libmpg123 both load, writes a cv_ja corpus of
+    24 MP3 clips, holds load_audio and load_audio_batch to the tones
+    written and trains asr_ja_phone_base one epoch on it (else prints
+    which library is missing and skips that step alone);
+17. holds kernel 1 at the TTS configs' training batch (B=128, T=512,
     H=512, a zero-length row): its shared memory a block, 156,672 B,
-    within the 232,448 B opt-in, and its outputs against the plain
-    version;
-17. prints one JSON line of per-kernel results, then, last,
+    within the 232,448 B opt-in, its outputs against the plain version,
+    and its time in turns with cuDNN's packed nn.LSTM, beside its bound;
+18. prints one JSON line of per-kernel results, then, last,
     {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line is printed. Without
@@ -161,6 +186,7 @@ SXM data sheet's peaks (67 TFLOP/s float32 outside the tensor cores,
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import os
 import subprocess
@@ -676,7 +702,10 @@ def check_bilstm_b128_h512(device):
     """Kernel 1 at the TTS configs' training batch (config/tts_en_base.yaml:
     H=512, batch 128): its shared memory a block within the opt-in limit,
     ragged lengths with a zero-length row, both layer widths, against the
-    plain version on the card."""
+    plain version on the card; timed in turns with cuDNN's packed
+    nn.LSTM (which takes no zero-length row: its copy of the lengths
+    gives that row one step), beside the bound of the work these lengths
+    need."""
     from voice100_tpu_torch.models.layers import BiLSTM
     from voice100_tpu_torch.ops.lstm import bilstm
     from voice100_tpu_torch.ops.lstm_cuda import _SMEM_OPTIN_LIMIT, _lib, bilstm_cuda
@@ -689,12 +718,15 @@ def check_bilstm_b128_h512(device):
     lengths_np = np.random.default_rng(SEED + 11).integers(1, time_steps + 1, size=batch)
     lengths_np[0], lengths_np[1], lengths_np[2] = time_steps, 0, 1
     lengths = torch.tensor(lengths_np, dtype=torch.int32, device=device)
+    library_lengths = torch.from_numpy(np.maximum(lengths_np, 1))
     module = BiLSTM(hidden, hidden, 2, device=device)
     module.reset_parameters(torch.Generator().manual_seed(SEED + 11))
     gen = torch.Generator(device=device).manual_seed(SEED + 11)
-    err, ms = 0.0, 0.0
+    err, n_bytes, n_ops = 0.0, 0.0, 0.0
+    times = {"ms": [], "library_ms": [], "device_ms": [], "library_device_ms": []}
     for layer, (w_ih, w_hh, bias) in enumerate(module.stacked_layers()):
-        x = torch.randn(batch, time_steps, w_ih.shape[2], device=device, generator=gen)
+        d_in = w_ih.shape[2]
+        x = torch.randn(batch, time_steps, d_in, device=device, generator=gen)
         with torch.no_grad():
             got = bilstm_cuda(w_ih, w_hh, bias, x, lengths)
             ref = bilstm(w_ih, w_hh, bias, x, lengths)
@@ -702,15 +734,45 @@ def check_bilstm_b128_h512(device):
             if not torch.isfinite(got).all():
                 fail(f"kernel 1 at B={batch}, H={hidden}, layer {layer}: non-finite outputs")
             err = max(err, (got - ref).abs().max().item())
-            ms += time_ms(lambda: bilstm_cuda(w_ih, w_hh, bias, x, lengths), iters=3)
+            lstm = torch.nn.LSTM(d_in, hidden, bidirectional=True, batch_first=True,
+                                 device=device)
+            for suffix in ("", "_reverse"):
+                for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+                    getattr(lstm, f"{name}_l0{suffix}").copy_(
+                        getattr(module, f"{name}_l{layer}{suffix}"))
+
+            def library():
+                packed = torch.nn.utils.rnn.pack_padded_sequence(
+                    x, library_lengths, batch_first=True, enforce_sorted=False)
+                out, _ = lstm(packed)
+                return torch.nn.utils.rnn.pad_packed_sequence(
+                    out, batch_first=True, total_length=time_steps)[0]
+
+            turns = timed_in_turns({"kernel": lambda: bilstm_cuda(w_ih, w_hh, bias, x, lengths),
+                                    "library": library}, iters=2)
+        for prefix, side in (("", "kernel"), ("library_", "library")):
+            times[prefix + "ms"].append(turns[side]["ms"])
+            times[prefix + "device_ms"].append(turns[side]["device_ms"])
+        # as check_bilstm counts: x, the weights and the output once; the
+        # projections and recurrence of the valid steps only
+        n_bytes += (x.numel() + 2 * 4 * hidden * (d_in + hidden + 2) + batch * time_steps
+                    * 2 * hidden) * 4 + batch * 4
+        n_ops += 2 * 2 * int(lengths_np.sum()) * 4 * hidden * (d_in + hidden)
+    bound, bound_by = bound_ms(n_bytes, n_ops)
+    # both layers' sums; "not measured" where the profiler missed a layer
+    ms, library_ms, device_ms, library_device_ms = (
+        None if None in values else sum(values) for values in times.values())
     print(f"biLSTM kernel 1 at B={batch}, T={time_steps}, H={hidden} (the TTS configs' training "
           f"batch; a zero-length row, both layers): {smem} B of shared memory a block (opt-in "
-          f"{_SMEM_OPTIN_LIMIT}); max_abs_err {err:.3e} (tol {LSTM_TOL:.0e}); {ms:.3f} ms",
-          flush=True)
+          f"{_SMEM_OPTIN_LIMIT}); max_abs_err {err:.3e} (tol {LSTM_TOL:.0e}); in turns: kernel "
+          f"{ms:.3f} ms (device {fmt_ms(device_ms)}), nn.LSTM {library_ms:.3f} ms (device "
+          f"{fmt_ms(library_device_ms)}); bound {bound:.4f} ms ({bound_by})", flush=True)
     if not err <= LSTM_TOL:
         fail(f"kernel 1 at B={batch}, H={hidden} disagrees with the plain version: {err:.3e}")
     return {"shapes": f"B={batch}, T={time_steps}, H={hidden}, both layers, a zero-length row",
-            "smem_bytes": smem, "max_abs_err": err, "ms": ms}
+            "smem_bytes": smem, "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+            "library_ms": library_ms, "library_device_ms": library_device_ms,
+            "bound_ms": bound, "bound_by": bound_by}
 
 
 def rel_err(got, ref) -> float:
@@ -1008,6 +1070,18 @@ def ctc_errors(log_probs, targets, input_lengths, target_lengths):
     return err, (z, can_skip, valid, alpha_ref, seed)
 
 
+def check_ctc_tol(name, e):
+    """Fails where ctc_errors's errors on the batch ``name`` exceed their
+    tolerances."""
+    if not max(e["alpha"], e["ll"], e["adjoint"]) <= CTC_REL_TOL:
+        fail(f"CTC kernels disagree with the plain versions on the {name}: alpha "
+             f"{e['alpha']:.3e}, ll {e['ll']:.3e}, adjoint {e['adjoint']:.3e} > "
+             f"{CTC_REL_TOL:.0e}")
+    if not e["grad"] <= CTC_GRAD_TOL or e["infeasible_grad"] != 0.0:
+        fail(f"CTC loss gradient disagrees with the plain version on the {name}: "
+             f"{e['grad']:.3e}, infeasible rows {e['infeasible_grad']:.1e}")
+
+
 def ctc_edge_batches(device):
     """Batches at the edges of the kernels' loops and limits, seeded:
     an input of one frame, no target, a row held for all but 5 of 501
@@ -1159,13 +1233,7 @@ def check_ctc(device):
               f"(tol {CTC_GRAD_TOL:.0e}), infeasible rows' gradient {e['infeasible_grad']:.1e}",
               flush=True)
     for name, e in {"train batch": err, **edges}.items():
-        if not max(e["alpha"], e["ll"], e["adjoint"]) <= CTC_REL_TOL:
-            fail(f"CTC kernels disagree with the plain versions on the {name}: alpha "
-                 f"{e['alpha']:.3e}, ll {e['ll']:.3e}, adjoint {e['adjoint']:.3e} > "
-                 f"{CTC_REL_TOL:.0e}")
-        if not e["grad"] <= CTC_GRAD_TOL or e["infeasible_grad"] != 0.0:
-            fail(f"CTC loss gradient disagrees with the plain version on the {name}: "
-                 f"{e['grad']:.3e}, infeasible rows {e['infeasible_grad']:.1e}")
+        check_ctc_tol(name, e)
 
     # least work, bytes-bound both: the forward reads log_probs and the
     # lattice constants and writes alpha; the adjoint reads alpha, the
@@ -1760,40 +1828,44 @@ def write_align_corpus(root: str):
     return args, texts, [len(c) for c in clips]
 
 
-def check_align_lines(path, texts, samples):
-    """128 lines, the clips' texts in order, and counts of 2 len(text) + 1
-    slots summing to each clip's logit length; returns the lines."""
+def check_align_lines(path, texts, samples, settings=ASR_EN_BASE["encoder_settings"],
+                      n_tokens=len):
+    """A line a clip, the clips' texts in order, and counts of
+    2 n_tokens(text) + 1 slots summing to each clip's logit length (the
+    conv stack ``settings``); returns the lines."""
     from voice100_tpu_torch.models.layers import conv_stack_output_length
 
-    with open(path) as f:
+    with open(path, encoding="utf-8") as f:
         lines = [line.rstrip("\n").split("|") for line in f]
-    if len(lines) != ALIGN_CLIPS:
-        fail(f"align: {len(lines)} lines for {ALIGN_CLIPS} clips")
+    if len(lines) != len(texts):
+        fail(f"align: {len(lines)} lines for {len(texts)} clips")
     for i, ((text, aligntext, counts), want, n) in enumerate(zip(lines, texts, samples)):
         counts = [int(c) for c in counts.split()]
-        frames = conv_stack_output_length(ASR_EN_BASE["encoder_settings"], n // 160 + 1)
-        if text != want or len(counts) != 2 * len(text) + 1 or sum(counts) != frames \
-                or len(aligntext) != frames:
+        frames = conv_stack_output_length(settings, n // 160 + 1)
+        if text != want or len(counts) != 2 * n_tokens(text) + 1 or sum(counts) != frames \
+                or n_tokens(aligntext) != frames:
             fail(f"align: line {i} has text {text[:20]!r}..., {len(counts)} counts summing to "
-                 f"{sum(counts)}, for {len(want)} characters and {frames} frames")
+                 f"{sum(counts)}, for {n_tokens(want)} tokens and {frames} frames")
     return lines
 
 
-def align(device, card, workdir):
-    """Forced alignment of a 128-clip corpus through the align CLI on the
-    card, twice: a cold feature cache (the log-mel kernel once a clip),
-    then a warm one, timed; launch counts set to 0 just before each run
-    and read just after. Then each batch's labels against the plain
-    Viterbi on the card's own log-probs, and the card time by layer of
-    one batch."""
+def align(device, card, workdir, args=None, texts=None, samples=None, runs=("cold", "warm"),
+          settings=ASR_EN_BASE, n_tokens=len, name="asr_en_base"):
+    """Forced alignment of a corpus through the align CLI on the card
+    (by default the 128-clip dummy_en corpus of write_align_corpus, twice:
+    a cold feature cache, the log-mel kernel once a clip, then a warm
+    one), timed; launch counts set to 0 just before each run and read just
+    after. Then each batch's labels against the plain Viterbi on the
+    card's own log-probs, and the card time by layer of one batch."""
     from voice100_tpu_torch.tools.align_text import cli_main
 
-    args, texts, samples = write_align_corpus(workdir)
+    if args is None:
+        args, texts, samples = write_align_corpus(workdir)
     argv = [item for key, value in args.items() for item in (f"--{key}", value)]
     audio_sec = sum(samples) / SAMPLE_RATE
     counters = align_counters()
-    runs = {}
-    for run in ("cold", "warm"):
+    result = {}
+    for run in runs:
         torch.cuda.synchronize()
         for fn in counters.values():
             fn.launches = 0
@@ -1801,26 +1873,27 @@ def align(device, card, workdir):
         cli_main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-        runs[run] = {"wall_s": wall, "audio_s_per_s": audio_sec / wall,
-                     "launches": {name: fn.launches for name, fn in counters.items()}}
-        lines = check_align_lines(args["output"], texts, samples)
-    batches = -(-ALIGN_CLIPS // ALIGN_BATCH)
-    print(f"align asr_en_base: {ALIGN_CLIPS} clips, {audio_sec:.2f} s of audio, batch "
+        result[run] = {"wall_s": wall, "audio_s_per_s": audio_sec / wall,
+                       "launches": {name: fn.launches for name, fn in counters.items()}}
+        lines = check_align_lines(args["output"], texts, samples, settings["encoder_settings"],
+                                  n_tokens)
+    batches = -(-len(texts) // ALIGN_BATCH)
+    print(f"align {name}: {len(texts)} clips, {audio_sec:.2f} s of audio, batch "
           f"{ALIGN_BATCH} on {card}: " + "; ".join(
               f"{run} cache {r['wall_s']:.3f} s, {r['audio_s_per_s']:.1f} audio s/s, launches "
-              f"{r['launches']}" for run, r in runs.items()), flush=True)
-    for run, r in runs.items():
+              f"{r['launches']}" for run, r in result.items()), flush=True)
+    for run, r in result.items():
         got = r["launches"]
         if got["viterbi_align"] != batches:
             fail(f"align ({run}): the Viterbi kernel launched {got}, not once a batch")
-        if got["bilstm_recurrence"] != ASR_EN_BASE["decoder_num_layers"] * batches:
+        if got["bilstm_recurrence"] != settings["decoder_num_layers"] * batches:
             fail(f"align ({run}): the biLSTM kernel launched {got['bilstm_recurrence']} times, "
                  f"not once a layer a batch")
-    if runs["cold"]["launches"]["log_mel"] != ALIGN_CLIPS or runs["warm"]["launches"]["log_mel"]:
-        fail(f"align: the log-mel kernel launched {runs['cold']['launches']['log_mel']} times cold "
-             f"and {runs['warm']['launches']['log_mel']} warm, not once a clip and then never")
+        if got["log_mel"] != (len(texts) if run == "cold" else 0):
+            fail(f"align ({run}): the log-mel kernel launched {got['log_mel']} times, not once "
+                 f"a clip with a cold cache and never with a warm one")
     align_batches_vs_plain(device, args, lines)
-    return runs, args, samples
+    return result, args, samples
 
 
 def build_align(args, device, batch_size=None):
@@ -1954,31 +2027,35 @@ def cli_counters():
     return {**align_counters(), **train_counters()}
 
 
-def cli_phase(device, card, workdir, align_args, samples):
-    """asr_en_base through the training CLI on the card (training/cli.py
+def cli_phase(device, card, workdir, align_args, samples, epochs=CLI_EPOCHS, tag="cli"):
+    """A CTC config through the training CLI on the card (training/cli.py
     ``main``, as ``python -m voice100_tpu_torch`` runs it): ``fit`` for
-    CLI_EPOCHS epochs on the align corpus with a cold feature cache, then
+    ``epochs`` epochs on the corpus of ``align_args`` (by default
+    asr_en_base on the align corpus) with a cold feature cache, then
     ``validate``, ``test`` and ``predict`` on the ``last.pt`` it wrote; the
     launch counts set to 0 just before each subcommand and read just
-    after. Checks the log, the checkpoints, the validate loss against the
-    last epoch's and the predictions against the card's own greedy
-    decode."""
+    after. ``samples`` are the clips' lengths in the data module's order.
+    Checks the log, the checkpoints, the validate loss against the last
+    epoch's and the predictions against the card's own greedy decode.
+    Returns the launches by subcommand and the ``last.pt`` path."""
     import yaml
     from voice100_tpu_torch.training import load_model_weights
     from voice100_tpu_torch.training.cli import build_from_config, load_config, main
 
     config = load_config(align_args["config"])
-    config["trainer"].update(max_epochs=CLI_EPOCHS, log_every_n_steps=1)
-    cfg = os.path.join(workdir, "asr_en_base_dummy_en_fit.yaml")
+    config_name = os.path.splitext(os.path.basename(align_args["config"]))[0]
+    config["trainer"].update(max_epochs=epochs, log_every_n_steps=1)
+    cfg = os.path.join(workdir, f"{config_name}_fit.yaml")
     with open(cfg, "w") as f:
         yaml.safe_dump(config, f)
-    ckpt = os.path.join(workdir, "fit_ckpt")
-    log = os.path.join(workdir, "fit_log.jsonl")
+    ckpt = os.path.join(workdir, f"{tag}_ckpt")
+    log = os.path.join(workdir, f"{tag}_log.jsonl")
+    cache = os.path.join(workdir, f"{tag}_cache")
     common = ["--config", cfg, "--data_dir", align_args["data_dir"],
-              "--cache_dir", os.path.join(workdir, "fit_cache"), "--checkpoint_dir", ckpt,
+              "--cache_dir", cache, "--checkpoint_dir", ckpt,
               "--device", str(device)]
     last = os.path.join(ckpt, "last.pt")
-    predictions = os.path.join(workdir, "predictions.txt")
+    predictions = os.path.join(workdir, f"{tag}_predictions.txt")
     counters = cli_counters()
     runs, results = {}, {}
     for sub, extra in (("fit", ["--log_path", log]), ("validate", ["--restore_from", last]),
@@ -1994,19 +2071,19 @@ def cli_phase(device, card, workdir, align_args, samples):
                      "launches": {name: fn.launches for name, fn in counters.items()}}
 
     model, data = build_from_config(config, {"data_dir": align_args["data_dir"],
-                                             "cache_dir": os.path.join(workdir, "fit_cache")},
-                                    device=device)
+                                             "cache_dir": cache}, device=device)
     data.setup("fit")
     n_train, n_val = len(data.train_ds), len(data.valid_ds)
     train_sec = sum(samples[i] for i in data.train_ds._dataset._indices) / SAMPLE_RATE
-    bs, layers = data.batch_size, ASR_EN_BASE["decoder_num_layers"]
-    steps, val_batches = CLI_EPOCHS * -(-n_train // bs), -(-n_val // bs)
-    all_batches = -(-ALIGN_CLIPS // bs)
+    bs, layers = data.batch_size, model.lstm.num_layers
+    n_clips = len(samples)
+    steps, val_batches = epochs * -(-n_train // bs), -(-n_val // bs)
+    all_batches = -(-n_clips // bs)
     # an evaluated batch: kernel 1 twice a layer (the loss and the CER
     # decode are two forwards) and kernel 4 once (the loss)
-    evals = val_batches * CLI_EPOCHS
+    evals = val_batches * epochs
     want = {
-        "fit": {"log_mel": ALIGN_CLIPS, "bilstm_recurrence": 2 * layers * evals,
+        "fit": {"log_mel": n_clips, "bilstm_recurrence": 2 * layers * evals,
                 "bilstm_train_fwd": layers * steps, "bilstm_train_bwd": 2 * layers * steps,
                 "ctc_alpha": steps + evals, "ctc_adjoint": steps, "viterbi_align": 0},
         "validate": {"bilstm_recurrence": 2 * layers * val_batches, "ctc_alpha": val_batches},
@@ -2017,29 +2094,31 @@ def cli_phase(device, card, workdir, align_args, samples):
         full = dict.fromkeys(counters, 0)
         full.update(counts)
         if runs[sub]["launches"] != full:
-            fail(f"cli {sub}: launches {runs[sub]['launches']}, not {full}")
+            fail(f"{tag} {sub}: launches {runs[sub]['launches']}, not {full}")
 
     with open(log) as f:
         records = [json.loads(line) for line in f]
     starts = [r for r in records if r.get("event") == "fit_start"]
-    epochs = [r for r in records if "train_time_s" in r]
+    records_by_epoch = [r for r in records if "train_time_s" in r]
     step_losses = [r["train_loss"] for r in records
                    if "train_loss" in r and "train_time_s" not in r]
-    keys = ("val_loss", "val_cer", "val_wer")
-    if len(starts) != 1 or len(epochs) != CLI_EPOCHS or not all(
-            np.isfinite(r.get(k, np.nan)) for r in epochs for k in keys):
-        fail(f"cli fit: log has {len(starts)} fit_start records and epoch records {epochs}")
-    per_epoch = steps // CLI_EPOCHS
+    # no WER for phone tokenizers: their decoded text has no word boundaries
+    keys = ("val_loss", "val_cer") + (() if data.use_phone else ("val_wer",))
+    if len(starts) != 1 or len(records_by_epoch) != epochs or not all(
+            np.isfinite(r.get(k, np.nan)) for r in records_by_epoch for k in keys):
+        fail(f"{tag} fit: log has {len(starts)} fit_start records and epoch records "
+             f"{records_by_epoch}")
+    per_epoch = steps // epochs
     if len(step_losses) != steps or not np.all(np.isfinite(step_losses)) or not (
             np.mean(step_losses[-per_epoch:]) < np.mean(step_losses[:per_epoch])):
-        fail(f"cli fit: the train loss is not finite or does not fall: {step_losses}")
+        fail(f"{tag} fit: the train loss is not finite or does not fall: {step_losses}")
     for name in ("best.pt", "last.pt"):
         if not os.path.isfile(os.path.join(ckpt, name)):
-            fail(f"cli fit: {name} was not written")
-    val, last_val = results["validate"], epochs[-1]["val_loss"]
+            fail(f"{tag} fit: {name} was not written")
+    val, last_val = results["validate"], records_by_epoch[-1]["val_loss"]
     val_err = abs(val["loss"] - last_val) / abs(last_val)
     if not val_err <= CLI_VAL_REL_TOL:
-        fail(f"cli validate: val_loss {val['loss']} on last.pt, the last epoch logged {last_val}")
+        fail(f"{tag} validate: val_loss {val['loss']} on last.pt, the last epoch logged {last_val}")
 
     load_model_weights(last, model)
     model.eval()
@@ -2056,25 +2135,27 @@ def cli_phase(device, card, workdir, align_args, samples):
                            for i in range(n_real)]
     with open(predictions) as f:
         lines = f.read().splitlines()
-    if len(lines) != ALIGN_CLIPS or lines != want_lines:
-        fail(f"cli predict: {len(lines)} lines for {ALIGN_CLIPS} clips, "
+    if len(lines) != n_clips or lines != want_lines:
+        fail(f"{tag} predict: {len(lines)} lines for {n_clips} clips, "
              f"{sum(a == b for a, b in zip(lines, want_lines))} equal to the card's greedy decode")
 
     fit_s = runs["fit"]["wall_s"]
-    print(f"cli asr_en_base on {card}: fit {CLI_EPOCHS} epochs ({n_train} train clips, "
+    print(f"{tag} {config_name} on {card}: fit {epochs} epochs ({n_train} train clips, "
           f"{train_sec:.2f} s of audio, {n_val} val clips, batch {bs}, cold feature cache) "
-          f"{fit_s:.3f} s, {fit_s / CLI_EPOCHS:.3f} s an epoch by host clock with validation; "
+          f"{fit_s:.3f} s, {fit_s / epochs:.3f} s an epoch by host clock with validation; "
           f"train time by epoch " + ", ".join(
               f"{r['train_time_s']} s ({train_sec / max(r['train_time_s'], 1e-9):.1f} audio s/s)"
-              for r in epochs) + f"; step losses {[round(v, 4) for v in step_losses]}; "
-          f"val_loss by epoch {[round(r['val_loss'], 4) for r in epochs]}", flush=True)
-    print(f"cli validate on last.pt: val_loss {val['loss']:.6f} against the last epoch's "
+              for r in records_by_epoch) + f"; step losses {[round(v, 4) for v in step_losses]}; "
+          f"val_loss by epoch {[round(r['val_loss'], 4) for r in records_by_epoch]}",
+          flush=True)
+    print(f"{tag} validate on last.pt: val_loss {val['loss']:.6f} against the last epoch's "
           f"{last_val:.6f} (rel err {val_err:.2e}, tol {CLI_VAL_REL_TOL:.0e}), val_cer "
-          f"{val['cer']:.4f} ({epochs[-1]['val_cer']:.4f} logged); test {results['test']}; "
-          f"predict wrote {len(lines)} lines, all equal to the card's greedy decode", flush=True)
-    print("cli_runs " + json.dumps({sub: {"wall_s": r["wall_s"], "launches": r["launches"]}
-                                    for sub, r in runs.items()}), flush=True)
-    return {sub: r["launches"] for sub, r in runs.items()}
+          f"{val['cer']:.4f} ({records_by_epoch[-1]['val_cer']:.4f} logged); test "
+          f"{results['test']}; predict wrote {len(lines)} lines, all equal to the card's greedy "
+          f"decode", flush=True)
+    print(f"{tag}_runs " + json.dumps({sub: {"wall_s": r["wall_s"], "launches": r["launches"]}
+                                       for sub, r in runs.items()}), flush=True)
+    return {sub: r["launches"] for sub, r in runs.items()}, last
 
 
 TTS_STAGE_KEYS = ("phonemize_tokenize", "align_model", "duration_fetch", "cursor_host",
@@ -2082,17 +2163,17 @@ TTS_STAGE_KEYS = ("phonemize_tokenize", "align_model", "duration_fetch", "cursor
                   "mc2sp", "codeap_host", "synthesis", "fetch")
 
 
-def write_tts_checkpoints(root: str):
-    """Seeded full-width align and audio models, the duration bias and the
-    statistics set, saved as port checkpoints; returns {name: (config,
-    checkpoint)}."""
+def write_tts_checkpoints(root: str, align=(ALIGN_EN_BASE, "config/align_en_base.yaml"),
+                          audio=(TTS_EN_BASE, "config/tts_en_base.yaml")):
+    """Seeded full-width align and audio models (``(init args, config)``
+    each), the duration bias and the statistics set, saved as port
+    checkpoints; returns {name: (config, checkpoint)}."""
     from voice100_tpu_torch.models import AlignTextToAudio, TextToAlignText
     from voice100_tpu_torch.training import TrainState, save_checkpoint
 
     paths = {}
     for i, (name, cls, kwargs, config) in enumerate((
-            ("align", TextToAlignText, ALIGN_EN_BASE, "config/align_en_base.yaml"),
-            ("audio", AlignTextToAudio, TTS_EN_BASE, "config/tts_en_base.yaml"))):
+            ("align", TextToAlignText, *align), ("audio", AlignTextToAudio, *audio))):
         model = cls(**kwargs, device="cpu", generator=torch.Generator().manual_seed(SEED + 12 + i))
         with torch.no_grad():
             if name == "align":
@@ -2100,7 +2181,7 @@ def write_tts_checkpoints(root: str):
             else:
                 for key, value in TTS_STATS.items():
                     getattr(model.norm, key).copy_(torch.tensor(value))
-        ckpt = os.path.join(root, f"{name}_en_base_random.pt")
+        ckpt = os.path.join(root, os.path.basename(config).replace(".yaml", "_random.pt"))
         save_checkpoint(ckpt, TrainState(model, torch.optim.Adam(model.parameters())))
         paths[name] = (config, ckpt)
     return paths
@@ -2295,44 +2376,47 @@ def tts_parity(pipe, cpu_pipe, texts):
     return report
 
 
-def tts_phase(device, card, workdir):
-    """TTS serving at align_en_base and tts_en_base width through
-    TTSPipeline on the card: launches of one call, the wall time of warm
-    calls (float32 and int16), the stages, the card against the CPU, and
-    kernel 1 at the run's shapes."""
+def tts_phase(device, card, workdir, paths=None, texts=TTS_TEXTS, language="en",
+              use_phone=False, label="tts align_en_base + tts_en_base"):
+    """TTS serving through TTSPipeline on the card (by default at
+    align_en_base and tts_en_base width, characters): launches of one
+    call, the wall time of warm calls (float32 and int16), the stages, the
+    card against the CPU on the first TTS_PARITY_TEXTS texts, and kernel 1
+    at the run's shapes, each model's width."""
     from voice100_tpu_torch.inference import TTSPipeline
     from voice100_tpu_torch.ops.lstm_cuda import bilstm_cuda
     from voice100_tpu_torch.training.cli import load_model
 
-    paths = write_tts_checkpoints(workdir)
+    if paths is None:
+        paths = write_tts_checkpoints(workdir)
     pipes = {dev: TTSPipeline(load_model(*paths["align"], device=dev),
                               load_model(*paths["audio"], device=dev),
-                              language="en", use_phone=False, device=dev)
+                              language=language, use_phone=use_phone, device=dev)
              for dev in (device, "cpu")}
     pipe = pipes[device]
-    pipe.synthesize(TTS_TEXTS)  # warm-up: constants, cuDNN plans
+    pipe.synthesize(texts)  # warm-up: constants, cuDNN plans
     torch.cuda.synchronize()
     wrappers = {w for ws in counted_kernels().values() for w in ws}
     for w in wrappers:
         w.launches = 0
-    wavs = pipe.synthesize(TTS_TEXTS)
+    wavs = pipe.synthesize(texts)
     torch.cuda.synchronize()
     launches = {"bilstm_recurrence": bilstm_cuda.launches}
     others = {w.__name__: w.launches for w in wrappers if w is not bilstm_cuda and w.launches}
     # one batch of 16: the align model's two layers, the audio encoder's two
     if launches["bilstm_recurrence"] != 4 or others:
-        fail(f"tts: one synthesize call of one batch launched kernel 1 "
+        fail(f"{label}: one synthesize call of one batch launched kernel 1 "
              f"{launches['bilstm_recurrence']} times, not 4, and {others}")
     timed = {}
     for dtype in (np.float32, np.int16):
         walls = []
         for _ in range(TTS_TIMED_CALLS):
             start = time.perf_counter()
-            out = pipe.synthesize(TTS_TEXTS, output_dtype=dtype)
+            out = pipe.synthesize(texts, output_dtype=dtype)
             walls.append(time.perf_counter() - start)
             # the same texts and noise give the same waveforms, bit for bit
             if dtype == np.float32 and not all(map(np.array_equal, out, wavs)):
-                fail("tts: two synthesize calls of the same texts gave different waveforms")
+                fail(f"{label}: two synthesize calls of the same texts gave different waveforms")
         audio_s = sum(len(w) for w in out) / SAMPLE_RATE
         wall = float(np.median(walls))
         timed[np.dtype(dtype).name] = {"wall_s": wall, "audio_s": audio_s,
@@ -2341,27 +2425,30 @@ def tts_phase(device, card, workdir):
             pcm = out
     for w32, w16 in zip(wavs, pcm):
         if not np.isfinite(w32).all() or w16.dtype != np.int16 or w16.shape != w32.shape:
-            fail("tts: a waveform is not finite, or int16 and float32 differ in shape")
+            fail(f"{label}: a waveform is not finite, or int16 and float32 differ in shape")
         expect = np.round(np.clip(w32, -1.0, 1.0) * 32767.0)
         if np.abs(w16.astype(np.float64) - expect).max() > 1:
-            fail("tts: int16 output is not round(clip(float) * 32767) +/- 1")
-    print(f"tts align_en_base + tts_en_base on {card}: {len(TTS_TEXTS)} texts, one batch; "
+            fail(f"{label}: int16 output is not round(clip(float) * 32767) +/- 1")
+    print(f"{label} on {card}: {len(texts)} texts, one batch; "
           + "; ".join(f"{k}: synthesize median {v['wall_s'] * 1e3:.2f} ms of {TTS_TIMED_CALLS} "
                       f"warm calls, {v['audio_s']:.2f} s of audio, {v['audio_s_per_s']:.1f} "
                       f"audio s/s" for k, v in timed.items())
           + f"; launches of one call {launches}", flush=True)
-    run, stage_ms = tts_stages(pipe, TTS_TEXTS, timed=True)
-    print("tts_stages_ms " + json.dumps({"texts": len(TTS_TEXTS), "text_bucket":
+    run, stage_ms = tts_stages(pipe, texts, timed=True)
+    print("tts_stages_ms " + json.dumps({"label": label, "texts": len(texts), "text_bucket":
                                          int(run["text"].shape[1]), "frame_bucket": run["out_len"],
                                          **stage_ms}), flush=True)
-    parity = tts_parity(pipe, pipes["cpu"], TTS_TEXTS[:TTS_PARITY_TEXTS])
-    del pipes
+    parity = tts_parity(pipe, pipes["cpu"], texts[:TTS_PARITY_TEXTS])
+    # each model's biLSTM takes its embedding, as wide as its hidden state
+    widths = {"align": pipe.align_model.lstm.hidden_size, "audio": pipe.audio_model.lstm.hidden_size}
+    del pipes, pipe
     kernel_shapes = {
-        "tts_align": check_bilstm(device, len(TTS_TEXTS), int(run["text"].shape[1]),
-                                  [int(n) for n in run["text_len"]], hidden=256, input_size=256),
-        "tts_audio": check_bilstm(device, len(TTS_TEXTS), run["out_len"],
-                                  [int(n) for n in run["aligntext_len"]], hidden=512,
-                                  input_size=512),
+        "tts_align": check_bilstm(device, len(texts), int(run["text"].shape[1]),
+                                  [int(n) for n in run["text_len"]], hidden=widths["align"],
+                                  input_size=widths["align"]),
+        "tts_audio": check_bilstm(device, len(texts), run["out_len"],
+                                  [int(n) for n in run["aligntext_len"]], hidden=widths["audio"],
+                                  input_size=widths["audio"]),
     }
     return launches, kernel_shapes, {"timed": timed, "stages_ms": stage_ms, "parity": parity}
 
@@ -2795,6 +2882,464 @@ def tts_train_phase(device, card, workdir, align_args):
     return by_path, kernels, summary
 
 
+# The phone configs end to end (prepare -> asr_en_phone_base fit -> align ->
+# phone TTS serving) on a synthetic corpus in the real corpora's layouts:
+# 96 FLAC clips of 2-8 s, LJSpeech (22.05 kHz) and LibriSpeech (16 kHz),
+# with English transcripts that need the G2P's number, currency,
+# abbreviation and heteronym rules
+PHONE_LJ_CLIPS, PHONE_LIBRI_TRAIN, PHONE_LIBRI_DEV = 48, 40, 8
+PHONE_SECONDS = (2.0, 8.0)
+PHONE_CLI_EPOCHS = 2
+ASR_EN_PHONE_BASE = dict(ASR_EN_BASE, vocab_size=71,
+                         encoder_settings=((512, False, 5, 2, 2, False),
+                                           (512, False, 5, 1, 2, False)))
+ALIGN_EN_PHONE_BASE = dict(ALIGN_EN_BASE, vocab_size=71)
+TTS_EN_PHONE_BASE = dict(TTS_EN_BASE, vocab_size=71)
+ALIGN_JA_PHONE_BASE = dict(ALIGN_EN_BASE, vocab_size=44, hidden_size=512)
+TTS_JA_PHONE_BASE = dict(TTS_EN_BASE, vocab_size=44)
+PHONE_FRAGMENTS = [
+    "Dr. Smith read 12 books", "they paid $3.50 for the lead pipe", "on St. James Street",
+    "Mr. Brown lives at 221 Baker St. with 2 cats", "we must object to the object",
+    "the wind was too strong to wind the clock at 7:45", "I will read the record",
+    "it was a record year for the firm", "said the 3rd witness", "in 1998 the bass player left",
+    "please close the door", "the dove dove into the bushes", "they lead the league by 14 points",
+    "Mrs. Jones spent $1,250 on a new desk", "the minute hand moved a minute amount",
+    "we live near the live music hall", "the 2nd tear rolled down as she saw the tear",
+    "Prof. Lee will present the present on May 4th", "about 60% of the 500 seats were empty",
+    "the invalid invoice was marked invalid", "he wound the bandage around the wound",
+]
+# longest first: the card is held to the CPU on the first TTS_PARITY_TEXTS
+PHONE_TTS_TEXTS_EN = [
+    "Please close the door, it is close to 5 p.m. and the lead singer is late.",
+    "Dr. Brown read the invalid invoice twice before he paid the $99 fee.",
+    "Mrs. Jones spent $1,250 on a new desk, and about 60% of it was tax.",
+    "In 2024 the team won 14 of 16 games and led the league by 3 points.",
+    "The wind was too strong to wind the clock at 7:45 this morning.",
+    "He wound the bandage around the wound and read the note again.",
+    "The minute hand moved a minute amount; it was 3 minutes to 12.",
+    "Prof. Lee will present the present on May 4th, at 10:30 a.m.",
+    "We must object to the object, said the 3rd witness in 1998.",
+    "I will read the record; it was a record year for the firm.",
+    "About 500 people live near the live music hall on 5th Ave.",
+    "The 2nd tear rolled down as she saw the tear in her coat.",
+    "They paid $3.50 for the lead pipe on St. James Street.",
+    "The dove dove into the bushes as the 2 dogs ran past.",
+    "Dr. Smith read 12 books.", "Lead the way, Mr. Brown!",
+]
+PHONE_TTS_TEXTS_JA = [
+    "また、東寺のように五大明王と呼ばれる主要な明王の中央に配されることも多い。",
+    "ニューイングランド風は牛乳をベースとした白いクリームスープです。",
+    "2026年8月18日の午後3時30分です。", "りんごを6個と本を2冊買いました。",
+    "100円のパンを4月1日に買った。", "彼は20歳で、弟は8歳です。",
+    "今日はとても良い天気ですね。", "東京で3時に会いましょう。",
+]
+PHONE_MP3_CLIPS = 24
+PHONE_MP3_RATE = 24000
+# test_native.py's bound between the native and the NumPy resampler
+PHONE_RESAMPLE_TOL = 5e-3
+
+
+@functools.lru_cache(maxsize=None)
+def load_test_fixture(name: str):
+    """A fixture module of tests/ by path (the FLAC one imports NumPy
+    alone, the MP3 one ctypes and NumPy)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join("tests", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def encode_flac_long(pcm, rate: int, block: int = 4096) -> bytes:
+    """Mono 16-bit PCM as FLAC: tests/flac_fixture.py's bit writer and
+    verbatim subframes, in frames of ``block`` samples with 16-bit block
+    sizes and UTF-8 frame numbers (the fixture's own frames hold 256
+    samples and number at most 128, about 2 s at 16 kHz). A verbatim
+    subframe of 16-bit samples is byte aligned, so NumPy writes it."""
+    fixture = load_test_fixture("flac_fixture")
+    pcm = np.asarray(pcm, np.int16)
+    info = fixture.BitWriter()
+    for value, bits in ((1, 1), (0, 7), (34, 24), (block, 16), (block, 16), (0, 24), (0, 24),
+                        (rate, 20), (0, 3), (15, 5), (len(pcm), 36)):
+        info.write(value, bits)
+    for _ in range(16):
+        info.write(0, 8)  # md5
+    out = [b"fLaC", info.getvalue()]
+    for frame, start in enumerate(range(0, len(pcm), block)):
+        seg = pcm[start:start + block]
+        head = fixture.BitWriter()
+        # sync, fixed blocking, 16-bit block size at the end, the stream's
+        # rate and sample size, one channel
+        for value, bits in ((0b11111111111110, 14), (0, 2), (0b0111, 4), (0, 4), (0, 4),
+                            (0, 4)):
+            head.write(value, bits)
+        if frame < 0x80:
+            head.write(frame, 8)
+        elif frame < 0x800:
+            head.write(0b11000000 | frame >> 6, 8)
+            head.write(0x80 | frame & 0x3F, 8)
+        else:
+            head.write(0b11100000 | frame >> 12, 8)
+            head.write(0x80 | frame >> 6 & 0x3F, 8)
+            head.write(0x80 | frame & 0x3F, 8)
+        head.write(len(seg) - 1, 16)
+        head.write(0, 8)  # CRC-8 (the decoder does not verify it)
+        head.write(0, 1)
+        head.write(1, 6)  # verbatim
+        head.write(0, 1)
+        out += [head.getvalue(), seg.astype(">i2").tobytes(), b"\0\0"]
+    return b"".join(out)
+
+
+def phone_texts(rng, seconds):
+    """An English transcript of about 14 characters a second, joined from
+    PHONE_FRAGMENTS."""
+    texts = []
+    for sec in seconds:
+        parts, n = [], 0
+        while n < sec * 14 - 10:
+            part = PHONE_FRAGMENTS[int(rng.integers(len(PHONE_FRAGMENTS)))]
+            parts.append(part)
+            n += len(part) + 2
+        text = ", ".join(parts)
+        texts.append(text[0].upper() + text[1:] + ".")
+    return texts
+
+
+def write_phone_corpus(root: str):
+    """The LJSpeech layout (``LJSpeech-1.1/metadata.csv``, 22.05 kHz
+    ``wavs/*.flac``) and the LibriSpeech one (16 kHz
+    ``train-clean-100/<spk>/<chap>/*.flac`` with ``*.trans.txt``, and
+    ``dev-clean``): noise under a slow envelope, as int16 FLAC. Returns
+    the data dir and the clips' seconds and texts by corpus."""
+    rng = np.random.default_rng(SEED + 20)
+    data_dir = os.path.join(root, "phone_data")
+    corpora = {}
+    lj = os.path.join(data_dir, "LJSpeech-1.1")
+    os.makedirs(os.path.join(lj, "wavs"))
+    seconds = rng.uniform(*PHONE_SECONDS, size=PHONE_LJ_CLIPS)
+    texts = phone_texts(rng, seconds)
+    lines = []
+    for i, (sec, text) in enumerate(zip(seconds, texts)):
+        clipid = f"LJ001-{i + 1:04d}"
+        n = int(sec * 22050)
+        env = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(0.5, 3.0) * np.arange(n) / 22050)
+        pcm = (rng.standard_normal(n) * 4000 * env).clip(-32768, 32767)
+        with open(os.path.join(lj, "wavs", clipid + ".flac"), "wb") as f:
+            f.write(encode_flac_long(pcm, 22050))
+        lines.append(f"{clipid}|{text}|{text}")
+    with open(os.path.join(lj, "metadata.csv"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    corpora["ljspeech"] = (seconds, texts)
+    for split, count in (("train-clean-100", PHONE_LIBRI_TRAIN), ("dev-clean", PHONE_LIBRI_DEV)):
+        seconds = rng.uniform(*PHONE_SECONDS, size=count)
+        texts = phone_texts(rng, seconds)
+        clips = int16_clips(rng, seconds)
+        trans = {}
+        for i, (clip, text) in enumerate(zip(clips, texts)):
+            speaker, chapter = 19 + i % 4, 198
+            folder = os.path.join(data_dir, "LibriSpeech", split, str(speaker), str(chapter))
+            os.makedirs(folder, exist_ok=True)
+            clipid = f"{speaker}-{chapter}-{i:04d}"
+            with open(os.path.join(folder, clipid + ".flac"), "wb") as f:
+                f.write(encode_flac_long(clip, SAMPLE_RATE))
+            trans.setdefault(folder, []).append(f"{clipid} {text.upper()}")
+        for folder, rows in trans.items():
+            name = "-".join(folder.split(os.sep)[-2:])
+            with open(os.path.join(folder, f"{name}.trans.txt"), "w") as f:
+                f.write("\n".join(rows) + "\n")
+        corpora[split] = (seconds, texts)
+    return data_dir, corpora
+
+
+def phone_prepare(data_dir):
+    """The port's prepare_dataset --use_phone on both corpora, on the card
+    run's host, then again with the phonemizer built afresh: the files
+    must be equal (host code). Returns the G2P's host milliseconds a text."""
+    from voice100_tpu_torch.text import get_phonemizer
+    from voice100_tpu_torch.tools.prepare_dataset import cli_main as prepare
+
+    argv = ["--data_dir", data_dir, "--dataset", "ljspeech,librispeech", "--split",
+            "train,valid", "--language", "en", "--use_phone"]
+    names = [f"{ds}-phone-{split}.txt" for ds in ("ljspeech", "librispeech")
+             for split in ("train", "valid")]
+    start = time.perf_counter()
+    prepare(argv)
+    prepare_s = time.perf_counter() - start
+    first = {name: open(os.path.join(data_dir, name), "rb").read() for name in names}
+    phonemizer = get_phonemizer("en", use_phone=True)
+    texts = [line.split("|", 2)[2] for line in open(
+        os.path.join(data_dir, "LJSpeech-1.1", "metadata.csv"), encoding="utf-8")]
+    start = time.perf_counter()
+    for text in texts:
+        phonemizer(text.rstrip("\n"))
+    g2p_ms = (time.perf_counter() - start) * 1e3 / len(texts)
+    prepare(argv)
+    for name in names:
+        if open(os.path.join(data_dir, name), "rb").read() != first[name]:
+            fail(f"phone prepare: {name} differs between two runs of the same input")
+    n_lines = {name: blob.count(b"\n") for name, blob in first.items()}
+    want = {"ljspeech-phone-train.txt": PHONE_LJ_CLIPS, "ljspeech-phone-valid.txt": PHONE_LJ_CLIPS,
+            "librispeech-phone-train.txt": PHONE_LIBRI_TRAIN,
+            "librispeech-phone-valid.txt": PHONE_LIBRI_DEV}
+    if n_lines != want:
+        fail(f"phone prepare: lines {n_lines}, not {want}")
+    print(f"phone prepare_dataset (ljspeech,librispeech, train and valid, {sum(want.values())} "
+          f"transcripts): {prepare_s:.3f} s; CMU G2P {g2p_ms:.3f} ms a text (host clock, this "
+          f"machine's CPU)", flush=True)
+    return {"prepare_s": prepare_s, "g2p_ms_per_text": g2p_ms}
+
+
+def phone_fit_start_weights(device, cfg, data_dir, workdir):
+    """The weights ``fit`` starts from, as training/cli.py hands them to
+    Trainer.fit, from two runs on the card and one on the CPU (the
+    trainer itself stopped there): all equal, the seed repair."""
+    from voice100_tpu_torch.training import cli
+
+    real, seen = cli.Trainer.fit, []
+
+    def record(self, model, *args, **kwargs):
+        seen.append({k: v.detach().cpu() for k, v in model.state_dict().items()})
+
+    cli.Trainer.fit = record
+    try:
+        for dev in (device, device, "cpu"):
+            cli.main(["fit", "--config", cfg, "--data_dir", data_dir, "--device", str(dev),
+                      "--checkpoint_dir", os.path.join(workdir, "phone_seed_ckpt")])
+    finally:
+        cli.Trainer.fit = real
+    same = all(a.keys() == seen[0].keys() and all(torch.equal(a[k], seen[0][k]) for k in a)
+               for a in seen[1:])
+    if len(seen) != 3 or not same:
+        fail("phone fit: two runs of one config did not start from the same weights")
+    print(f"phone fit: two runs on the card and one on the CPU start from equal weights "
+          f"({sum(v.numel() for v in seen[0].values())} values, seed_everything of the "
+          f"config)", flush=True)
+
+
+def phone_ctc_batch(device, config, data_dir, cache_dir, ckpt):
+    """Kernels 4 and 5 against their plain versions on the first training
+    batch of the phone fit: its model from ``ckpt`` on its clips (the
+    fit's warm cache), so at vocab 71 (which sets the forward kernel's
+    chunk of steps and shared-memory ring) with the fit's logit and label
+    lengths. Returns each kernel's shapes and max abs error."""
+    from voice100_tpu_torch.ops.ctc_cuda import alpha_chunk
+    from voice100_tpu_torch.training import load_model_weights
+    from voice100_tpu_torch.training.cli import build_from_config
+
+    model, data = build_from_config(config, {"data_dir": data_dir, "cache_dir": cache_dir},
+                                    device=device)
+    load_model_weights(ckpt, model)
+    model.eval()
+    data.setup("fit")
+    (audio, audio_len), (text, text_len) = next(iter(data.train_dataloader()))
+    with torch.no_grad():
+        logits, logits_len = model(torch.from_numpy(audio).to(device).float(),
+                                   torch.from_numpy(audio_len).to(device))
+        log_probs = torch.log_softmax(logits, dim=-1)
+    targets, target_lengths = (torch.from_numpy(np.asarray(a)).to(device).long()
+                               for a in (text, text_len))
+    err, (z, *_) = ctc_errors(log_probs, targets, logits_len, target_lengths)
+    check_ctc_tol("phone fit batch", err)
+    batch, time_steps, vocab = log_probs.shape
+    shapes = (f"the phone fit's first train batch: B={batch}, T={time_steps}, V={vocab} "
+              f"(chunk {alpha_chunk(vocab)}), S={z.shape[1]}, logit lengths "
+              f"{int(logits_len.min())}-{int(logits_len.max())}, labels "
+              f"{int(target_lengths.min())}-{int(target_lengths.max())}")
+    print(f"CTC on {shapes}: alpha rel err {err['alpha']:.3e}, ll {err['ll']:.3e}, adjoint "
+          f"{err['adjoint']:.3e} (tol {CTC_REL_TOL:.0e}), loss gradient {err['grad']:.3e} (tol "
+          f"{CTC_GRAD_TOL:.0e}), infeasible rows {err['infeasible_rows']}", flush=True)
+    return {"ctc_alpha": {"shapes": shapes + " forward", "max_abs_err": err["alpha_abs"]},
+            "ctc_adjoint": {"shapes": shapes + " backward", "max_abs_err": err["adjoint_abs"]}}
+
+
+def phone_mp3(device, card, workdir):
+    """cv_ja through the MP3 decoder: a CommonVoice-layout corpus written
+    with libmp3lame (tests/mp3_fixture.py), the port's Japanese phonemizer
+    through prepare_dataset, load_audio and load_audio_batch held to the
+    tones written and to each other, then asr_ja_phone_base on it through
+    cli_phase. Skipped, with a line that says which library is missing,
+    where libmp3lame or libmpg123 is absent. Returns cli_phase's launches
+    by subcommand (None when skipped) and the decode times."""
+    import yaml
+    from voice100_tpu_torch.data.registry import get_dataset
+    from voice100_tpu_torch.dsp.audioio import load_audio
+    from voice100_tpu_torch.native.batch import load_audio_batch
+    from voice100_tpu_torch.native.mp3 import mp3_available
+    from voice100_tpu_torch.tools.prepare_dataset import cli_main as prepare
+    from voice100_tpu_torch.training.cli import load_config
+
+    lame = load_test_fixture("mp3_fixture")
+    missing = [name for name, ok in (("libmp3lame", lame.lame_available()),
+                                     ("libmpg123", mp3_available())) if not ok]
+    if missing:
+        print(f"phone mp3: skipped, {' and '.join(missing)} cannot be loaded on this machine",
+              flush=True)
+        return None, {"skipped": missing}
+    rng = np.random.default_rng(SEED + 21)
+    data_dir = os.path.join(workdir, "mp3_data")
+    root = os.path.join(data_dir, "cv-corpus-12.0-2022-12-07", "ja")
+    os.makedirs(os.path.join(root, "clips"))
+    rows, written = ["client_id\tpath\tsentence\tup_votes\tdown_votes"], {}
+    for i in range(PHONE_MP3_CLIPS):
+        name = f"common_voice_ja_{30000000 + i}.mp3"
+        n = int(rng.uniform(2.0, 4.0) * PHONE_MP3_RATE)
+        tone = float(rng.uniform(200.0, 1000.0))
+        wave = (0.4 * np.sin(2 * np.pi * tone * np.arange(n) / PHONE_MP3_RATE)).astype(np.float32)
+        path = os.path.join(root, "clips", name)
+        lame.write_mp3(path, wave, PHONE_MP3_RATE)
+        text = PHONE_TTS_TEXTS_JA[i % len(PHONE_TTS_TEXTS_JA)]
+        rows.append(f"speaker{i:02d}\t{name}\t{text}\t2\t0")
+        written[path] = (tone, n * SAMPLE_RATE / PHONE_MP3_RATE)
+    with open(os.path.join(root, "validated.tsv"), "w", encoding="utf-8") as f:
+        f.write("\n".join(rows) + "\n")
+    prepare(["--data_dir", data_dir, "--dataset", "cv_ja", "--language", "ja", "--use_phone"])
+
+    # the clips in the data module's order
+    items = get_dataset(data_dir, "cv_ja", "train", use_phone=True)
+    paths = [items[i][1] for i in range(len(items))]
+    start = time.perf_counter()
+    singles = [load_audio(path) for path in paths]
+    single_s = time.perf_counter() - start
+    start = time.perf_counter()
+    batch = load_audio_batch(paths, SAMPLE_RATE)
+    batch_s = time.perf_counter() - start
+    if sorted(paths) != sorted(written):
+        fail(f"phone mp3: the data module lists {len(paths)} clips, {len(written)} were written")
+    for i, (path, one, many) in enumerate(zip(paths, singles, batch)):
+        tone, n = written[path]
+        if many is None or abs(len(one) - n) > 0.1 * SAMPLE_RATE or \
+                abs(len(many) - len(one)) > 1 or not np.isfinite(one).all():
+            fail(f"phone mp3: clip {i} decodes to {len(one)} and "
+                 f"{None if many is None else len(many)} samples for {n:.0f}")
+        spec = np.abs(np.fft.rfft(one * np.hanning(len(one))))
+        peak = np.fft.rfftfreq(len(one), 1.0 / SAMPLE_RATE)[spec.argmax()]
+        m = min(len(one), len(many)) - 20
+        err = float(np.abs(one[20:m] - many[20:m]).max())
+        if abs(peak - tone) > 5.0 or not err <= PHONE_RESAMPLE_TOL:
+            fail(f"phone mp3: clip {i} peaks at {peak:.1f} Hz for a {tone:.1f} Hz tone, batch "
+                 f"against single decode {err:.2e}")
+    print(f"phone mp3 cv_ja on {card}: {PHONE_MP3_CLIPS} clips at {PHONE_MP3_RATE} Hz, decode "
+          f"to 16 kHz one by one {single_s:.3f} s, in one batch call {batch_s:.3f} s (host "
+          f"clock)", flush=True)
+    config = load_config("config/asr_ja_phone_base.yaml")
+    config["data"]["init_args"]["dataset"] = "cv_ja"
+    cfg = os.path.join(workdir, "asr_ja_phone_base_cv_ja.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump(config, f)
+    launches, _ = cli_phase(device, card, workdir, {"config": cfg, "data_dir": data_dir},
+                            [len(w) for w in batch], epochs=PHONE_CLI_EPOCHS, tag="phone_mp3")
+    return launches, {"single_decode_s": single_s, "batch_decode_s": batch_s}
+
+
+def phone_phase(device, card, workdir):
+    """The phone configs end to end on the card: the FLAC corpora, the
+    port's prepare_dataset, asr_en_phone_base through the training CLI
+    (cli_phase: 2 epochs from a cold cache, then validate, test and
+    predict) with the seed repair and the native prefetch timed, kernels
+    4 and 5 on its first train batch, the align CLI on the LJSpeech
+    corpus with its checkpoint, phone TTS serving for English and
+    Japanese (tts_phase, kernel 1 at each run's shapes), and cv_ja
+    through the MP3 decoder and cli_phase. Returns the launch counts by
+    path, the kernel checks at these paths' shapes by kernel, and a
+    summary."""
+    import yaml
+    from voice100_tpu_torch.data.registry import get_dataset
+    from voice100_tpu_torch.data.transforms import EncodedCacheDataset
+    from voice100_tpu_torch.dsp.audioio import load_audio
+    from voice100_tpu_torch.native.batch import load_audio_batch
+    from voice100_tpu_torch.text import get_tokenizer
+
+    start = time.perf_counter()
+    data_dir, _ = write_phone_corpus(workdir)
+    write_s = time.perf_counter() - start
+    summary = {"corpus_write_s": write_s, "prepare": phone_prepare(data_dir)}
+    config = yaml.safe_load(open("config/asr_en_phone_base.yaml"))
+    cfg = os.path.join(workdir, "asr_en_phone_base.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump(config, f)
+    phone_fit_start_weights(device, cfg, data_dir, workdir)
+
+    # the clips in the data module's order (ljspeech, then librispeech's
+    # train split), at 16 kHz as the native batch decode gives them
+    items = get_dataset(data_dir, "ljspeech,librispeech", "train", use_phone=True)
+    paths = [items[i][1] for i in range(len(items))]
+    start = time.perf_counter()
+    waves = load_audio_batch(paths, SAMPLE_RATE)
+    batch_s = time.perf_counter() - start
+    start = time.perf_counter()
+    for path in paths:
+        load_audio(path, SAMPLE_RATE)
+    single_s = time.perf_counter() - start
+    samples = [len(w) for w in waves]
+    audio_s = sum(samples) / SAMPLE_RATE
+
+    real, spent = EncodedCacheDataset.prefetch, []
+
+    def timed_prefetch(self, indices):
+        begin = time.perf_counter()
+        real(self, indices)
+        spent.append(time.perf_counter() - begin)
+
+    EncodedCacheDataset.prefetch = timed_prefetch
+    try:
+        cli_launches, ckpt = cli_phase(device, card, workdir, {"config": cfg,
+                                                               "data_dir": data_dir},
+                                       samples, epochs=PHONE_CLI_EPOCHS, tag="phone_cli")
+    finally:
+        EncodedCacheDataset.prefetch = real
+    summary["decode"] = {"clips": len(paths), "audio_s": audio_s,
+                         "loader_prefetch_s": sum(spent), "prefetch_calls": len(spent),
+                         "batch_decode_s": batch_s, "per_item_decode_s": single_s}
+    print(f"phone decode of {len(paths)} FLAC clips ({audio_s:.2f} s of audio, "
+          f"{PHONE_LJ_CLIPS} at 22.05 kHz resampled): the loader's prefetch {sum(spent):.3f} s in {len(spent)} calls over the "
+          f"CLI run; one batch call {batch_s:.3f} s; the per-item decode (load_audio) "
+          f"{single_s:.3f} s (host clock, this machine's CPU)", flush=True)
+    by_path = {f"phone_cli_{sub}": launches for sub, launches in cli_launches.items()}
+    kernels = phone_ctc_batch(device, config, data_dir, os.path.join(workdir, "phone_cli_cache"),
+                              ckpt)
+
+    # align the LJSpeech corpus with that checkpoint from the fit's warm cache
+    tokenizer = get_tokenizer("en", use_phone=True)
+    config["data"]["init_args"]["dataset"] = "ljspeech"
+    align_cfg = os.path.join(workdir, "asr_en_phone_base_ljspeech.yaml")
+    with open(align_cfg, "w") as f:
+        yaml.safe_dump(config, f)
+    phones = [line.rstrip("\n").split("|", 1)[1] for line in open(
+        os.path.join(data_dir, "ljspeech-phone-train.txt"), encoding="utf-8")]
+    args = {"config": align_cfg, "checkpoint": ckpt, "data_dir": data_dir,
+            "cache_dir": os.path.join(workdir, "phone_cli_cache"),
+            "output": os.path.join(data_dir, "ljspeech-phone-align-train.txt"),
+            "device": str(device)}
+    runs, _, _ = align(device, card, workdir, args,
+                       [tokenizer.decode(tokenizer(p)) for p in phones],
+                       samples[:PHONE_LJ_CLIPS], runs=("warm",), settings=ASR_EN_PHONE_BASE,
+                       n_tokens=lambda text: len(text.split("/")), name="asr_en_phone_base")
+    by_path["phone_align"] = runs["warm"]["launches"]
+    summary["align"] = runs
+
+    for language, texts, align_spec, audio_spec in (
+            ("en", PHONE_TTS_TEXTS_EN, (ALIGN_EN_PHONE_BASE, "config/align_en_phone_base.yaml"),
+             (TTS_EN_PHONE_BASE, "config/tts_en_phone_base.yaml")),
+            ("ja", PHONE_TTS_TEXTS_JA, (ALIGN_JA_PHONE_BASE, "config/align_ja_phone_base.yaml"),
+             (TTS_JA_PHONE_BASE, "config/tts_ja_phone_base.yaml"))):
+        paths = write_tts_checkpoints(workdir, align_spec, audio_spec)
+        launches, shapes, tts = tts_phase(
+            device, card, workdir, paths, texts, language, use_phone=True,
+            label=f"phone tts {os.path.basename(align_spec[1])[:-5]} + "
+                  f"{os.path.basename(audio_spec[1])[:-5]}")
+        by_path[f"phone_tts_{language}"] = launches
+        summary[f"tts_{language}"] = tts
+        kernels.setdefault("bilstm_recurrence", {}).update(
+            {f"phone_{key}_{language}": entry for key, entry in shapes.items()})
+
+    mp3_launches, summary["mp3"] = phone_mp3(device, card, workdir)
+    if mp3_launches is not None:
+        by_path.update({f"phone_mp3_{sub}": launches for sub, launches in mp3_launches.items()})
+    return by_path, kernels, summary
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -2846,13 +3391,21 @@ def main() -> None:
         runs, args, samples = align(device, card, workdir)
         by_path.update({f"align_{run}": r["launches"] for run, r in runs.items()})
         parity = align_parity(device, args, workdir)
-        by_path.update({f"cli_{sub}": launches
-                        for sub, launches in cli_phase(device, card, workdir, args, samples).items()})
+        cli_launches, _ = cli_phase(device, card, workdir, args, samples)
+        by_path.update({f"cli_{sub}": launches for sub, launches in cli_launches.items()})
         by_path["tts"], tts_kernel, tts_summary = tts_phase(device, card, workdir)
         tts_train_paths, tts_train_kernels, tts_train_summary = tts_train_phase(
             device, card, workdir, args)
+        phone_start = time.perf_counter()
+        phone_paths, phone_kernels, phone_summary = phone_phase(device, card, workdir)
+        phone_summary["wall_s"] = time.perf_counter() - phone_start
     by_path.update(tts_train_paths)
+    by_path.update(phone_paths)
     serving[1].update(tts_kernel)
+    # kernel 1 at the phone TTS runs' shapes, kernels 4 and 5 at vocab 71
+    serving[1].update(phone_kernels["bilstm_recurrence"])
+    for entry in training[2:]:
+        entry["phone_v71"] = phone_kernels[entry["name"]]
     # kernels 2 and 3 at the TTS training batches' shapes
     for name, (fwd, bwd) in tts_train_kernels.items():
         training[0][name] = shape_line(fwd)
@@ -2873,6 +3426,7 @@ def main() -> None:
     print("align_summary " + json.dumps({"runs": runs, "parity": parity}), flush=True)
     print("tts_summary " + json.dumps(tts_summary), flush=True)
     print("tts_train_summary " + json.dumps(tts_train_summary), flush=True)
+    print(f"phone_summary ({card}) " + json.dumps(phone_summary), flush=True)
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s from the kernel build to here",
           flush=True)
     print(json.dumps({"kernels": serving + training + aligning}), flush=True)

@@ -289,3 +289,74 @@ def test_checkpoint_lookup_prefers_best_then_last(parity, tmp_path, capsys):
     (tmp_path / "best.pt").write_bytes(b"not a checkpoint")
     with pytest.raises(Exception):
         cli_main(["validate", *common])
+
+
+# --- fit's initial weights come from the config's seed ------------------------
+
+def _fit_start_weights(cfg, tmp_path, monkeypatch, subcommand="fit", extra=()):
+    """The model's weights as ``Trainer.fit`` (or ``run_eval``) receives
+    them from the CLI, which stops there."""
+    from voice100_tpu_torch.training import cli
+
+    seen = []
+
+    def record(self, model, *args, **kwargs):
+        seen.append({k: v.detach().clone() for k, v in model.state_dict().items()})
+        return None if subcommand == "fit" else {"loss": 0.0}
+
+    monkeypatch.setattr(cli.Trainer, "fit" if subcommand == "fit" else "run_eval", record)
+    cli.main([subcommand, "--config", cfg, "--data_dir", str(tmp_path / "none"),
+              "--checkpoint_dir", str(tmp_path / "ckpt"), "--device", "cpu", *extra])
+    assert len(seen) == 1
+    return seen[0]
+
+
+def _equal(a, b):
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.parametrize("config", ["tiny", "asr_en_phone_base.yaml", "tts_en_phone_base.yaml"])
+def test_fit_draws_the_initial_weights_from_seed_everything(tmp_path, monkeypatch, config):
+    """Two ``fit`` builds of one config start from equal weights, whatever
+    torch's global generator holds; another seed_everything gives others;
+    the weights equal those of the config's model drawn from a generator
+    seeded with it."""
+    from voice100_tpu_torch.training.cli import build_from_config, load_config
+
+    cfg = (tiny_config(tmp_path / "tiny.yaml") if config == "tiny"
+           else os.path.join(ROOT, "config", config))
+    torch.manual_seed(1)
+    first = _fit_start_weights(cfg, tmp_path, monkeypatch)
+    torch.manual_seed(2)
+    second = _fit_start_weights(cfg, tmp_path, monkeypatch)
+    assert _equal(first, second)
+    loaded = load_config(cfg)
+    model, _ = build_from_config(loaded, {}, device="cpu",
+                                 generator=torch.Generator().manual_seed(
+                                     loaded["seed_everything"]))
+    assert _equal(first, model.state_dict())
+    loaded["seed_everything"] += 1
+    other = tmp_path / "other.yaml"
+    other.write_text(yaml.safe_dump(loaded))
+    third = _fit_start_weights(str(other), tmp_path, monkeypatch)
+    # every drawn tensor differs (layer norms start at ones and zeros)
+    drawn = [k for k in first if first[k].numel() > 1 and first[k].unique().numel() > 2]
+    assert drawn and not any(torch.equal(first[k], third[k]) for k in drawn)
+
+
+def test_validate_loads_the_checkpoint_rather_than_drawing(tmp_path, monkeypatch):
+    from voice100_tpu_torch.models import AudioToAlignText
+    from voice100_tpu_torch.training import TrainState, save_checkpoint
+
+    cfg = tiny_config(tmp_path / "tiny.yaml")
+    model = AudioToAlignText(64, 29, SETTINGS, 1, HIDDEN, device="cpu",
+                             generator=torch.Generator().manual_seed(99))
+    ckpt = str(tmp_path / "saved.pt")
+    save_checkpoint(ckpt, TrainState(model, torch.optim.Adam(model.parameters())))
+    for seed in (1, 2):
+        torch.manual_seed(seed)
+        got = _fit_start_weights(cfg, tmp_path, monkeypatch, "validate",
+                                 ("--restore_from", ckpt))
+        assert _equal(got, model.state_dict())
+    fit = _fit_start_weights(cfg, tmp_path, monkeypatch)
+    assert not _equal(fit, model.state_dict())

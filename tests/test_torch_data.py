@@ -245,13 +245,39 @@ def test_feature_cache_is_shared_with_jax(tmp_path, writer):
 
 @pytest.mark.parametrize("ext", [".flac", ".mp3"])
 def test_native_formats_raise_the_named_error(tmp_path, ext):
-    from voice100_tpu_torch.dsp.audioio import NATIVE_DECODERS_ITEM, load_audio
+    """FLAC and MP3 decode through load_audio as the JAX package's does,
+    bit for bit at 16 and 22.05 kHz (the port's native library; an MP3
+    where libmp3lame can write one, else both raise the same error); an
+    unsupported format raises ValueError."""
+    from mp3_fixture import lame_available, write_mp3
+    from flac_fixture import encode_flac
+    from test_torch_native import load_jax_lib
+    from voice100_tpu.dsp.audioio import load_audio as jax_load_audio
+    from voice100_tpu_torch.dsp.audioio import load_audio
 
-    path = tmp_path / f"clip{ext}"
-    path.write_bytes(b"\0" * 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
-        load_audio(str(path))
-    assert NATIVE_DECODERS_ITEM in str(err.value)
+    load_jax_lib()
+    path = str(tmp_path / f"clip{ext}")
+    rate = 24000
+    tone = np.sin(2 * np.pi * 300 * np.arange(rate // 2) / rate)
+    if ext == ".flac":
+        with open(path, "wb") as f:
+            f.write(encode_flac([(tone * 12000).astype(np.int64)], rate))
+    elif lame_available():
+        write_mp3(path, (0.4 * tone).astype(np.float32), rate)
+    else:
+        (tmp_path / f"clip{ext}").write_bytes(b"\0" * 64)
+
+    def outcome(fn, target):
+        try:
+            return fn(path, target).tobytes()
+        except Exception as err:  # the error's type is compared
+            return type(err).__name__
+
+    for target in (16000, 22050):
+        got = outcome(load_audio, target)
+        assert got == outcome(jax_load_audio, target)
+        if ext == ".flac":
+            assert isinstance(got, bytes) and len(got) == 4 * (target // 2)
     with pytest.raises(ValueError):
         load_audio(str(tmp_path / "clip.ogg"))
 

@@ -220,10 +220,11 @@ def test_update_samples_writes_wavs(tmp_path, pipes):
             assert f.getframerate() == 16000 and f.getsampwidth() == 2
             pcm = np.frombuffer(f.readframes(f.getnframes()), np.int16)
         assert len(pcm) > 1600 and np.abs(pcm).max() <= 26212  # 0.8 * 32765
-    with pytest.raises(RuntimeError, match="CUDA") if not torch.cuda.is_available() else \
-            pytest.raises(NotImplementedError):
-        cli_main(["--align_config", paths["align"][0], "--align_ckpt", paths["align"][1],
-                  "--audio_config", paths["audio"][0], "--audio_ckpt", paths["audio"][1]])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli_main(["--align_config", paths["align"][0], "--align_ckpt", paths["align"][1],
+                      "--audio_config", paths["audio"][0], "--audio_ckpt", paths["audio"][1],
+                      "--no_phone"])
 
 
 @pytest.mark.parametrize("config", ["align_en_base.yaml", "tts_en_base.yaml"])
@@ -245,20 +246,28 @@ def test_tts_configs_build_at_full_width_and_fit_raises(config, tmp_path):
 
 
 def test_unported_paths_raise(pipes):
+    """Meshes and unknown languages still raise; English phones (CMU
+    G2P) and Japanese, which raised until the text front end was ported,
+    now give the JAX package's phonemizers' outputs, also inside a
+    TTSPipeline built for phones."""
+    from voice100_tpu.text import get_phonemizer as jax_get_phonemizer
     from voice100_tpu_torch.text import get_phonemizer
 
     _, _, _, pipe = pipes
-    with pytest.raises(NotImplementedError, match="item 6"):
-        get_phonemizer("en", use_phone=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        get_phonemizer("ja", use_phone=False)
+    for language, use_phone, text in (("en", True, "Dr. Smith read 12 books for $3.50."),
+                                      ("ja", False, "東京で3時に会いましょう。"),
+                                      ("ja", True, "東京で3時に会いましょう。")):
+        port, ref = get_phonemizer(language, use_phone), jax_get_phonemizer(language, use_phone)
+        assert type(port).__name__ == type(ref).__name__
+        assert port(text) == ref(text) != ""
     with pytest.raises(ValueError):
         get_phonemizer("xx", use_phone=False)
     with pytest.raises(NotImplementedError, match="mesh.*item 10"):
         TTSPipeline(pipe.align_model, pipe.audio_model, use_phone=False, mesh=object(),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="G2P"):
-        TTSPipeline(pipe.align_model, pipe.audio_model, device="cpu")
+    phone_pipe = TTSPipeline(pipe.align_model, pipe.audio_model, device="cpu")
+    text = "Read the lead, Dr. Smith."
+    assert phone_pipe.phonemizer(text) == jax_get_phonemizer("en", True)(text)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TTSPipeline(pipe.align_model, pipe.audio_model, use_phone=False)

@@ -9,9 +9,10 @@ Each kernel keeps a plain PyTorch version beside it, which its wrapper
 runs for tensors on the CPU.
 
 This package imports neither ``jax`` nor anything of ``voice100_tpu``:
-what it needs from there is copied (``text/``, ``dsp/``,
-``data/datasets.py``, ``data/registry.py``) or rebuilt (the DFT and mel
-constants in ``ops/melspec.py``).
+what it needs from there is copied (``text/`` with the G2P and the
+Japanese reader, ``dsp/``, ``native/`` with its C++ audio decoders,
+``data/datasets.py``, ``data/registry.py``, ``tools/prepare_dataset.py``)
+or rebuilt (the DFT and mel constants in ``ops/melspec.py``).
 
 Ported so far: ASR v2 serving (``inference.ASRPipeline`` ->
 ``models.AudioToAlignText.greedy_decode``), with the fused log-mel and
@@ -27,7 +28,9 @@ ASR v2 forced alignment (``tools.align_text`` ->
 (``inference.TTSPipeline``, ``tools.update_samples`` ->
 ``models.TextToAlignText`` and ``models.AlignTextToAudio``, the duration
 expansion and batched WORLD synthesis in ``dsp/world/``), whose biLSTMs
-run the inference kernel.
+run the inference kernel; TTS v2 training of both models; and the real
+corpus front end: FLAC and MP3 decoding (``native/``, built with g++ at
+first use), English and Japanese phonemization, ``tools.prepare_dataset``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 see :func:`voice100_tpu_torch.device.resolve_device`.

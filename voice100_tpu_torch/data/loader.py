@@ -7,7 +7,9 @@ buckets, cut into batches, read and collated; the last batch is padded to
 the full batch size by repeating its items (``pad_to_full``), and
 :meth:`DataLoader.iter_with_counts` says how many rows are real. Iterating
 the loader reads and collates on a background thread, ``prefetch`` batches
-ahead.
+ahead. Before it reads a batch's items it hands their indices to the
+dataset's ``prefetch`` where it has one (the native batch decode of
+:class:`voice100_tpu_torch.data.transforms.EncodedCacheDataset`).
 
 One process (``process_index`` 0 of 1). The spawned worker pool
 (``num_workers > 0``) waits for the data shell of the port (``ROADMAP.md``
@@ -104,7 +106,11 @@ class DataLoader:
         return chunks
 
     def _batches(self, with_counts: bool = False) -> Iterator:
+        batch_prefetch = getattr(self.dataset, "prefetch", None)
         for idx in self._epoch_index_chunks():
+            if callable(batch_prefetch):
+                # native thread-pool decode of the batch's cache misses
+                batch_prefetch(idx)
             items = [self.dataset[int(i)] for i in idx]
             n_real = len(items)
             if self.pad_to_full and len(items) < self.batch_size:

@@ -24,8 +24,15 @@ reflect padding would see other samples and the features would differ.
 
 The WORLD analysis runs on the host in float64
 (:meth:`voice100_tpu_torch.dsp.world.WORLDVocoder.encode`), as the JAX
-package's default backend does. The native batch decode (``prefetch``)
-waits for the data shell.
+package's default backend does.
+
+:meth:`EncodedCacheDataset.prefetch` decodes the audio of a batch's cache
+misses in one call of the native thread pool
+(:func:`voice100_tpu_torch.native.batch.load_audio_batch`: first channel,
+resampled in C++) and keeps the waves for ``__getitem__``; the loader
+calls it before each batch's items. Where the native library cannot be
+loaded it logs one warning and the items decode one by one
+(:func:`voice100_tpu_torch.dsp.audioio.load_audio`).
 """
 
 from __future__ import annotations
@@ -66,8 +73,9 @@ class MelSpectrogramAudioTransform:
     def audio_size(self) -> int:
         return self.n_mels
 
-    def __call__(self, audiopath: str) -> np.ndarray:
-        wav = load_audio(audiopath, self.sample_rate)
+    def __call__(self, audiopath: str, wav: Optional[np.ndarray] = None) -> np.ndarray:
+        if wav is None:
+            wav = load_audio(audiopath, self.sample_rate)
         frames = wav.shape[0] // 160 + 1
         padded = np.zeros(-(-wav.shape[0] // WAVE_BUCKET) * WAVE_BUCKET, np.float32)
         padded[:wav.shape[0]] = wav
@@ -93,8 +101,9 @@ class WORLDAudioProcessor:
     def audio_size(self) -> int:
         return sum(self.vocoder.output_dims)
 
-    def __call__(self, audiopath: str):
-        wav = load_audio(audiopath, self.sample_rate)
+    def __call__(self, audiopath: str, wav: Optional[np.ndarray] = None):
+        if wav is None:
+            wav = load_audio(audiopath, self.sample_rate)
         return self.vocoder.encode(np.asarray(wav, np.float64))
 
 
@@ -120,6 +129,9 @@ class EncodedCacheDataset:
         self._cachedir = cachedir
         self._salt = salt
         self._cache_dtype = np.dtype(cache_dtype) if cache_dtype is not None else None
+        # waves that prefetch decoded, by clip id, until __getitem__ takes them
+        self._preloaded = {}
+        self._native_warned = False
         # the log spectrum is cached as mcep and rebuilt on read
         self.save_mcep = (isinstance(audio_transform, WORLDAudioProcessor)
                           and not audio_transform.vocoder.use_mcep)
@@ -135,6 +147,36 @@ class EncodedCacheDataset:
     def __getitem__(self, index: int):
         clipid, audio, text = self._dataset[index]
         return self._get_encoded_audio(clipid, audio), self.text_transform(text)
+
+    def prefetch(self, indices) -> None:
+        """Decode the audio of the items of ``indices`` that miss the
+        feature cache in one call of the native thread pool and keep the
+        waves for ``__getitem__`` (``voice100_tpu/data/transforms.py:175-
+        210``). A file the pool fails to decode is left to the per-item
+        path, which raises with its name. Where the native library cannot
+        be loaded this logs one warning and returns."""
+        todo = []
+        for index in indices:
+            clipid, audiopath = self._dataset[int(index)][:2]
+            cachefile = self._cachefile(clipid)
+            if clipid in self._preloaded or (cachefile and (
+                    os.path.exists(cachefile) or os.path.exists(cachefile[:-4] + ".npy"))):
+                continue
+            todo.append((clipid, audiopath))
+        if not todo:
+            return
+        try:
+            from ..native.batch import load_audio_batch
+
+            wavs = load_audio_batch([path for _, path in todo], self.audio_transform.sample_rate)
+        except ImportError as err:
+            if not self._native_warned:
+                self._native_warned = True
+                logger.warning("native batch decode unavailable, decoding clip by clip: %s", err)
+            return
+        for (clipid, _), wav in zip(todo, wavs):
+            if wav is not None:
+                self._preloaded[clipid] = wav
 
     def _cachefile(self, clipid: str) -> Optional[str]:
         """The ``.npz`` name of a clip's entry (a single array is stored
@@ -212,7 +254,7 @@ class EncodedCacheDataset:
         cachefile = self._cachefile(clipid)
         encoded = self._read(cachefile) if cachefile else None
         if encoded is None:
-            encoded = self.audio_transform(audiopath)
+            encoded = self.audio_transform(audiopath, wav=self._preloaded.pop(clipid, None))
             if self.save_mcep:
                 f0, logspc, codeap = encoded
                 encoded = (f0, logspc @ self.sp2mc_matrix, codeap)

@@ -4,10 +4,10 @@ Port of ``voice100_tpu/dsp/audioio.py`` (the reference's torchaudio.load +
 resample, voice100/data_modules.py:287-292,303-314): decode, take the
 first channel, resample to the target rate.
 
-WAV decodes in NumPy. FLAC and MP3 decode in the JAX package through its
-native C++ decoders (``voice100_tpu/native/``), which the port has not
-ported yet: for those files :func:`load_audio` raises
-:class:`NotImplementedError` naming the ``ROADMAP.md`` item that ports them.
+WAV decodes in NumPy. FLAC and MP3 decode through the port's native C++
+library (``voice100_tpu_torch/native/``, built with g++ on first use);
+where it cannot be built or loaded they raise ``RuntimeError`` naming
+the file and the reason.
 """
 
 from __future__ import annotations
@@ -19,20 +19,35 @@ import numpy as np
 from .resample import resample
 from .wav import read_wav
 
-__all__ = ["load_audio", "NATIVE_DECODERS_ITEM"]
-
-NATIVE_DECODERS_ITEM = "ROADMAP.md, queue 1, item 8 (data shell: native FLAC/MP3 decoders)"
+__all__ = ["load_audio"]
 
 
 def _read_any(path: str):
     ext = os.path.splitext(path)[1].lower()
     if ext == ".wav":
         return read_wav(path)
-    if ext in (".flac", ".mp3"):
-        raise NotImplementedError(
-            f"{path}: {ext[1:].upper()} decoding is not ported yet; the native decoders "
-            f"(voice100_tpu/native/) wait for {NATIVE_DECODERS_ITEM}"
-        )
+    if ext == ".flac":
+        try:
+            from ..native import flac  # C++ decoder, built on demand
+
+            return flac.read_flac(path)
+        except ImportError as e:
+            raise RuntimeError(
+                f"{path}: FLAC decoding requires the native extension "
+                f"(voice100_tpu_torch.native): {e}"
+            ) from e
+    if ext == ".mp3":
+        # CommonVoice (cv_ja) clips; reference decodes them through
+        # torchaudio/sox (voice100/data_modules.py:303-314)
+        try:
+            from ..native import mp3
+
+            return mp3.read_mp3(path)
+        except ImportError as e:
+            raise RuntimeError(
+                f"{path}: MP3 decoding requires the native extension "
+                f"(voice100_tpu_torch.native): {e}"
+            ) from e
     raise ValueError(f"Unsupported audio format: {path}")
 
 

@@ -135,7 +135,10 @@ class ASRPipeline:
 
 class TTSPipeline:
     """texts -> waveforms with the v2 align and audio models, on ``device``
-    (default ``cuda``; ``device="cpu"`` runs the plain PyTorch path).
+    (default ``cuda``; ``device="cpu"`` runs the plain PyTorch path). With
+    ``use_phone`` (the default) texts become CMU phones through the
+    English G2P, or phones through the Japanese reader for ``language="ja"``;
+    without it, English characters or romaji.
 
     Texts bucket to ``text_buckets`` tokens and the aligned texts to
     ``frame_buckets`` ids (the decoder doubles them into WORLD frames); a

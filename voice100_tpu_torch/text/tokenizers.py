@@ -7,8 +7,7 @@ encode and decode, and the same CTC ``merge_repeated`` collapse rules.
 
 Host-side text processing is plain Python/NumPy. A copy of
 ``voice100_tpu/text/tokenizers.py``: the port imports nothing of the JAX
-package, and ``voice100_tpu/text/__init__.py`` would pull in the whole
-G2P front end besides.
+package.
 """
 
 from __future__ import annotations

@@ -6,12 +6,14 @@ durations with the align model, expand them to aligned text, predict
 WORLD features with the audio model, synthesize each utterance, clip to
 +/-0.8 and write 16 kHz PCM16 WAVs. Checkpoints are the port's ``.pt``
 files; the models run on ``--device`` (default ``cuda``, which raises
-without CUDA; ``cpu`` runs the plain PyTorch path)::
+without CUDA; ``cpu`` runs the plain PyTorch path). Phone models (the
+default) read CMU phones from the English G2P or the Japanese reader's
+phones (``--language ja``); ``--no_phone`` is for character models::
 
     python -m voice100_tpu_torch.tools.update_samples \\
-        --align_config config/align_en_base.yaml --align_ckpt align.pt \\
-        --audio_config config/tts_en_base.yaml --audio_ckpt tts.pt \\
-        --no_phone --device cuda
+        --align_config config/align_en_phone_base.yaml --align_ckpt align.pt \\
+        --audio_config config/tts_en_phone_base.yaml --audio_ckpt tts.pt \\
+        --device cuda
 """
 
 from __future__ import annotations
@@ -122,7 +124,7 @@ def cli_main(argv=None) -> None:
     parser.add_argument("--text", action="append", default=None)
     parser.add_argument("--output_prefix", default="sample")
     parser.add_argument("--no_phone", action="store_true",
-                        help="char-mode models (CharTokenizer)")
+                        help="character models (CharTokenizer); the default reads phones")
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (default) or cpu (the plain PyTorch path)")
     args = parser.parse_args(argv)

@@ -16,6 +16,9 @@ the data's stops the run (TTS models use ``audio_size`` for their output
 width). A TTS config's ``audio_stat``, or ``--audio_stat`` over it, names
 the WORLD statistics (``tools/calc_stat.py``) that ``fit`` loads into the
 model's ``norm`` buffers before the first step, where the file exists.
+``fit`` draws the model's initial weights on the CPU from a generator
+seeded with the config's ``seed_everything``, so one config gives one
+start on any device.
 
 Checkpoints are the port's ``.pt`` files (``best.pt``, ``last.pt``,
 ``epoch_N.pt`` under ``--checkpoint_dir``, default
@@ -102,15 +105,19 @@ def load_config(path: str) -> Dict[str, Any]:
         return yaml.safe_load(f)
 
 
-def build_from_config(config: Dict[str, Any], overrides: Dict[str, Any], device=None):
+def build_from_config(config: Dict[str, Any], overrides: Dict[str, Any], device=None,
+                      generator: Optional[torch.Generator] = None):
     """``(model, datamodule)`` on ``device`` (default ``cuda``) from a
-    config; the model's weights are freshly drawn. The model's
+    config; the model's weights are drawn on the CPU from ``generator``
+    (torch's global generator if None) and then moved, so one generator
+    state gives one set of weights on any device. The model's
     ``audio_stat`` key is left for :func:`config_audio_stat`."""
     model_cls = _resolve_class(config["model"]["class_path"], _MODEL_CLASSES)
     data_cls = _resolve_class(config["data"]["class_path"], _DATA_CLASSES)
     model_kwargs = dict(config["model"].get("init_args") or {})
     model_kwargs.pop("audio_stat", None)
-    model = model_cls(**_filter_kwargs(model_cls, model_kwargs), device=device)
+    model = model_cls(**_filter_kwargs(model_cls, model_kwargs), device=device,
+                      generator=generator)
     data_kwargs = dict(config["data"].get("init_args") or {})
     data_kwargs.update({k: v for k, v in overrides.items()
                         if k in ("data_dir", "cache_dir", "batch_size")})
@@ -289,7 +296,12 @@ def _run(args) -> Optional[Dict[str, float]]:
         tc.checkpoint_dir = os.path.join("checkpoints", base)
     trainer = Trainer(tc)
     try:
-        model, data = build_from_config(config, overrides, device=args.device)
+        # fit starts from the weights of the config's seed_everything, as the
+        # JAX trainer draws them from PRNGKey(seed); the other subcommands
+        # load theirs from a checkpoint
+        generator = torch.Generator().manual_seed(tc.seed) if args.subcommand == "fit" else None
+        model, data = build_from_config(config, overrides, device=args.device,
+                                        generator=generator)
         if args.subcommand == "fit":
             audio_stat = args.audio_stat or config_audio_stat(config)
             if audio_stat and os.path.exists(audio_stat):
