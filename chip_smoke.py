@@ -166,8 +166,29 @@ toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
     H=512, a zero-length row): its shared memory a block, 156,672 B,
     within the 232,448 B opt-in, its outputs against the plain version,
     and its time in turns with cuDNN's packed nn.LSTM, beside its bound;
-18. prints one JSON line of per-kernel results, then, last,
-    {"ok": true, "device": {...}}.
+18. runs the bf16 mixed-precision path (what ``python -m
+    voice100_tpu_torch fit --precision 16`` trains with): the bf16 variants
+    of kernels 1, 2 and 3 at asr_en_base's (B=64, T=501, H=512),
+    tts_en_base's (B=128, T=512, H=512) and align_en_base's (B=128, T=144,
+    H=256) shapes against their plain twins on the card (float32 outputs
+    within 1e-4; bf16 states and dG within one bf16 step of the twins'
+    past the float32 tolerance, the share of elements that differ printed;
+    BiLSTMFunction's bf16 gradients, dG through its whole backward, against
+    the same products of the twins' dG), each timed in turns with its
+    float32 variant and cuDNN's nn.LSTM in bf16 (these checks run right
+    after step 5, where torch.profiler still records every launch); then
+    (``bf16_phase``) trains each
+    of the three configs 1 + 10 steps at float32 and then at bf16 (batch 64
+    ASR, the TTS phase's batches of 128), the launch counts set to 0 just
+    before the timed steps and read just after (at bf16: kernels 2 and 3's
+    bf16 variants 2 and 4 a step, no float32 biLSTM launch); holds 3 bf16
+    steps on the card against the CPU's plain path (losses 1e-3, first-step
+    gradients 2^-8 relative); and runs asr_en_base through the training CLI
+    at ``--precision 16`` on the align corpus (fit 2 epochs, validate,
+    test, predict: cli_phase's checks, with the biLSTM counts on the bf16
+    variants);
+19. prints one JSON line of per-kernel results (the bf16 variants as
+    their own lines), then, last, {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line is printed. Without
 CUDA, or without the voice100_tpu_torch package beside it, it exits
@@ -368,6 +389,12 @@ def counted_kernels():
             "viterbi_align_kernel": (viterbi_align_lattice_cuda,)}
 
 
+def launches_of(wrapper) -> int:
+    """A wrapper's launches of all its variants (float32 and, for the
+    biLSTM kernels, bf16)."""
+    return wrapper.launches + getattr(wrapper, "launches_bf16", 0)
+
+
 def device_profile(fn, calls: int = 2):
     """The card's time per call of ``fn``: the durations of the kernels,
     copies and memsets torch.profiler records on the card over ``calls``
@@ -385,7 +412,7 @@ def device_profile(fn, calls: int = 2):
     torch.cuda.synchronize()
     kernels = counted_kernels()
     by_name = {}
-    before = {w: w.launches for ws in kernels.values() for w in ws}
+    before = {w: launches_of(w) for ws in kernels.values() for w in ws}
     events = dict.fromkeys(kernels, 0)
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -401,7 +428,7 @@ def device_profile(fn, calls: int = 2):
     except Exception as err:  # the profiler is a measurement aid, not a check
         print(f"torch.profiler failed ({err!r}): device time not measured", flush=True)
         return None, {}, {}
-    counts = {part: [events[part], sum(w.launches - before[w] for w in ws)]
+    counts = {part: [events[part], sum(launches_of(w) - before[w] for w in ws)]
               for part, ws in kernels.items()}
     counts = {part: c for part, c in counts.items() if any(c)}
     dropped = {part: c for part, c in counts.items() if c[0] != c[1]}
@@ -1679,9 +1706,10 @@ def train(device, card):
     return launches
 
 
-def train_stages(trainer, task, state, batch, gen):
+def train_stages(trainer, task, state, batch, gen, tag="train_stages_ms"):
     """Card time of each layer of one training step (CUDA events), the
-    backward split by layer through autograd.grad on a retained graph."""
+    backward split by layer through autograd.grad on a retained graph,
+    printed under ``tag``."""
     from voice100_tpu_torch.models.layers import conv_stack_output_length
     from voice100_tpu_torch.ops.augment import apply_augment, draw_augment
     from voice100_tpu_torch.ops.ctc_cuda import ctc_loss_cuda
@@ -1729,7 +1757,7 @@ def train_stages(trainer, task, state, batch, gen):
     trainer.train_step(task, state, batch, gen)
     parts["step_host_enqueue"] = (time.perf_counter() - start) * 1e3
     torch.cuda.synchronize()
-    print("train_stages_ms " + json.dumps({"batch": list(audio.shape), **parts}), flush=True)
+    print(f"{tag} " + json.dumps({"batch": list(audio.shape), **parts}), flush=True)
 
 
 def train_parity(device):
@@ -2027,7 +2055,8 @@ def cli_counters():
     return {**align_counters(), **train_counters()}
 
 
-def cli_phase(device, card, workdir, align_args, samples, epochs=CLI_EPOCHS, tag="cli"):
+def cli_phase(device, card, workdir, align_args, samples, epochs=CLI_EPOCHS, tag="cli",
+              precision=None):
     """A CTC config through the training CLI on the card (training/cli.py
     ``main``, as ``python -m voice100_tpu_torch`` runs it): ``fit`` for
     ``epochs`` epochs on the corpus of ``align_args`` (by default
@@ -2037,9 +2066,12 @@ def cli_phase(device, card, workdir, align_args, samples, epochs=CLI_EPOCHS, tag
     after. ``samples`` are the clips' lengths in the data module's order.
     Checks the log, the checkpoints, the validate loss against the last
     epoch's and the predictions against the card's own greedy decode.
-    Returns the launches by subcommand and the ``last.pt`` path."""
+    ``precision`` "16" passes ``--precision 16`` to every subcommand: the
+    biLSTM kernels then launch their bf16 variants, counted exactly, and
+    their float32 variants never. Returns the launches by subcommand and
+    the ``last.pt`` path."""
     import yaml
-    from voice100_tpu_torch.training import load_model_weights
+    from voice100_tpu_torch.training import Trainer, TrainerConfig, load_model_weights
     from voice100_tpu_torch.training.cli import build_from_config, load_config, main
 
     config = load_config(align_args["config"])
@@ -2053,10 +2085,10 @@ def cli_phase(device, card, workdir, align_args, samples, epochs=CLI_EPOCHS, tag
     cache = os.path.join(workdir, f"{tag}_cache")
     common = ["--config", cfg, "--data_dir", align_args["data_dir"],
               "--cache_dir", cache, "--checkpoint_dir", ckpt,
-              "--device", str(device)]
+              "--device", str(device)] + (["--precision", precision] if precision else [])
     last = os.path.join(ckpt, "last.pt")
     predictions = os.path.join(workdir, f"{tag}_predictions.txt")
-    counters = cli_counters()
+    counters = {**cli_counters(), **(bf16_counters() if precision else {})}
     runs, results = {}, {}
     for sub, extra in (("fit", ["--log_path", log]), ("validate", ["--restore_from", last]),
                        ("test", ["--restore_from", last]),
@@ -2092,7 +2124,9 @@ def cli_phase(device, card, workdir, align_args, samples, epochs=CLI_EPOCHS, tag
     }
     for sub, counts in want.items():
         full = dict.fromkeys(counters, 0)
-        full.update(counts)
+        # at bf16 the biLSTM kernels' counts move to their bf16 variants
+        full.update({f"{k}_bf16" if precision and k.startswith("bilstm") else k: v
+                     for k, v in counts.items()})
         if runs[sub]["launches"] != full:
             fail(f"{tag} {sub}: launches {runs[sub]['launches']}, not {full}")
 
@@ -2122,6 +2156,7 @@ def cli_phase(device, card, workdir, align_args, samples, epochs=CLI_EPOCHS, tag
 
     load_model_weights(last, model)
     model.eval()
+    Trainer(TrainerConfig(precision=precision or "32")).apply_precision()  # as predict ran
     data.setup("predict")
     tokenizer = data.text_transform
     want_lines = []
@@ -2629,7 +2664,7 @@ def tts_train_steps(device, card, models, batches):
     return out
 
 
-def tts_train_stages(task, state, batch, gen):
+def tts_train_stages(task, state, batch, gen, tag="tts_train_stages_ms"):
     """Card time of each stage of one audio-model step (CUDA events), the
     backward split by part through autograd.grad on a retained graph."""
     from voice100_tpu_torch.models.losses import world_loss_v2
@@ -2676,8 +2711,8 @@ def tts_train_stages(task, state, batch, gen):
     loss.backward()
     parts["clip_adam"] = time_ms(lambda: (clip_by_global_norm(model.parameters(), 1.0),
                                           state.optimizer.step()))
-    print("tts_train_stages_ms " + json.dumps({"aligntext": list(text.shape),
-                                               "frames": list(f0.shape), **parts}), flush=True)
+    print(f"{tag} " + json.dumps({"aligntext": list(text.shape), "frames": list(f0.shape),
+                                  **parts}), flush=True)
     return parts
 
 
@@ -2879,7 +2914,7 @@ def tts_train_phase(device, card, workdir, align_args):
     by_path = {f"tts_train_{n}": r["launches"] for n, r in steps.items()}
     by_path.update({f"tts_cli_{n}_{s}": r["launches"] for n, runs in cli.items()
                     for s, r in runs.items()})
-    return by_path, kernels, summary
+    return by_path, kernels, summary, {"batches": batches, "stat_path": stat_path}
 
 
 # The phone configs end to end (prepare -> asr_en_phone_base fit -> align ->
@@ -3340,6 +3375,420 @@ def phone_phase(device, card, workdir):
     return by_path, kernels, summary
 
 
+# The bf16 mixed-precision path (training/cli.py --precision 16): the bf16
+# variants of kernels 1-3 against their plain twins at the three configs'
+# shapes, 1 + 10 train steps of each config at bf16 beside float32, 3 bf16
+# steps on the card against the CPU, and the CLI at --precision 16
+BF16_SHAPES = {"asr_en_base": (TRAIN_BATCH, 501, 512, 512),
+               "tts_en_base": (TTS_TRAIN_BATCH, 512, 512, 512),
+               "align_en_base": (TTS_TRAIN_BATCH, 144, 256, 256)}
+# card against CPU at bf16, 3 steps: the losses as the float32 rule; the
+# first step's gradients within one bf16 step relative (2^-8), the size of
+# a rounding that lands one step away (the conv weights' gradients are
+# bf16 on both sides, and a dG or state value may round the other way)
+BF16_PARITY_GRAD_TOL = 2.0 ** -8
+BF16_CLI_EPOCHS = 2
+
+
+class Bf16Count:
+    """A wrapper's bf16 launch counter (``launches_bf16``) under the name
+    ``launches``, so that the phases' counting helpers read it."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self):
+        return self.fn.launches_bf16
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches_bf16 = value
+
+
+def bf16_counters():
+    from voice100_tpu_torch.ops.lstm_cuda import (bilstm_cuda, bilstm_train_bwd_cuda,
+                                                  bilstm_train_fwd_cuda)
+
+    return {"bilstm_recurrence_bf16": Bf16Count(bilstm_cuda),
+            "bilstm_train_fwd_bf16": Bf16Count(bilstm_train_fwd_cuda),
+            "bilstm_train_bwd_bf16": Bf16Count(bilstm_train_bwd_cuda)}
+
+
+def bf16_excess(got, ref, f32_tol: float):
+    """How far a bf16 output lies beyond one bf16 step of its twin's: the
+    largest ``|got - ref| - ulp(ref)`` (a value rounded from two float32
+    values within ``f32_tol`` may land one step apart, so the check is
+    ``excess <= f32_tol``), and the share of elements that differ."""
+    got, ref = got.float(), ref.float()
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=1e-30))) - 7)
+    excess = ((got - ref).abs() - ulp).max().item()
+    return excess, (got != ref).float().mean().item()
+
+
+def plain_function_grads(w_ih, w_hh, bias, x, lengths, dout):
+    """The gradients of BiLSTMFunction's bf16 mode from its plain parts:
+    the plain twins of kernels 2 and 3 in bf16, then the same bf16
+    products with float32 results (``lstm_pallas.py:523-528, 560``)."""
+    from voice100_tpu_torch.ops.lstm import (bilstm_train_bwd, bilstm_train_fwd, matmul_f32,
+                                             project_inputs)
+
+    batch, time_steps, d_in = x.shape
+    xg = project_inputs(w_ih, bias, x, torch.bfloat16)
+    _, h_prev, c_prev = bilstm_train_fwd(xg, w_hh, lengths)
+    dg = bilstm_train_bwd(xg, w_hh, lengths, h_prev, c_prev, dout.bfloat16())
+    dg2 = dg.reshape(2, batch * time_steps, -1)
+    x2 = x.reshape(1, batch * time_steps, d_in).expand(2, -1, -1)
+    return [matmul_f32(dg2.transpose(1, 2), x2),
+            matmul_f32(dg2.transpose(1, 2), h_prev.reshape(2, batch * time_steps, -1)),
+            dg2.float().sum(dim=1), matmul_f32(dg2, w_ih).sum(dim=0).reshape(x.shape)]
+
+
+def check_bf16_kernels(device, config, batch, time_steps, hidden, input_size):
+    """The bf16 variants of kernels 1, 2 and 3 at one config's shapes
+    (one layer, input ``input_size``, seeded ragged lengths with T and 1)
+    against their plain twins on the card: the float32 outputs within
+    LSTM_TOL / LSTM_STATE_TOL, the bf16 ones (saved states, dG) within one
+    bf16 step of the twin's past the float32 tolerance, with the share of
+    elements that differ; BiLSTMFunction's bf16 gradients (dG through its
+    whole backward) against the same products of the plain twins' dG.
+    Each variant timed in turns with its float32 variant and cuDNN's
+    nn.LSTM in bf16 (the nearest library call: cuDNN rounds its own gates
+    and states, it is not the same function), event and device time, and
+    the plain twin; the bounds of this run's lengths."""
+    from voice100_tpu_torch.models.layers import BiLSTM
+    from voice100_tpu_torch.ops.lstm import (bilstm, bilstm_train_bwd, bilstm_train_fwd,
+                                             project_inputs)
+    from voice100_tpu_torch.ops.lstm_cuda import (bilstm_cuda, bilstm_train_bwd_cuda,
+                                                  bilstm_train_cuda, bilstm_train_fwd_cuda)
+
+    bf16 = torch.bfloat16
+    lengths_np = train_lengths(np.random.default_rng(SEED + 30), time_steps, batch)
+    lengths = torch.tensor(lengths_np, dtype=torch.int32, device=device)
+    cpu_lengths = lengths.cpu()
+    valid = int(lengths_np.sum())
+    module = BiLSTM(input_size, hidden, 1, device=device)
+    module.reset_parameters(torch.Generator().manual_seed(SEED + 30))
+    (w_ih, w_hh, bias), = module.stacked_layers()
+    gen = torch.Generator(device=device).manual_seed(SEED + 30)
+    x = torch.randn(batch, time_steps, input_size, device=device, generator=gen)
+    dout = torch.randn(batch, time_steps, 2 * hidden, device=device, generator=gen)
+    with torch.no_grad():
+        k1 = bilstm_cuda(w_ih, w_hh, bias, x, lengths, bf16)
+        k1_err = (k1 - bilstm(w_ih, w_hh, bias, x, lengths, bf16)).abs().max().item()
+        xg = project_inputs(w_ih, bias, x, bf16).contiguous()
+        xg32 = project_inputs(w_ih, bias, x).contiguous()
+        out, h_prev, c_prev = bilstm_train_fwd_cuda(xg, w_hh, lengths)
+        r_out, r_h, r_c = bilstm_train_fwd(xg, w_hh, lengths)
+        k2_err = (out - r_out).abs().max().item()
+        (h_excess, h_share), (c_excess, c_share) = (bf16_excess(h_prev, r_h, LSTM_STATE_TOL),
+                                                    bf16_excess(c_prev, r_c, LSTM_STATE_TOL))
+        state_err = max((a.float() - b.float()).abs().max().item()
+                        for a, b in ((h_prev, r_h), (c_prev, r_c)))
+        dout16 = dout.to(bf16)
+        dg = bilstm_train_bwd_cuda(xg, w_hh, lengths, r_h, r_c, dout16)
+        r_dg = bilstm_train_bwd(xg, w_hh, lengths, r_h, r_c, dout16)
+        dg_tol = GRAD_REL_TOL * r_dg.float().abs().max().item()
+        dg_excess, dg_share = bf16_excess(dg, r_dg, dg_tol)
+        dg_err = (dg.float() - r_dg.float()).abs().max().item()
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(t.float()).all() for t in (k1, out, h_prev, c_prev, dg)):
+            fail(f"bf16 kernels at {config}: non-finite outputs")
+        del k1, out, h_prev, c_prev, dg, r_out, r_dg
+    leaves = [t.detach().clone().requires_grad_() for t in (w_ih, w_hh, bias, x)]
+    (bilstm_train_cuda(*leaves, lengths, bf16) * dout).sum().backward()
+    want = plain_function_grads(w_ih, w_hh, bias, x, lengths, dout)
+    grad_err = max(rel_err(t.grad, g) for t, g in zip(leaves, want))
+    del want
+    print(f"bf16 kernels at {config} (B={batch}, T={time_steps}, D={input_size}, H={hidden}, "
+          f"{valid} valid rows) against the plain twins on the card: kernel 1 max_abs_err "
+          f"{k1_err:.3e} (tol {LSTM_TOL:.0e}); kernel 2 out {k2_err:.3e} (tol "
+          f"{LSTM_STATE_TOL:.0e}), bf16 h_prev / c_prev max_abs_err {state_err:.3e}, beyond "
+          f"one bf16 step {h_excess:.3e} / "
+          f"{c_excess:.3e} (tol {LSTM_STATE_TOL:.0e}), elements that differ {h_share:.3e} / "
+          f"{c_share:.3e}; kernel 3 bf16 dG max_abs_err {dg_err:.3e}, beyond one bf16 step "
+          f"{dg_excess:.3e} (tol "
+          f"{dg_tol:.3e}: {GRAD_REL_TOL:.0e} of max |dG|), elements that differ {dg_share:.3e}; "
+          f"BiLSTMFunction bf16 gradients rel err {grad_err:.3e} (tol {GRAD_REL_TOL:.0e})",
+          flush=True)
+    if not (k1_err <= LSTM_TOL and k2_err <= LSTM_STATE_TOL and h_excess <= LSTM_STATE_TOL
+            and c_excess <= LSTM_STATE_TOL and dg_excess <= dg_tol and grad_err <= GRAD_REL_TOL):
+        fail(f"bf16 kernels at {config} disagree with their plain twins")
+
+    lstm = torch.nn.LSTM(input_size, hidden, bidirectional=True, batch_first=True,
+                         device=device)
+    with torch.no_grad():
+        for suffix in ("", "_reverse"):
+            for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+                getattr(lstm, f"{name}_l0{suffix}").copy_(getattr(module, f"{name}_l0{suffix}"))
+    lstm = lstm.to(bf16)
+    lstm.flatten_parameters()
+    x_lib = x.to(bf16).requires_grad_()
+
+    def library_fwd():
+        packed = torch.nn.utils.rnn.pack_padded_sequence(x_lib, cpu_lengths, batch_first=True,
+                                                         enforce_sorted=False)
+        return torch.nn.utils.rnn.pad_packed_sequence(lstm(packed)[0], batch_first=True,
+                                                      total_length=time_steps)[0]
+
+    try:  # the library call is a comparison, not a check
+        library_fwd()
+        library_error = None
+    except RuntimeError as err:
+        library_error = repr(err)[:200]
+        print(f"cuDNN nn.LSTM in bf16 at {config} failed ({library_error}): library time not "
+              f"measured", flush=True)
+    with torch.no_grad():
+        _, h16, c16 = bilstm_train_fwd_cuda(xg, w_hh, lengths)
+        _, h32, c32 = bilstm_train_fwd_cuda(xg32, w_hh, lengths)
+        k1_turns = timed_in_turns({
+            "kernel": lambda: bilstm_cuda(w_ih, w_hh, bias, x, lengths, bf16),
+            "f32": lambda: bilstm_cuda(w_ih, w_hh, bias, x, lengths)}, iters=2)
+        k2_turns = timed_in_turns({
+            "kernel": lambda: bilstm_train_fwd_cuda(xg, w_hh, lengths),
+            "f32": lambda: bilstm_train_fwd_cuda(xg32, w_hh, lengths)}, iters=2)
+        k3_turns = timed_in_turns({
+            "kernel": lambda: bilstm_train_bwd_cuda(xg, w_hh, lengths, h16, c16, dout16),
+            "f32": lambda: bilstm_train_bwd_cuda(xg32, w_hh, lengths, h32, c32, dout)},
+            iters=2)
+        plain = {"k1": time_ms(lambda: bilstm(w_ih, w_hh, bias, x, lengths, bf16), 1, 1),
+                 "k2": time_ms(lambda: bilstm_train_fwd(xg, w_hh, lengths), 1, 1),
+                 "k3": time_ms(lambda: bilstm_train_bwd(xg, w_hh, lengths, h16, c16, dout16),
+                               1, 1)}
+    del h16, c16, h32, c32
+    not_measured = {"ms": None, "device_ms": None}
+    lib_turns = {"library_fwd": not_measured, "library_bwd": not_measured}
+    if library_error is None:
+        y = library_fwd()
+        lib_inputs = [x_lib, *lstm.parameters()]
+        dout_lib = dout.to(bf16)
+        lib_turns = timed_in_turns({
+            "library_fwd": library_fwd,
+            "library_bwd": lambda: torch.autograd.grad(y, lib_inputs, dout_lib,
+                                                       retain_graph=True)}, iters=2)
+        del y
+    # least bytes of each function at these lengths (valid rows only, as
+    # the float32 rows count them): kernel 1 as bilstm_cuda (float32 x,
+    # weights and out; the projection and recurrence float32); kernel 2
+    # reads bf16 xg, writes float32 out and bf16 states; kernel 3 reads bf16
+    # xg, states and dout of the valid rows and writes bf16 dG
+    w_bytes = w_hh.numel() * 4
+    state = batch * time_steps * 2 * hidden             # elements of one [2, B, T, H]
+    work = {
+        "k1": ((x.numel() + 2 * 4 * hidden * (input_size + hidden + 2) + state) * 4 + batch * 4,
+               2 * 2 * valid * 4 * hidden * (input_size + hidden)),
+        "k2": (2 * valid * 4 * hidden * 2 + w_bytes + state * 4 + 2 * state * 2,
+               2 * valid * 8 * hidden * hidden),
+        "k3": (2 * valid * 7 * hidden * 2 + w_bytes + 4 * state * 2,
+               2 * valid * 16 * hidden * hidden),
+    }
+    lines = {}
+    # max_abs_err over every output, bf16 ones included (up to a bf16 step
+    # of the largest values); beyond_one_bf16_step is what the check holds
+    for key, turns, library, err, excess in (
+            ("k1", k1_turns, lib_turns["library_fwd"], k1_err, None),
+            ("k2", k2_turns, lib_turns["library_fwd"], max(k2_err, state_err),
+             max(h_excess, c_excess)),
+            ("k3", k3_turns, lib_turns["library_bwd"], dg_err, dg_excess)):
+        bound, bound_by = bound_ms(*work[key])
+        lines[key] = {"shapes": f"{config}: B={batch}, T={time_steps}, D={input_size}, "
+                                f"H={hidden}, {valid} valid rows of {batch * time_steps}",
+                      "max_abs_err": err, "beyond_one_bf16_step": excess,
+                      "ms": turns["kernel"]["ms"],
+                      "device_ms": turns["kernel"]["device_ms"],
+                      "f32_ms": turns["f32"]["ms"], "f32_device_ms": turns["f32"]["device_ms"],
+                      "plain_ms": plain[key], "bound_ms": bound, "bound_by": bound_by,
+                      "library_ms": library["ms"], "library_device_ms": library["device_ms"],
+                      "events_launches": turns["kernel"]["events_launches"]}
+    lines["k2"]["state_share_differing"] = [h_share, c_share]
+    lines["k3"]["dg_share_differing"] = dg_share
+    lines["k3"]["function_grad_rel_err"] = grad_err
+    print(f"bf16_kernels_ms {config} " + json.dumps(
+        {k: {n: v for n, v in line.items() if n.endswith("ms") or n == "bound_by"}
+         for k, line in lines.items()}), flush=True)
+    return lines
+
+
+def bf16_train(device, card, name, build_model, batch, audio_s):
+    """Trainer.train_step 1 + TIMED_STEPS times on ``batch`` at float32,
+    then from the same weights at bf16 (the trainer's precision "16": the
+    process mode and the bf16 upload of the batch's inputs, as fit runs
+    them), dropout and augmentation on; the launch counts set to 0 just
+    before the timed steps and read just after: at bf16 kernel 2's bf16
+    variant once and kernel 3's twice a layer a step and no float32 biLSTM
+    launch, at float32 the reverse. Returns the launches and timings."""
+    from voice100_tpu_torch.training import Trainer, TrainerConfig, TrainState, make_task
+    from voice100_tpu_torch.training.trainer import _to_bf16
+
+    counters = {**cli_counters(), **bf16_counters()}
+    out = {}
+    for precision in ("32", "16"):
+        model = build_model()
+        trainer = Trainer(TrainerConfig(gradient_clip_val=1.0, precision=precision))
+        trainer.apply_precision()
+        task = make_task(model)
+        state = TrainState(model, task.make_optimizer())
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        step_batch = task.upload_cast(batch, _to_bf16) if trainer._upload_bf16() else batch
+        warm = float(trainer.train_step(task, state, step_batch, gen)["loss"])
+        zero_counts(counters)
+        losses, step_ms = [], []
+        for _ in range(TIMED_STEPS):
+            start = time.perf_counter()
+            losses.append(float(trainer.train_step(task, state, step_batch, gen)["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - start) * 1e3)
+        launches = {k: v for k, v in read_counts(counters).items() if v}
+        layers = model.lstm.num_layers
+        suffix = "_bf16" if precision == "16" else ""
+        want = {f"bilstm_train_fwd{suffix}": layers * TIMED_STEPS,
+                f"bilstm_train_bwd{suffix}": 2 * layers * TIMED_STEPS}
+        if name == "asr_en_base":
+            want.update(ctc_alpha=TIMED_STEPS, ctc_adjoint=TIMED_STEPS)
+        if launches != want:
+            fail(f"bf16 train {name} at precision {precision}: launches over {TIMED_STEPS} "
+                 f"steps {launches}, not {want}")
+        if not all(np.isfinite(losses)) or not np.mean(losses[-3:]) < np.mean(losses[:3]):
+            fail(f"bf16 train {name} at precision {precision}: the loss is not finite or does "
+                 f"not fall: {losses}")
+        median = float(np.median(step_ms))
+        out[precision] = {"median_step_ms": median, "step_ms": step_ms, "audio_s": audio_s,
+                          "audio_s_per_s": audio_s / (median * 1e-3),
+                          "losses": [warm] + losses, "launches": launches}
+        if precision == "16" and name == "asr_en_base":  # the stages of the bf16 steps
+            train_stages(trainer, task, state, batch, gen, tag="bf16_train_stages_ms")
+        elif precision == "16" and name == "tts_en_base":
+            tts_train_stages(task, state, batch, gen, tag="bf16_tts_train_stages_ms")
+    f32, b16 = out["32"], out["16"]
+    print(f"bf16 train {name} on {card}: step median bf16 {b16['median_step_ms']:.2f} ms "
+          f"({b16['audio_s_per_s']:.1f} audio s/s) against float32 "
+          f"{f32['median_step_ms']:.2f} ms ({f32['audio_s_per_s']:.1f}), "
+          f"{f32['median_step_ms'] / b16['median_step_ms']:.3f}x; losses bf16 "
+          f"{[round(v, 4) for v in b16['losses']]}, float32 "
+          f"{[round(v, 4) for v in f32['losses']]}; launches over {TIMED_STEPS} steps bf16 "
+          f"{b16['launches']}, float32 {f32['launches']}", flush=True)
+    return out
+
+
+def bf16_parity(device, name, build_cpu_model, batch):
+    """Three bf16 steps from the same weights on the first rows of
+    ``batch``, dropout and augmentation off, on the card and on the CPU's
+    plain path (the plain twins in bf16): the losses within
+    PARITY_LOSS_TOL, the first step's gradients within
+    BF16_PARITY_GRAD_TOL (relative norm)."""
+    from voice100_tpu_torch.training import Trainer, TrainerConfig, TrainState, make_task
+    from voice100_tpu_torch.training.trainer import _to_bf16
+
+    rows = TTS_TRAIN_PARITY_ROWS if name != "asr_en_base" else PARITY_BATCH
+    batch = tuple(tuple(torch.as_tensor(np.asarray(a.cpu() if torch.is_tensor(a) else a))[:rows]
+                        for a in pair) for pair in batch)
+    cpu_model = build_cpu_model()
+    results = []
+    for model, where in ((copy.deepcopy(cpu_model).to(device), device), (cpu_model, "cpu")):
+        trainer = Trainer(TrainerConfig(gradient_clip_val=1.0, precision="16"))
+        trainer.apply_precision()
+        task = make_task(model)
+        state = TrainState(model, task.make_optimizer())
+        side = task.upload_cast(tuple(tuple(t.to(where) for t in pair) for pair in batch),
+                                _to_bf16)
+        losses, grads = [], None
+        start = time.perf_counter()
+        for _ in range(PARITY_STEPS):
+            losses.append(float(trainer.train_step(task, state, side, train=False)["loss"]))
+            if grads is None:
+                grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        results.append((losses, grads, time.perf_counter() - start))
+    (card_losses, card_grads, card_s), (cpu_losses, cpu_grads, cpu_s) = results
+    grad_err = max(((card_grads[n] - g).norm() / g.norm()).item() for n, g in cpu_grads.items())
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    print(f"bf16 train parity {name}, card vs CPU plain path ({rows} rows, {PARITY_STEPS} "
+          f"steps at bf16, dropout and augmentation off): losses card {card_losses}, CPU "
+          f"{cpu_losses}, max rel err {loss_err:.3e} (tol {PARITY_LOSS_TOL:.0e}); first-step "
+          f"gradients max rel-norm err {grad_err:.3e} over {len(cpu_grads)} tensors (tol "
+          f"{BF16_PARITY_GRAD_TOL:.3e}); card {card_s:.2f} s, CPU {cpu_s:.2f} s", flush=True)
+    if not all(np.isfinite(card_losses)) or not loss_err <= PARITY_LOSS_TOL:
+        fail(f"bf16 train parity {name}: card losses {card_losses} vs CPU {cpu_losses}")
+    if not grad_err <= BF16_PARITY_GRAD_TOL:
+        fail(f"bf16 train parity {name}: first-step gradients differ by {grad_err:.3e}")
+    return {"loss_rel_err": loss_err, "grad_rel_err": grad_err, "card_s": card_s, "cpu_s": cpu_s}
+
+
+def bf16_phase(device, card, workdir, align_args, samples, tts_data):
+    """The bf16 mixed-precision path on the card: each config's train step
+    at bf16 beside float32 with its exact launches, 3 bf16 steps card
+    against CPU, and asr_en_base through the CLI at --precision 16 (fit
+    BF16_CLI_EPOCHS epochs on the align corpus, validate, test, predict;
+    the bf16 counters exact, the float32 biLSTM counters 0). Leaves the
+    process at float32. Returns the launches by path and a summary."""
+    from voice100_tpu_torch.models import AlignTextToAudio, AudioToAlignText, TextToAlignText
+    from voice100_tpu_torch.ops.lstm import set_default_compute_dtype
+    from voice100_tpu_torch.training import merge_world_stats
+
+    start = time.perf_counter()
+    asr_batch, asr_audio_s = train_batch(device)
+    tts_batches, stat_path = tts_data["batches"], tts_data["stat_path"]
+    make_model = {
+        "asr_en_base": lambda where: AudioToAlignText(
+            **ASR_EN_BASE, device=where, generator=torch.Generator().manual_seed(SEED + 40)),
+        "tts_en_base": lambda where: merge_world_stats(AlignTextToAudio(
+            **TTS_EN_BASE, device=where, generator=torch.Generator().manual_seed(SEED + 41)),
+            stat_path),
+        "align_en_base": lambda where: TextToAlignText(
+            **ALIGN_EN_BASE, device=where, generator=torch.Generator().manual_seed(SEED + 42)),
+    }
+    batches = {"asr_en_base": (asr_batch, asr_audio_s),
+               "tts_en_base": (tts_batches["audio"],
+                               batch_audio_seconds("audio", tts_batches["audio"])),
+               "align_en_base": (tts_batches["align"],
+                                 batch_audio_seconds("align", tts_batches["align"]))}
+    steps, parity, by_path = {}, {}, {}
+    try:
+        for name, build in make_model.items():
+            batch, audio_s = batches[name]
+            steps[name] = bf16_train(device, card, name, lambda: build(device), batch, audio_s)
+            by_path[f"bf16_train_{name}"] = steps[name]["16"]["launches"]
+            parity[name] = bf16_parity(device, name, lambda: build("cpu"), batch)
+        cli_launches, _ = cli_phase(device, card, workdir, align_args, samples,
+                                    epochs=BF16_CLI_EPOCHS, tag="bf16_cli", precision="16")
+        by_path.update({f"bf16_cli_{sub}": {k: v for k, v in launches.items() if v}
+                        for sub, launches in cli_launches.items()})
+    finally:
+        set_default_compute_dtype(None)
+    summary = {"wall_s": time.perf_counter() - start, "parity": parity,
+               "steps": {name: {p: {k: r[k] for k in ("median_step_ms", "audio_s",
+                                                       "audio_s_per_s")}
+                                for p, r in runs.items()} for name, runs in steps.items()}}
+    return by_path, summary
+
+
+def bf16_kernel_lines(kernels, by_path):
+    """The kernel lines of the bf16 variants: the numbers at asr_en_base's
+    shapes, the other configs' under their names; launches from the
+    asr_en_base bf16 train steps (kernels 2 and 3) and the CLI's validate
+    at --precision 16 (kernel 1), every path's beside them."""
+    entries = []
+    for key, name, source, line, counter, path in (
+            ("k1", "bilstm_recurrence_bf16", "voice100_tpu_torch/csrc/bilstm.cu",
+             "voice100_tpu/ops/lstm_pallas.py:41", "bilstm_recurrence_bf16", "bf16_cli_validate"),
+            ("k2", "bilstm_train_fwd_bf16", "voice100_tpu_torch/csrc/bilstm_train.cu",
+             "voice100_tpu/ops/lstm_pallas.py:232", "bilstm_train_fwd_bf16",
+             "bf16_train_asr_en_base"),
+            ("k3", "bilstm_train_bwd_bf16", "voice100_tpu_torch/csrc/bilstm_train.cu",
+             "voice100_tpu/ops/lstm_pallas.py:267", "bilstm_train_bwd_bf16",
+             "bf16_train_asr_en_base")):
+        main_line = dict(kernels["asr_en_base"][key])
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": line,
+                 "launches": by_path[path].get(counter, 0)}
+        entry.update(main_line)
+        entry["library"] = ("cuDNN nn.LSTM in bf16, packed (the nearest library call, not the "
+                            "same function)")
+        entry["launches_by_path"] = {p: c[counter] for p, c in by_path.items() if counter in c}
+        for config in ("tts_en_base", "align_en_base"):
+            entry[config] = kernels[config][key]
+        entries.append(entry)
+    return entries
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -3363,6 +3812,11 @@ def main() -> None:
     serving = [check_melspec(device), check_bilstm(device)]
     training = check_lstm_train(device) + check_ctc(device)
     check_not_resident(device)
+    # the bf16 variants of kernels 1-3 at the bf16 phase's shapes, early in
+    # the run: torch.profiler has dropped events of cooperative launches
+    # late in long runs
+    bf16_kernels = {config: check_bf16_kernels(device, config, *shape)
+                    for config, shape in BF16_SHAPES.items()}
     # the align path's shapes: kernel 1 at the config's batch of 64 (eight
     # batch tiles), kernel 8 on one clip at a time; the Viterbi launch below
     lengths = np.random.default_rng(SEED + 7).integers(1, VITERBI_T + 1, size=ALIGN_BATCH)
@@ -3394,11 +3848,14 @@ def main() -> None:
         cli_launches, _ = cli_phase(device, card, workdir, args, samples)
         by_path.update({f"cli_{sub}": launches for sub, launches in cli_launches.items()})
         by_path["tts"], tts_kernel, tts_summary = tts_phase(device, card, workdir)
-        tts_train_paths, tts_train_kernels, tts_train_summary = tts_train_phase(
+        tts_train_paths, tts_train_kernels, tts_train_summary, tts_data = tts_train_phase(
             device, card, workdir, args)
         phone_start = time.perf_counter()
         phone_paths, phone_kernels, phone_summary = phone_phase(device, card, workdir)
         phone_summary["wall_s"] = time.perf_counter() - phone_start
+        # kernel 1 at the TTS configs' training batch
+        serving[1]["b128_h512"] = check_bilstm_b128_h512(device)
+        bf16_paths, bf16_summary = bf16_phase(device, card, workdir, args, samples, tts_data)
     by_path.update(tts_train_paths)
     by_path.update(phone_paths)
     serving[1].update(tts_kernel)
@@ -3410,8 +3867,6 @@ def main() -> None:
     for name, (fwd, bwd) in tts_train_kernels.items():
         training[0][name] = shape_line(fwd)
         training[1][name] = shape_line(bwd)
-    # kernel 1 at the TTS configs' training batch
-    serving[1]["b128_h512"] = check_bilstm_b128_h512(device)
     # "launches" counts the path each kernel was ported for (the timed
     # align run for kernels 6 and 7, the phases of one launch); every
     # path's counts stand beside it
@@ -3423,13 +3878,18 @@ def main() -> None:
                                          if counter in c}
     for entry in training:
         entry["launches_per_step"] = entry["launches"] / TIMED_STEPS
+    by_path.update(bf16_paths)
+    bf16_lines = bf16_kernel_lines(bf16_kernels, bf16_paths)
+    for entry in bf16_lines[1:]:
+        entry["launches_per_step"] = entry["launches"] / TIMED_STEPS
     print("align_summary " + json.dumps({"runs": runs, "parity": parity}), flush=True)
     print("tts_summary " + json.dumps(tts_summary), flush=True)
     print("tts_train_summary " + json.dumps(tts_train_summary), flush=True)
     print(f"phone_summary ({card}) " + json.dumps(phone_summary), flush=True)
+    print(f"bf16_summary ({card}) " + json.dumps(bf16_summary), flush=True)
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s from the kernel build to here",
           flush=True)
-    print(json.dumps({"kernels": serving + training + aligning}), flush=True)
+    print(json.dumps({"kernels": serving + training + aligning + bf16_lines}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -135,7 +135,7 @@ def test_configs_the_port_cannot_build_raise_naming_the_class(name):
 
 @pytest.mark.parametrize("key,value,item", [
     ("mesh_model_axis", 2, "item 10"), ("profile_dir", "prof", "item 10"),
-    ("upload_dtype", "bfloat16", "item 5"), ("device_cache", True, "item 8"),
+    ("device_cache", True, "item 8"),
     ("device_cache_max_bytes", 1024, "item 8"), ("steps_per_dispatch", 4, "item 8"),
 ])
 def test_unported_trainer_settings_raise_naming_their_item(tmp_path, key, value, item):
@@ -149,7 +149,7 @@ def test_unported_trainer_settings_raise_naming_their_item(tmp_path, key, value,
 @pytest.mark.parametrize("flags,error,match", [
     (["--mesh_model_axis", "2"], NotImplementedError, "mesh_model_axis.*item 10"),
     (["--distributed"], NotImplementedError, "distributed.*item 10"),
-    (["--precision", "16"], ValueError, "bf16.*item 5"),
+    (["--precision", "8"], ValueError, "precision '8'.*'16', 'bf16', 'bfloat16', '16-mixed'"),
 ])
 def test_unported_flags_raise(tmp_path, flags, error, match):
     from voice100_tpu_torch.training.cli import cli_main
@@ -157,6 +157,52 @@ def test_unported_flags_raise(tmp_path, flags, error, match):
     cfg = tiny_config(tmp_path / "tiny.yaml")
     with pytest.raises(error, match=match):
         cli_main(["validate", "--config", cfg, "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("precision", ["16", "bf16", "bfloat16", "16-mixed"])
+def test_every_bf16_precision_alias_reaches_the_trainer(tmp_path, monkeypatch, precision):
+    """``--precision`` and ``trainer.precision`` in the YAML reach
+    ``TrainerConfig`` (the flag over the key, as in the JAX CLI), and the
+    subcommand runs the model in bf16: every aliases the JAX trainer takes
+    (``voice100_tpu/training/trainer.py:243``)."""
+    from voice100_tpu_torch.ops.lstm import default_compute_dtype, set_default_compute_dtype
+    from voice100_tpu_torch.training import cli
+
+    seen = []
+    monkeypatch.setattr(cli.Trainer, "run_eval", lambda self, model, data, stage: seen.append(
+        (self.config.precision, self.config.upload_dtype, default_compute_dtype())) or {})
+    data = ["--device", "cpu", "--data_dir", str(tmp_path / "data"), "--cache_dir",
+            str(tmp_path / "cache"), "--checkpoint_dir", str(tmp_path / "ck")]
+    make_dummy_corpus(str(tmp_path / "data"))
+    try:
+        cli.main(["fit", "--config", tiny_config(tmp_path / "fit.yaml"), *data])
+        assert default_compute_dtype() is None
+        for flags, trainer in ((["--precision", precision], {}),
+                               ([], {"precision": precision, "upload_dtype": "float32"})):
+            cfg = tiny_config(tmp_path / "tiny.yaml", **trainer)
+            cli.main(["validate", "--config", cfg, *data] + flags)
+        assert seen == [(precision, "auto", torch.bfloat16),
+                        (precision, "float32", torch.bfloat16)]
+    finally:
+        set_default_compute_dtype(None)
+
+
+@pytest.mark.parametrize("value", ["bfloat16", "float32", "auto"])
+def test_upload_dtype_of_a_config_reaches_the_trainer(tmp_path, value):
+    """``trainer.upload_dtype`` is ported: the key passes through to
+    ``TrainerConfig`` as in the JAX CLI, and resolves as the JAX trainer
+    resolves it."""
+    from voice100_tpu.training import Trainer as JaxTrainer
+    from voice100_tpu_torch.training.cli import build_trainer_config, load_config
+    from voice100_tpu_torch.training.trainer import Trainer
+
+    tc = build_trainer_config(load_config(tiny_config(tmp_path / "tiny.yaml", upload_dtype=value,
+                                                      precision="16")), {})
+    assert (tc.upload_dtype, tc.precision) == (value, "16")
+    from voice100_tpu.training import TrainerConfig as JaxConfig
+
+    want = JaxTrainer(JaxConfig(precision="16", upload_dtype=value))._upload_bf16()
+    assert Trainer(tc)._upload_bf16() == want == (value != "float32")
 
 
 def test_cli_raises_without_cuda_unless_asked_for_the_cpu(tmp_path, monkeypatch):

@@ -103,9 +103,9 @@ def test_fit_through_the_cli_checkpoints_resumes_and_validates(corpus, tmp_path,
              "--max_epochs", "1", "--log_path", jax_log, "--platform", "cpu"])
     jax_records = _records(jax_log)
     jax_start = next(r for r in jax_records if r.get("event") == "fit_start")
-    assert start.keys() == (jax_start.keys() - {"devices", "processes", "upload"}) | {"device"}
-    assert (start["params"], start["steps_per_epoch"]) == (jax_start["params"],
-                                                          jax_start["steps_per_epoch"])
+    assert start.keys() == (jax_start.keys() - {"devices", "processes"}) | {"device"}
+    assert (start["params"], start["steps_per_epoch"], start["upload"]) == (
+        jax_start["params"], jax_start["steps_per_epoch"], jax_start["upload"])
     jax_epoch = next(r for r in jax_records if "train_time_s" in r)
     jax_step = next(r for r in jax_records if "train_loss" in r and "train_time_s" not in r)
     assert all(r.keys() == jax_epoch.keys() for r in epochs)

@@ -187,8 +187,28 @@ def test_fit_logs_validates_checkpoints_and_resumes(jax_model, tmp_path):
 
 
 def test_only_float32_precision_is_accepted():
-    with pytest.raises(ValueError, match="bf16"):
-        Trainer(TrainerConfig(precision="bf16"))
+    """Float32 ("32") and the JAX trainer's bf16 aliases are the only
+    precisions: an unknown one still raises, naming what is taken."""
+    with pytest.raises(ValueError, match="precision '8'.*'16', 'bf16', 'bfloat16', '16-mixed'"):
+        Trainer(TrainerConfig(precision="8"))
+    for precision in ("32", 32, "16", 16, "bf16", "bfloat16", "16-mixed"):
+        Trainer(TrainerConfig(precision=precision))
+
+
+@pytest.mark.parametrize("precision,bf16", [("32", False), ("16", True), ("bf16", True),
+                                            ("bfloat16", True), ("16-mixed", True)])
+def test_each_precision_alias_sets_the_compute_dtype(precision, bf16):
+    """Each accepted precision sets the process compute dtype as the JAX
+    trainer's ``fit`` does: bf16 for the four aliases, float32 (None) for
+    "32", resetting an earlier bf16 setting."""
+    from voice100_tpu_torch.ops.lstm import default_compute_dtype, set_default_compute_dtype
+
+    try:
+        set_default_compute_dtype(torch.bfloat16)
+        Trainer(TrainerConfig(precision=precision)).apply_precision()
+        assert default_compute_dtype() == (torch.bfloat16 if bf16 else None)
+    finally:
+        set_default_compute_dtype(None)
 
 
 @pytest.mark.parametrize("scale", [0.01, 10.0])

@@ -1,11 +1,18 @@
 // The biLSTM forward recurrence as one persistent cooperative launch a
-// layer, for Hopper (sm_90a), float32; and the cp.async helpers the biLSTM
+// layer, for Hopper (sm_90a); and the cp.async and bf16 helpers the biLSTM
 // kernels share. Included by bilstm.cu (inference, kernel 1) and
 // bilstm_train.cu (state-saving train forward, kernel 2).
 //
 // Replaces the TPU kernels voice100_tpu/ops/lstm_pallas.py::_kernel (via
 // _bilstm_pallas_call) and ::_kernel_train_fwd (via _lstm_train_fwd_pair),
-// float32 variants. Both directions, in natural (source) time: loop step s
+// both their variants: the kernel is a template on the element type XT of
+// xg. XT = float is the float32 variant. XT = __nv_bfloat16 is the
+// mixed-precision one (lstm_pallas.py:140-146, :259-264, :380): xg streams
+// in bf16 and each value is widened to float32 as it is loaded, and kernel
+// 2 stores the saved states in bf16 (round to nearest even). Everything
+// else stays float32 in both: W_hh in shared memory, the (h, c) carry, the
+// exchange of h, the products and the cell, and out. Both directions, in
+// natural (source) time: loop step s
 // touches ts = s for the forward direction and T-1-s for the backward one.
 // Each step, for each row b and direction d:
 //
@@ -60,9 +67,19 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+// Read-only loads widened to float32, and stores from float32, of either
+// element type (bf16 rounds to nearest even).
+__device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -197,9 +214,9 @@ __device__ __forceinline__ void product_pass(const float* h_src, int live, int h
   }
 }
 
-template <bool SAVE_STATES>
+template <bool SAVE_STATES, typename XT>
 __global__ void __launch_bounds__(THREADS, 1)
-bilstm_persistent_kernel(const float* __restrict__ xg,      // [2, B, T, 4H]
+bilstm_persistent_kernel(const XT* __restrict__ xg,         // [2, B, T, 4H]
                          const float* __restrict__ w_hh,    // [2, 4H, H]
                          const int* __restrict__ lengths,   // [B]
                          const int* __restrict__ order,     // [B]: rows by descending length
@@ -207,8 +224,8 @@ bilstm_persistent_kernel(const float* __restrict__ xg,      // [2, B, T, 4H]
                                        // here, so never read through the read-only path
                          int* ready,   // [2 * H / UNITS]: steps each block has finished
                          float* __restrict__ out,           // [B, T, 2H]
-                         float* __restrict__ h_prev,        // [2, B, T, H] (SAVE_STATES)
-                         float* __restrict__ c_prev,        // [2, B, T, H] (SAVE_STATES)
+                         XT* __restrict__ h_prev,           // [2, B, T, H] (SAVE_STATES)
+                         XT* __restrict__ c_prev,           // [2, B, T, H] (SAVE_STATES)
                          int batch, int time, int hidden) {
   namespace cg = cooperative_groups;
   cg::grid_group grid = cg::this_grid();
@@ -255,8 +272,8 @@ bilstm_persistent_kernel(const float* __restrict__ xg,      // [2, B, T, 4H]
       const int tn = source_time(d, s + 1, time);
       for (int r = tid; r < batch; r += THREADS) {
         if (len_s[r] <= tn) continue;
-        const float* x = xg + ((static_cast<size_t>(d) * batch + row_s[r]) * time + tn) * gates4
-                         + u0;
+        const XT* x = xg + ((static_cast<size_t>(d) * batch + row_s[r]) * time + tn) * gates4
+                      + u0;
 #pragma unroll
         for (int g = 0; g < 4; ++g) prefetch_l2(x + g * hidden);
       }
@@ -274,10 +291,10 @@ bilstm_persistent_kernel(const float* __restrict__ xg,      // [2, B, T, 4H]
       for (int k = 0; k < CELLS; ++k) {
         const int p = tid + k * THREADS;
         if (p < nb * UNITS) {
-          const float* x = xg + ((static_cast<size_t>(d) * batch + row_s[b0 + p / UNITS]) * time
-                                 + ts) * gates4 + u0 + p % UNITS;
+          const XT* x = xg + ((static_cast<size_t>(d) * batch + row_s[b0 + p / UNITS]) * time
+                              + ts) * gates4 + u0 + p % UNITS;
 #pragma unroll
-          for (int g = 0; g < 4; ++g) xv[k][g] = __ldg(x + g * hidden);
+          for (int g = 0; g < 4; ++g) xv[k][g] = ldg_f32(x + g * hidden);
         }
       }
       if (b0 == 0 && s > 0) {  // the barrier of this direction: every block's h of step s - 1
@@ -321,8 +338,8 @@ bilstm_persistent_kernel(const float* __restrict__ xg,      // [2, B, T, 4H]
         const float c = gf * c_in + gi * gg;
         const float h = go * tanhf(c);
         if constexpr (SAVE_STATES) {
-          h_prev[row * hidden + u] = h_s[pos * UNITS + j];
-          c_prev[row * hidden + u] = c_in;
+          store_f32(h_prev + row * hidden + u, h_s[pos * UNITS + j]);
+          store_f32(c_prev + row * hidden + u, c_in);
           h_s[pos * UNITS + j] = h;
         }
         c_s[pos * UNITS + j] = c;
@@ -340,8 +357,8 @@ bilstm_persistent_kernel(const float* __restrict__ xg,      // [2, B, T, 4H]
       const int u = u0 + j;
       const size_t row = (static_cast<size_t>(d) * batch + b) * time + ts;
       if constexpr (SAVE_STATES) {
-        h_prev[row * hidden + u] = h_s[pos * UNITS + j];
-        c_prev[row * hidden + u] = c_s[pos * UNITS + j];
+        store_f32(h_prev + row * hidden + u, h_s[pos * UNITS + j]);
+        store_f32(c_prev + row * hidden + u, c_s[pos * UNITS + j]);
       }
       out[(static_cast<size_t>(b) * time + ts) * 2 * hidden + d * hidden + u] = 0.f;
     }
@@ -366,7 +383,7 @@ inline int smem_bytes(int batch, int hidden) {
 // cudaErrorNotSupported (no cooperative launch), an error of setting the
 // shared-memory limit, or cudaErrorCooperativeLaunchTooLarge (too few SMs
 // for the grid at this shared memory).
-template <bool SAVE_STATES>
+template <bool SAVE_STATES, typename XT>
 int check(int batch, int hidden) {
   if (hidden <= 0 || hidden % KC || batch <= 0) return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
@@ -376,11 +393,11 @@ int check(int batch, int hidden) {
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
   const int smem = smem_bytes(batch, hidden);
-  err = cudaFuncSetAttribute(bilstm_persistent_kernel<SAVE_STATES>,
+  err = cudaFuncSetAttribute(bilstm_persistent_kernel<SAVE_STATES, XT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, bilstm_persistent_kernel<SAVE_STATES>, THREADS, smem);
+      &per_sm, bilstm_persistent_kernel<SAVE_STATES, XT>, THREADS, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (per_sm * sms < 2 * hidden / UNITS)
@@ -390,16 +407,16 @@ int check(int batch, int hidden) {
 
 // One cooperative launch for the whole layer; check's error without
 // launching when the grid cannot be resident, else the launch's error.
-template <bool SAVE_STATES>
-int launch(const float* xg, const float* w_hh, const int* lengths, const int* order, float* xchg,
-           int* ready, float* out, float* h_prev, float* c_prev, int batch, int time, int hidden,
+template <bool SAVE_STATES, typename XT>
+int launch(const XT* xg, const float* w_hh, const int* lengths, const int* order, float* xchg,
+           int* ready, float* out, XT* h_prev, XT* c_prev, int batch, int time, int hidden,
            void* stream) {
-  const int status = check<SAVE_STATES>(batch, hidden);
+  const int status = check<SAVE_STATES, XT>(batch, hidden);
   if (status != 0) return status;
   void* args[] = {&xg, &w_hh, &lengths, &order, &xchg, &ready, &out, &h_prev, &c_prev,
                   &batch, &time, &hidden};
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(bilstm_persistent_kernel<SAVE_STATES>),
+      reinterpret_cast<void*>(bilstm_persistent_kernel<SAVE_STATES, XT>),
       dim3(2 * hidden / UNITS), dim3(THREADS), args, smem_bytes(batch, hidden),
       static_cast<cudaStream_t>(stream)));
 }

@@ -1,10 +1,16 @@
-// Bidirectional LSTM training recurrences for Hopper (sm_90a), float32:
-// the state-saving forward and the reverse-time adjoint.
+// Bidirectional LSTM training recurrences for Hopper (sm_90a): the
+// state-saving forward and the reverse-time adjoint.
 //
 // Replaces the TPU kernels voice100_tpu/ops/lstm_pallas.py::_kernel_train_fwd
 // (via _lstm_train_fwd_pair) and ::_kernel_train_bwd (via
-// _lstm_train_bwd_pair), float32 variants (no bf16 streaming or state
-// storage). Both directions are kept in natural (source) time: loop step s
+// _lstm_train_bwd_pair), in both their variants. The *_f32 entries are the
+// float32 ones. The *_bf16 entries are the mixed-precision ones of the
+// precision knob (lstm_pallas.py:259-264, :281-319, :437): the forward
+// reads a bf16 xg and stores the saved states in bf16; the backward reads
+// bf16 xg, h_prev, c_prev and dout, each widened to float32 as it is
+// loaded, and writes dG in bf16. The recurrences, their carries, the
+// recomputed gates and the dG that forms dh stay float32 in both.
+// Both directions are kept in natural (source) time: loop step s
 // touches source time ts = s for the forward direction and T-1-s for the
 // backward one, so every [2, B, T, *] array below is indexed by source time.
 //
@@ -19,14 +25,23 @@
 //   (1) lstm_train_bwd_gates_kernel, the gate pass: for every valid row
 //       (ts < length[b]) of both directions, gates = xg + h_prev W_hh^T.
 //       It needs no sequential carry: the pre-update states are saved.
-//       The result is written into the dg buffer, which (2) overwrites in
-//       place with dG, so no second [2, B, T, 4H] tensor is allocated.
+//       The float32 variant writes the result into the dg buffer, which (2)
+//       overwrites in place with dG, so no second [2, B, T, 4H] tensor is
+//       allocated. The bf16 variant writes it into a float32 buffer of its
+//       own: the gates are float32 inside the JAX kernel (lstm_pallas.py:
+//       284-292), and a bf16 dg buffer would round them.
 //   (2) lstm_train_bwd_recurrence_kernel, one cooperative launch walking
 //       s from T-1 down to 0; each step, for each unit,
 //           dh~ = v (dh + dout),  dc~ = dh~ sig(o) (1 - tanh^2 c') + v dc
 //           dG  = (dc~ g i(1-i), dc~ c f(1-f), dc~ i (1-g^2), dh~ tanh(c') o(1-o))
 //           dc  = dc~ f + (1 - v) dc
 //       then a grid sync, then dh = dG[d, :, ts] @ W_hh[d] + (1 - v) dh.
+//       The blocks exchange the float32 dG of the step for that product,
+//       as JAX forms dh from its float32 da (lstm_pallas.py:315-319): the
+//       float32 variant through the dg rows themselves, the bf16 variant
+//       through a ping-pong buffer [2, 2, B, 4H] (step s writes half s % 2;
+//       the grid sync of step s - 1 lies between the reads of a half and
+//       its next write), and stores the bf16 dG beside it.
 // dW_ih, dW_hh, db and dx are plain products over (B, T) outside (cuBLAS),
 // as the JAX package computes them outside its kernel.
 //
@@ -60,6 +75,8 @@
 // __ldg. Accurate expf/tanhf, no fast math: the JAX kernels run float32 at
 // Precision.HIGHEST.
 
+#include <type_traits>
+
 #include "bilstm_persistent.cuh"
 
 namespace {
@@ -83,14 +100,31 @@ constexpr int REC_Q = 32;            // gate rows of dG per staged chunk
 constexpr int REC_Q_PAD = REC_Q + 4;
 constexpr int REC_STAGE = REC_BT * REC_Q_PAD;  // floats of one chunk buffer
 
+// Four consecutive values of a staged h_prev row as float32.
+__device__ __forceinline__ float4 load4_f32(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4_f32(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// IT, the element type of xg and h_prev: float or __nv_bfloat16 (staged in
+// shared memory as it is stored, widened as it is read). The products and
+// the gates are float32 either way.
+template <typename IT>
 __global__ void __launch_bounds__(GEMM_THREADS)
-lstm_train_bwd_gates_kernel(const float* __restrict__ xg,       // [2, B, T, 4H]
+lstm_train_bwd_gates_kernel(const IT* __restrict__ xg,          // [2, B, T, 4H]
                             const float* __restrict__ w_hh,     // [2, 4H, H]
                             const int* __restrict__ lengths,    // [B]
-                            const float* __restrict__ h_prev,   // [2, B, T, H]
-                            float* __restrict__ gates,          // [2, B, T, 4H] (the dg buffer)
+                            const IT* __restrict__ h_prev,      // [2, B, T, H]
+                            float* __restrict__ gates,          // [2, B, T, 4H]
                             int batch, int time, int hidden) {
-  __shared__ __align__(16) float as[2][GM * GK_PAD];   // h_prev rows, k-contiguous
+  constexpr int A_PER_16B = 16 / sizeof(IT);           // elements of one cp.async
+  constexpr int A_PAD = GK + A_PER_16B;                // 16 B of padding a row
+  __shared__ __align__(16) IT as[2][GM * A_PAD];       // h_prev rows, k-contiguous
   __shared__ __align__(16) float bs[2][GN * GK_PAD];   // W_hh rows, k-contiguous
   const int t_tiles = (time + GM - 1) / GM;
   const int b = blockIdx.y / t_tiles;
@@ -102,19 +136,23 @@ lstm_train_bwd_gates_kernel(const float* __restrict__ xg,       // [2, B, T, 4H]
   const int rows = len - t0;             // valid rows of the tile (may exceed GM)
   const int gates4 = 4 * hidden;
   const size_t row0 = (static_cast<size_t>(d) * batch + b) * time + t0;
-  const float* a_src = h_prev + row0 * hidden;
+  const IT* a_src = h_prev + row0 * hidden;
   const float* b_src = w_hh + (static_cast<size_t>(d) * gates4 + n0) * hidden;
   const int tid = threadIdx.x;
   const int tx = tid % 16;               // output columns tx + 16 j
   const int ty = tid / 16;               // output rows ty + 16 i
 
   auto load = [&](int stage, int k0) {
-    for (int i = tid; i < GM * GK / 4; i += GEMM_THREADS) {
+    for (int i = tid; i < GM * GK / A_PER_16B; i += GEMM_THREADS) {
+      const int r = i / (GK / A_PER_16B);
+      const int c = (i % (GK / A_PER_16B)) * A_PER_16B;
+      const bool valid = r < rows;
+      cp_async16(&as[stage][r * A_PAD + c],
+                 a_src + static_cast<size_t>(valid ? r : 0) * hidden + k0 + c, valid);
+    }
+    for (int i = tid; i < GN * GK / 4; i += GEMM_THREADS) {
       const int r = i / (GK / 4);
       const int c = (i % (GK / 4)) * 4;
-      const bool valid = r < rows;
-      cp_async16(&as[stage][r * GK_PAD + c],
-                 a_src + static_cast<size_t>(valid ? r : 0) * hidden + k0 + c, valid);
       cp_async16(&bs[stage][r * GK_PAD + c], b_src + static_cast<size_t>(r) * hidden + k0 + c,
                  true);
     }
@@ -137,14 +175,14 @@ lstm_train_bwd_gates_kernel(const float* __restrict__ xg,       // [2, B, T, 4H]
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* a_tile = as[kt & 1];
+    const IT* a_tile = as[kt & 1];
     const float* b_tile = bs[kt & 1];
 #pragma unroll
     for (int kk = 0; kk < GK; kk += 4) {
       float4 a[8], w[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
-        a[i] = *reinterpret_cast<const float4*>(a_tile + (ty + 16 * i) * GK_PAD + kk);
+        a[i] = load4_f32(a_tile + (ty + 16 * i) * A_PAD + kk);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         w[j] = *reinterpret_cast<const float4*>(b_tile + (tx + 16 * j) * GK_PAD + kk);
@@ -166,18 +204,27 @@ lstm_train_bwd_gates_kernel(const float* __restrict__ xg,       // [2, B, T, 4H]
     if (ty + 16 * i >= rows) continue;
     const size_t off = (row0 + ty + 16 * i) * gates4 + n0 + tx;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) gates[off + 16 * j] = acc[i][j] + xg[off + 16 * j];
+    for (int j = 0; j < 8; ++j) gates[off + 16 * j] = acc[i][j] + ldg_f32(xg + off + 16 * j);
   }
 }
 
+// IT, the element type of c_prev, dout and (bf16) the dG output. IT =
+// float: dg holds the gates in and dG out, and is the exchange. IT =
+// __nv_bfloat16: dg holds the float32 gates in, xchg [2, 2, B, 4H] is the
+// exchange and dg_out [2, B, T, 4H] receives dG in bf16.
+template <typename IT>
 __global__ void __launch_bounds__(REC_THREADS, 1)
 lstm_train_bwd_recurrence_kernel(const float* __restrict__ w_hh,     // [2, 4H, H]
                                  const int* __restrict__ lengths,    // [B]
-                                 const float* __restrict__ c_prev,   // [2, B, T, H]
-                                 const float* __restrict__ dout,     // [B, T, 2H]
-                                 float* dg,  // [2, B, T, 4H]: gates in, dG out; written here,
-                                             // so never read through the read-only path
+                                 const IT* __restrict__ c_prev,      // [2, B, T, H]
+                                 const IT* __restrict__ dout,        // [B, T, 2H]
+                                 float* dg,  // [2, B, T, 4H]: gates in (float32 variant: dG
+                                             // out); written here, so never read through the
+                                             // read-only path
+                                 float* xchg,                        // bf16 variant only
+                                 IT* __restrict__ dg_out,            // bf16 variant only
                                  int batch, int time, int hidden) {
+  constexpr bool BF16 = !std::is_same<IT, float>::value;
   namespace cg = cooperative_groups;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
@@ -205,6 +252,11 @@ lstm_train_bwd_recurrence_kernel(const float* __restrict__ w_hh,     // [2, 4H, 
   const int chunks = gates4 / REC_Q;
   for (int s = time - 1; s >= 0; --s) {
     const int ts = source_time(d, s, time);
+    // the float32 dG of step s of row b starts at ex + b * ex_stride
+    float* ex = BF16 ? xchg + ((static_cast<size_t>(s & 1) * 2 + d) * batch) * gates4
+                     : dg + (static_cast<size_t>(d) * batch * time + ts) * gates4;
+    const size_t ex_stride = BF16 ? static_cast<size_t>(gates4)
+                                  : static_cast<size_t>(time) * gates4;
 
     // dG of the block's units, over the gates the first launch left in dg
     for (int p = tid; p < batch * REC_UNITS; p += REC_THREADS) {
@@ -217,20 +269,27 @@ lstm_train_bwd_recurrence_kernel(const float* __restrict__ w_hh,     // [2, 4H, 
         const float gf = sigmoid(__ldcg(g + hidden));
         const float gg = tanhf(__ldcg(g + 2 * hidden));
         const float go = sigmoid(__ldcg(g + 3 * hidden));
-        const float cp_u = __ldg(c_prev + row * hidden + u);
+        const float cp_u = ldg_f32(c_prev + row * hidden + u);
         const float tanh_c = tanhf(gf * cp_u + gi * gg);
         const float d_hcand =
-            dh_s[p] + __ldg(dout + (static_cast<size_t>(b) * time + ts) * 2 * hidden
-                            + d * hidden + u);
+            dh_s[p] + ldg_f32(dout + (static_cast<size_t>(b) * time + ts) * 2 * hidden
+                              + d * hidden + u);
         const float d_ccand = d_hcand * go * (1.f - tanh_c * tanh_c) + dc_s[p];
-        __stcg(g, d_ccand * gg * gi * (1.f - gi));
-        __stcg(g + hidden, d_ccand * cp_u * gf * (1.f - gf));
-        __stcg(g + 2 * hidden, d_ccand * gi * (1.f - gg * gg));
-        __stcg(g + 3 * hidden, d_hcand * tanh_c * go * (1.f - go));
+        const float da[4] = {d_ccand * gg * gi * (1.f - gi), d_ccand * cp_u * gf * (1.f - gf),
+                             d_ccand * gi * (1.f - gg * gg), d_hcand * tanh_c * go * (1.f - go)};
+        float* e = ex + b * ex_stride + u;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          __stcg(e + k * hidden, da[k]);
+          if constexpr (BF16) store_f32(dg_out + row * gates4 + u + k * hidden, da[k]);
+        }
         dc_s[p] = d_ccand * gf;
       } else {  // a frozen step: dG = 0, (dh, dc) pass through
 #pragma unroll
-        for (int k = 0; k < 4; ++k) __stcg(g + k * hidden, 0.f);
+        for (int k = 0; k < 4; ++k) {
+          if constexpr (BF16) store_f32(dg_out + row * gates4 + u + k * hidden, 0.f);
+          else __stcg(g + k * hidden, 0.f);
+        }
       }
     }
     grid.sync();  // every block's dG at ts is in L2
@@ -259,8 +318,8 @@ lstm_train_bwd_recurrence_kernel(const float* __restrict__ w_hh,     // [2, 4H, 
           const int r = i / (REC_Q / 4);
           const int col = (i % (REC_Q / 4)) * 4;
           const bool live = r < nb && ts < __ldg(lengths + b0 + r);  // else zeros
-          const size_t row = (static_cast<size_t>(d) * batch + b0 + (live ? r : 0)) * time + ts;
-          cp_async16(dst + r * REC_Q_PAD + col, dg + row * gates4 + chunk * REC_Q + col, live);
+          const size_t row = b0 + (live ? r : 0);
+          cp_async16(dst + r * REC_Q_PAD + col, ex + row * ex_stride + chunk * REC_Q + col, live);
         }
         cp_async_commit();
       };
@@ -333,7 +392,12 @@ extern "C" int lstm_train_fwd_smem_bytes(int batch, int hidden) {
 // 0 if the forward launch can run with all 2 * hidden / 8 blocks resident
 // on the current device, else a CUDA error (see persistent::check).
 extern "C" int lstm_train_fwd_check(int batch, int hidden) {
-  return persistent::check<true>(batch, hidden);
+  return persistent::check<true, float>(batch, hidden);
+}
+
+// The same for the bf16 variant's launch.
+extern "C" int lstm_train_fwd_check_bf16(int batch, int hidden) {
+  return persistent::check<true, __nv_bfloat16>(batch, hidden);
 }
 
 // The forward of the whole layer: reads xg, w_hh, lengths and order (the
@@ -346,23 +410,37 @@ extern "C" int lstm_train_fwd_f32(const float* xg, const float* w_hh, const int*
                                   const int* order, float* xchg, int* ready, float* out,
                                   float* h_prev, float* c_prev, int batch, int time, int hidden,
                                   void* stream) {
-  return persistent::launch<true>(xg, w_hh, lengths, order, xchg, ready, out, h_prev, c_prev,
-                                  batch, time, hidden, stream);
+  return persistent::launch<true, float>(xg, w_hh, lengths, order, xchg, ready, out, h_prev,
+                                         c_prev, batch, time, hidden, stream);
+}
+
+// lstm_train_fwd_f32 with xg [2, B, T, 4H] in bf16 and the states h_prev,
+// c_prev [2, B, T, H] stored in bf16; out and the scratch as there.
+extern "C" int lstm_train_fwd_bf16(const __nv_bfloat16* xg, const float* w_hh,
+                                   const int* lengths, const int* order, float* xchg, int* ready,
+                                   float* out, __nv_bfloat16* h_prev, __nv_bfloat16* c_prev,
+                                   int batch, int time, int hidden, void* stream) {
+  return persistent::launch<true, __nv_bfloat16>(xg, w_hh, lengths, order, xchg, ready, out,
+                                                 h_prev, c_prev, batch, time, hidden, stream);
 }
 
 // Dynamic shared memory of the backward recurrence launch: the resident
-// W_hh columns, the per-warp dG chunk buffers and the (dh, dc) carry.
+// W_hh columns, the per-warp dG chunk buffers and the (dh, dc) carry. The
+// same for both variants.
 extern "C" int lstm_train_bwd_smem_bytes(int batch, int hidden) {
   return static_cast<int>((4 * hidden * REC_UNITS + REC_WARPS * 2 * REC_STAGE
                            + 2 * batch * REC_UNITS) * sizeof(float));
 }
+
+namespace {
 
 // Whether the recurrence can run as one cooperative launch of
 // 2 * hidden / 8 resident blocks on the current device: 0 if it can, else
 // cudaErrorNotSupported (no cooperative launch), an error of setting the
 // shared-memory limit, or cudaErrorCooperativeLaunchTooLarge (too few SMs
 // for the grid at this shared memory).
-extern "C" int lstm_train_bwd_check(int batch, int hidden) {
+template <typename IT>
+int bwd_check(int batch, int hidden) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -370,16 +448,51 @@ extern "C" int lstm_train_bwd_check(int batch, int hidden) {
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
   const int smem = lstm_train_bwd_smem_bytes(batch, hidden);
-  err = cudaFuncSetAttribute(lstm_train_bwd_recurrence_kernel,
+  err = cudaFuncSetAttribute(lstm_train_bwd_recurrence_kernel<IT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lstm_train_bwd_recurrence_kernel,
-                                                      REC_THREADS, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, lstm_train_bwd_recurrence_kernel<IT>, REC_THREADS, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (per_sm * sms < 2 * hidden / REC_UNITS)
     return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   return 0;
+}
+
+template <typename IT>
+int bwd_gates(const IT* xg, const float* w_hh, const int* lengths, const IT* h_prev,
+              float* gates, int batch, int time, int hidden, void* stream) {
+  const int t_tiles = (time + GM - 1) / GM;
+  const dim3 grid(4 * hidden / GN, batch * t_tiles, 2);
+  lstm_train_bwd_gates_kernel<IT><<<grid, GEMM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      xg, w_hh, lengths, h_prev, gates, batch, time, hidden);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename IT>
+int bwd_recurrence(const float* w_hh, const int* lengths, const IT* c_prev, const IT* dout,
+                   float* dg, float* xchg, IT* dg_out, int batch, int time, int hidden,
+                   void* stream) {
+  const int status = bwd_check<IT>(batch, hidden);
+  if (status != 0) return status;
+  void* args[] = {&w_hh, &lengths, &c_prev, &dout, &dg, &xchg, &dg_out, &batch, &time, &hidden};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(lstm_train_bwd_recurrence_kernel<IT>),
+      dim3(2 * hidden / REC_UNITS), dim3(REC_THREADS), args,
+      lstm_train_bwd_smem_bytes(batch, hidden), static_cast<cudaStream_t>(stream)));
+}
+
+}  // namespace
+
+// 0 if the recurrence can run with all 2 * hidden / 8 blocks resident on
+// the current device, else a CUDA error (see bwd_check); one for each
+// variant.
+extern "C" int lstm_train_bwd_check(int batch, int hidden) {
+  return bwd_check<float>(batch, hidden);
+}
+extern "C" int lstm_train_bwd_check_bf16(int batch, int hidden) {
+  return bwd_check<__nv_bfloat16>(batch, hidden);
 }
 
 // Backward launch (1), the gate pass: gates = xg + h_prev W_hh^T into dg
@@ -388,11 +501,17 @@ extern "C" int lstm_train_bwd_check(int batch, int hidden) {
 extern "C" int lstm_train_bwd_gates_f32(const float* xg, const float* w_hh, const int* lengths,
                                         const float* h_prev, float* dg, int batch, int time,
                                         int hidden, void* stream) {
-  const int t_tiles = (time + GM - 1) / GM;
-  const dim3 grid(4 * hidden / GN, batch * t_tiles, 2);
-  lstm_train_bwd_gates_kernel<<<grid, GEMM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      xg, w_hh, lengths, h_prev, dg, batch, time, hidden);
-  return static_cast<int>(cudaGetLastError());
+  return bwd_gates<float>(xg, w_hh, lengths, h_prev, dg, batch, time, hidden, stream);
+}
+
+// The bf16 variant's gate pass: xg and h_prev in bf16, the float32 gates
+// into the float32 buffer gates [2, B, T, 4H], as lstm_train_bwd_gates_f32.
+extern "C" int lstm_train_bwd_gates_bf16(const __nv_bfloat16* xg, const float* w_hh,
+                                         const int* lengths, const __nv_bfloat16* h_prev,
+                                         float* gates, int batch, int time, int hidden,
+                                         void* stream) {
+  return bwd_gates<__nv_bfloat16>(xg, w_hh, lengths, h_prev, gates, batch, time, hidden,
+                                  stream);
 }
 
 // Backward launch (2), the recurrence: one cooperative launch of
@@ -403,11 +522,21 @@ extern "C" int lstm_train_bwd_gates_f32(const float* xg, const float* w_hh, cons
 extern "C" int lstm_train_bwd_recurrence_f32(const float* w_hh, const int* lengths,
                                              const float* c_prev, const float* dout, float* dg,
                                              int batch, int time, int hidden, void* stream) {
-  const int status = lstm_train_bwd_check(batch, hidden);
-  if (status != 0) return status;
-  void* args[] = {&w_hh, &lengths, &c_prev, &dout, &dg, &batch, &time, &hidden};
-  return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(lstm_train_bwd_recurrence_kernel), dim3(2 * hidden / REC_UNITS),
-      dim3(REC_THREADS), args, lstm_train_bwd_smem_bytes(batch, hidden),
-      static_cast<cudaStream_t>(stream)));
+  return bwd_recurrence<float>(w_hh, lengths, c_prev, dout, dg, nullptr, nullptr, batch, time,
+                               hidden, stream);
+}
+
+// The bf16 variant's recurrence: c_prev and dout in bf16, the float32
+// gates of lstm_train_bwd_gates_bf16 in gates (left as scratch), the
+// float32 scratch xchg [2, 2, B, 4H] (any contents) for the exchange of
+// dG, and dG in bf16 into dg [2, B, T, 4H], zero past each length.
+// Returns lstm_train_bwd_check_bf16's error without launching when the
+// grid cannot be resident, else the launch's error.
+extern "C" int lstm_train_bwd_recurrence_bf16(const float* w_hh, const int* lengths,
+                                              const __nv_bfloat16* c_prev,
+                                              const __nv_bfloat16* dout, float* gates,
+                                              float* xchg, __nv_bfloat16* dg, int batch,
+                                              int time, int hidden, void* stream) {
+  return bwd_recurrence<__nv_bfloat16>(w_hh, lengths, c_prev, dout, gates, xchg, dg, batch,
+                                       time, hidden, stream);
 }

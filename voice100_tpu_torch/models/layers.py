@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from ..ops.lstm import stack_directions
+from ..ops.lstm import default_compute_dtype, stack_directions
 from ..ops.lstm_cuda import bilstm_cuda, bilstm_train_cuda
 
 __all__ = [
@@ -47,7 +47,13 @@ def uniform_(param: torch.Tensor, bound: float,
 
 
 class ConvLayerBlock(nn.Module):
-    """Conv1d + channel LayerNorm (eps 1e-5) + exact GELU on ``[B, T, C]``."""
+    """Conv1d + channel LayerNorm (eps 1e-5) + exact GELU on ``[B, T, C]``.
+
+    Under the bf16 mode (``ops.lstm.default_compute_dtype``) the conv runs
+    in bf16 as flax's ``nn.Conv(dtype=bfloat16)`` does
+    (``voice100_tpu/models/layers.py:56-81``): input, weight and bias cast
+    to bf16, the convolution's result rounded to bf16 and the bias added
+    in bf16, then widened to float32 for the LayerNorm and GELU."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int, padding: int, bias: bool, device=None) -> None:
@@ -58,7 +64,15 @@ class ConvLayerBlock(nn.Module):
         self.layer_norm = nn.LayerNorm(out_channels, eps=1e-5, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x.transpose(1, 2)).transpose(1, 2)
+        if default_compute_dtype() == torch.bfloat16:
+            conv, bf16 = self.conv, torch.bfloat16
+            x = F.conv1d(x.transpose(1, 2).to(bf16), conv.weight.to(bf16), None, conv.stride,
+                         conv.padding)
+            if conv.bias is not None:
+                x = x + conv.bias.to(bf16)[:, None]
+            x = x.float().transpose(1, 2)
+        else:
+            x = self.conv(x.transpose(1, 2)).transpose(1, 2)
         return F.gelu(self.layer_norm(x))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -75,7 +89,8 @@ class ConvTransposeLayerBlock(nn.Module):
     ``[B, T, C]`` (``voice100_tpu/models/layers.py:84-120``); length
     ``(T - 1) * stride - 2 * padding + kernel_size``. The weight is
     torch's ``[in, out, k]``; the JAX kernel is the same taps flipped in
-    time (``tools/weights.py``)."""
+    time (``tools/weights.py``). Float32 under the bf16 mode too, as in
+    JAX (``layers.py:103-105``)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int, padding: int, bias: bool, device=None) -> None:
@@ -144,7 +159,9 @@ class BiLSTM(nn.Module):
     through :func:`voice100_tpu_torch.ops.lstm_cuda.bilstm_train_cuda`,
     on weights stacked from the parameters in each call so that the
     gradients reach them. Either way CUDA tensors take the kernels and
-    CPU tensors the plain loops.
+    CPU tensors the plain loops. Under the bf16 mode
+    (``ops.lstm.default_compute_dtype``, read at each call) both run
+    their bf16 variants, as the JAX Pallas path does under the knob.
 
     In training mode, ``dropout`` (0.2, torch convention) zeroes each
     output of every layer but the last with that probability and scales
@@ -215,8 +232,9 @@ class BiLSTM(nn.Module):
             x.requires_grad or any(p.requires_grad for p in self.parameters()))
         layers, layer_fn = ((self._stack(), bilstm_train_cuda) if needs_grad
                             else (self.stacked_layers(), bilstm_cuda))
+        compute_dtype = default_compute_dtype()
         for i, (w_ih, w_hh, bias) in enumerate(layers):
-            x = layer_fn(w_ih, w_hh, bias, x, lengths)
+            x = layer_fn(w_ih, w_hh, bias, x, lengths, compute_dtype)
             if self.training and self.dropout > 0.0 and i < self.num_layers - 1:
                 keep = torch.empty_like(x).bernoulli_(1.0 - self.dropout, generator=generator)
                 x = torch.where(keep.bool(), x / (1.0 - self.dropout), 0.0)

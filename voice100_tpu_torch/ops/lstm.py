@@ -18,18 +18,67 @@ products over ``(B, T)``.
 :func:`bilstm`, :func:`bilstm_train_fwd` and :func:`bilstm_train_bwd`
 are the plain versions of the CUDA kernels (``ops/lstm_cuda.py``), whose
 wrappers run them for tensors on the CPU.
+
+The bf16 mixed-precision mode (``voice100_tpu/ops/lstm.py:40-62``,
+``lstm_pallas.py:131-146, 232-321, 466-570``) is the process default
+:func:`set_default_compute_dtype` sets, else
+``VOICE100_TPU_MATMUL_DTYPE=bfloat16``. It rounds at the JAX Pallas
+path's points and nowhere else: the gate inputs ``xg`` stream in bf16
+(the inference path rounds a float32 projection, the training path
+projects bf16 operands with float32 accumulation), the training forward
+saves its states in bf16, and the backward reads bf16 ``dout`` and stores
+dG in bf16. Each recurrence, its carries and its gates stay float32.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+import os
+from typing import Dict, List, Optional
 
 import torch
 
 __all__ = ["lstm_direction", "stack_directions", "project_inputs", "bilstm",
-           "bilstm_train_fwd", "bilstm_train_bwd"]
+           "bilstm_train_fwd", "bilstm_train_bwd", "set_default_compute_dtype",
+           "default_compute_dtype", "matmul_f32"]
 
 Params = Dict[str, torch.Tensor]
+
+# The process default of the mixed-precision mode (None: float32), set by
+# the trainer's ``precision`` before a fit; VOICE100_TPU_MATMUL_DTYPE is
+# the fallback for serving.
+_DEFAULT_COMPUTE_DTYPE: Optional[torch.dtype] = None
+
+
+def set_default_compute_dtype(dtype: Optional[torch.dtype]) -> None:
+    """Set the process default compute dtype: ``torch.bfloat16`` for the
+    mixed-precision mode, ``None`` to restore float32."""
+    global _DEFAULT_COMPUTE_DTYPE
+    if dtype not in (None, torch.bfloat16):
+        raise ValueError(f"compute dtype {dtype}: only torch.bfloat16 or None")
+    _DEFAULT_COMPUTE_DTYPE = dtype
+
+
+def default_compute_dtype() -> Optional[torch.dtype]:
+    """``torch.bfloat16`` when the process default or
+    ``VOICE100_TPU_MATMUL_DTYPE=bfloat16`` asks for the mixed-precision
+    mode, else ``None``."""
+    if _DEFAULT_COMPUTE_DTYPE is not None:
+        return _DEFAULT_COMPUTE_DTYPE
+    name = os.environ.get("VOICE100_TPU_MATMUL_DTYPE", "")
+    return torch.bfloat16 if name == "bfloat16" else None
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The batched product ``a @ b`` (3-D, equal batch) of the bf16-rounded
+    operands with a float32 result, as ``jnp.einsum(...,
+    preferred_element_type=jnp.float32)`` on bf16 arrays. On the card one
+    cuBLAS bf16 product with float32 output; on the CPU, which has no such
+    product, the operands widened back to float32 (a product of two bf16
+    values is exact in float32, and the sums are float32 either way)."""
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if a.device.type == "cuda":
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
 
 
 def _cell(gates: torch.Tensor, c_prev: torch.Tensor):
@@ -80,12 +129,27 @@ def stack_directions(layer_params: Dict[str, Params]):
             torch.stack([fwd["b_ih"] + fwd["b_hh"], bwd["b_ih"] + bwd["b_hh"]]))
 
 
-def project_inputs(w_ih: torch.Tensor, bias: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def project_inputs(w_ih: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+                   compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Both directions' gate inputs ``x @ W_ih^T + b``: ``[2, B, T, 4H]``,
-    one batched matmul (``_dir_xg``, ``lstm_pallas.py:466-479``)."""
+    one batched matmul (``_dir_xg``, ``lstm_pallas.py:466-479``).
+
+    ``compute_dtype=torch.bfloat16`` is the training path's bf16 mode:
+    bf16 operands with float32 accumulation, the biases added in float32,
+    the sum rounded to bf16 (a bf16 result)."""
     batch, time, d_in = x.shape
-    xg = torch.matmul(x.reshape(1, batch * time, d_in), w_ih.transpose(1, 2)) + bias[:, None, :]
+    x2 = x.reshape(1, batch * time, d_in)
+    if compute_dtype == torch.bfloat16:
+        prod = matmul_f32(x2.expand(2, -1, -1), w_ih.transpose(1, 2))
+        xg = (prod + bias[:, None, :]).to(torch.bfloat16)
+    else:
+        xg = torch.matmul(x2, w_ih.transpose(1, 2)) + bias[:, None, :]
     return xg.reshape(2, batch, time, w_ih.shape[1])
+
+
+def _widen(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 tensor widened to float32; any other as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
 
 
 def _valid_steps(time: int, lengths: torch.Tensor, device) -> torch.Tensor:
@@ -122,7 +186,13 @@ def bilstm_train_fwd(xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor
         length) and ``h_prev, c_prev [2, B, T, H]``: the state entering
         the step at each source time, before its update (past a length
         the frozen state, as the JAX kernel saves it).
+
+    A bf16 ``xg`` is the bf16 mode: it is widened to float32, the
+    recurrence and ``out`` are float32, and the states are saved rounded
+    to bf16 (``state_dtype``, ``lstm_pallas.py:259-264``).
     """
+    state_dtype = xg.dtype
+    xg = _widen(xg)
     _, batch, time, gates4 = xg.shape
     hidden = gates4 // 4
     w_hh_t = w_hh.transpose(1, 2)  # [2, H, 4H]
@@ -139,7 +209,7 @@ def bilstm_train_fwd(xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor
         c = v * c_new + (1.0 - v) * c
         outs.append(h * v)
     out = _to_source_time(outs).permute(1, 2, 0, 3).reshape(batch, time, 2 * hidden)
-    return out, _to_source_time(hs), _to_source_time(cs)
+    return out, _to_source_time(hs).to(state_dtype), _to_source_time(cs).to(state_dtype)
 
 
 def bilstm_train_bwd(xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor,
@@ -157,7 +227,14 @@ def bilstm_train_bwd(xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor
     frozen step (``v = 0``) passes ``dh`` and ``dc`` through unchanged.
     ``dout`` is ``[B, T, 2H]``, the gradient of :func:`bilstm_train_fwd`'s
     ``out``.
+
+    A bf16 ``xg`` is the bf16 mode (``lstm_pallas.py:281-319``): ``xg``,
+    the bf16-stored states and ``dout`` (bf16 too) are widened to float32,
+    the gates, the carries and the ``dh`` product use the float32 dG, and
+    only the returned dG is rounded to bf16.
     """
+    dg_dtype = xg.dtype
+    xg, h_prev, c_prev, dout = (_widen(t) for t in (xg, h_prev, c_prev, dout))
     _, batch, time, gates4 = xg.shape
     hidden = gates4 // 4
     all_gates = xg + torch.matmul(h_prev, w_hh.transpose(1, 2)[:, None])  # [2, B, T, 4H]
@@ -181,16 +258,23 @@ def bilstm_train_bwd(xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor
         dgs[s] = da
         dh = torch.bmm(da, w_hh) + (1.0 - v) * dh
         dc = d_ccand * f + (1.0 - v) * dc
-    return _to_source_time(dgs)
+    return _to_source_time(dgs).to(dg_dtype)
 
 
 def bilstm(w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,
-           x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+           x: torch.Tensor, lengths: torch.Tensor,
+           compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Bidirectional layer: ``[B, T, D] -> [B, T, 2H]``, concat(fwd, bwd).
 
     Weights as :func:`stack_directions` gives them. Both directions
     advance in one loop, their recurrent products one batched matmul
     ``[2, B, H] x [2, H, 4H]`` a step, as the JAX scan does.
-    Differentiable by autograd.
+    Differentiable by autograd. ``compute_dtype=torch.bfloat16`` is the
+    inference path's bf16 mode (kernel 1's, ``lstm_pallas.py:131-146``):
+    the float32 projection is rounded to bf16; the recurrence stays
+    float32.
     """
-    return bilstm_train_fwd(project_inputs(w_ih, bias, x), w_hh, lengths)[0]
+    xg = project_inputs(w_ih, bias, x)
+    if compute_dtype == torch.bfloat16:
+        xg = xg.to(torch.bfloat16)
+    return bilstm_train_fwd(xg, w_hh, lengths)[0]

@@ -2,13 +2,20 @@
 
 * :func:`bilstm_cuda`, inference, replaces the TPU kernel
   ``voice100_tpu/ops/lstm_pallas.py::_kernel`` (``_bilstm_pallas_call``
-  via ``bilstm_pallas``) with its float32 semantics;
+  via ``bilstm_pallas``);
 * :func:`bilstm_train_fwd_cuda` and :func:`bilstm_train_bwd_cuda`, the
-  training pair, replace ``_kernel_train_fwd`` and ``_kernel_train_bwd``
-  (float32 variants);
+  training pair, replace ``_kernel_train_fwd`` and ``_kernel_train_bwd``;
 * :class:`BiLSTMFunction` (:func:`bilstm_train_cuda`) is the
   ``torch.autograd.Function`` in the shape of ``_bilstm_op``
   (``lstm_pallas.py:482-573``).
+
+Each kernel has a float32 variant and a bf16 one, the mixed-precision
+mode of ``ops/lstm.py`` (the ``*_bf16`` entries of the CUDA sources):
+``compute_dtype=torch.bfloat16`` for :func:`bilstm_cuda` and
+:func:`bilstm_train_cuda`, a bf16 ``xg`` for the training pair, which
+then takes bf16 states and ``dout`` and nothing else. Each wrapper counts
+the launches of its float32 variant in ``launches`` and of its bf16
+variant in ``launches_bf16``.
 
 The input projection ``x @ W_ih^T + b_ih + b_hh`` stays a
 ``torch.matmul``, outside the kernels as in the JAX wrappers, and so do
@@ -29,18 +36,19 @@ the kernels.
 
 For tensors on the CPU each wrapper runs its plain version from
 :mod:`voice100_tpu_torch.ops.lstm`. For CUDA tensors it launches the
-kernel or raises; it never falls back. Each wrapper counts its kernel
-launches in its ``launches`` attribute.
+kernel or raises; it never falls back: a tensor of another dtype than
+the variant takes raises ``ValueError`` before anything is launched.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from ..kernels.build import check, load
-from .lstm import bilstm, bilstm_train_bwd, bilstm_train_fwd, project_inputs
+from .lstm import bilstm, bilstm_train_bwd, bilstm_train_fwd, matmul_f32, project_inputs
 
 __all__ = ["bilstm_cuda", "bilstm_train_fwd_cuda", "bilstm_train_bwd_cuda",
            "BiLSTMFunction", "bilstm_train_cuda", "length_order"]
@@ -50,40 +58,59 @@ _SMEM_OPTIN_LIMIT = 232448  # the H100's shared memory a block can opt into
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
+def _declare(lib, pointers: int, names) -> None:
+    """ctypes signatures: ``pointers`` pointers, batch, time, hidden and
+    the stream."""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = [_P] * pointers + [_I] * 3 + [_P]
+        fn.restype = _I
+
+
+def _declare_sizes(lib, names) -> None:
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = [_I, _I]
+        fn.restype = _I
+
+
 def _lib():
     lib = load("bilstm")
     if lib.bilstm_f32.argtypes is None:
-        lib.bilstm_f32.argtypes = [_P] * 7 + [_I] * 3 + [_P]
-        lib.bilstm_f32.restype = _I
-        for fn in (lib.bilstm_smem_bytes, lib.bilstm_check):
-            fn.argtypes = [_I, _I]
-            fn.restype = _I
+        _declare(lib, 7, ("bilstm_f32", "bilstm_bf16"))
+        _declare_sizes(lib, ("bilstm_smem_bytes", "bilstm_check", "bilstm_check_bf16"))
     return lib
 
 
 def _train_lib():
     lib = load("bilstm_train")
     if lib.lstm_train_fwd_f32.argtypes is None:
-        lib.lstm_train_fwd_f32.argtypes = [_P] * 9 + [_I] * 3 + [_P]
-        lib.lstm_train_fwd_f32.restype = _I
-        lib.lstm_train_bwd_gates_f32.argtypes = [_P] * 5 + [_I] * 3 + [_P]
-        lib.lstm_train_bwd_gates_f32.restype = _I
-        lib.lstm_train_bwd_recurrence_f32.argtypes = [_P] * 5 + [_I] * 3 + [_P]
-        lib.lstm_train_bwd_recurrence_f32.restype = _I
-        for fn in (lib.lstm_train_fwd_smem_bytes, lib.lstm_train_fwd_check,
-                   lib.lstm_train_bwd_smem_bytes, lib.lstm_train_bwd_check):
-            fn.argtypes = [_I, _I]
-            fn.restype = _I
+        _declare(lib, 9, ("lstm_train_fwd_f32", "lstm_train_fwd_bf16"))
+        _declare(lib, 5, ("lstm_train_bwd_gates_f32", "lstm_train_bwd_gates_bf16",
+                          "lstm_train_bwd_recurrence_f32"))
+        _declare(lib, 7, ("lstm_train_bwd_recurrence_bf16",))
+        _declare_sizes(lib, ("lstm_train_fwd_smem_bytes", "lstm_train_fwd_check",
+                             "lstm_train_fwd_check_bf16", "lstm_train_bwd_smem_bytes",
+                             "lstm_train_bwd_check", "lstm_train_bwd_check_bf16"))
     return lib
 
 
-def _check_cuda(name: str, tensors, shapes) -> None:
+def _variant(name: str, xg: torch.Tensor) -> str:
+    """``"f32"`` or ``"bf16"``, the variant the dtype of ``xg`` selects."""
+    if xg.dtype == torch.float32:
+        return "f32"
+    if xg.dtype == torch.bfloat16:
+        return "bf16"
+    raise ValueError(f"{name}: xg must be float32 or bfloat16, got {xg.dtype}")
+
+
+def _check_cuda(name: str, tensors, shapes, dtypes) -> None:
     device = tensors[0].device
     if device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {device}")
-    for t, shape in zip(tensors, shapes):
-        if t.dtype != torch.float32 or t.device != device:
-            raise ValueError(f"{name}: every tensor must be float32 on {device}")
+    for t, shape, dtype in zip(tensors, shapes, dtypes):
+        if t.dtype != dtype or t.device != device:
+            raise ValueError(f"{name}: expected {dtype} on {device}, got {t.dtype} on {t.device}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
         if not t.is_contiguous():
@@ -91,22 +118,27 @@ def _check_cuda(name: str, tensors, shapes) -> None:
 
 
 def bilstm_cuda(w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,
-                x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """Bidirectional layer ``[B, T, D] -> [B, T, 2H]`` (float32, inference).
+                x: torch.Tensor, lengths: torch.Tensor,
+                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Bidirectional layer ``[B, T, D] -> [B, T, 2H]`` (inference).
 
     ``w_ih [2, 4H, D]``, ``w_hh [2, 4H, H]`` (contiguous) and
     ``bias [2, 4H]`` hold the forward then the backward direction, as
     :func:`voice100_tpu_torch.ops.lstm.stack_directions` gives them;
-    ``lengths [B]`` are the valid lengths. Same semantics as the plain
-    :func:`bilstm`. One launch (``csrc/bilstm.cu``).
+    ``lengths [B]`` are the valid lengths; all float32. Same semantics as
+    the plain :func:`bilstm`. One launch (``csrc/bilstm.cu``): the float32
+    variant, or with ``compute_dtype=torch.bfloat16`` the bf16 one on the
+    float32 projection rounded to bf16.
 
     Raises ``ValueError`` for ``H`` not a multiple of 32 or a batch whose
     carry does not fit one block's shared memory, and ``RuntimeError``
     when the device cannot launch the recurrence cooperatively with all
     its ``2 H / 8`` blocks resident; there is no other path.
     """
+    if compute_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"bilstm_cuda: compute dtype {compute_dtype}: only bfloat16 or None")
     if x.device.type == "cpu":
-        return bilstm(w_ih, w_hh, bias, x, lengths)
+        return bilstm(w_ih, w_hh, bias, x, lengths, compute_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"bilstm_cuda: unsupported device {x.device}")
     batch, time, d_in = x.shape
@@ -120,13 +152,21 @@ def bilstm_cuda(w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,
         raise ValueError("bilstm_cuda: w_hh must be contiguous")
     if lengths.shape != (batch,):
         raise ValueError(f"bilstm_cuda: lengths must be [{batch}], got {tuple(lengths.shape)}")
-    xg = project_inputs(w_ih, bias, x).contiguous()                  # [2, B, T, 4H]
+    xg = project_inputs(w_ih, bias, x).to(compute_dtype or torch.float32).contiguous()
     out, _ = _forward("bilstm_cuda", xg, w_hh, lengths, save_states=False)
-    bilstm_cuda.launches += 1
+    _count(bilstm_cuda, xg)
     return out
 
 
-bilstm_cuda.launches = 0
+def _count(wrapper, xg: torch.Tensor) -> None:
+    """One launch of ``wrapper``'s variant for ``xg``."""
+    if xg.dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
+
+
+bilstm_cuda.launches = bilstm_cuda.launches_bf16 = 0
 
 
 def length_order(lengths: torch.Tensor) -> torch.Tensor:
@@ -138,11 +178,14 @@ def length_order(lengths: torch.Tensor) -> torch.Tensor:
 
 
 def _layer_setup(name: str, xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor):
-    """Checks of a layer's recurrence inputs; ``(batch, time, hidden,
-    lengths as int32 on the card)``."""
+    """Checks of a layer's recurrence inputs (``xg`` float32 or bf16,
+    ``w_hh`` float32); ``(batch, time, hidden, lengths as int32 on the
+    card)``."""
     _, batch, time, gates4 = xg.shape
     hidden = gates4 // 4
-    _check_cuda(name, (xg, w_hh), ((2, batch, time, gates4), (2, gates4, hidden)))
+    _variant(name, xg)
+    _check_cuda(name, (xg, w_hh), ((2, batch, time, gates4), (2, gates4, hidden)),
+                (xg.dtype, torch.float32))
     if lengths.shape != (batch,):
         raise ValueError(f"{name}: lengths must be [{batch}], got {tuple(lengths.shape)}")
     if hidden % _MULTIPLE:
@@ -150,37 +193,42 @@ def _layer_setup(name: str, xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch
     return batch, time, hidden, lengths.to(device=xg.device, dtype=torch.int32).contiguous()
 
 
-def _check_resident(name: str, lib, prefix: str, batch: int, hidden: int) -> None:
+def _check_resident(name: str, lib, prefix: str, variant: str, batch: int, hidden: int) -> None:
     """Raise unless the cooperative grid of the library's ``prefix``
-    entries fits one block's shared memory and can be resident."""
+    entries (``variant`` ``"f32"`` or ``"bf16"``) fits one block's shared
+    memory and can be resident."""
     if getattr(lib, f"{prefix}_smem_bytes")(batch, hidden) > _SMEM_OPTIN_LIMIT:
         raise ValueError(f"{name}: W_hh's slice and the carry of batch {batch}, hidden "
                          f"{hidden} do not fit one block's shared memory")
-    check(lib, getattr(lib, f"{prefix}_check")(batch, hidden), f"{name} (cooperative launch)")
+    suffix = "_bf16" if variant == "bf16" else ""
+    check(lib, getattr(lib, f"{prefix}_check{suffix}")(batch, hidden),
+          f"{name} (cooperative launch)")
 
 
 def _forward(name: str, xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor,
              save_states: bool):
     """One persistent launch of the forward recurrence: kernel 1
     (``out [B, T, 2H]``, ``[]``) or, with ``save_states``, kernel 2
-    (``out``, ``[h_prev, c_prev]``, each ``[2, B, T, H]``). Raises before
-    launching anything when the grid cannot be resident."""
+    (``out``, ``[h_prev, c_prev]``, each ``[2, B, T, H]`` in the dtype of
+    ``xg``). Raises before launching anything when the grid cannot be
+    resident."""
     batch, time, hidden, lengths = _layer_setup(name, xg, w_hh, lengths)
+    variant = _variant(name, xg)
     lib, prefix = (_train_lib(), "lstm_train_fwd") if save_states else (_lib(), "bilstm")
     device = xg.device
     order = length_order(lengths)
     xchg = torch.empty(2, 2, batch, hidden, device=device)        # [ping-pong, dir, B, H]
     ready = torch.empty(2 * hidden // 8, dtype=torch.int32, device=device)  # a flag a block
     out = torch.empty(batch, time, 2 * hidden, device=device)
-    states = [torch.empty(2, batch, time, hidden, device=device) for _ in range(2)] \
-        if save_states else []
+    states = [torch.empty(2, batch, time, hidden, device=device, dtype=xg.dtype)
+              for _ in range(2)] if save_states else []
     with torch.cuda.device(device):
-        _check_resident(name, lib, prefix, batch, hidden)
-        status = getattr(lib, f"{prefix}_f32")(
+        _check_resident(name, lib, prefix, variant, batch, hidden)
+        status = getattr(lib, f"{prefix}_{variant}")(
             xg.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(), order.data_ptr(),
             xchg.data_ptr(), ready.data_ptr(), out.data_ptr(), *[t.data_ptr() for t in states],
             batch, time, hidden, torch.cuda.current_stream().cuda_stream)
-        check(lib, status, f"{prefix}_f32")
+        check(lib, status, f"{prefix}_{variant}")
     return out, states
 
 
@@ -188,16 +236,17 @@ def bilstm_train_fwd_cuda(xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.T
     """The state-saving recurrence (kernel ``csrc/bilstm_train.cu``, one
     launch): ``xg [2, B, T, 4H]``, ``w_hh [2, 4H, H]`` -> ``out [B, T, 2H]``,
     ``h_prev, c_prev [2, B, T, H]``, as the plain
-    :func:`voice100_tpu_torch.ops.lstm.bilstm_train_fwd`. Raises as
-    :func:`bilstm_cuda` does."""
+    :func:`voice100_tpu_torch.ops.lstm.bilstm_train_fwd`. A bf16 ``xg``
+    launches the bf16 variant, whose states are bf16; ``out`` is float32
+    either way. Raises as :func:`bilstm_cuda` does."""
     if xg.device.type == "cpu":
         return bilstm_train_fwd(xg, w_hh, lengths)
     out, (h_prev, c_prev) = _forward("bilstm_train_fwd_cuda", xg, w_hh, lengths, save_states=True)
-    bilstm_train_fwd_cuda.launches += 1
+    _count(bilstm_train_fwd_cuda, xg)
     return out, h_prev, c_prev
 
 
-bilstm_train_fwd_cuda.launches = 0
+bilstm_train_fwd_cuda.launches = bilstm_train_fwd_cuda.launches_bf16 = 0
 
 
 def bilstm_train_bwd_cuda(xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor,
@@ -205,57 +254,79 @@ def bilstm_train_bwd_cuda(xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.T
                           dout: torch.Tensor) -> torch.Tensor:
     """dG ``[2, B, T, 4H]`` (kernels ``csrc/bilstm_train.cu``, two
     launches: the gate pass ``xg + h_prev W_hh^T`` over the valid rows,
-    written into the dG buffer, then one cooperative launch for the whole
-    reverse recurrence, which overwrites it with dG), as the plain
-    :func:`voice100_tpu_torch.ops.lstm.bilstm_train_bwd`.
+    then one cooperative launch for the whole reverse recurrence), as the
+    plain :func:`voice100_tpu_torch.ops.lstm.bilstm_train_bwd`.
 
-    Raises ``ValueError`` for shapes whose ``W_hh`` columns and carry do
-    not fit one block's shared memory, and ``RuntimeError`` when the
-    device cannot launch the recurrence cooperatively with all its
-    ``2 H / 8`` blocks resident; there is no other path.
+    The float32 variant writes the gates into the dG buffer, which the
+    recurrence overwrites with dG. A bf16 ``xg`` launches the bf16
+    variant, which takes bf16 ``h_prev``, ``c_prev`` and ``dout`` and
+    returns dG in bf16; its gates go to a float32 buffer of their own and
+    the blocks exchange the float32 dG through a second one, so nothing
+    that forms the next step is rounded.
+
+    Raises ``ValueError`` for another dtype than the variant's, or for
+    shapes whose ``W_hh`` columns and carry do not fit one block's shared
+    memory, and ``RuntimeError`` when the device cannot launch the
+    recurrence cooperatively with all its ``2 H / 8`` blocks resident;
+    there is no other path.
     """
     if xg.device.type == "cpu":
         return bilstm_train_bwd(xg, w_hh, lengths, h_prev, c_prev, dout)
     name = "bilstm_train_bwd_cuda"
     batch, time, hidden, lengths = _layer_setup(name, xg, w_hh, lengths)
+    variant = _variant(name, xg)
     _check_cuda(name, (h_prev, c_prev, dout),
-                ((2, batch, time, hidden),) * 2 + ((batch, time, 2 * hidden),))
+                ((2, batch, time, hidden),) * 2 + ((batch, time, 2 * hidden),), (xg.dtype,) * 3)
     lib = _train_lib()
     dg = torch.empty_like(xg)
+    bf16 = variant == "bf16"
+    # bf16: the float32 gates, and the float32 dG exchange [ping-pong, dir, B, 4H]
+    gates = torch.empty(xg.shape, device=xg.device) if bf16 else dg
+    scratch = [torch.empty(2, 2, batch, 4 * hidden, device=xg.device), dg] if bf16 else []
     with torch.cuda.device(xg.device):
-        _check_resident(name, lib, "lstm_train_bwd", batch, hidden)
+        _check_resident(name, lib, "lstm_train_bwd", variant, batch, hidden)
         stream = torch.cuda.current_stream().cuda_stream
-        status = lib.lstm_train_bwd_gates_f32(xg.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(),
-                                              h_prev.data_ptr(), dg.data_ptr(), batch, time,
-                                              hidden, stream)
-        check(lib, status, "lstm_train_bwd_gates_f32")
-        bilstm_train_bwd_cuda.launches += 1
-        status = lib.lstm_train_bwd_recurrence_f32(w_hh.data_ptr(), lengths.data_ptr(),
-                                                   c_prev.data_ptr(), dout.data_ptr(),
-                                                   dg.data_ptr(), batch, time, hidden, stream)
-        check(lib, status, "lstm_train_bwd_recurrence_f32")
-        bilstm_train_bwd_cuda.launches += 1
+        entry = f"lstm_train_bwd_gates_{variant}"
+        status = getattr(lib, entry)(xg.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(),
+                                     h_prev.data_ptr(), gates.data_ptr(), batch, time, hidden,
+                                     stream)
+        check(lib, status, entry)
+        _count(bilstm_train_bwd_cuda, xg)
+        entry = f"lstm_train_bwd_recurrence_{variant}"
+        status = getattr(lib, entry)(w_hh.data_ptr(), lengths.data_ptr(), c_prev.data_ptr(),
+                                     dout.data_ptr(), gates.data_ptr(),
+                                     *[t.data_ptr() for t in scratch], batch, time, hidden,
+                                     stream)
+        check(lib, status, entry)
+        _count(bilstm_train_bwd_cuda, xg)
     return dg
 
 
-bilstm_train_bwd_cuda.launches = 0
+bilstm_train_bwd_cuda.launches = bilstm_train_bwd_cuda.launches_bf16 = 0
 
 
 class BiLSTMFunction(torch.autograd.Function):
     """One bidirectional layer with the training kernel pair: the
     counterpart of ``_bilstm_op`` (``lstm_pallas.py:482-573``).
 
-    Forward: ``xg`` by ``torch.matmul``, then the state-saving
-    recurrence; ``xg``, the states, ``x`` and the lengths are saved.
-    Backward: the dG kernels (two launches), then ``dW_ih = dG^T x``,
-    ``dW_hh = dG^T h_prev``, ``d bias = sum dG`` and ``dx = dG W_ih`` as
-    plain products. The bias is ``b_ih + b_hh``, so both get ``sum dG``.
+    Forward: ``xg`` by a matmul, then the state-saving recurrence; ``xg``,
+    the states, ``x`` and the lengths are saved. Backward: the dG kernels
+    (two launches), then ``dW_ih = dG^T x``, ``dW_hh = dG^T h_prev``,
+    ``d bias = sum dG`` and ``dx = dG W_ih`` as plain products. The bias is
+    ``b_ih + b_hh``, so both get ``sum dG``.
+
+    With ``bf16`` (``_bilstm_op(True, ...)``) the projection takes bf16
+    operands with float32 accumulation and streams ``xg`` in bf16, the
+    kernels run their bf16 variants (bf16 states, ``dout`` and dG), the
+    weight and input gradients are products of bf16 operands with float32
+    results (``lstm_pallas.py:523-528``) and ``d bias`` sums the bf16 dG
+    in float32 (``:560``).
     """
 
     @staticmethod
-    def forward(ctx, w_ih, w_hh, bias, x, lengths):
+    def forward(ctx, w_ih, w_hh, bias, x, lengths, bf16=False):
         w_hh = w_hh.contiguous()
-        xg = project_inputs(w_ih, bias, x).contiguous()
+        xg = project_inputs(w_ih, bias, x, torch.bfloat16 if bf16 else None).contiguous()
         out, h_prev, c_prev = bilstm_train_fwd_cuda(xg, w_hh, lengths)
         ctx.save_for_backward(w_ih, w_hh, x, lengths, xg, h_prev, c_prev)
         return out
@@ -264,22 +335,30 @@ class BiLSTMFunction(torch.autograd.Function):
     def backward(ctx, dout):
         w_ih, w_hh, x, lengths, xg, h_prev, c_prev = ctx.saved_tensors
         _, batch, time, gates4 = xg.shape
-        dg = bilstm_train_bwd_cuda(xg, w_hh, lengths, h_prev, c_prev, dout.contiguous())
+        bf16 = xg.dtype == torch.bfloat16
+        dg = bilstm_train_bwd_cuda(xg, w_hh, lengths, h_prev, c_prev,
+                                   dout.to(xg.dtype).contiguous())
         dg2 = dg.reshape(2, batch * time, gates4)
+        mm = matmul_f32 if bf16 else torch.matmul
+        x2 = x.reshape(1, batch * time, -1)
         d_w_ih = d_w_hh = d_bias = d_x = None
         if ctx.needs_input_grad[0]:
-            d_w_ih = torch.matmul(dg2.transpose(1, 2), x.reshape(1, batch * time, -1))
+            d_w_ih = mm(dg2.transpose(1, 2), x2.expand(2, -1, -1) if bf16 else x2)
         if ctx.needs_input_grad[1]:
-            d_w_hh = torch.matmul(dg2.transpose(1, 2), h_prev.reshape(2, batch * time, -1))
+            d_w_hh = mm(dg2.transpose(1, 2), h_prev.reshape(2, batch * time, -1))
         if ctx.needs_input_grad[2]:
-            d_bias = dg2.sum(dim=1)
+            d_bias = (dg2.float() if bf16 else dg2).sum(dim=1)
         if ctx.needs_input_grad[3]:
-            d_x = torch.matmul(dg2, w_ih).sum(dim=0).reshape(x.shape)
-        return d_w_ih, d_w_hh, d_bias, d_x, None
+            d_x = mm(dg2, w_ih).sum(dim=0).reshape(x.shape)
+        return d_w_ih, d_w_hh, d_bias, d_x, None, None
 
 
 def bilstm_train_cuda(w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,
-                      x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+                      x: torch.Tensor, lengths: torch.Tensor,
+                      compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Differentiable bidirectional layer ``[B, T, D] -> [B, T, 2H]``,
-    weights as :func:`bilstm_cuda` takes them (:class:`BiLSTMFunction`)."""
-    return BiLSTMFunction.apply(w_ih, w_hh, bias, x, lengths)
+    weights as :func:`bilstm_cuda` takes them (:class:`BiLSTMFunction`);
+    ``compute_dtype=torch.bfloat16`` runs its bf16 mode."""
+    if compute_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"bilstm_train_cuda: compute dtype {compute_dtype}: only bfloat16 or None")
+    return BiLSTMFunction.apply(w_ih, w_hh, bias, x, lengths, compute_dtype == torch.bfloat16)

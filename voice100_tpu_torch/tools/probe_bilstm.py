@@ -72,7 +72,7 @@ _DG_PHASE = "for (int p = tid; p < batch * REC_UNITS; p += REC_THREADS) {"
 _DH_PRODUCT = "for (int b0 = 0; b0 < batch; b0 += REC_BT) {"
 _BWD_PREFETCH = "    if (s > 0) {\n      const int tn"
 _DH_COMPUTE = "for (int kq = 0; kq < REC_Q; kq += 4) {"
-_DG_STREAM = "cp_async16(dst + r * REC_Q_PAD + col, dg + row * gates4 + chunk * REC_Q + col, live);"
+_DG_STREAM = "cp_async16(dst + r * REC_Q_PAD + col, ex + row * ex_stride + chunk * REC_Q + col, live);"
 
 
 def _check_anchors(src: str, anchors, where: str) -> None:

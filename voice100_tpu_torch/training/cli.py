@@ -18,7 +18,9 @@ the WORLD statistics (``tools/calc_stat.py``) that ``fit`` loads into the
 model's ``norm`` buffers before the first step, where the file exists.
 ``fit`` draws the model's initial weights on the CPU from a generator
 seeded with the config's ``seed_everything``, so one config gives one
-start on any device.
+start on any device. ``--precision`` (or ``trainer.precision``) ``16``,
+``bf16``, ``bfloat16`` or ``16-mixed`` runs every subcommand in bf16
+mixed precision (``training/trainer.py``), ``32`` in float32.
 
 Checkpoints are the port's ``.pt`` files (``best.pt``, ``last.pt``,
 ``epoch_N.pt`` under ``--checkpoint_dir``, default
@@ -49,7 +51,7 @@ from ..data.datamodule import AlignTextDataModule, AudioTextDataModule
 from ..models import AlignTextToAudio, AudioToAlignText, TextToAlignText
 from .checkpoint import load_model_weights, merge_world_stats
 from .tasks import make_task
-from .trainer import BF16_ITEM, Trainer, TrainerConfig, _host
+from .trainer import Trainer, TrainerConfig, _host
 
 __all__ = ["load_config", "build_from_config", "build_trainer_config", "config_audio_stat",
            "load_model", "main", "cli_main", "UNPORTED"]
@@ -63,8 +65,6 @@ DISTRIBUTED_ITEM = "ROADMAP.md queue 1, item 10: serving, tools and distributed"
 UNPORTED = {
     "mesh_model_axis": ((1,), DISTRIBUTED_ITEM),
     "profile_dir": ((None,), DISTRIBUTED_ITEM),
-    # "float32" is what the port uploads anyway
-    "upload_dtype": (("auto", "float32"), BF16_ITEM),
     "device_cache": ((False,), DATA_SHELL_ITEM),
     "device_cache_max_bytes": ((8 * 1024**3,), DATA_SHELL_ITEM),
     "steps_per_dispatch": ((1,), DATA_SHELL_ITEM),
@@ -266,7 +266,9 @@ def _parser() -> argparse.ArgumentParser:
                         help="fit: WORLD statistics (.npz of tools/calc_stat) for a TTS "
                              "model, over the config's audio_stat")
     parser.add_argument("--precision", type=str, default=None,
-                        help="32 (default); the bf16 path is not ported yet")
+                        help="32 (default) or 16/bf16/bfloat16/16-mixed: bf16 mixed precision "
+                             "with float32 master weights (the reference's --trainer.precision "
+                             "16); every subcommand runs the model in it")
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (default) or cpu (the plain PyTorch path)")
     parser.add_argument("--mesh_model_axis", type=int, default=1,
@@ -295,6 +297,7 @@ def _run(args) -> Optional[Dict[str, float]]:
     if tc.checkpoint_dir is None:
         tc.checkpoint_dir = os.path.join("checkpoints", base)
     trainer = Trainer(tc)
+    trainer.apply_precision()
     try:
         # fit starts from the weights of the config's seed_everything, as the
         # JAX trainer draws them from PRNGKey(seed); the other subcommands

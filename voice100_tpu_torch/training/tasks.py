@@ -11,10 +11,14 @@ v2 models the port trains:
   model's ``logspc_weight``, each reported under the JAX package's name.
 
 A batch's leaves move to the model's device; half-precision features are
-widened to float32 there (``upcast_float_inputs``). WORLD targets are
-never down-cast on the way (``tasks.py:57-61``): the port uploads
-float32 as collated. Each model's optimizer is plain Adam at its
-``learning_rate``.
+widened to float32 there (``upcast_float_inputs``, ``tasks.py:66-75``).
+Under a bf16 upload (``TrainerConfig.upload_dtype``) the trainer first
+rounds a train batch's float32 INPUT leaves to bf16 on the host through
+``Task.upload_cast`` (``tasks.py:49-62, 126-131``): the first pair's
+array of a pair layout (audio features; int text ids pass), nothing of
+the WORLD layout, whose float leaves are supervision targets. Targets
+never quantize, and the float16 feature cache is left as it is. Each
+model's optimizer is plain Adam at its ``learning_rate``.
 """
 
 from __future__ import annotations
@@ -44,6 +48,19 @@ def _world_args(batch):
     return (f0, f0_len, logspc, codeap, text, text_len)
 
 
+def _pair_upload_cast(batch, cast):
+    """The bf16 upload of a pair layout: only the first pair's array is a
+    model input; the second pair is supervision and uploads as collated."""
+    (a, a_len), (b, b_len) = batch
+    return ((cast(a), a_len), (b, b_len))
+
+
+def _no_upload_cast(batch, cast):
+    """The WORLD layout: float supervision targets and integer text
+    inputs, nothing that may quantize on upload."""
+    return batch
+
+
 def _scalar_post(model, values) -> Tuple[torch.Tensor, Metrics]:
     return values, {"loss": values}
 
@@ -65,6 +82,8 @@ class Task:
         self.model = model
         self.extract_args = extract_args
         self.postprocess = postprocess
+        # which batch leaves may quantize on a bf16 upload: inputs only
+        self.upload_cast = _pair_upload_cast if extract_args is _pair_args else _no_upload_cast
 
     def loss(self, batch, train: bool,
              generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Metrics]:

@@ -23,11 +23,22 @@ and scales whenever ``norm > max``).
 
 The trainer runs on the model's device and never moves it: a model
 built for ``cuda`` on a machine without CUDA has raised already
-(:func:`voice100_tpu_torch.device.resolve_device`). Float32 only: another
-``precision`` raises. The JAX trainer's meshes, device feature cache,
-multi-step dispatch, profiling and bf16 uploads are not ported; their
-settings have no field here, and a config that sets them raises
-(``training/cli.py`` ``UNPORTED``).
+(:func:`voice100_tpu_torch.device.resolve_device`).
+
+``precision`` is ``"32"`` (the default) or bf16 mixed precision under
+any of the JAX trainer's aliases ``"16"``, ``"bf16"``, ``"bfloat16"``,
+``"16-mixed"`` (``voice100_tpu/training/trainer.py:54-75, 239-250``);
+anything else raises.
+:meth:`Trainer.fit` sets the process compute dtype from it
+(``ops.lstm.set_default_compute_dtype``: bf16 conv blocks and the bf16
+variants of the biLSTM kernels, float32 master weights and optimizer),
+and resets it to float32 for a float32 fit. ``upload_dtype`` rounds each
+train batch's float32 input leaves to bf16 on the host (``"auto"``: when
+the precision is bf16); validation batches upload as collated.
+
+The JAX trainer's meshes, device feature cache, multi-step dispatch and
+profiling are not ported; their settings have no field here, and a
+config that sets them raises (``training/cli.py`` ``UNPORTED``).
 """
 
 from __future__ import annotations
@@ -43,13 +54,17 @@ from typing import Any, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from ..ops.lstm import set_default_compute_dtype
 from ..ops.metrics import error_rate
 from .checkpoint import TrainState, restore_checkpoint, save_checkpoint
 from .tasks import Task, make_task
 
 __all__ = ["Trainer", "TrainerConfig", "TrainState", "clip_by_global_norm"]
 
-BF16_ITEM = "ROADMAP.md queue 1, item 5: the bf16 precision path"
+# the JAX trainer's names of its two precisions
+# (voice100_tpu/training/trainer.py:243, 431-440)
+BF16_PRECISIONS = ("16", "bf16", "bfloat16", "16-mixed")
+PRECISIONS = ("32",) + BF16_PRECISIONS
 # the JAX trainer's words (voice100_tpu/training/trainer.py:293-297)
 IDENTITY_STATS_WARNING = ("WORLD norm stats are identity; run tools.calc_stat and pass "
                           "--audio_stat, or the f0 stream will dominate the TTS loss")
@@ -66,8 +81,12 @@ class TrainerConfig:
     log_every_n_steps: int = 10
     seed: int = 1234
     log_path: Optional[str] = None
-    # "32" only: the bf16 mixed-precision path is not ported yet
+    # "32", or bf16 mixed precision under any of BF16_PRECISIONS
     precision: str = "32"
+    # host->device dtype of a train batch's float32 input leaves: "auto"
+    # (bf16 when the precision is), "bfloat16"/"bf16"/"16", or any other
+    # value for float32; targets always upload as collated
+    upload_dtype: str = "auto"
 
 
 @torch.no_grad()
@@ -97,11 +116,21 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def _to_bf16(a):
+    """A float32 leaf (numpy or tensor) rounded to bf16, where it lies;
+    any other leaf as it is."""
+    if isinstance(a, np.ndarray) and a.dtype == np.float32:
+        return torch.from_numpy(a).to(torch.bfloat16)
+    if isinstance(a, torch.Tensor) and a.dtype == torch.float32:
+        return a.to(torch.bfloat16)
+    return a
+
+
 class Trainer:
     def __init__(self, config: TrainerConfig) -> None:
-        if str(config.precision) != "32":
-            raise ValueError(f"precision {config.precision!r}: only '32' is ported; "
-                             f"the bf16 mixed-precision path is not ported yet ({BF16_ITEM})")
+        if str(config.precision) not in PRECISIONS:
+            raise ValueError(f"precision {config.precision!r}: '32' or bf16 mixed precision "
+                             f"({', '.join(repr(p) for p in BF16_PRECISIONS)})")
         self.config = config
         self._stop_requested = False
         self._log_file = None
@@ -121,6 +150,23 @@ class Trainer:
         if self._log_file:
             self._log_file.write(json.dumps(record) + "\n")
             self._log_file.flush()
+
+    def _bf16(self) -> bool:
+        return str(self.config.precision) in BF16_PRECISIONS
+
+    def apply_precision(self) -> None:
+        """Set the process compute dtype from ``precision``: bf16, or back
+        to float32, so that an earlier bf16 run of this process does not
+        leak into a float32 one."""
+        set_default_compute_dtype(torch.bfloat16 if self._bf16() else None)
+
+    def _upload_bf16(self) -> bool:
+        """Whether train batches upload their float32 inputs as bf16
+        (``voice100_tpu/training/trainer.py:431-440``)."""
+        mode = str(self.config.upload_dtype)
+        if mode in ("bfloat16", "bf16", "16"):
+            return True
+        return mode == "auto" and self._bf16()
 
     def request_stop(self) -> None:
         """The programmatic SIGTERM: stop after the current step, saving
@@ -248,6 +294,7 @@ class Trainer:
         On a stop request the current step finishes, ``{"event":
         "stopped"}`` is logged, ``last.pt`` saved and the state returned."""
         cfg = self.config
+        self.apply_precision()
         datamodule = None
         if hasattr(data, "setup") and hasattr(data, "train_dataloader"):
             if val_batches is not None:
@@ -269,7 +316,8 @@ class Trainer:
             # stream (hundreds of Hz) then dominates the WORLD loss
             self._log({"event": "warning", "message": IDENTITY_STATS_WARNING})
         self._log({"event": "fit_start", "params": sum(p.numel() for p in model.parameters()),
-                   "steps_per_epoch": len(train_batches), "device": str(device)})
+                   "steps_per_epoch": len(train_batches), "device": str(device),
+                   "upload": "bf16" if self._upload_bf16() else "f32"})
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
         installed = self._install_stop_handlers()
         try:
@@ -283,6 +331,7 @@ class Trainer:
 
     def _fit_loop(self, task, state, generator, train_batches, val_batches, datamodule):
         cfg = self.config
+        upload_bf16 = self._upload_bf16()
         for epoch in range(state.epoch, cfg.max_epochs):
             if hasattr(train_batches, "set_epoch"):
                 train_batches.set_epoch(epoch)
@@ -291,6 +340,8 @@ class Trainer:
             batches = iter(train_batches)
             try:
                 for batch in batches:
+                    if upload_bf16:
+                        batch = task.upload_cast(batch, _to_bf16)
                     running = self.train_step(task, state, batch, generator)
                     if self._stop_requested:
                         self._log({"event": "stopped", "epoch": epoch, "step": state.step})
