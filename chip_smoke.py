@@ -187,7 +187,28 @@ toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
     at ``--precision 16`` on the align corpus (fit 2 epochs, validate,
     test, predict: cli_phase's checks, with the biLSTM counts on the bf16
     variants);
-19. prints one JSON line of per-kernel results (the bf16 variants as
+19. after the align phase (``serve_beam``), serves the serve phase's
+    model and 16 clips through ASRPipeline with a CTC prefix beam of 8: the
+    device beam (every symbol a frame) must equal the host beam on the
+    card's own log-probs, and again with both fused with a trigram LM that
+    tools/train_lm fits on the align corpus's texts; one device-beam call's
+    launches exact (kernel 8 once a batch, kernel 1 once a layer a batch);
+    prints each transcribe's wall time against greedy and the batched
+    beam's card time on one batch;
+20. after the TTS training phase, runs the training data shell
+    (``data_shell_phase``): asr_en_base through the training CLI on the
+    align corpus at batch 16 from a cold feature cache, with 4 loader
+    worker processes, the device feature cache and 4 steps a dispatch, 3
+    epochs in one collate bucket (launches exact: kernels 2-5 as in step 9
+    and the evaluated batches as in step 13, kernel 8 never in this
+    process; the scan_dispatch record printed); the same fit at one step a
+    dispatch (losses, chunk means and val losses within 1e-4 relative);
+    one dispatched chunk under torch.cuda.set_sync_debug_mode("warn") (its
+    synchronising calls counted and located); the cold WORLD analysis of
+    48 clips of the TTS corpus at 0 and 4 workers (host seconds, caches
+    byte-equal); the pooled log-mel cache against step 13's kernel-8 cache
+    (within 1e-3 plus one float16 step);
+21. prints one JSON line of per-kernel results (the bf16 variants as
     their own lines), then, last, {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line is printed. Without
@@ -214,6 +235,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -3789,6 +3811,381 @@ def bf16_kernel_lines(kernels, by_path):
     return entries
 
 
+# CTC prefix beam search in serving: asr_en_base on the serve phase's clips
+BEAM_SIZE = 8
+
+
+def serve_beam(device, card, workdir, data_dir):
+    """The serve phase's model and 16 clips through ASRPipeline with a
+    beam of BEAM_SIZE: the device beam (every symbol a frame, topk = V - 1)
+    against the host beam on the card's own log-probs, then both fused with
+    a trigram LM that tools/train_lm fits on the align corpus's texts; the
+    launch counts of one device-beam call set to 0 just before and read
+    just after (kernel 8 once a batch, kernel 1 once a layer a batch); the
+    wall time of each transcribe against greedy, and the card time of the
+    batched beam alone on one batch. Returns the launches and a summary."""
+    from voice100_tpu_torch.inference import ASRPipeline
+    from voice100_tpu_torch.models import AudioToAlignText
+    from voice100_tpu_torch.ops.ctc_beam_device import ctc_prefix_beam_search_batched
+    from voice100_tpu_torch.text.ngram import CharNgramLM
+    from voice100_tpu_torch.tools.train_lm import cli_main as train_lm
+
+    model = AudioToAlignText(**ASR_EN_BASE, device="cpu",
+                             generator=torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    clips = int16_clips(rng, rng.uniform(2.0, 10.0, size=16))
+    vocab = ASR_EN_BASE["vocab_size"]
+    lm_path = os.path.join(workdir, "lm_dummy_en.npz")
+    train_lm(["--text", os.path.join(data_dir, "dummy_en-train.txt"), "--language", "en",
+              "--output", lm_path])
+    lm = CharNgramLM.load(lm_path)
+    beam = dict(batch_size=BATCH, device=device, beam_size=BEAM_SIZE)
+    pipes = {"greedy": ASRPipeline(model, batch_size=BATCH, device=device),
+             "beam_device": ASRPipeline(model, beam_topk=vocab - 1, **beam),
+             "beam_device_topk8": ASRPipeline(model, beam_topk=8, **beam),
+             "beam_host": ASRPipeline(model, beam_device=False, **beam),
+             "lm_device": ASRPipeline(model, beam_topk=vocab - 1, lm=lm_path, **beam),
+             "lm_host": ASRPipeline(model, beam_device=False, lm=lm_path, **beam)}
+    for name, pipe in pipes.items():  # warm-up: constants, cuDNN plans
+        if "host" not in name:
+            pipe.transcribe(clips[:BATCH])
+    counters = align_counters()
+    zero_counts(counters)
+    texts = pipes["beam_device"].transcribe(clips)
+    launches = {k: v for k, v in read_counts(counters).items() if v}
+    n_batches = sum(1 for _ in pipes["greedy"].batches(clips))
+    want = {"log_mel": n_batches,
+            "bilstm_recurrence": ASR_EN_BASE["decoder_num_layers"] * n_batches}
+    if launches != want:
+        fail(f"serve beam: launches {launches}, not {want}")
+    wall, out = {}, {}
+    for name, pipe in pipes.items():
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out[name] = pipe.transcribe(clips)
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - start
+    if out["beam_device"] != texts:
+        fail("serve beam: two device-beam calls gave different transcripts")
+    for dev_name, host_name in (("beam_device", "beam_host"), ("lm_device", "lm_host")):
+        same = sum(a == b for a, b in zip(out[dev_name], out[host_name]))
+        if same != len(clips):
+            fail(f"serve beam: {dev_name} equals {host_name} on {same}/{len(clips)} clips")
+    _, wav, lens = next(iter(pipes["greedy"].batches(clips)))
+    log_probs, out_len = pipes["greedy"].log_probs(wav, lens)
+    table = torch.from_numpy(lm.table).to(device)
+    beam_ms = {f"topk{topk}{'_lm' if fused else ''}": time_ms(
+        lambda topk=topk, fused=fused: ctc_prefix_beam_search_batched(
+            log_probs, out_len, beam_size=BEAM_SIZE, topk=topk,
+            lm_table=table if fused else None), iters=3, warmup=1)
+        for topk, fused in ((vocab - 1, False), (8, False), (vocab - 1, True))}
+    differ = sum(a != b for a, b in zip(out["beam_device"], out["greedy"]))
+    audio_sec = sum(len(c) for c in clips) / SAMPLE_RATE
+    print(f"serve beam asr_en_base on {card}: {len(clips)} clips, {audio_sec:.2f} s of audio, "
+          f"batch {BATCH}, beam {BEAM_SIZE}: device beam (topk {vocab - 1}) equals the host beam "
+          f"on all {len(clips)} clips, fused with the trigram LM of tools/train_lm on the "
+          f"corpus texts ({lm.vocab_size} symbols) too; {differ} transcripts differ from "
+          f"greedy; transcribe wall ms " + json.dumps({k: round(v * 1e3, 2)
+                                                       for k, v in wall.items()})
+          + f"; batched beam alone on one batch ({tuple(log_probs.shape)}) card ms "
+          + json.dumps({k: round(v, 3) for k, v in beam_ms.items()})
+          + f"; launches {launches}", flush=True)
+    return launches, {"transcribe_wall_s": wall, "beam_batch_ms": beam_ms,
+                      "audio_s": audio_sec, "differ_from_greedy": differ}
+
+
+# The training data shell: asr_en_base through the training CLI on the
+# align corpus with the loader's worker pool, the device feature cache and
+# multi-step dispatch
+DATA_SHELL_BATCH = 16
+DATA_SHELL_WORKERS = 4
+DATA_SHELL_STEPS = 4         # steps_per_dispatch
+DATA_SHELL_EPOCHS = 3
+# one collate bucket for the corpus's clips (<= 10 s) and texts (<= 150
+# characters): an epoch's 8 batches form one plan group, so the dispatch
+# runs full chunks of DATA_SHELL_STEPS
+DATA_SHELL_BUCKETS = {"VOICE100_TPU_TIME_BUCKET": "1024", "VOICE100_TPU_TEXT_BUCKET": "160"}
+# a chunked run against a per-step run: the same ops on the same bytes in
+# the same order, apart from cuDNN's and cuBLAS's own non-determinism
+DATA_SHELL_LOSS_REL_TOL = 1e-4
+WORLD_POOL_CLIPS = 48
+
+
+def data_shell_fit(device, workdir, align_args, tag, steps_per_dispatch):
+    """``fit`` of asr_en_base through the training CLI on the align corpus
+    from a cold feature cache: DATA_SHELL_WORKERS loader workers, the
+    device cache, ``steps_per_dispatch``; the launch counts set to 0 just
+    before and read just after. Returns (log records, launches, wall
+    seconds, the feature cache's directory)."""
+    import yaml
+    from voice100_tpu_torch.training.cli import load_config, main
+
+    config = load_config(align_args["config"])
+    config["trainer"].update(max_epochs=DATA_SHELL_EPOCHS, log_every_n_steps=1,
+                             device_cache=True, steps_per_dispatch=steps_per_dispatch)
+    config["data"]["init_args"].update(num_workers=DATA_SHELL_WORKERS,
+                                       batch_size=DATA_SHELL_BATCH)
+    cfg = os.path.join(workdir, f"{tag}.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump(config, f)
+    cache, log = os.path.join(workdir, f"{tag}_cache"), os.path.join(workdir, f"{tag}.jsonl")
+    counters = cli_counters()
+    zero_counts(counters)
+    start = time.perf_counter()
+    main(["fit", "--config", cfg, "--data_dir", align_args["data_dir"], "--cache_dir", cache,
+          "--checkpoint_dir", os.path.join(workdir, f"{tag}_ckpt"), "--log_path", log,
+          "--device", str(device)])
+    launches = read_counts(counters)
+    wall = time.perf_counter() - start
+    with open(log) as f:
+        records = [json.loads(line) for line in f]
+    return records, launches, wall, cache
+
+
+def dispatch_syncs(device, align_args, cache_dir):
+    """One chunk of DATA_SHELL_STEPS steps (``Trainer.dispatch_chunk``,
+    after a warm-up chunk) under ``torch.cuda.set_sync_debug_mode("warn")``:
+    the synchronising calls it made, by the innermost line of the
+    repository on their stack, its host enqueue time and its wall time to a
+    synchronize. The cache is filled by a one-epoch fit from the warm
+    feature cache."""
+    import warnings
+    from collections import Counter
+
+    from voice100_tpu_torch.data import AudioTextDataModule
+    from voice100_tpu_torch.models import AudioToAlignText
+    from voice100_tpu_torch.training import Trainer, TrainerConfig, make_task
+
+    data = AudioTextDataModule(vocoder="mel", dataset="dummy_en",
+                               data_dir=align_args["data_dir"], cache_dir=cache_dir,
+                               batch_size=DATA_SHELL_BATCH, device=device)
+    model = AudioToAlignText(**ASR_EN_BASE, device=device,
+                             generator=torch.Generator().manual_seed(SEED + 50))
+    trainer = Trainer(TrainerConfig(max_epochs=1, device_cache=True,
+                                    steps_per_dispatch=DATA_SHELL_STEPS, log_every_n_steps=100))
+    state = trainer.fit(model, data)
+    trainer.close()
+    cache, loader = trainer.feature_cache, data.train_dataloader()
+    loader.set_epoch(1)
+    plan = cache.epoch_plan(loader)
+    if plan is None or len(plan) != 1:
+        fail(f"data shell: the epoch plan of a complete single-bucket cache is {plan}")
+    (extents, mat), = plan
+    task, k = make_task(model), DATA_SHELL_STEPS
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    trainer.dispatch_chunk(task, state, gen, cache, extents, mat[:k])  # warm-up
+    torch.cuda.synchronize()
+    root = os.path.dirname(os.path.abspath(__file__))
+    syncs, outside = [], []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        # the innermost line of this repository on the stack names the cause;
+        # a warning raised outside dispatch_chunk (the mode switches
+        # themselves) is kept apart
+        if "synchroniz" in str(message):
+            stack = traceback.extract_stack()[:-1]
+            ours = [f for f in stack if os.path.abspath(f.filename).startswith(root)
+                    and os.path.abspath(f.filename) != os.path.abspath(__file__)]
+            where = (f"{os.path.relpath(ours[-1].filename, root)}:{ours[-1].lineno}" if ours
+                     else "no line of the package")
+            in_chunk = any(f.name == "dispatch_chunk" for f in stack)
+            (syncs if in_chunk else outside).append(
+                f"{where} (warned at {os.path.basename(filename)}:{lineno}: "
+                f"{str(message)[:100]})")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            start = time.perf_counter()
+            metrics = trainer.dispatch_chunk(task, state, gen, cache, extents, mat[-k:])
+            enqueue = time.perf_counter() - start
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    losses = metrics["loss"].cpu().numpy()
+    if losses.shape != (len(mat[-k:]),) or not np.isfinite(losses).all():
+        fail(f"data shell: a dispatched chunk's losses {losses}")
+    # whole cached epochs, per step (the prefetcher over the loader, each
+    # batch gathered by cache.place) and dispatched, in turns, no logging
+    trainer.config.log_every_n_steps = 10 ** 9
+    epoch_s = {"per_step": [], "dispatched": []}
+    for epoch, how in enumerate(("per_step", "dispatched", "dispatched", "per_step"), start=2):
+        loader.set_epoch(epoch)
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        if how == "per_step":
+            trainer._streamed_epoch(task, state, gen, loader, epoch, cache)
+        else:
+            trainer._dispatched_epoch(task, state, gen, cache, cache.epoch_plan(loader), epoch)
+        torch.cuda.synchronize()
+        epoch_s[how].append(time.perf_counter() - begin)
+    return {"sync_calls": len(syncs), "sync_sources": dict(Counter(syncs)),
+            "warnings_outside_the_chunk": dict(Counter(outside)),
+            "cached_epoch_s": epoch_s, "steps_per_epoch": len(mat),
+            "chunk_enqueue_ms": enqueue * 1e3, "chunk_wall_ms": wall * 1e3,
+            "step_ms": wall * 1e3 / k, "extents": [list(e) for e in extents]}
+
+
+def world_pool(device, workdir, tts_data_dir):
+    """The cold WORLD analysis of WORLD_POOL_CLIPS clips of the TTS corpus
+    through the loader at num_workers 0 and DATA_SHELL_WORKERS into two
+    fresh caches: host seconds of each (the pool's start included), and
+    the caches' files byte for byte."""
+    from voice100_tpu_torch.data import AudioTextDataModule, DataLoader, SubsetDataset
+
+    seconds, caches, audio_s = {}, {}, 0.0
+    for workers in (0, DATA_SHELL_WORKERS):
+        cache = os.path.join(workdir, f"world_pool{workers}_cache")
+        os.makedirs(cache)
+        data = AudioTextDataModule(vocoder="world_mcep", dataset="dummy_en",
+                                   data_dir=tts_data_dir, cache_dir=cache, device=device)
+        ds = data._wrap_cache(SubsetDataset(data._get_dataset("train"), range(WORLD_POOL_CLIPS)))
+        loader = DataLoader(ds, 8, data.collate_fn, num_workers=workers)
+        start = time.perf_counter()
+        try:
+            frames = sum(int(batch[0][1][:n].sum()) for batch, n in loader.iter_with_counts())
+        finally:
+            loader.close()
+        seconds[workers] = time.perf_counter() - start
+        audio_s = frames * 0.01  # WORLD frames of 10 ms
+        caches[workers] = cache
+    names = [sorted(os.listdir(c)) for c in caches.values()]
+    if names[0] != names[1] or len(names[0]) != WORLD_POOL_CLIPS:
+        fail(f"data shell: the WORLD caches hold {len(names[0])} and {len(names[1])} files")
+    for name in names[0]:
+        with open(os.path.join(caches[0], name), "rb") as a, \
+                open(os.path.join(caches[DATA_SHELL_WORKERS], name), "rb") as b:
+            if a.read() != b.read():
+                fail(f"data shell: the pooled WORLD cache entry {name} differs from the "
+                     f"thread path's")
+    return {"clips": WORLD_POOL_CLIPS, "audio_s": audio_s, "thread_s": seconds[0],
+            "pooled_s": seconds[DATA_SHELL_WORKERS], "workers": DATA_SHELL_WORKERS,
+            "byte_equal_files": len(names[0])}
+
+
+def mel_pool_vs_kernel(pool_cache, thread_cache):
+    """The pooled (host, plain log-mel) cache against the thread path's
+    (kernel 8) cache of the same clips: every value within MEL_TOL plus
+    one float16 step at its magnitude. Returns the largest difference."""
+    names = sorted(n for n in os.listdir(pool_cache) if n.endswith(".npy"))
+    if not names or any(not os.path.exists(os.path.join(thread_cache, n)) for n in names):
+        fail(f"data shell: {len(names)} pooled log-mel entries, not all in the thread cache")
+    worst = excess = 0.0
+    for name in names:
+        a = np.load(os.path.join(pool_cache, name)).astype(np.float32)
+        b = np.load(os.path.join(thread_cache, name)).astype(np.float32)
+        step = np.spacing(np.maximum(np.abs(a), np.abs(b)).astype(np.float16)).astype(np.float32)
+        diff = np.abs(a - b)
+        worst, excess = max(worst, float(diff.max())), max(excess, float((diff - step).max()))
+    if not excess <= MEL_TOL:
+        fail(f"data shell: the pooled log-mel cache differs from kernel 8's by {worst:.3e}, "
+             f"{excess:.3e} past one float16 step (tol {MEL_TOL:.0e})")
+    return {"entries": len(names), "max_abs_diff": worst, "beyond_one_f16_step": excess}
+
+
+def data_shell_phase(device, card, workdir, align_args, tts_data_dir):
+    """The training data shell on the card: asr_en_base through the CLI
+    from a cold feature cache with DATA_SHELL_WORKERS loader workers, the
+    device cache and DATA_SHELL_STEPS steps a dispatch (launches exact,
+    kernel 8 never in this process), against the same fit at one step a
+    dispatch (losses within DATA_SHELL_LOSS_REL_TOL); one chunk's
+    synchronising calls; the pooled cold WORLD analysis against the thread
+    path's (byte-equal caches); the pooled log-mel cache against the
+    thread path's kernel-8 cache (``cli_phase``'s). Returns the launches by
+    path and a summary."""
+    from voice100_tpu_torch.data import AudioTextDataModule
+
+    start = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in DATA_SHELL_BUCKETS}
+    os.environ.update(DATA_SHELL_BUCKETS)
+    try:
+        runs = {k: data_shell_fit(device, workdir, align_args, f"data_shell_k{k}", k)
+                for k in (DATA_SHELL_STEPS, 1)}
+        syncs = dispatch_syncs(device, align_args, runs[1][3])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    data = AudioTextDataModule(vocoder="mel", dataset="dummy_en", data_dir=align_args["data_dir"],
+                               cache_dir=runs[1][3], batch_size=DATA_SHELL_BATCH, device=device)
+    data.setup("fit")
+    layers = ASR_EN_BASE["decoder_num_layers"]
+    per_epoch = -(-len(data.train_ds) // DATA_SHELL_BATCH)
+    steps = DATA_SHELL_EPOCHS * per_epoch
+    evals = DATA_SHELL_EPOCHS * -(-len(data.valid_ds) // DATA_SHELL_BATCH)
+    want = {"log_mel": 0, "bilstm_recurrence": 2 * layers * evals, "viterbi_align": 0,
+            "bilstm_train_fwd": layers * steps, "bilstm_train_bwd": 2 * layers * steps,
+            "ctc_alpha": steps + evals, "ctc_adjoint": steps}
+    for k, (records, launches, _, _) in runs.items():
+        if launches != want:
+            fail(f"data shell fit (steps_per_dispatch {k}): launches {launches}, not {want}")
+    records = {k: r[0] for k, r in runs.items()}
+    dispatch = [r for r in records[DATA_SHELL_STEPS] if r.get("event") == "scan_dispatch"]
+    want_dispatch = [{"event": "scan_dispatch", "steps_per_dispatch": DATA_SHELL_STEPS,
+                      "batches_per_epoch": per_epoch, "buckets": 1, "runs": 1}]
+    if dispatch != want_dispatch or any(r.get("event") == "scan_dispatch" for r in records[1]):
+        fail(f"data shell: scan_dispatch records {dispatch}, not {want_dispatch}")
+    step_recs = {k: [r for r in rs if "train_loss" in r and "train_time_s" not in r]
+                 for k, rs in records.items()}
+    epoch_recs = {k: [r for r in rs if "train_time_s" in r] for k, rs in records.items()}
+    # epoch 0 logs each step; a chunk logs once, at its last step
+    want_steps = list(range(1, per_epoch + 1)) + [
+        epoch * per_epoch + min(b + DATA_SHELL_STEPS, per_epoch)
+        for epoch in range(1, DATA_SHELL_EPOCHS) for b in range(0, per_epoch, DATA_SHELL_STEPS)]
+    if [r["step"] for r in step_recs[DATA_SHELL_STEPS]] != want_steps or [
+            r["step"] for r in step_recs[1]] != list(range(1, steps + 1)):
+        fail(f"data shell: logged steps {[r['step'] for r in step_recs[DATA_SHELL_STEPS]]}")
+    per_step = {r["step"]: r["train_loss"] for r in step_recs[1]}
+    errs, prev = [], 0
+    for r in step_recs[DATA_SHELL_STEPS]:  # a chunk's record: the mean of its steps
+        ref = float(np.mean([per_step[s] for s in range(prev + 1, r["step"] + 1)]))
+        errs.append(abs(r["train_loss"] - ref) / abs(ref))
+        prev = r["step"]
+    for a, b in zip(epoch_recs[DATA_SHELL_STEPS], epoch_recs[1]):
+        errs += [abs(a[key] - b[key]) / abs(b[key]) for key in ("train_loss", "val_loss")]
+    if not all(np.isfinite(per_step[s]) for s in per_step) or not max(errs) <= \
+            DATA_SHELL_LOSS_REL_TOL:
+        fail(f"data shell: the chunked fit's losses differ from the per-step fit's by "
+             f"{max(errs):.3e} relative")
+    world = world_pool(device, workdir, tts_data_dir)
+    mel = mel_pool_vs_kernel(runs[DATA_SHELL_STEPS][3], os.path.join(workdir, "cli_cache"))
+    epoch_s = {k: [r["train_time_s"] for r in rs] for k, rs in epoch_recs.items()}
+    print(f"data shell on {card}: asr_en_base fit {DATA_SHELL_EPOCHS} epochs through the CLI, "
+          f"{len(data.train_ds)} train clips at batch {DATA_SHELL_BATCH}, {DATA_SHELL_WORKERS} "
+          f"loader workers, device cache, cold feature cache: {dispatch[0]}; wall "
+          f"{runs[DATA_SHELL_STEPS][2]:.2f} s (steps_per_dispatch {DATA_SHELL_STEPS}) and "
+          f"{runs[1][2]:.2f} s (1); train time by epoch {epoch_s[DATA_SHELL_STEPS]} and "
+          f"{epoch_s[1]} s; launches {runs[DATA_SHELL_STEPS][1]} (kernel 8 never in this "
+          f"process); chunked against per-step losses max rel diff {max(errs):.3e} (tol "
+          f"{DATA_SHELL_LOSS_REL_TOL:.0e}, {len(errs)} values)", flush=True)
+    print(f"data shell dispatch on {card}: one chunk of {DATA_SHELL_STEPS} steps at extents "
+          f"{syncs['extents']}: {syncs['sync_calls']} synchronising calls "
+          f"{syncs['sync_sources']} (outside the chunk: "
+          f"{syncs['warnings_outside_the_chunk']}); enqueue {syncs['chunk_enqueue_ms']:.2f} ms, "
+          f"wall "
+          f"{syncs['chunk_wall_ms']:.2f} ms ({syncs['step_ms']:.2f} ms a step); cached epochs of "
+          f"{syncs['steps_per_epoch']} steps without logging, in turns: per step "
+          f"{[round(v, 4) for v in syncs['cached_epoch_s']['per_step']]} s, dispatched "
+          f"{[round(v, 4) for v in syncs['cached_epoch_s']['dispatched']]} s", flush=True)
+    print(f"data shell cold WORLD analysis on {card}'s host: {world['clips']} clips "
+          f"({world['audio_s']:.2f} s of audio) thread path {world['thread_s']:.2f} s, "
+          f"{world['workers']} workers {world['pooled_s']:.2f} s (pool start included); "
+          f"{world['byte_equal_files']} cache files byte-equal", flush=True)
+    print(f"data shell cold log-mel: the pooled (CPU plain) cache against kernel 8's over "
+          f"{mel['entries']} clips: max abs diff {mel['max_abs_diff']:.3e}, beyond one float16 "
+          f"step {mel['beyond_one_f16_step']:.3e} (tol {MEL_TOL:.0e})", flush=True)
+    summary = {"wall_s": time.perf_counter() - start,
+               "fit_wall_s": {k: r[2] for k, r in runs.items()},
+               "train_time_s_by_epoch": epoch_s, "loss_max_rel_diff": max(errs),
+               "dispatch": syncs, "world": world, "mel": mel}
+    return {f"data_shell_fit_k{k}": r[1] for k, r in runs.items()}, summary
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -3844,12 +4241,16 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as workdir:
         runs, args, samples = align(device, card, workdir)
         by_path.update({f"align_{run}": r["launches"] for run, r in runs.items()})
+        by_path["serve_beam"], beam_summary = serve_beam(device, card, workdir,
+                                                         args["data_dir"])
         parity = align_parity(device, args, workdir)
         cli_launches, _ = cli_phase(device, card, workdir, args, samples)
         by_path.update({f"cli_{sub}": launches for sub, launches in cli_launches.items()})
         by_path["tts"], tts_kernel, tts_summary = tts_phase(device, card, workdir)
         tts_train_paths, tts_train_kernels, tts_train_summary, tts_data = tts_train_phase(
             device, card, workdir, args)
+        shell_paths, shell_summary = data_shell_phase(device, card, workdir, args,
+                                                      os.path.join(workdir, "tts_data"))
         phone_start = time.perf_counter()
         phone_paths, phone_kernels, phone_summary = phone_phase(device, card, workdir)
         phone_summary["wall_s"] = time.perf_counter() - phone_start
@@ -3857,6 +4258,7 @@ def main() -> None:
         serving[1]["b128_h512"] = check_bilstm_b128_h512(device)
         bf16_paths, bf16_summary = bf16_phase(device, card, workdir, args, samples, tts_data)
     by_path.update(tts_train_paths)
+    by_path.update(shell_paths)
     by_path.update(phone_paths)
     serving[1].update(tts_kernel)
     # kernel 1 at the phone TTS runs' shapes, kernels 4 and 5 at vocab 71
@@ -3887,6 +4289,8 @@ def main() -> None:
     print("tts_train_summary " + json.dumps(tts_train_summary), flush=True)
     print(f"phone_summary ({card}) " + json.dumps(phone_summary), flush=True)
     print(f"bf16_summary ({card}) " + json.dumps(bf16_summary), flush=True)
+    print(f"serve_beam_summary ({card}) " + json.dumps(beam_summary), flush=True)
+    print(f"data_shell_summary ({card}) " + json.dumps(shell_summary), flush=True)
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s from the kernel build to here",
           flush=True)
     print(json.dumps({"kernels": serving + training + aligning + bf16_lines}), flush=True)

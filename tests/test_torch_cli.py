@@ -135,8 +135,6 @@ def test_configs_the_port_cannot_build_raise_naming_the_class(name):
 
 @pytest.mark.parametrize("key,value,item", [
     ("mesh_model_axis", 2, "item 10"), ("profile_dir", "prof", "item 10"),
-    ("device_cache", True, "item 8"),
-    ("device_cache_max_bytes", 1024, "item 8"), ("steps_per_dispatch", 4, "item 8"),
 ])
 def test_unported_trainer_settings_raise_naming_their_item(tmp_path, key, value, item):
     from voice100_tpu_torch.training.cli import cli_main

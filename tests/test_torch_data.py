@@ -115,14 +115,6 @@ def test_loader_matches_jax_order_content_and_counts(shuffle, drop_last, pad_to_
             assert audio.shape[1] in (128, 256, 384) or len(audio_len) < 4
 
 
-def test_loader_worker_pool_is_not_ported():
-    from voice100_tpu_torch.data.collate import collate_audio_text
-    from voice100_tpu_torch.data.loader import DataLoader
-
-    with pytest.raises(NotImplementedError, match="item 8"):
-        DataLoader(_items(), 4, collate_audio_text, num_workers=2)
-
-
 def _fake_corpora(root):
     """Minimal trees of each registry corpus but dummy (made by
     make_dummy_corpus): LibriSpeech, LJSpeech, CommonVoice ja, Kokoro."""

@@ -293,7 +293,8 @@ def test_upload_cast_quantizes_inputs_never_targets():
 def test_fit_uploads_train_batches_in_bf16_and_sets_the_mode(tmp_path):
     """``fit`` at bf16: the process mode is set, train batches reach the
     step with bf16 audio, validation batches as collated, ``fit_start``
-    logs the upload; a float32 fit after it resets the mode."""
+    logs the upload; a float32 fit after it resets the mode. Train batches
+    reach the step as tensors (the device prefetcher's upload)."""
     rng = np.random.default_rng(1)
     train = [_asr_batch(rng) for _ in range(2)]
     val = [_asr_batch(rng)]
@@ -316,4 +317,4 @@ def test_fit_uploads_train_batches_in_bf16_and_sets_the_mode(tmp_path):
 
     seen.clear()
     Spy(TrainerConfig(max_epochs=1)).fit(_asr()[2], train, val)
-    assert seen == [(np.float32, None)] * 2
+    assert seen == [(torch.float32, None)] * 2

@@ -10,8 +10,9 @@ runs for tensors on the CPU.
 
 This package imports neither ``jax`` nor anything of ``voice100_tpu``:
 what it needs from there is copied (``text/`` with the G2P and the
-Japanese reader, ``dsp/``, ``native/`` with its C++ audio decoders,
-``data/datasets.py``, ``data/registry.py``, ``tools/prepare_dataset.py``)
+Japanese reader and the n-gram LM, ``dsp/``, ``native/`` with its C++
+audio decoders, ``data/datasets.py``, ``data/registry.py``,
+``tools/prepare_dataset.py``, ``tools/train_lm.py``, ``ops/ctc_beam.py``)
 or rebuilt (the DFT and mel constants in ``ops/melspec.py``).
 
 Ported so far: ASR v2 serving (``inference.ASRPipeline`` ->
@@ -30,7 +31,11 @@ ASR v2 forced alignment (``tools.align_text`` ->
 expansion and batched WORLD synthesis in ``dsp/world/``), whose biLSTMs
 run the inference kernel; TTS v2 training of both models; and the real
 corpus front end: FLAC and MP3 decoding (``native/``, built with g++ at
-first use), English and Japanese phonemization, ``tools.prepare_dataset``.
+first use), English and Japanese phonemization, ``tools.prepare_dataset``;
+the training data shell (the loader's worker pool, packed uploads, device
+prefetch, the device feature cache and multi-step dispatch); and CTC
+prefix beam search with trigram LM fusion (``ops/ctc_beam_device.py``,
+``ops/ctc_beam.py``, ``text/ngram.py``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 see :func:`voice100_tpu_torch.device.resolve_device`.

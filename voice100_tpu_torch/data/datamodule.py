@@ -15,7 +15,9 @@ voice100/data_modules.py:503-670,685-742):
 * ``AlignTextDataModule``: the duration model's ``{ds}-[phone-]align-
   train.txt``, a 90/10 split seeded with ``seed``, ``collate_text_align``.
 
-``num_workers > 0`` waits for the data shell.
+``AudioTextDataModule``'s ``num_workers`` and ``prefetch`` reach its
+loaders: ``num_workers > 0`` reads and collates in spawned worker
+processes on the host CPU (``data/loader.py``).
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ class AudioTextDataModule:
         seed: int = 1234,
         cache_dtype: Optional[str] = "auto",
         bucket_by_length: bool = False,
+        prefetch: int = 2,
         device=None,
     ) -> None:
         self.vocoder = vocoder
@@ -87,6 +90,7 @@ class AudioTextDataModule:
             self.cache_salt += f"@{cache_dtype}".encode("utf-8")
         self.batch_size = batch_size
         self.num_workers = num_workers
+        self.prefetch = prefetch
         self.seed = seed
         # length-bucketed train batches from the cache files' headers
         self.bucket_by_length = bucket_by_length
@@ -136,7 +140,7 @@ class AudioTextDataModule:
             return None
         return DataLoader(
             ds, batch_size=self.batch_size, collate_fn=self.collate_fn, shuffle=shuffle,
-            seed=self.seed, num_workers=self.num_workers,
+            seed=self.seed, num_workers=self.num_workers, prefetch=self.prefetch,
             length_hint=ds.audio_frames if self.bucket_by_length and shuffle else None,
         )
 

@@ -73,6 +73,11 @@ class MelSpectrogramAudioTransform:
     def audio_size(self) -> int:
         return self.n_mels
 
+    def to_host(self) -> None:
+        """Compute on the CPU from now on: the plain log-mel (the loader's
+        worker processes call it; ``data/loader.py``)."""
+        self.device = torch.device("cpu")
+
     def __call__(self, audiopath: str, wav: Optional[np.ndarray] = None) -> np.ndarray:
         if wav is None:
             wav = load_audio(audiopath, self.sample_rate)
@@ -100,6 +105,11 @@ class WORLDAudioProcessor:
     @property
     def audio_size(self) -> int:
         return sum(self.vocoder.output_dims)
+
+    def to_host(self) -> None:
+        """The analysis is host code already; the vocoder decodes on the
+        CPU from now on (the loader's worker processes call it)."""
+        self.vocoder.to_host()
 
     def __call__(self, audiopath: str, wav: Optional[np.ndarray] = None):
         if wav is None:

@@ -67,8 +67,17 @@ class WORLDVocoder:
                              if use_mcep else None)
         self.sp2mc_matrix = (create_sp2mc_matrix(self.n_fft, self.mcep_dim, self.mcep_alpha)
                              if use_mcep else None)
-        self._mc2sp32 = (torch.from_numpy(self.mc2sp_matrix.astype(np.float32)).to(self.device)
-                         if use_mcep else None)
+        self._mc2sp32 = None  # the float32 mc2sp matrix on the device, made at first use
+
+    def __getstate__(self):
+        # a pickled vocoder (the loader's spawned workers) carries no device
+        # tensor: unpickling one would open a CUDA context in the worker
+        return {**self.__dict__, "_mc2sp32": None}
+
+    def to_host(self) -> None:
+        """Decode on the CPU from now on (the loader's workers call it)."""
+        self.device = torch.device("cpu")
+        self._mc2sp32 = None
 
     @property
     def output_dims(self) -> Tuple[int, int, int]:
@@ -129,6 +138,8 @@ class WORLDVocoder:
         f0 = torch.as_tensor(f0, dtype=torch.float32).to(dev)
         feat = torch.as_tensor(logspc_or_mcep, dtype=torch.float32).to(dev)
         codeap = codeap.cpu().numpy() if isinstance(codeap, torch.Tensor) else codeap
+        if self.use_mcep and self._mc2sp32 is None:
+            self._mc2sp32 = torch.from_numpy(self.mc2sp_matrix.astype(np.float32)).to(dev)
         logspc = feat @ self._mc2sp32 if self.use_mcep else feat
         spc = torch.clamp(torch.exp(logspc) - self.log_offset, min=0.0)
         ap = torch.from_numpy(self._aperiodicity(codeap).astype(np.float32)).to(dev)

@@ -1,19 +1,28 @@
-"""Serving pipelines: batched, bucketed ASR (greedy) and TTS inference.
+"""Serving pipelines: batched, bucketed ASR and TTS inference.
 
-``ASRPipeline`` ports the greedy branch of ``voice100_tpu/inference.py:36-292``:
-waveforms are sorted by length, padded to a small set of bucket lengths
-in fixed-size batches, uploaded (int16 PCM as it is, normalised on the
-device by the exact power of two 1/32768), turned into log-mel features
-by the fused CUDA kernel, masked past each clip's frames to the blank
-level, run through the model and reduced to frame-wise argmax ids on the
-device. The host decodes ids with the tokenizer and merges repeats.
+``ASRPipeline`` ports ``voice100_tpu/inference.py:36-292``: waveforms are
+sorted by length, padded to a small set of bucket lengths in fixed-size
+batches, uploaded (int16 PCM as it is, normalised on the device by the
+exact power of two 1/32768), turned into log-mel features by the fused
+CUDA kernel, masked past each clip's frames to the blank level and run
+through the model. Greedy decoding (the default) reduces the logits to
+frame-wise argmax ids on the device; the host decodes them with the
+tokenizer and merges repeats. ``beam_size > 0`` decodes by CTC prefix
+beam search instead: on the device by default
+(``ops/ctc_beam_device.py``, ``beam_topk`` extension symbols a frame; the
+host fetches the collapsed ids), or with ``beam_device=False`` on the host
+over the fetched log-probs, one clip at a time (``ops/ctc_beam.py``).
+``lm`` (a :class:`voice100_tpu_torch.text.ngram.CharNgramLM`, the path of
+its ``.npz`` or a raw ``[V, V, V]`` table) adds trigram shallow fusion to
+either beam (``lm_weight``, ``lm_bonus``); a table whose vocabulary is not
+the tokenizer's raises ``ValueError``.
 
 Every batch is dispatched before any result is fetched, so the host's
 token decoding of one batch does not hold up the device's next.
 
-Not ported yet: beam search and LM fusion, meshes, the mel-kernel switch
-(the port always takes the kernel on CUDA) and ``StreamingASRSession``;
-inputs longer than the largest bucket raise ``NotImplementedError``.
+Not ported yet: meshes, the mel-kernel switch (the port always takes the
+kernel on CUDA) and ``StreamingASRSession``; inputs longer than the
+largest bucket raise ``NotImplementedError``.
 
 ``TTSPipeline`` ports ``voice100_tpu/inference.py:435-670``: texts ->
 tokens (host) -> durations (the align model, biLSTM kernel) -> one fetch
@@ -36,9 +45,12 @@ from .device import resolve_device
 from .dsp.world import WORLDVocoder
 from .dsp.world.synthesis import NoiseSource
 from .models import AlignTextToAudio, AudioToAlignText, TextToAlignText
+from .ops.ctc_beam import ctc_prefix_beam_search
+from .ops.ctc_beam_device import ctc_prefix_beam_search_batched
 from .ops.mask import BLANK_AUDIO, sequence_mask
 from .ops.melspec_cuda import log_mel_spectrogram_cuda
 from .text import get_phonemizer, get_tokenizer
+from .text.ngram import CharNgramLM
 
 __all__ = ["ASRPipeline", "TTSPipeline"]
 
@@ -64,10 +76,35 @@ class ASRPipeline:
         batch_size: int = 8,
         buckets_sec: Sequence[float] = (2.0, 5.0, 10.0, 20.0, 40.0),
         device=None,
+        beam_size: int = 0,
+        beam_device: bool = True,
+        beam_topk: int = 8,
+        lm=None,
+        lm_weight: float = 0.5,
+        lm_bonus: float = 0.0,
     ) -> None:
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.tokenizer = get_tokenizer(language, use_phone)
+        self.beam_size = beam_size
+        self.beam_device = beam_device
+        self.beam_topk = beam_topk
+        self.lm_weight = float(lm_weight)
+        self.lm_bonus = float(lm_bonus)
+        self.lm_table = None
+        if lm is not None:
+            if isinstance(lm, str):
+                lm = CharNgramLM.load(lm)
+            self.lm_table = np.asarray(getattr(lm, "table", lm), np.float32)
+            if self.lm_table.shape[2] != self.tokenizer.vocab_size:
+                # a table of another vocabulary would gather wrong rows
+                raise ValueError(
+                    f"LM vocab {self.lm_table.shape[2]} != tokenizer vocab "
+                    f"{self.tokenizer.vocab_size} (language={language!r}, "
+                    f"use_phone={use_phone}) — train the LM on the same prepared corpus "
+                    "(tools/train_lm.py)")
+        self._lm_device = (None if self.lm_table is None
+                           else torch.from_numpy(self.lm_table).to(self.device))
         self.sample_rate = sample_rate
         self.batch_size = batch_size
         self.buckets = [int(s * sample_rate) for s in buckets_sec]
@@ -89,8 +126,33 @@ class ASRPipeline:
         return self.model(*self._features(wav, wav_len))
 
     @torch.inference_mode()
+    def log_probs(self, wav: torch.Tensor, wav_len: torch.Tensor):
+        """Padded batch ``[B, T]`` + lengths -> ``(log-softmax [B, T', V], [B])``."""
+        logits, out_len = self.model(*self._features(wav, wav_len))
+        return torch.log_softmax(logits, dim=-1), out_len
+
+    @torch.inference_mode()
     def _decode(self, wav: torch.Tensor, wav_len: torch.Tensor):
-        return self.model.greedy_decode(*self._features(wav, wav_len))
+        """The batch's device result: greedy ids, the device beam's
+        collapsed ids, or (host beam) the log-probs; each with its lengths."""
+        if self.beam_size <= 0:
+            return self.model.greedy_decode(*self._features(wav, wav_len))
+        log_probs, out_len = self.log_probs(wav, wav_len)
+        if not self.beam_device:
+            return log_probs, out_len
+        return ctc_prefix_beam_search_batched(
+            log_probs, out_len, beam_size=self.beam_size, topk=self.beam_topk,
+            lm_table=self._lm_device, lm_weight=self.lm_weight, lm_bonus=self.lm_bonus)
+
+    def _text(self, out: np.ndarray, n: int) -> str:
+        """One row's transcript from its fetched device result."""
+        if self.beam_size <= 0:
+            return self.tokenizer.merge_repeated(self.tokenizer.decode(out[:n]))
+        if self.beam_device:  # the beam's ids are collapsed already
+            return self.tokenizer.decode(list(out[:n]))
+        return self.tokenizer.decode(ctc_prefix_beam_search(
+            out[:n], beam_size=self.beam_size, lm_table=self.lm_table,
+            lm_weight=self.lm_weight, lm_bonus=self.lm_bonus))
 
     def batches(self, waveforms: List[np.ndarray]) -> Iterator[Tuple[List[int], torch.Tensor, torch.Tensor]]:
         """``(indices, wav [batch_size, bucket], lengths [batch_size])`` on
@@ -125,11 +187,10 @@ class ASRPipeline:
         pending = [(chunk, *self._decode(wav, lengths))
                    for chunk, wav, lengths in self.batches(waveforms)]
         results = [""] * len(waveforms)
-        for chunk, ids, out_len in pending:
-            ids, out_len = ids.cpu().numpy(), out_len.cpu().numpy()
+        for chunk, out, out_len in pending:
+            out, out_len = out.cpu().numpy(), out_len.cpu().numpy()
             for row, i in enumerate(chunk):
-                raw = self.tokenizer.decode(ids[row, :out_len[row]])
-                results[i] = self.tokenizer.merge_repeated(raw)
+                results[i] = self._text(out[row], int(out_len[row]))
         return results
 
 

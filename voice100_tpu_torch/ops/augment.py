@@ -82,7 +82,9 @@ def apply_augment(audio: torch.Tensor, audio_len: torch.Tensor, draws: Draws):
     rate = d["stretch_rate"]
     t_idx = torch.arange(time, device=device)
     src = torch.clamp(t_idx * 100 // rate, 0, time - 1)
-    new_len = torch.minimum(audio_len * rate // 100, torch.tensor(time, device=device))
+    # a clamp, not a minimum with a new device scalar: uploading that scalar
+    # would make the host wait for the card
+    new_len = torch.clamp(audio_len * rate // 100, max=time)
     audio = torch.where(d["stretch_coin"], audio.index_select(1, src), audio)
     audio_len = torch.where(d["stretch_coin"], new_len.to(audio_len.dtype), audio_len)
 

@@ -20,7 +20,10 @@ model's ``norm`` buffers before the first step, where the file exists.
 seeded with the config's ``seed_everything``, so one config gives one
 start on any device. ``--precision`` (or ``trainer.precision``) ``16``,
 ``bf16``, ``bfloat16`` or ``16-mixed`` runs every subcommand in bf16
-mixed precision (``training/trainer.py``), ``32`` in float32.
+mixed precision (``training/trainer.py``), ``32`` in float32. The
+trainer keys ``device_cache``, ``device_cache_max_bytes`` and
+``steps_per_dispatch`` reach the ``TrainerConfig`` fields of their names,
+and the data's ``num_workers`` and ``prefetch`` its loaders.
 
 Checkpoints are the port's ``.pt`` files (``best.pt``, ``last.pt``,
 ``epoch_N.pt`` under ``--checkpoint_dir``, default
@@ -56,7 +59,6 @@ from .trainer import Trainer, TrainerConfig, _host
 __all__ = ["load_config", "build_from_config", "build_trainer_config", "config_audio_stat",
            "load_model", "main", "cli_main", "UNPORTED"]
 
-DATA_SHELL_ITEM = "ROADMAP.md queue 1, item 8: the rest of the data shell"
 DISTRIBUTED_ITEM = "ROADMAP.md queue 1, item 10: serving, tools and distributed"
 
 # The JAX trainer's settings that the port does not run: a config key
@@ -65,9 +67,6 @@ DISTRIBUTED_ITEM = "ROADMAP.md queue 1, item 10: serving, tools and distributed"
 UNPORTED = {
     "mesh_model_axis": ((1,), DISTRIBUTED_ITEM),
     "profile_dir": ((None,), DISTRIBUTED_ITEM),
-    "device_cache": ((False,), DATA_SHELL_ITEM),
-    "device_cache_max_bytes": ((8 * 1024**3,), DATA_SHELL_ITEM),
-    "steps_per_dispatch": ((1,), DATA_SHELL_ITEM),
 }
 
 _MODEL_CLASSES = {"AudioToAlignText": AudioToAlignText, "TextToAlignText": TextToAlignText,

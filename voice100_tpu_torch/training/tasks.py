@@ -99,7 +99,9 @@ class Task:
 
     def upload(self, batch) -> Tuple[torch.Tensor, ...]:
         """The ``compute_loss`` arguments of a collated batch on the
-        model's device, half-precision features widened to float32."""
+        model's device, half-precision features widened to float32. Leaves
+        already on the device (the trainer's prefetched batches) are taken
+        as they are, without a copy."""
         device = next(self.model.parameters()).device
         return tuple(_upcast(torch.as_tensor(t).to(device, non_blocking=True))
                      for t in self.extract_args(batch))

@@ -36,9 +36,34 @@ and resets it to float32 for a float32 fit. ``upload_dtype`` rounds each
 train batch's float32 input leaves to bf16 on the host (``"auto"``: when
 the precision is bf16); validation batches upload as collated.
 
-The JAX trainer's meshes, device feature cache, multi-step dispatch and
-profiling are not ported; their settings have no field here, and a
-config that sets them raises (``training/cli.py`` ``UNPORTED``).
+Train batches reach the device through
+:class:`voice100_tpu_torch.data.prefetch.DevicePrefetcher`
+(``voice100_tpu/training/trainer.py:441-551``): on a background thread
+each batch takes the bf16 upload cast where it applies, then one packed
+copy (``data/pack.py``), on a side stream, while the step before it runs.
+
+``device_cache`` keeps every collated train row on the model's device
+(:class:`voice100_tpu_torch.data.device_cache.DeviceFeatureCache`, at
+most ``device_cache_max_bytes``): the prefetcher hands the loader's
+``(indices, batch)`` pairs to ``cache.place``, which uploads and scatters
+rows it has not cached yet and gathers the others. It needs a loader
+(``iter_with_indices``); a plain iterable of batches raises. The store
+holds what the bf16 upload cast made. With ``steps_per_dispatch`` k > 1,
+an epoch that begins with every row cached runs the groups of
+``cache.epoch_plan`` in chunks of k steps (``trainer.py:553-748``): one
+upload of the chunk's index matrix, each step's batch gathered on the
+device at its group's extents, the k steps enqueued back to back with
+their metrics stacked on the device and fetched once a chunk; the log
+follows the JAX trainer's (a record when a chunk crosses a multiple of
+``log_every_n_steps``, with the chunk's mean), and a stop request is
+checked once a chunk. The warm epoch, an incomplete cache and ragged
+batches take the per-step path. The steps draw augmentation and dropout
+from the trainer's generator in step order, so a chunked run equals a
+per-step run over the same batches (the plan keeps the epoch's order).
+
+The JAX trainer's meshes and profiling are not ported; their settings
+have no field here, and a config that sets them raises
+(``training/cli.py`` ``UNPORTED``).
 """
 
 from __future__ import annotations
@@ -54,6 +79,9 @@ from typing import Any, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from ..data.device_cache import DeviceFeatureCache
+from ..data.pack import device_put_packed, tree_flatten
+from ..data.prefetch import DevicePrefetcher
 from ..ops.lstm import set_default_compute_dtype
 from ..ops.metrics import error_rate
 from .checkpoint import TrainState, restore_checkpoint, save_checkpoint
@@ -87,6 +115,13 @@ class TrainerConfig:
     # (bf16 when the precision is), "bfloat16"/"bf16"/"16", or any other
     # value for float32; targets always upload as collated
     upload_dtype: str = "auto"
+    # keep every collated train row on the model's device (at most
+    # device_cache_max_bytes) and gather later epochs there
+    device_cache: bool = False
+    device_cache_max_bytes: int = 8 * 1024**3
+    # with device_cache: once every row is cached, run this many steps a
+    # dispatch over the epoch plan's index matrices
+    steps_per_dispatch: int = 1
 
 
 @torch.no_grad()
@@ -132,6 +167,7 @@ class Trainer:
             raise ValueError(f"precision {config.precision!r}: '32' or bf16 mixed precision "
                              f"({', '.join(repr(p) for p in BF16_PRECISIONS)})")
         self.config = config
+        self.feature_cache: Optional[DeviceFeatureCache] = None
         self._stop_requested = False
         self._log_file = None
         if config.log_path:
@@ -305,6 +341,9 @@ class Trainer:
             train_batches, val_batches = data.train_dataloader(), data.val_dataloader()
         else:
             train_batches = data
+        if cfg.device_cache and not hasattr(train_batches, "iter_with_indices"):
+            raise TypeError("device_cache needs a loader (its iter_with_indices gives the rows' "
+                            "dataset indices the cache keys on), not a plain iterable of batches")
         task = make_task(model)
         state = TrainState(model, task.make_optimizer())
         if restore_from:
@@ -318,47 +357,137 @@ class Trainer:
         self._log({"event": "fit_start", "params": sum(p.numel() for p in model.parameters()),
                    "steps_per_epoch": len(train_batches), "device": str(device),
                    "upload": "bf16" if self._upload_bf16() else "f32"})
+        cache = None
+        if cfg.device_cache:
+            cache = DeviceFeatureCache(len(train_batches.dataset),
+                                       max_bytes=cfg.device_cache_max_bytes,
+                                       pad_values=getattr(train_batches.collate_fn, "pad_values",
+                                                          None),
+                                       var_specs=getattr(train_batches.collate_fn, "var_specs",
+                                                         None),
+                                       device=device)
+            self._log({"event": "device_cache", "items": cache.n_items})
+        self.feature_cache = cache  # the last fit's device cache, for inspection
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
         installed = self._install_stop_handlers()
         try:
-            return self._fit_loop(task, state, generator, train_batches, val_batches, datamodule)
+            return self._fit_loop(task, state, generator, train_batches, val_batches, datamodule,
+                                  cache)
         finally:
             # a reused Trainer must not stop at once on its next fit (a
             # request armed before fit still stops that fit)
             self._stop_requested = False
             for sig, old in installed:
                 signal.signal(sig, old)
+            if datamodule is not None:  # fit made these loaders: end their worker pools
+                for loader in (train_batches, val_batches):
+                    if hasattr(loader, "close"):
+                        loader.close()
 
-    def _fit_loop(self, task, state, generator, train_batches, val_batches, datamodule):
+    def _fit_loop(self, task, state, generator, train_batches, val_batches, datamodule, cache):
         cfg = self.config
-        upload_bf16 = self._upload_bf16()
+        k = int(cfg.steps_per_dispatch)
+        dispatch_logged = False
         for epoch in range(state.epoch, cfg.max_epochs):
             if hasattr(train_batches, "set_epoch"):
                 train_batches.set_epoch(epoch)
             start = time.time()
-            running = None
-            batches = iter(train_batches)
-            try:
-                for batch in batches:
-                    if upload_bf16:
-                        batch = task.upload_cast(batch, _to_bf16)
-                    running = self.train_step(task, state, batch, generator)
-                    if self._stop_requested:
-                        self._log({"event": "stopped", "epoch": epoch, "step": state.step})
-                        state.epoch = epoch  # a resume re-runs this epoch
-                        if cfg.checkpoint_dir and cfg.save_last:
-                            save_checkpoint(os.path.join(cfg.checkpoint_dir, "last.pt"), state)
-                        return state
-                    if state.step % cfg.log_every_n_steps == 0:
-                        self._log({"epoch": epoch, "step": state.step,
-                                   **{f"train_{k}": float(v) for k, v in running.items()}})
-            finally:
-                # ends a loader's prefetch thread when the loop leaves early
-                close = getattr(batches, "close", None)
-                if close is not None:
-                    close()
+            plan = cache.epoch_plan(train_batches) if cache is not None and k > 1 else None
+            if plan is None:
+                running, stopped = self._streamed_epoch(task, state, generator, train_batches,
+                                                        epoch, cache)
+            else:
+                if not dispatch_logged:
+                    dispatch_logged = True
+                    self._log({"event": "scan_dispatch", "steps_per_dispatch": k,
+                               "batches_per_epoch": sum(len(mat) for _, mat in plan),
+                               "buckets": len({key for key, _ in plan}), "runs": len(plan)})
+                running, stopped = self._dispatched_epoch(task, state, generator, cache, plan,
+                                                          epoch)
+            if stopped:
+                self._log({"event": "stopped", "epoch": epoch, "step": state.step})
+                state.epoch = epoch  # a resume re-runs this epoch
+                if cfg.checkpoint_dir and cfg.save_last:
+                    save_checkpoint(os.path.join(cfg.checkpoint_dir, "last.pt"), state)
+                return state
             self._epoch_tail(task, state, epoch, start, running, val_batches, datamodule)
         return state
+
+    def _prefetcher(self, task, batches, cache) -> DevicePrefetcher:
+        """The train batches on the model's device, two ahead: the bf16
+        upload cast where it applies, then one packed copy, or the cache's
+        ``place`` of the loader's ``(indices, batch)`` pairs."""
+        device = next(task.model.parameters()).device
+        upload_bf16 = self._upload_bf16()
+
+        def prepare(batch):
+            return task.upload_cast(batch, _to_bf16) if upload_bf16 else batch
+
+        if cache is None:
+            return DevicePrefetcher(batches, size=2, device=device,
+                                    place=lambda batch: device_put_packed(prepare(batch), device))
+        return DevicePrefetcher(batches.iter_with_indices(), size=2, device=device,
+                                place=lambda pair: cache.place(pair[0], prepare(pair[1])))
+
+    def _streamed_epoch(self, task, state, generator, train_batches, epoch, cache):
+        """One epoch a step at a time; returns ``(last metrics, stopped)``."""
+        cfg = self.config
+        running = None
+        batches = self._prefetcher(task, train_batches, cache)
+        try:
+            for batch in batches:
+                running = self.train_step(task, state, batch, generator)
+                if self._stop_requested:
+                    return running, True
+                if state.step % cfg.log_every_n_steps == 0:
+                    self._log({"epoch": epoch, "step": state.step,
+                               **{f"train_{k}": float(v) for k, v in running.items()}})
+        finally:
+            batches.close()  # ends the loader's threads when the loop leaves early
+        return running, False
+
+    def _dispatched_epoch(self, task, state, generator, cache, plan, epoch):
+        """One epoch from the device cache in chunks of
+        ``steps_per_dispatch`` steps over ``plan``; returns ``(last
+        metrics, stopped)``."""
+        cfg = self.config
+        k = int(cfg.steps_per_dispatch)
+        running = None
+        if cache.device.type == "cuda":
+            # the store was filled on the prefetcher's side stream: its memory
+            # must not be reused while this stream's gathers read it
+            stream = torch.cuda.current_stream(cache.device)
+            for leaf in tree_flatten(cache.store)[0]:
+                leaf.record_stream(stream)
+        for extents, mat in plan:
+            for begin in range(0, len(mat), k):
+                chunk = mat[begin:begin + k]
+                metrics = {name: v.cpu().numpy() for name, v in
+                           self.dispatch_chunk(task, state, generator, cache, extents,
+                                               chunk).items()}  # the one fetch a chunk
+                before = state.step - len(chunk)
+                if before // cfg.log_every_n_steps != state.step // cfg.log_every_n_steps:
+                    self._log({"epoch": epoch, "step": state.step,
+                               **{f"train_{name}": float(np.mean(v))
+                                  for name, v in metrics.items()}})
+                running = {name: v[-1] for name, v in metrics.items()}
+                if self._stop_requested:
+                    return running, True
+        return running, False
+
+    def dispatch_chunk(self, task, state, generator, cache, extents, chunk):
+        """``len(chunk)`` train steps enqueued back to back: one upload of
+        the ``[k, B]`` index matrix ``chunk``, each step's batch gathered
+        from the cache's store at ``extents``. Returns the metrics stacked
+        ``[k]`` on the device; nothing here waits for the device."""
+        idx = torch.from_numpy(np.ascontiguousarray(chunk, np.int64))
+        if cache.device.type == "cuda":
+            idx = idx.pin_memory()
+        idx = idx.to(cache.device, non_blocking=True)
+        store = cache.store
+        steps = [self.train_step(task, state, cache.gather_rows(store, idx[j], extents), generator)
+                 for j in range(len(chunk))]
+        return {name: torch.stack([m[name] for m in steps]) for name in steps[0]}
 
     def _epoch_tail(self, task, state, epoch, start, running, val_batches, datamodule) -> None:
         """The epoch record, validation and checkpoints."""
