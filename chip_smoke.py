@@ -195,7 +195,34 @@ toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
     launches exact (kernel 8 once a batch, kernel 1 once a layer a batch);
     prints each transcribe's wall time against greedy and the batched
     beam's card time on one batch;
-20. after the TTS training phase, runs the training data shell
+20. after ``serve_beam`` (``server_phase``), serves asr_en_base and
+    align_en_base + tts_en_base (seeded random weights) through
+    voice100_tpu_torch.server.SpeechServer on 127.0.0.1 (port 0, a 10 ms
+    batch window) on the card: 16 client threads send, interleaved, the
+    serve phase's 16 int16 clips as WAV, a float32 body at 22,050 Hz (the
+    server resamples it), WAVs of 60 and 150 s (past the 40 s bucket: they
+    stream through StreamingASRSession) and 8 /synthesize texts, each
+    request with a timeout; holds every transcript, and the same
+    pipeline's direct transcribe([clip]) on the card, to the CPU pipeline
+    under the margin rule (some choice of ids within 4e-3 of each frame's
+    CPU maximum gives it), checks that the long clips' sessions commit
+    every frame, that each WAV has the direct call's sample count, that
+    /healthz lists both models, that some micro-batch held more than one
+    request, and the exact launches of the run (per streamed window kernel
+    8 once and kernel 1 once a layer, the same per ASR device batch, kernel
+    1 four times per TTS batch); drives a live session over a 60 s clip in
+    0.5 s feeds at its default contexts (launches exact, the transcript a
+    chain of prefixes); prints requests a second, latency by endpoint,
+    batch sizes, per-feed decode ms and the long-form RTF; then
+    (``profile_fit``) trains asr_en_base 2 epochs through the training CLI
+    with trainer.profile_dir at batch 32 from the align corpus's warm cache
+    (launches exact), checks that the trace is written once and parses as
+    JSON, and prints the card's busy share of the traced window where the
+    trace holds an event for every launch of the port's kernels in it
+    ("not measured" otherwise); kernels 1 and 8 are held to their plain
+    versions at a streaming window's B=1 shapes (T'=2001, 640,000 samples)
+    after step 7's checks;
+21. after the TTS training phase, runs the training data shell
     (``data_shell_phase``): asr_en_base through the training CLI on the
     align corpus at batch 16 from a cold feature cache, with 4 loader
     worker processes, the device feature cache and 4 steps a dispatch, 3
@@ -208,7 +235,7 @@ toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
     48 clips of the TTS corpus at 0 and 4 workers (host seconds, caches
     byte-equal); the pooled log-mel cache against step 13's kernel-8 cache
     (within 1e-3 plus one float16 step);
-21. prints one JSON line of per-kernel results (the bf16 variants as
+22. prints one JSON line of per-kernel results (the bf16 variants as
     their own lines), then, last, {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line is printed. Without
@@ -507,13 +534,17 @@ def int16_clips(rng, seconds):
     return clips
 
 
-def check_melspec(device):
+def check_melspec(device, batch=BATCH, seconds=10.0):
+    """The log-mel kernel against its plain version on ``batch`` clips of
+    ``seconds`` (by default one 8 x 10 s serve batch; the streaming
+    windows at B=1 and 40 s), timed in turns with torch.stft + mel + log;
+    one call must be one launch."""
     from voice100_tpu_torch.ops import melspec
     from voice100_tpu_torch.ops.melspec import log_mel_spectrogram, mel_filterbank
     from voice100_tpu_torch.ops.melspec_cuda import log_mel_spectrogram_cuda
 
     rng = np.random.default_rng(SEED)
-    pcm = np.stack(int16_clips(rng, [10.0] * BATCH))
+    pcm = np.stack(int16_clips(rng, [seconds] * batch))
     wav = torch.from_numpy(pcm).to(device).float() * (1.0 / 32768.0)
     # one call is one launch, and no frames are cut in PyTorch on the way
     framed, frame_signal = [], melspec.frame_signal
@@ -557,7 +588,7 @@ def check_melspec(device):
     n_ops = rows * (400 + 2.5 * 512 * 9 + 3 * 257 + 2 * fb_nnz + 64)
     bound, bound_by = bound_ms(n_bytes, n_ops)
     kernel, lib = turns["kernel"], turns["library"]
-    print(f"log-mel {BATCH} x 10 s ({rows} frames): max_abs_err {err:.3e} (tol {MEL_TOL:.0e}), "
+    print(f"log-mel {batch} x {seconds:g} s ({rows} frames): max_abs_err {err:.3e} (tol {MEL_TOL:.0e}), "
           f"torch.stft vs plain {library_err:.3e}; one launch a call; in turns: kernel "
           f"{kernel['ms']:.4f} ms (device {fmt_ms(kernel['device_ms'])}), torch.stft + mel + log "
           f"{lib['ms']:.4f} ms (device {fmt_ms(lib['device_ms'])}); plain {plain_ms:.4f} ms, "
@@ -570,6 +601,7 @@ def check_melspec(device):
         "max_abs_err": err, "ms": kernel["ms"], "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": bound_by, "library_ms": lib["ms"], "device_ms": kernel["device_ms"],
         "library_device_ms": lib["device_ms"], "events_launches": kernel["events_launches"],
+        "shapes": f"B={batch}, {seconds:g} s ({wav.shape[1]} samples)",
     }
 
 
@@ -603,7 +635,7 @@ def check_melspec_clips(device):
 
 
 def check_bilstm(device, batch=BATCH, time_steps=501, lengths_list=None, hidden=512,
-                 input_size=512):
+                 input_size=512, plain_iters=3):
     """The biLSTM inference kernel against its plain version for both
     layer widths of a 2-layer biLSTM (input ``input_size``, then 2 H) with
     ragged lengths, timed with the plain version and cuDNN nn.LSTM; one
@@ -657,7 +689,9 @@ def check_bilstm(device, batch=BATCH, time_steps=501, lengths_list=None, hidden=
             library_err = (library() - ref).abs().max().item()
             turns = timed_in_turns({"kernel": lambda: bilstm_cuda(*params, x, lengths),
                                     "library": library}, iters=2)
-            plain_ms = time_ms(lambda: bilstm(*params, x, lengths), iters=3, warmup=1)
+            # the reference call above warms the plain version up
+            plain_ms = time_ms(lambda: bilstm(*params, x, lengths), iters=plain_iters,
+                               warmup=min(1, plain_iters - 1))
             ms, library_ms = turns["kernel"]["ms"], turns["library"]["ms"]
             device_ms = turns["kernel"]["device_ms"]
             library_device_ms = turns["library"]["device_ms"]
@@ -3894,6 +3928,457 @@ def serve_beam(device, card, workdir, data_dir):
                       "audio_s": audio_sec, "differ_from_greedy": differ}
 
 
+# Long-form serving: the HTTP daemon on the card under concurrent ASR and
+# TTS clients (long clips streamed), a live streaming session, and a fit
+# with profile_dir
+SERVER_CLIENTS = 16
+SERVER_LONG_SECONDS = (60.0, 150.0)  # past the 40 s bucket: streamed
+SERVER_RAW_RATE = 22050              # the float32 body's rate, resampled by the server
+SERVER_RAW_SECONDS = 6.0
+SERVER_TTS_TEXTS = 8
+SERVER_TIMEOUT_S = 120.0             # a request's; a timeout fails the phase
+STREAM_LIVE_SECONDS = 60.0
+STREAM_FEED_SECONDS = 0.5
+STREAM_B1_SECONDS = 40.0             # a streaming window at the largest bucket: T' = 2001
+PROFILE_FIT_BATCH = 32
+PROFILE_FIT_EPOCHS = 2
+
+
+def near_max_ids(logits, n):
+    """The frame-wise argmax of ``logits [T, V]`` over its first ``n``
+    frames, and each frame's ids whose logits lie within 2 LOGIT_TOL of
+    its maximum: where the card's logits are within LOGIT_TOL of these,
+    its argmax is one of them (the serving margin rule)."""
+    logits = logits[:n].float()
+    near = logits >= logits.max(-1, keepdim=True).values - 2 * LOGIT_TOL
+    return logits.argmax(-1).numpy(), [np.flatnonzero(row).tolist() for row in near.numpy()]
+
+
+def transcript_reachable(choices, text, tokenizer) -> bool:
+    """Whether one id a frame, each from that frame's ``choices``, gives
+    ``text`` through the tokenizer's decode and CTC merge (a run of one
+    character collapses, blanks drop, a transcript of one space reads as
+    empty): the margin rule on transcripts."""
+    char = [tokenizer.decode([i]) for i in range(tokenizer.vocab_size)]
+    for target in [text] + ([" "] if text == "" else []):
+        states = {(0, None)}  # (characters of target given, the last frame's character)
+        for frame in choices:
+            states = {(j + (char[i] != prev and char[i] != char[0]), char[i])
+                      for j, prev in states for i in frame
+                      if char[i] == prev or char[i] == char[0]
+                      or (j < len(target) and target[j] == char[i])}
+            if not states:
+                break
+        if any(j == len(target) for j, _ in states):
+            return True
+    return False
+
+
+def streamed_choices(pipe, wav, rows: int = BATCH):
+    """Stream ``wav`` through the CPU pipeline ``pipe`` with the contexts
+    ASRPipeline.transcribe gives a long clip, and return the transcript
+    and, for each committed frame, :func:`near_max_ids`' choices. The
+    session commits placeholder ids (a window's index and frame); the
+    windows are then decoded ``rows`` at a time (the plain path is
+    row-independent) and the placeholders read back."""
+    from voice100_tpu_torch.inference import StreamingASRSession
+    from voice100_tpu_torch.models.layers import conv_stack_output_length
+
+    windows = []
+    stride = 1 << 20  # placeholder id = window * stride + frame
+
+    def record(wav, wav_len):
+        n = conv_stack_output_length(pipe.model.encoder_settings, wav_len // 160 + 1)
+        windows.append((wav[0], int(wav_len[0]), int(n[0])))
+        return (torch.arange(int(n[0]))[None] + (len(windows) - 1) * stride), n
+
+    pipe._greedy = record
+    try:
+        bucket_sec = pipe.buckets[-1] / pipe.sample_rate
+        session = StreamingASRSession(pipe, chunk_sec=bucket_sec / 4,
+                                      right_context_sec=bucket_sec / 8,
+                                      left_context_sec=bucket_sec / 4)
+        for begin in range(0, len(wav), pipe.buckets[0]):
+            session.feed(wav[begin:begin + pipe.buckets[0]])
+        session.finish()
+    finally:
+        del pipe._greedy
+    decoded = {}
+    for length in sorted({len(w) for w, _, _ in windows}):
+        same = [i for i, (w, _, _) in enumerate(windows) if len(w) == length]
+        for begin in range(0, len(same), rows):
+            part = same[begin:begin + rows]
+            logits, n = pipe.logits(torch.stack([windows[i][0] for i in part]),
+                                    torch.tensor([windows[i][1] for i in part], dtype=torch.int32))
+            for row, i in enumerate(part):
+                decoded[i] = near_max_ids(logits[row], int(n[row]))
+    ids = [int(decoded[p // stride][0][p % stride]) for p in session._committed_ids]
+    choices = [decoded[p // stride][1][p % stride] for p in session._committed_ids]
+    tok = pipe.tokenizer
+    return tok.merge_repeated(tok.decode(ids)), choices
+
+
+def http_request(port, method, path, body=None, headers=None):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=SERVER_TIMEOUT_S)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Content-Type"), resp.read()
+    finally:
+        conn.close()
+
+
+def percentiles(values):
+    return {"p50": float(np.percentile(values, 50)), "p95": float(np.percentile(values, 95)),
+            "n": len(values)}
+
+
+def server_requests(device, asr, tts):
+    """The phase's requests in the interleaved order the clients send
+    them: the serve phase's 16 int16 clips as WAV, one float32 body at
+    SERVER_RAW_RATE, the long clips as WAV, SERVER_TTS_TEXTS texts.
+    Returns the requests, the waveforms the server decodes from the ASR
+    bodies, and the texts."""
+    from voice100_tpu_torch.dsp.resample import resample
+    from voice100_tpu_torch.dsp.wav import write_wav_bytes
+
+    rng = np.random.default_rng(SEED)
+    clips = int16_clips(rng, rng.uniform(2.0, 10.0, size=16))
+    rng = np.random.default_rng(SEED + 40)
+    raw = (rng.standard_normal(int(SERVER_RAW_SECONDS * SERVER_RAW_RATE)) * 0.1).astype(np.float32)
+    longs = int16_clips(rng, SERVER_LONG_SECONDS)
+    bodies = ([(write_wav_bytes(c, SAMPLE_RATE), {}) for c in clips]
+              + [(raw.tobytes(), {"X-Raw-Sample-Rate": str(SERVER_RAW_RATE)})]
+              + [(write_wav_bytes(c, SAMPLE_RATE), {}) for c in longs])
+    waves = clips + [resample(raw, SERVER_RAW_RATE, SAMPLE_RATE)] + longs
+    texts = TTS_TEXTS[:SERVER_TTS_TEXTS]
+    order = list(range(16))
+    order[3:3] = [17]       # the 60 s clip early
+    order[10:10] = [16, 18]  # the float32 body, then the 150 s clip
+    requests = []
+    for k, i in enumerate(order):
+        requests.append(("/transcribe", i, *bodies[i]))
+        if k % 2 == 1 and k // 2 < len(texts):
+            requests.append(("/synthesize", k // 2, json.dumps({"text": texts[k // 2]}).encode(),
+                             {"Content-Type": "application/json"}))
+    return requests, waves, texts
+
+
+def server_phase(device, card, workdir):
+    """SpeechServer on the card (asr_en_base, align_en_base + tts_en_base,
+    seeded random weights; 127.0.0.1, port 0, batch_window_ms 10) under
+    SERVER_CLIENTS concurrent clients: every transcript held to the same
+    pipeline's direct transcribe([clip]) on the card and to the CPU
+    pipeline under the margin rule (:func:`transcript_reachable`), the
+    long clips' sessions committing every frame, each WAV of the direct
+    call's sample count, /healthz, exact launches (per streaming window
+    kernel 8 once and kernel 1 twice, per ASR device batch the same, per
+    TTS batch kernel 1 four times), a micro-batch of more than one
+    request. Then a live session on a STREAM_LIVE_SECONDS clip in
+    STREAM_FEED_SECONDS feeds at its default contexts. Returns the launches
+    by path and a summary."""
+    import concurrent.futures as cf
+
+    from voice100_tpu_torch.dsp.wav import parse_wav
+    from voice100_tpu_torch.inference import ASRPipeline, StreamingASRSession, TTSPipeline
+    from voice100_tpu_torch.models import AudioToAlignText
+    from voice100_tpu_torch.server import SpeechServer
+    from voice100_tpu_torch.training.cli import load_model
+
+    phase_start = time.perf_counter()
+    model = AudioToAlignText(**ASR_EN_BASE, device="cpu",
+                             generator=torch.Generator().manual_seed(SEED))
+    cpu_pipe = ASRPipeline(model, batch_size=BATCH, device="cpu")
+    asr = ASRPipeline(copy.deepcopy(model), batch_size=BATCH, device=device)
+    paths = write_tts_checkpoints(workdir)
+    tts = TTSPipeline(load_model(*paths["align"], device=device),
+                      load_model(*paths["audio"], device=device), use_phone=False, device=device)
+    requests, waves, texts = server_requests(device, asr, tts)
+    tokenizer = asr.tokenizer
+
+    # the direct calls, one request each (they warm the shapes up too), then
+    # the long clips timed again
+    direct = [asr.transcribe([w])[0] for w in waves]
+    tts.synthesize(texts)
+    direct_samples = [len(tts.synthesize([t])[0]) for t in texts]
+    long_rtf = {}
+    for w in waves:
+        if len(w) > asr.buckets[-1]:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            asr.transcribe([w])
+            long_rtf[f"{len(w) / SAMPLE_RATE:g}s"] = len(w) / SAMPLE_RATE / (
+                time.perf_counter() - start)
+
+    # the device batches and streamed windows of the run, for its launches
+    calls = {"/transcribe": [], "/synthesize": []}
+    transcribe, synthesize = asr.transcribe, tts.synthesize
+    asr.transcribe = lambda ws: calls["/transcribe"].append([len(w) for w in ws]) or transcribe(ws)
+    tts.synthesize = lambda ts: calls["/synthesize"].append(len(ts)) or synthesize(ts)
+    server = SpeechServer(asr, tts, host="127.0.0.1", port=0, batch_window_ms=10.0)
+    port = server.start()
+    wrappers = {w for ws in counted_kernels().values() for w in ws}
+    try:
+        status, _, body = http_request(port, "GET", "/healthz")
+        if status != 200 or json.loads(body) != {"status": "ok", "models": ["asr", "tts"]}:
+            fail(f"server: /healthz answered {status} {body!r}")
+        streamed_before = len(asr.streamed)
+
+        def send(request):
+            path, _, payload, headers = request
+            start = time.perf_counter()
+            out = http_request(port, "POST", path, payload, headers)
+            return out, time.perf_counter() - start
+
+        torch.cuda.synchronize()
+        for w in wrappers:
+            w.launches = 0
+        start = time.perf_counter()
+        with cf.ThreadPoolExecutor(SERVER_CLIENTS) as pool:
+            futures = [pool.submit(send, r) for r in requests]
+            done, _ = cf.wait(futures, timeout=2 * SERVER_TIMEOUT_S)
+        wall = time.perf_counter() - start
+        torch.cuda.synchronize()
+        launches = {w.__name__: w.launches for w in wrappers if w.launches}
+        for request, future in zip(requests, futures):
+            if future not in done or future.exception() is not None:
+                fail(f"server: {request[0]} request {request[1]} did not answer: "
+                     f"{future.exception() if future in done else 'timed out'}")
+        streamed = list(asr.streamed)[streamed_before:]
+        batch_sizes = {"/transcribe": list(server.asr_batcher.batch_sizes),
+                       "/synthesize": list(server.tts_batcher.batch_sizes)}
+    finally:
+        server.stop()
+        del asr.transcribe, tts.synthesize
+    results = [f.result() for f in futures]
+
+    # the answers
+    latency = {"/transcribe": [], "/synthesize": []}
+    got_text = {}
+    for (path, i, _, _), ((status, ctype, data), seconds) in zip(requests, results):
+        latency[path].append(seconds * 1e3)
+        if status != 200:
+            fail(f"server: {path} request {i} answered {status}: {data[:200]!r}")
+        if path == "/transcribe":
+            got_text[i] = json.loads(data)["text"]
+            continue
+        samples, rate = parse_wav(data)
+        if ctype != "audio/wav" or rate != SAMPLE_RATE or samples.shape[1] != direct_samples[i]:
+            fail(f"server: /synthesize of text {i} gave {samples.shape[1]} samples at {rate} Hz "
+                 f"({ctype}), the direct call {direct_samples[i]}")
+
+    # launches: each streamed window and each ASR device batch kernel 8 once
+    # and kernel 1 once a layer; each TTS batch kernel 1 once a layer of both
+    # models; nothing else
+    windows = sum(r["windows"] for r in streamed)
+    asr_batches = sum(-(-sum(n <= asr.buckets[-1] for n in call) // BATCH)
+                      for call in calls["/transcribe"])
+    layers = ASR_EN_BASE["decoder_num_layers"]
+    tts_layers = ALIGN_EN_BASE["num_layers"] + TTS_EN_BASE["encoder_num_layers"]
+    want = {"log_mel_spectrogram_cuda": windows + asr_batches,
+            "bilstm_cuda": layers * (windows + asr_batches)
+            + tts_layers * len(calls["/synthesize"])}
+    if launches != want:
+        fail(f"server: launches {launches}, not {want} ({windows} streamed windows, "
+             f"{asr_batches} ASR batches, {len(calls['/synthesize'])} TTS batches)")
+    long_lengths = sorted(len(w) for w in waves if len(w) > asr.buckets[-1])
+    if sorted(r["samples"] for r in streamed) != long_lengths or any(
+            r["committed_frame"] < r["samples"] // 320 for r in streamed):
+        fail(f"server: the long clips' sessions {streamed} did not commit every frame of "
+             f"{long_lengths} samples")
+    if max(batch_sizes["/transcribe"] + batch_sizes["/synthesize"]) < 2:
+        fail(f"server: no micro-batch held more than one request: {batch_sizes}")
+
+    # the margin rule against the CPU pipeline (the same weights)
+    cpu_start = time.perf_counter()
+    cpu_text, choices = {}, {}
+    short = [i for i, w in enumerate(waves) if len(w) <= cpu_pipe.buckets[-1]]
+    for chunk, wav, lens in cpu_pipe.batches([waves[i] for i in short]):
+        logits, n = cpu_pipe.logits(wav, lens)
+        for row, j in enumerate(chunk):
+            ids, choices[short[j]] = near_max_ids(logits[row], int(n[row]))
+            cpu_text[short[j]] = tokenizer.merge_repeated(tokenizer.decode(ids))
+    committed = {r["samples"]: r["committed_frame"] for r in streamed}
+    for i, w in enumerate(waves):
+        if i not in choices:
+            cpu_text[i], choices[i] = streamed_choices(cpu_pipe, w)
+            if len(choices[i]) != committed[len(w)]:
+                fail(f"server: the CPU session of clip {i} committed {len(choices[i])} frames, "
+                     f"the card's {committed[len(w)]}")
+    cpu_s = time.perf_counter() - cpu_start
+    for i in range(len(waves)):
+        for name, text in (("server", got_text[i]), ("direct", direct[i])):
+            if not transcript_reachable(choices[i], text, tokenizer):
+                fail(f"server: the {name} transcript of clip {i} ({len(waves[i])} samples) is "
+                     f"not one the CPU logits give under the {2 * LOGIT_TOL:.0e} margin rule: "
+                     f"{text!r} against the CPU's {cpu_text[i]!r}")
+    ambiguous = sum(sum(len(c) > 1 for c in choices[i]) for i in choices)
+    frames = sum(len(choices[i]) for i in choices)
+    same = {"server_direct": sum(got_text[i] == direct[i] for i in got_text),
+            "server_cpu": sum(got_text[i] == cpu_text[i] for i in got_text)}
+
+    # a live session at its default contexts, fed in STREAM_FEED_SECONDS pieces
+    live = int16_clips(np.random.default_rng(SEED + 41), [STREAM_LIVE_SECONDS])[0]
+    step = int(STREAM_FEED_SECONDS * SAMPLE_RATE)
+    warm = StreamingASRSession(asr)
+    for begin in range(0, 6 * step, step):
+        warm.feed(live[begin:begin + step])
+    session = StreamingASRSession(asr)
+    counters = align_counters()
+    zero_counts(counters)
+    feed_ms, partial = [], ""
+    live_start = time.perf_counter()
+    for begin in range(0, len(live), step):
+        before = session.windows
+        start = time.perf_counter()
+        text = session.feed(live[begin:begin + step])
+        if session.windows > before:
+            feed_ms.append((time.perf_counter() - start) * 1e3)
+        if not text.startswith(partial):
+            fail(f"stream: the transcript {text!r} does not extend {partial!r}")
+        partial = text
+    final = session.finish()
+    live_wall = time.perf_counter() - live_start
+    stream_launches = {k: v for k, v in read_counts(counters).items() if v}
+    want = {"log_mel": session.windows, "bilstm_recurrence": layers * session.windows}
+    if stream_launches != want or not final.startswith(partial):
+        fail(f"stream: launches {stream_launches}, not {want}, or a final transcript that does "
+             f"not extend the last partial one")
+    if session._committed_frame < len(live) // 320:
+        fail(f"stream: {session._committed_frame} frames committed of {len(live) // 320}")
+
+    rps = len(requests) / wall
+    lat = {path: percentiles(v) for path, v in latency.items()}
+    print(f"server on {card}: {len(requests)} requests from {SERVER_CLIENTS} clients "
+          f"({len(waves)} /transcribe: 16 WAV clips of 2-10 s, one float32 body at "
+          f"{SERVER_RAW_RATE} Hz, WAVs of {SERVER_LONG_SECONDS} s streamed; {len(texts)} "
+          f"/synthesize) in {wall:.3f} s, {rps:.2f} requests/s; latency ms "
+          + json.dumps({p: {k: round(v, 2) for k, v in q.items()} for p, q in lat.items()})
+          + f"; batch sizes {batch_sizes}; launches {launches} ({windows} streamed windows, "
+          f"{asr_batches} ASR device batches, {len(calls['/synthesize'])} TTS batches)",
+          flush=True)
+    print(f"server transcripts on {card}: all {len(waves)} reachable from the CPU logits under "
+          f"the {2 * LOGIT_TOL:.0e} margin rule ({ambiguous} of {frames} frames ambiguous), the "
+          f"direct calls' too; equal to the direct call's {same['server_direct']}/{len(waves)}, "
+          f"to the CPU's {same['server_cpu']}/{len(waves)}; every WAV the direct call's sample "
+          f"count; long clips' sessions {streamed}; CPU reference {cpu_s:.2f} s", flush=True)
+    print(f"stream on {card}: long-form transcribe RTF "
+          + json.dumps({k: round(v, 2) for k, v in long_rtf.items()})
+          + f"; a live session, {STREAM_LIVE_SECONDS:g} s in {STREAM_FEED_SECONDS:g} s feeds at "
+          f"the default contexts: {session.windows} windows, per-feed decode ms "
+          + json.dumps({k: round(v, 3) for k, v in percentiles(feed_ms).items()})
+          + f", {live_wall:.3f} s in all; launches {stream_launches}", flush=True)
+    summary = {"wall_s": time.perf_counter() - phase_start, "requests": len(requests),
+               "requests_per_s": rps, "latency_ms": lat, "batch_sizes": batch_sizes,
+               "streamed": streamed, "long_rtf": long_rtf, "feed_decode_ms": percentiles(feed_ms),
+               "live_windows": session.windows, "equal": same, "ambiguous_frames": ambiguous,
+               "frames": frames, "cpu_reference_s": cpu_s}
+    by_path = {"server": {"log_mel": launches.get("log_mel_spectrogram_cuda", 0),
+                          "bilstm_recurrence": launches.get("bilstm_cuda", 0)},
+               "stream": stream_launches}
+    return by_path, summary
+
+
+def profile_fit(device, card, workdir, align_args):
+    """asr_en_base through the training CLI with ``trainer.profile_dir``:
+    PROFILE_FIT_EPOCHS epochs of the align corpus at batch
+    PROFILE_FIT_BATCH from its warm cache (launches exact, kernel 8
+    never). The trace file must exist, parse as JSON (closed) and be
+    logged once; where it holds an event for every launch of the port's
+    kernels in the traced window, the card's busy share of that window
+    (training steps 2-4 and the epoch tail between them) is printed, else
+    "not measured". Returns the launches and a summary."""
+    import contextlib
+
+    import yaml
+    from voice100_tpu_torch.data import AudioTextDataModule
+    from voice100_tpu_torch.training import trainer as trainer_module
+    from voice100_tpu_torch.training.cli import load_config, main
+
+    prof_dir = os.path.join(workdir, "profile")
+    config = load_config(align_args["config"])
+    config["trainer"].update(max_epochs=PROFILE_FIT_EPOCHS, profile_dir=prof_dir)
+    cfg = os.path.join(workdir, "profile_fit.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump(config, f)
+    log = os.path.join(workdir, "profile_log.jsonl")
+    kernels = counted_kernels()
+    window = {}
+    real_trace = trainer_module.trace
+
+    @contextlib.contextmanager
+    def counted_trace(log_dir, device=None):
+        # the launches of the traced window, by kernel name as on the card
+        before = {part: sum(launches_of(w) for w in ws) for part, ws in kernels.items()}
+        with real_trace(log_dir, device) as prof:
+            yield prof
+        window.update({part: sum(launches_of(w) for w in ws) - before[part]
+                       for part, ws in kernels.items()})
+
+    counters = cli_counters()
+    zero_counts(counters)
+    trainer_module.trace = counted_trace
+    start = time.perf_counter()
+    try:
+        main(["fit", "--config", cfg, "--data_dir", align_args["data_dir"],
+              "--cache_dir", align_args["cache_dir"], "--batch_size", str(PROFILE_FIT_BATCH),
+              "--checkpoint_dir", os.path.join(workdir, "profile_ckpt"), "--log_path", log,
+              "--device", str(device)])
+    finally:
+        trainer_module.trace = real_trace
+    wall = time.perf_counter() - start
+    launches = read_counts(counters)
+    data = AudioTextDataModule(vocoder="mel", dataset="dummy_en", data_dir=align_args["data_dir"],
+                               cache_dir=align_args["cache_dir"], batch_size=PROFILE_FIT_BATCH,
+                               device=device)
+    data.setup("fit")
+    layers = ASR_EN_BASE["decoder_num_layers"]
+    steps = PROFILE_FIT_EPOCHS * -(-len(data.train_ds) // PROFILE_FIT_BATCH)
+    evals = PROFILE_FIT_EPOCHS * -(-len(data.valid_ds) // PROFILE_FIT_BATCH)
+    want = {"log_mel": 0, "bilstm_recurrence": 2 * layers * evals, "viterbi_align": 0,
+            "bilstm_train_fwd": layers * steps, "bilstm_train_bwd": 2 * layers * steps,
+            "ctc_alpha": steps + evals, "ctc_adjoint": steps}
+    if launches != want:
+        fail(f"profile fit: launches {launches}, not {want}")
+    with open(log) as f:
+        records = [json.loads(line) for line in f]
+    written = [r for r in records if r.get("event") == "profile_written"]
+    files = sorted(os.listdir(prof_dir)) if os.path.isdir(prof_dir) else []
+    if written != [{"event": "profile_written", "dir": prof_dir}] or len(files) != 1 or steps < 5:
+        fail(f"profile fit: records {written}, trace files {files} ({steps} steps)")
+    path = os.path.join(prof_dir, files[0])
+    try:
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    except ValueError as err:
+        fail(f"profile fit: the trace {path} is not closed JSON: {err}")
+    on_card = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    counted = {part: [sum(part in e["name"] for e in on_card if e.get("cat") == "kernel"),
+                      window.get(part, 0)] for part in kernels}
+    counted = {part: c for part, c in counted.items() if any(c)}
+    busy = None
+    if on_card and all(a == b for a, b in counted.values()):
+        begin = min(e["ts"] for e in events)
+        end = max(e["ts"] + e.get("dur", 0) for e in events)
+        covered, reach = 0.0, begin
+        for e in sorted(on_card, key=lambda e: e["ts"]):
+            lo, hi = max(e["ts"], reach), e["ts"] + e.get("dur", 0)
+            if hi > lo:
+                covered, reach = covered + hi - lo, hi
+        busy = covered / (end - begin)
+    print(f"profile fit on {card}: asr_en_base {PROFILE_FIT_EPOCHS} epochs at batch "
+          f"{PROFILE_FIT_BATCH} ({steps} steps) through the CLI with trainer.profile_dir in "
+          f"{wall:.2f} s; trace {files[0]} ({os.path.getsize(path)} bytes, closed JSON, "
+          f"{len(on_card)} card events); kernel [events, launches] in the traced window "
+          f"{counted}; card busy share of the traced window (steps 2-4 and the epoch tail) "
+          f"{'not measured' if busy is None else f'{busy:.4f}'}; launches {launches}",
+          flush=True)
+    return launches, {"wall_s": wall, "trace_bytes": os.path.getsize(path),
+                      "events_launches": counted, "busy_share": busy}
+
+
 # The training data shell: asr_en_base through the training CLI on the
 # align corpus with the loader's worker pool, the device feature cache and
 # multi-step dispatch
@@ -4226,6 +4711,10 @@ def main() -> None:
     training[0]["b128_h256"] = {"shapes": b128["shapes"],
                                 "max_abs_err": b128["max_abs_err"]["bilstm_train_fwd"]}
     serving[0]["single_clip_max_abs_err"] = check_melspec_clips(device)
+    # a streaming window at the largest bucket: B=1, 640,000 samples, T'=2001
+    serving[0]["b1_stream"] = check_melspec(device, 1, STREAM_B1_SECONDS)
+    frames = int(STREAM_B1_SECONDS * SAMPLE_RATE) // 320 + 1
+    serving[1]["b1_stream"] = check_bilstm(device, 1, frames, [frames], plain_iters=1)
     # each CTC kernel's and the Viterbi launch's step split by cause, and
     # the chain floors; the Viterbi check reads its phases from it
     from voice100_tpu_torch.tools.probe_ctc import probe
@@ -4243,6 +4732,10 @@ def main() -> None:
         by_path.update({f"align_{run}": r["launches"] for run, r in runs.items()})
         by_path["serve_beam"], beam_summary = serve_beam(device, card, workdir,
                                                          args["data_dir"])
+        server_paths, server_summary = server_phase(device, card, workdir)
+        by_path.update(server_paths)
+        by_path["profile_fit"], server_summary["profile_fit"] = profile_fit(device, card, workdir,
+                                                                            args)
         parity = align_parity(device, args, workdir)
         cli_launches, _ = cli_phase(device, card, workdir, args, samples)
         by_path.update({f"cli_{sub}": launches for sub, launches in cli_launches.items()})
@@ -4291,6 +4784,7 @@ def main() -> None:
     print(f"bf16_summary ({card}) " + json.dumps(bf16_summary), flush=True)
     print(f"serve_beam_summary ({card}) " + json.dumps(beam_summary), flush=True)
     print(f"data_shell_summary ({card}) " + json.dumps(shell_summary), flush=True)
+    print(f"server_summary ({card}) " + json.dumps(server_summary), flush=True)
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s from the kernel build to here",
           flush=True)
     print(json.dumps({"kernels": serving + training + aligning + bf16_lines}), flush=True)

@@ -109,8 +109,9 @@ def test_pipeline_transcripts_match_jax(jax_model):
 
 def test_training_mode_and_long_inputs_raise(jax_model):
     """Training mode runs (dropout between the biLSTM layers) since the
-    train slice; serving puts the model in eval mode, and clips longer
-    than the largest bucket still raise."""
+    train slice; serving puts the model in eval mode. A clip longer than
+    the largest bucket still raises in ``batches``; ``transcribe`` streams
+    it (tests/test_torch_streaming.py holds that to the JAX package)."""
     from voice100_tpu_torch.inference import ASRPipeline
 
     port = _port_model(jax_model[1]).train()
@@ -122,4 +123,6 @@ def test_training_mode_and_long_inputs_raise(jax_model):
     pipe = ASRPipeline(port.train(), device="cpu", batch_size=1, buckets_sec=(0.5,))
     assert not pipe.model.training
     with pytest.raises(NotImplementedError):
-        pipe.transcribe([np.zeros(8001, np.float32)])
+        list(pipe.batches([np.zeros(8001, np.float32)]))
+    assert isinstance(pipe.transcribe([np.zeros(8001, np.float32)])[0], str)
+    assert [r["samples"] for r in pipe.streamed] == [8001]

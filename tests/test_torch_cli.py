@@ -134,7 +134,7 @@ def test_configs_the_port_cannot_build_raise_naming_the_class(name):
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("mesh_model_axis", 2, "item 10"), ("profile_dir", "prof", "item 10"),
+    ("mesh_model_axis", 2, "item 10"), ("mesh_model_axis", 8, "item 10"),
 ])
 def test_unported_trainer_settings_raise_naming_their_item(tmp_path, key, value, item):
     from voice100_tpu_torch.training.cli import cli_main

@@ -46,6 +46,8 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "        'voice100_tpu_torch.data.prefetch', 'voice100_tpu_torch.data.device_cache',\n"
         "        'voice100_tpu_torch.ops.ctc_beam', 'voice100_tpu_torch.ops.ctc_beam_device',\n"
         "        'voice100_tpu_torch.text.ngram', 'voice100_tpu_torch.tools.train_lm',\n"
+        "        'voice100_tpu_torch.server', 'voice100_tpu_torch.utils.profiling',\n"
+        "        'voice100_tpu_torch.tools.cache_dataset',\n"
         "        } <= set(names), names\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n"
@@ -62,7 +64,7 @@ def test_sources_have_no_jax_imports(path):
     assert not FORBIDDEN_IMPORT.search(path.read_text()), path
 
 
-def test_entry_points_default_to_cuda_and_raise_without_it():
+def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     from voice100_tpu_torch.data import AudioTextDataModule, MelSpectrogramAudioTransform
     from voice100_tpu_torch.device import resolve_device
     from voice100_tpu_torch.inference import ASRPipeline
@@ -116,6 +118,23 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
             and viterbi_cuda.viterbi_align_lattice_cuda.launches == launches)
     with pytest.raises(ValueError, match="device"):
         viterbi_cuda.ctc_viterbi_align_cuda(lp.to("meta"), *args)
+    # serving and the tools of the long-form slice: the server's CLI, the
+    # cache warmer and the profiler's trace
+    from voice100_tpu_torch.server import cli_main as serve_main
+    from voice100_tpu_torch.tools.cache_dataset import cli_main as cache_main
+    from voice100_tpu_torch.utils.profiling import trace
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_main(["--asr_config", str(ROOT / "config" / "asr_en_base.yaml"),
+                    "--asr_ckpt", "none"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cache_main(["--vocoder", "mel"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        with trace(os.devnull):
+            pass
+    with trace(str(tmp_path / "trace"), device="cpu") as prof:
+        torch.ones(2).sum()
+    assert prof.trace_path and os.path.exists(prof.trace_path)
 
 
 def test_chip_smoke_drives_asr_en_base_at_full_width():

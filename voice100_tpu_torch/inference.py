@@ -20,9 +20,20 @@ the tokenizer's raises ``ValueError``.
 Every batch is dispatched before any result is fetched, so the host's
 token decoding of one batch does not hold up the device's next.
 
-Not ported yet: meshes, the mel-kernel switch (the port always takes the
-kernel on CUDA) and ``StreamingASRSession``; inputs longer than the
-largest bucket raise ``NotImplementedError``.
+``transcribe`` streams a clip longer than the largest bucket through a
+:class:`StreamingASRSession` (``voice100_tpu/inference.py:197-219``) with
+contexts derived from that bucket, fed in pieces of the smallest bucket;
+such a clip decodes greedily, beam or not. :meth:`ASRPipeline.batches`
+still raises ``NotImplementedError`` for a clip handed to it directly.
+``streamed`` keeps a bounded record of the clips ``transcribe`` streamed.
+
+``StreamingASRSession`` ports ``voice100_tpu/inference.py:295-432``:
+block decoding of a live stream, each window at B=1 through the greedy
+path, frames older than the right context committed, the left context
+kept as warm-up.
+
+Not ported yet: meshes and the mel-kernel switch (the port always takes
+the kernel on CUDA).
 
 ``TTSPipeline`` ports ``voice100_tpu/inference.py:435-670``: texts ->
 tokens (host) -> durations (the align model, biLSTM kernel) -> one fetch
@@ -36,6 +47,7 @@ host, as in the JAX package). Meshes are not ported and raise.
 from __future__ import annotations
 
 import re
+from collections import deque
 from typing import Any, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -52,7 +64,7 @@ from .ops.melspec_cuda import log_mel_spectrogram_cuda
 from .text import get_phonemizer, get_tokenizer
 from .text.ngram import CharNgramLM
 
-__all__ = ["ASRPipeline", "TTSPipeline"]
+__all__ = ["ASRPipeline", "StreamingASRSession", "TTSPipeline"]
 
 
 def _bucket(n: int, sizes: Sequence[int]) -> int:
@@ -108,6 +120,9 @@ class ASRPipeline:
         self.sample_rate = sample_rate
         self.batch_size = batch_size
         self.buckets = [int(s * sample_rate) for s in buckets_sec]
+        # one record a clip transcribe streamed: samples, frames committed
+        # and windows decoded (bounded, as a long-running server keeps it)
+        self.streamed = deque(maxlen=1024)
 
     def _features(self, wav: torch.Tensor, wav_len: torch.Tensor):
         if wav.dtype == torch.int16:
@@ -132,11 +147,17 @@ class ASRPipeline:
         return torch.log_softmax(logits, dim=-1), out_len
 
     @torch.inference_mode()
+    def _greedy(self, wav: torch.Tensor, wav_len: torch.Tensor):
+        """Frame-wise argmax ids ``[B, T']`` and their lengths, whatever
+        ``beam_size`` is (the streaming windows decode so)."""
+        return self.model.greedy_decode(*self._features(wav, wav_len))
+
+    @torch.inference_mode()
     def _decode(self, wav: torch.Tensor, wav_len: torch.Tensor):
         """The batch's device result: greedy ids, the device beam's
         collapsed ids, or (host beam) the log-probs; each with its lengths."""
         if self.beam_size <= 0:
-            return self.model.greedy_decode(*self._features(wav, wav_len))
+            return self._greedy(wav, wav_len)
         log_probs, out_len = self.log_probs(wav, wav_len)
         if not self.beam_device:
             return log_probs, out_len
@@ -162,7 +183,7 @@ class ASRPipeline:
             if len(w) > self.buckets[-1]:
                 raise NotImplementedError(
                     f"waveform {i} has {len(w)} samples, more than the largest "
-                    f"bucket ({self.buckets[-1]}); long-form streaming is not ported"
+                    f"bucket ({self.buckets[-1]}); transcribe streams such clips"
                 )
         order = list(np.argsort([len(w) for w in waveforms]))
         pcm16 = all(np.asarray(w).dtype == np.int16 for w in waveforms)
@@ -183,15 +204,155 @@ class ASRPipeline:
 
     def transcribe(self, waveforms: List[np.ndarray]) -> List[str]:
         """Batch transcription of mono clips at ``sample_rate``, float32
-        in [-1, 1] or int16 PCM."""
-        pending = [(chunk, *self._decode(wav, lengths))
-                   for chunk, wav, lengths in self.batches(waveforms)]
+        in [-1, 1] or int16 PCM. A clip longer than the largest bucket
+        streams through a :class:`StreamingASRSession` first; the others
+        are dispatched in batches, and fetched after the last dispatch."""
         results = [""] * len(waveforms)
+        short = []
+        for i, wav in enumerate(waveforms):
+            if len(wav) > self.buckets[-1]:
+                results[i] = self._stream(wav)
+            else:
+                short.append(i)
+        clips = [waveforms[i] for i in short]
+        pending = [(chunk, *self._decode(wav, lengths))
+                   for chunk, wav, lengths in self.batches(clips)]
         for chunk, out, out_len in pending:
             out, out_len = out.cpu().numpy(), out_len.cpu().numpy()
             for row, i in enumerate(chunk):
-                results[i] = self._text(out[row], int(out_len[row]))
+                results[short[i]] = self._text(out[row], int(out_len[row]))
         return results
+
+    def _stream(self, wav: np.ndarray) -> str:
+        """A long clip's transcript through a session whose contexts come
+        from the largest bucket, so the decode window always covers the
+        committed frontier (at most left + right + 2 chunks = 7/8 of the
+        bucket): no interior audio is lost to the window bound."""
+        bucket_sec = self.buckets[-1] / self.sample_rate
+        session = StreamingASRSession(self, chunk_sec=bucket_sec / 4,
+                                      right_context_sec=bucket_sec / 8,
+                                      left_context_sec=bucket_sec / 4)
+        step = self.buckets[0]
+        for start in range(0, len(wav), step):
+            session.feed(wav[start:start + step])
+        text = session.finish()
+        self.streamed.append({"samples": len(wav), "committed_frame": session._committed_frame,
+                              "windows": session.windows})
+        return text
+
+
+class StreamingASRSession:
+    """Incremental transcription of a live audio stream with the
+    bidirectional v2 CTC model (``voice100_tpu/inference.py:295-432``).
+
+    Audio arrives in chunks of any size through :meth:`feed`. Every
+    ``chunk_sec`` of new audio the window is decoded greedily at B=1 on
+    the pipeline's device, and the logit frames older than
+    ``right_context_sec`` are committed: the backward direction has seen
+    that much future audio for them. ``left_context_sec`` of committed
+    audio stays in the window as warm-up; older samples are dropped
+    (``None`` keeps them all), which bounds memory and work for an
+    unbounded stream. A window longer than the largest bucket slides to
+    its tail, frame-aligned. CTC collapse runs over the committed ids, so
+    tokens merge across window boundaries, and the transcript grows as a
+    chain of prefixes. Committed ids are never decoded again.
+
+    ``windows`` counts the windows decoded."""
+
+    def __init__(self, pipeline: ASRPipeline, chunk_sec: float = 0.5,
+                 right_context_sec: float = 0.64,
+                 left_context_sec: Optional[float] = 2.0) -> None:
+        self.pipeline = pipeline
+        rate = pipeline.sample_rate
+        # samples a logit frame: the 160-sample mel hop times the encoder's
+        # total time downsampling (the product of its strides)
+        downsample = 1
+        for _, transpose, _, stride, _, _ in pipeline.model.encoder_settings:
+            if transpose:
+                raise ValueError("streaming requires a downsampling (non-transpose) encoder")
+            downsample *= stride
+        self._SAMPLES_PER_FRAME = 160 * downsample
+        self.chunk = int(chunk_sec * rate)
+        self.right_context = int(right_context_sec * rate)
+        self.left_context = None if left_context_sec is None else int(left_context_sec * rate)
+        self._buffer = np.zeros(0, np.float32)
+        self._base = 0  # absolute sample index of _buffer[0]
+        self._committed_frame = 0  # absolute logit frames committed
+        self._committed_ids: List[int] = []
+        self._since_decode = 0
+        self.windows = 0
+
+    @property
+    def transcript(self) -> str:
+        tok = self.pipeline.tokenizer
+        return tok.merge_repeated(tok.decode(self._committed_ids))
+
+    def _decode_window(self) -> Tuple[np.ndarray, int]:
+        """The window's greedy ids and the absolute frame of its start."""
+        spf = self._SAMPLES_PER_FRAME
+        pipe = self.pipeline
+        # past the largest bucket the window slides to the buffer's tail,
+        # frame-aligned: the frames that fall off are committed already, or
+        # lost to the window bound (contexts too wide for the bucket)
+        offset = 0
+        if len(self._buffer) > pipe.buckets[-1]:
+            offset = -(-(len(self._buffer) - pipe.buckets[-1]) // spf) * spf
+        window = self._buffer[offset:]
+        max_len = _bucket(len(window), pipe.buckets)
+        wav = np.zeros((1, max_len), np.float32)
+        valid = min(len(window), max_len)
+        wav[0, :valid] = window[:valid]
+        ids, out_len = pipe._greedy(torch.from_numpy(wav).to(pipe.device),
+                                    torch.tensor([valid], dtype=torch.int32, device=pipe.device))
+        self.windows += 1
+        ids, out_len = ids.cpu().numpy(), out_len.cpu().numpy()
+        return ids[0, :int(out_len[0])], (self._base + offset) // spf
+
+    def _commit_until(self, end_frame_abs: int) -> None:
+        if end_frame_abs <= self._committed_frame:
+            return
+        ids, window_start_frame = self._decode_window()
+        # frames before the window's start were lost to the window bound
+        rel_start = max(self._committed_frame - window_start_frame, 0)
+        self._committed_frame = max(self._committed_frame, window_start_frame)
+        rel_end = min(end_frame_abs - window_start_frame, len(ids))
+        if rel_end <= rel_start:
+            return
+        self._committed_ids.extend(int(i) for i in ids[rel_start:rel_end])
+        self._committed_frame = window_start_frame + rel_end
+        if self.left_context is not None:
+            spf = self._SAMPLES_PER_FRAME
+            keep_from = max(self._committed_frame * spf - self.left_context, self._base)
+            keep_from = (keep_from // spf) * spf  # frame-aligned
+            drop = keep_from - self._base
+            if drop > 0:
+                self._buffer = self._buffer[drop:]
+                self._base = keep_from
+
+    def feed(self, chunk: np.ndarray) -> str:
+        """Append float32 audio in [-1, 1] or int16 PCM; returns the
+        transcript committed so far."""
+        chunk = np.asarray(chunk)
+        if chunk.dtype == np.int16:
+            chunk = chunk.astype(np.float32) * (1.0 / 32768.0)  # exact: a power of two
+        else:
+            chunk = chunk.astype(np.float32)
+        self._buffer = np.concatenate([self._buffer, chunk])
+        self._since_decode += len(chunk)
+        if self._since_decode >= self.chunk:
+            self._since_decode = 0
+            total = self._base + len(self._buffer)
+            self._commit_until((total - self.right_context) // self._SAMPLES_PER_FRAME)
+        return self.transcript
+
+    def finish(self) -> str:
+        """Commit every remaining frame; returns the final transcript."""
+        total = self._base + len(self._buffer)
+        if len(self._buffer) > 0:
+            # mel frames = wav_len // 160 + 1, and the strided encoder rounds
+            # up: ask for one frame more than whole frames
+            self._commit_until(total // self._SAMPLES_PER_FRAME + 1)
+        return self.transcript
 
 
 class TTSPipeline:

@@ -43,6 +43,7 @@ the variant takes raises ``ValueError`` before anything is launched.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -158,12 +159,16 @@ def bilstm_cuda(w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,
     return out
 
 
+_COUNT_LOCK = threading.Lock()  # serving launches from more than one thread
+
+
 def _count(wrapper, xg: torch.Tensor) -> None:
     """One launch of ``wrapper``'s variant for ``xg``."""
-    if xg.dtype == torch.bfloat16:
-        wrapper.launches_bf16 += 1
-    else:
-        wrapper.launches += 1
+    with _COUNT_LOCK:
+        if xg.dtype == torch.bfloat16:
+            wrapper.launches_bf16 += 1
+        else:
+            wrapper.launches += 1
 
 
 bilstm_cuda.launches = bilstm_cuda.launches_bf16 = 0

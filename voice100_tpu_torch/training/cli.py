@@ -66,7 +66,6 @@ DISTRIBUTED_ITEM = "ROADMAP.md queue 1, item 10: serving, tools and distributed"
 # the rest)
 UNPORTED = {
     "mesh_model_axis": ((1,), DISTRIBUTED_ITEM),
-    "profile_dir": ((None,), DISTRIBUTED_ITEM),
 }
 
 _MODEL_CLASSES = {"AudioToAlignText": AudioToAlignText, "TextToAlignText": TextToAlignText,

@@ -61,13 +61,21 @@ batches take the per-step path. The steps draw augmentation and dropout
 from the trainer's generator in step order, so a chunked run equals a
 per-step run over the same batches (the plan keeps the epoch's order).
 
-The JAX trainer's meshes and profiling are not ported; their settings
-have no field here, and a config that sets them raises
-(``training/cli.py`` ``UNPORTED``).
+``profile_dir`` records a ``torch.profiler`` trace of the training
+steps 2-4 (:func:`voice100_tpu_torch.utils.profiling.trace`, a Chrome
+trace in that directory; ``trainer.py:690-726``) and logs ``{"event":
+"profile_written", "dir": ...}``; a stop request mid-trace closes and
+writes it. A profiled fit takes the per-step path, whatever
+``steps_per_dispatch`` says (``trainer.py:623``).
+
+The JAX trainer's meshes are not ported; their setting has no field
+here, and a config that sets it raises (``training/cli.py``
+``UNPORTED``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import signal
@@ -84,6 +92,7 @@ from ..data.pack import device_put_packed, tree_flatten
 from ..data.prefetch import DevicePrefetcher
 from ..ops.lstm import set_default_compute_dtype
 from ..ops.metrics import error_rate
+from ..utils.profiling import trace
 from .checkpoint import TrainState, restore_checkpoint, save_checkpoint
 from .tasks import Task, make_task
 
@@ -122,6 +131,8 @@ class TrainerConfig:
     # with device_cache: once every row is cached, run this many steps a
     # dispatch over the epoch plan's index matrices
     steps_per_dispatch: int = 1
+    # record a torch.profiler trace of training steps 2..4 into this dir
+    profile_dir: Optional[str] = None
 
 
 @torch.no_grad()
@@ -169,6 +180,7 @@ class Trainer:
         self.config = config
         self.feature_cache: Optional[DeviceFeatureCache] = None
         self._stop_requested = False
+        self._trace: Optional[contextlib.ExitStack] = None  # the profile in flight
         self._log_file = None
         if config.log_path:
             os.makedirs(os.path.dirname(config.log_path) or ".", exist_ok=True)
@@ -374,6 +386,7 @@ class Trainer:
             return self._fit_loop(task, state, generator, train_batches, val_batches, datamodule,
                                   cache)
         finally:
+            self._close_trace()
             # a reused Trainer must not stop at once on its next fit (a
             # request armed before fit still stops that fit)
             self._stop_requested = False
@@ -392,7 +405,9 @@ class Trainer:
             if hasattr(train_batches, "set_epoch"):
                 train_batches.set_epoch(epoch)
             start = time.time()
-            plan = cache.epoch_plan(train_batches) if cache is not None and k > 1 else None
+            plan = None
+            if cache is not None and k > 1 and not cfg.profile_dir:
+                plan = cache.epoch_plan(train_batches)
             if plan is None:
                 running, stopped = self._streamed_epoch(task, state, generator, train_batches,
                                                         epoch, cache)
@@ -436,15 +451,29 @@ class Trainer:
         batches = self._prefetcher(task, train_batches, cache)
         try:
             for batch in batches:
+                if cfg.profile_dir and state.step == 2 and self._trace is None:
+                    self._trace = contextlib.ExitStack()
+                    self._trace.enter_context(trace(cfg.profile_dir,
+                                                    next(task.model.parameters()).device))
                 running = self.train_step(task, state, batch, generator)
                 if self._stop_requested:
+                    self._close_trace()
                     return running, True
+                if self._trace is not None and state.step == 5:
+                    self._close_trace()
+                    self._log({"event": "profile_written", "dir": cfg.profile_dir})
                 if state.step % cfg.log_every_n_steps == 0:
                     self._log({"epoch": epoch, "step": state.step,
                                **{f"train_{k}": float(v) for k, v in running.items()}})
         finally:
             batches.close()  # ends the loader's threads when the loop leaves early
         return running, False
+
+    def _close_trace(self) -> None:
+        """End the profile in flight, if any: the trace file is written."""
+        if self._trace is not None:
+            self._trace.close()
+            self._trace = None
 
     def _dispatched_epoch(self, task, state, generator, cache, plan, epoch):
         """One epoch from the device cache in chunks of
