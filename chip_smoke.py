@@ -235,7 +235,35 @@ toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
     48 clips of the TTS corpus at 0 and 4 workers (host seconds, caches
     byte-equal); the pooled log-mel cache against step 13's kernel-8 cache
     (within 1e-3 plus one float16 step);
-22. prints one JSON line of per-kernel results (the bf16 variants as
+22. after the TTS training phase, runs the device WORLD analysis
+    (``world_device_phase``): calc_stat with VOICE100_TPU_WORLD_BACKEND=
+    device at num_workers 0 into a fresh cache, the cold analysis of the
+    144 clips timed beside the host analysis of step 15; every entry
+    against the host cache under the JAX package's agreement rules for its
+    device backend (voicing agreement > 0.9, F0 within 3% where both are
+    voiced on 99% of the frames away from voicing boundaries, the
+    envelope's median log error < 0.2 over bins within 20 nats of the
+    peak); 8 clips on the card
+    against the CPU's device backend at tests/test_torch_world_device.py's
+    float32 tolerances; the four-pitch reanalysis bars of
+    tests/test_world_invariants.py on the card; then the deployment
+    surface (``export_phase``): asr_en_base (the align phase's checkpoint),
+    align_en_base and tts_en_base (seeded checkpoints) exported by
+    ``python -m voice100_tpu_torch.tools.export`` in three processes on
+    the card; each .pt2 loaded and run on the card, bit-equal to the
+    direct predict call with the same kernel-1 launches, timed against it;
+    each .onnx under the port's NumPy runtime within 2e-3 of the card on
+    valid frames, timed; a reference-layout .ckpt of the same weights
+    through the import CLI, bit-equal on the card; OnnxASR on the serve
+    phase's 16 clips under the margin rule of the card's ASRPipeline (a
+    clip a batch, in a bucket of its length); the native WORLD synthesis
+    of one TTS call's features against the NumPy synthesizer on the
+    periodic path (1e-4 of peak); the launch counts set to 0 just before
+    the three programs and the card side of OnnxASR run, read just after
+    (the ``export`` path); kernel 1 against its plain version at the
+    three programs' shapes (B=1: asr T'=256, H=512; align T=128, H=256;
+    tts T=128, H=512);
+23. prints one JSON line of per-kernel results (the bf16 variants as
     their own lines), then, last, {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line is printed. Without
@@ -508,6 +536,19 @@ def timed_in_turns(fns, iters: int, rounds: int = TURN_ROUNDS):
         out[name] = {"ms": float(np.median(samples[name])), "device_ms": device,
                      "kernels": kernels, "events_launches": counts}
     return out
+
+
+def enqueue_ms(fn, iters: int = 20) -> float:
+    """The host's time a call to enqueue ``iters`` back-to-back calls of
+    ``fn`` (before the card has run them)."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - start) / iters * 1e3
+    torch.cuda.synchronize()
+    return ms
 
 
 def fmt_ms(value) -> str:
@@ -1669,6 +1710,22 @@ def stages(pipe, clips):
             model.lstm(x, x_len)
         parts["bilstm_host_enqueue"] = (time.perf_counter() - start) * 1e3 / 5
         torch.cuda.synchronize()
+        # the biLSTM through the registered op (the model's path) and
+        # through the kernel's wrapper directly, in turns: the op's dispatch
+        from voice100_tpu_torch.ops.lstm_cuda import bilstm_cuda
+
+        def through_wrapper():
+            y = x
+            for w_ih, w_hh, bias in model.lstm.stacked_layers():
+                y = bilstm_cuda(w_ih, w_hh, bias, y, x_len)
+            return y
+
+        turns = {"bilstm_op": lambda: model.lstm(x, x_len), "bilstm_wrapper": through_wrapper}
+        samples = {name: [] for name in turns}
+        for r in range(TURN_ROUNDS):
+            for name in (list(turns) if r % 2 == 0 else list(turns)[::-1]):
+                samples[name].append(time_ms(turns[name], iters=5, warmup=1))
+        parts.update({f"{name}_median": float(np.median(v)) for name, v in samples.items()})
     print("stages_ms " + json.dumps({"batch": list(wav.shape), **parts}), flush=True)
 
 
@@ -2921,16 +2978,14 @@ def shape_line(entry):
     return {k: entry[k] for k in keys if k in entry}
 
 
-def tts_train_phase(device, card, workdir, align_args):
-    """TTS v2 training at align_en_base and tts_en_base width: the voiced
-    corpus, its align file through the align CLI with the align phase's
-    ASR checkpoint, calc_stat (the cold WORLD analysis, timed), the steps,
-    the stages, the card against the CPU, the CLI, and kernels 2 and 3 at
-    the batches' shapes."""
+def tts_corpus(workdir, align_args):
+    """The voiced corpus, its align file through the align CLI with the
+    align phase's ASR checkpoint, and calc_stat with a cold WORLD cache
+    (the host analysis, timed); returns (data directory, cache directory,
+    statistics file, clip seconds, analysis seconds)."""
     from voice100_tpu_torch.tools.align_text import cli_main as align_main
     from voice100_tpu_torch.tools.calc_stat import cli_main as stat_main
 
-    configs = check_tts_configs_build(device)
     data_dir, seconds = write_voiced_corpus(workdir)
     align_main(["--config", align_args["config"], "--checkpoint", align_args["checkpoint"],
                 "--data_dir", data_dir, "--cache_dir", os.path.join(workdir, "tts_mel_cache")])
@@ -2950,6 +3005,17 @@ def tts_train_phase(device, card, workdir, align_args):
           f"calc_stat with a cold WORLD cache (host float64 analysis) {analysis_s:.2f} s, "
           f"{seconds.sum() / analysis_s:.1f} audio s/s (host clock, this machine's CPU); f0 "
           f"mean {stats['f0_mean'][0]:.1f} Hz, std {stats['f0_std'][0]:.1f}", flush=True)
+    return data_dir, cache_dir, stat_path, seconds, analysis_s
+
+
+def tts_train_phase(device, card, workdir, align_args):
+    """TTS v2 training at align_en_base and tts_en_base width: the voiced
+    corpus, its align file through the align CLI with the align phase's
+    ASR checkpoint, calc_stat (the cold WORLD analysis, timed), the steps,
+    the stages, the card against the CPU, the CLI, and kernels 2 and 3 at
+    the batches' shapes."""
+    configs = check_tts_configs_build(device)
+    data_dir, cache_dir, stat_path, seconds, analysis_s = tts_corpus(workdir, align_args)
     batches = tts_train_batches(device, data_dir, cache_dir)
     steps = tts_train_steps(device, card, tts_train_models(device, stat_path), batches)
     parity = tts_train_parity(device, batches, stat_path)
@@ -4671,6 +4737,428 @@ def data_shell_phase(device, card, workdir, align_args, tts_data_dir):
     return {f"data_shell_fit_k{k}": r[1] for k, r in runs.items()}, summary
 
 
+# The device WORLD analysis (the JAX package's analysis_backend="jax"):
+# the cold analysis of the TTS corpus on the card into a fresh cache; the
+# card against the CPU's device backend on WORLD_PARITY_CLIPS clips at the
+# float32 tolerances of tests/test_torch_world_device.py; the card against
+# the host cache (DIO, float64) under the JAX package's agreement rules for
+# its device backend (tests/test_world.py:206-218: voicing agreement over
+# 0.9, F0 within 3% where both are voiced, the envelope's median log error
+# under 0.2 over bins within 20 nats of the peak). That test holds F0 on
+# every frame of a clean pulse train; on this corpus of noisy, gated clips
+# the two trackers (YIN on the card, DIO on the host) part by 3-6% on a
+# few isolated frames of some clips (at most 0.35% of a clip's frames on
+# the CPU's device backend), so the F0 rule here is on the frames away
+# from voicing boundaries, as the reanalysis metric guards them
+# (test_world_invariants.py:65-72), and allows under 1% of them past 3%;
+# and the reanalysis bars (test_world_invariants.py:118-135) on the card
+WORLD_PARITY_CLIPS = 8
+WORLD_F0_RTOL, WORLD_FEATURE_ATOL, WORLD_CODEAP_DB_ATOL = 1e-4, 1e-3, 0.01
+WORLD_VOICING_AGREE, WORLD_F0_REL, WORLD_ENVELOPE_MEDIAN = 0.9, 0.03, 0.2
+WORLD_F0_OUTLIER_SHARE = 0.01
+REANALYSIS_PITCHES = (110.0, 160.0, 220.0, 320.0)
+
+
+def world_entries(cache_dir):
+    """{entry name: (f0, mcep, codeap)} of a WORLD feature cache."""
+    out = {}
+    for name in sorted(os.listdir(cache_dir)):
+        if name.endswith(".npz"):
+            with np.load(os.path.join(cache_dir, name)) as z:
+                out[name] = tuple(z[k] for k in z.files)
+    return out
+
+
+def voicing_guard(voiced):
+    """Frames away from the edges and from +-3 frames of a voicing
+    boundary (test_world_invariants.py:65-72)."""
+    guard = np.ones(len(voiced), bool)
+    for e in np.flatnonzero(np.diff(voiced.astype(np.int8))):
+        guard[max(0, e - 3):e + 4] = False
+    guard[:5] = guard[-5:] = False
+    return guard
+
+
+def reanalysis_metrics(pitch, vocoder):
+    """test_world_invariants.py's metrics of one pitch: ground-truth
+    features (a vibrato F0 with an unvoiced gap, a three-formant envelope)
+    synthesized by the port's NumPy synthesizer, analysed by ``vocoder``."""
+    from voice100_tpu_torch.dsp.world.codec import decode_aperiodicity
+    from voice100_tpu_torch.dsp.world.synthesis_np import synthesize_np
+
+    n_fft, n_frames = 512, int(1.2 * 1000 / 10.0) + 1
+    t = np.arange(n_frames) * 0.01
+    f0_true = pitch * (1.0 + 0.02 * np.sin(2 * np.pi * 4.0 * t))
+    third = n_frames // 3
+    f0_true[third:third + third // 2] = 0.0
+    freqs = np.arange(n_fft // 2 + 1) * SAMPLE_RATE / n_fft
+    env = np.full_like(freqs, 1e-7)
+    for k, fc in enumerate((500.0, 1500.0, 2500.0)):
+        env = env + (0.5 ** k) * np.exp(-0.5 * ((freqs - fc) / 180.0) ** 2)
+    spc_true = np.tile((env / env.max())[None, :], (n_frames, 1))
+    ap = decode_aperiodicity(np.where(f0_true > 0, -8.0, -0.01)[:, None], SAMPLE_RATE, n_fft)
+    wav = synthesize_np(f0_true, spc_true, ap, fs=SAMPLE_RATE, frame_period=10.0)
+    f0_est, logspc_est, _ = vocoder.encode(np.asarray(wav))
+    n = min(len(f0_true), len(f0_est))
+    f0_true, f0_est = f0_true[:n], f0_est[:n].astype(np.float64)
+    voiced = f0_true > 0
+    guard = voicing_guard(voiced)
+    both = voiced & (f0_est > 0) & guard
+    rel = np.abs(f0_est[both] - f0_true[both]) / f0_true[both]
+    lo, hi = int(100 * n_fft / SAMPLE_RATE), int(5000 * n_fft / SAMPLE_RATE)
+    log_true = np.log(spc_true[:n, lo:hi] + 1e-15)
+    log_est = logspc_est[:n, lo:hi].astype(np.float64)
+    log_true = log_true - log_true.mean(axis=1, keepdims=True)
+    log_est = log_est - log_est.mean(axis=1, keepdims=True)
+    db = 20.0 / np.log(10.0)
+    floor = log_true.max(axis=1, keepdims=True) - 45.0 / db
+    err45 = np.maximum(log_est, floor) - np.maximum(log_true, floor)
+    return {"f0_rmse_rel": float(np.sqrt(np.mean(rel ** 2))),
+            "voicing_acc": float(np.mean((f0_est > 0)[guard] == voiced[guard])),
+            "octave_rate": float(np.mean(rel > 0.2)) if both.any() else 1.0,
+            "envelope_rmse_db": float(np.sqrt(np.mean((log_true[both] - log_est[both]) ** 2)) * db),
+            "envelope_lsd45_db": float(np.sqrt(np.mean(err45[both] ** 2)) * db),
+            "n_voiced": int(both.sum())}
+
+
+def world_device_phase(device, card, workdir, host_s):
+    """The cold device analysis of the TTS corpus through calc_stat at
+    num_workers 0 (VOICE100_TPU_WORLD_BACKEND=device) into a fresh cache,
+    timed beside the host analysis of the same clips (``host_s``, the TTS
+    training phase's calc_stat), and its checks (see the constants)."""
+    from voice100_tpu_torch.dsp.audioio import load_audio
+    from voice100_tpu_torch.dsp.mcep import create_mc2sp_matrix
+    from voice100_tpu_torch.dsp.world import WORLDVocoder
+    from voice100_tpu_torch.tools.calc_stat import cli_main as stat_main
+
+    data_dir = os.path.join(workdir, "tts_data")
+    cache_dir = os.path.join(workdir, "tts_world_cache_device")
+    stat_path = os.path.join(workdir, "dummy_en-stat-device.npz")
+    saved = os.environ.get("VOICE100_TPU_WORLD_BACKEND")
+    os.environ["VOICE100_TPU_WORLD_BACKEND"] = "device"
+    try:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        stat_main(["--output", stat_path, "--dataset", "dummy_en", "--vocoder", "world_mcep",
+                   "--data_dir", data_dir, "--cache_dir", cache_dir])
+        torch.cuda.synchronize()
+        device_s = time.perf_counter() - start
+    finally:
+        if saved is None:
+            os.environ.pop("VOICE100_TPU_WORLD_BACKEND")
+        else:
+            os.environ["VOICE100_TPU_WORLD_BACKEND"] = saved
+    stats = dict(np.load(stat_path))
+    host_stats = dict(np.load(os.path.join(workdir, "dummy_en-stat.npz")))
+    if not all(np.isfinite(v).all() for v in stats.values()) or not 90 < stats["f0_mean"][0] < 260:
+        fail(f"world device: calc_stat gave {stats}")
+    with open(os.path.join(data_dir, "dummy_en-train.txt")) as f:
+        clip_ids = [line.split("|")[0] for line in f]
+    audio_s = sum(len(load_audio(os.path.join(data_dir, "dummy-speech-en", "wavs", f"{c}.wav")))
+                  for c in clip_ids) / SAMPLE_RATE
+    print(f"world device ({card}): the cold device analysis of {len(clip_ids)} clips "
+          f"({audio_s:.2f} s of audio) through calc_stat {device_s:.2f} s, "
+          f"{audio_s / device_s:.1f} audio s/s; the host analysis of the same clips "
+          f"{host_s:.2f} s, {audio_s / host_s:.1f} audio s/s (host clock); f0 mean "
+          f"{stats['f0_mean'][0]:.2f} Hz (host {host_stats['f0_mean'][0]:.2f})", flush=True)
+
+    # the card (the device cache) against the host cache, clip by clip
+    dev_entries = world_entries(cache_dir)
+    host = world_entries(os.path.join(workdir, "tts_world_cache"))
+    if sorted(dev_entries) != sorted(host) or len(dev_entries) != len(clip_ids):
+        fail(f"world device: {len(dev_entries)} device cache entries, {len(host)} host entries")
+    mc2sp = create_mc2sp_matrix(512, 24, 0.410)
+    worst = {"voicing_agree": 1.0, "f0_rel": 0.0, "f0_outlier_share": 0.0, "envelope_median": 0.0}
+    for name in dev_entries:
+        (f0, mcep, codeap), (hf0, hmcep, hcodeap) = dev_entries[name], host[name]
+        if f0.shape != hf0.shape or mcep.shape != hmcep.shape or codeap.shape != hcodeap.shape:
+            fail(f"world device: entry {name} has other shapes than the host's")
+        if not all(np.isfinite(a).all() for a in (f0, mcep, codeap)):
+            fail(f"world device: entry {name} is not finite")
+        voiced, hvoiced = f0 > 0, hf0 > 0
+        both = voiced & hvoiced & voicing_guard(hvoiced)
+        rel = np.abs(f0[both] - hf0[both]) / hf0[both]
+        logspc, hlogspc = mcep.astype(np.float64) @ mc2sp, hmcep.astype(np.float64) @ mc2sp
+        energetic = hlogspc > hlogspc.max() - 20
+        worst["voicing_agree"] = min(worst["voicing_agree"], float(np.mean(voiced == hvoiced)))
+        worst["f0_rel"] = max(worst["f0_rel"], float(rel.max()) if rel.size else 0.0)
+        worst["f0_outlier_share"] = max(worst["f0_outlier_share"],
+                                        float(np.mean(rel > WORLD_F0_REL)) if rel.size else 0.0)
+        worst["envelope_median"] = max(worst["envelope_median"], float(
+            np.median(np.abs(logspc[energetic] - hlogspc[energetic]))))
+    print(f"world device vs host cache ({len(dev_entries)} clips): worst voicing agreement "
+          f"{worst['voicing_agree']:.4f} (> {WORLD_VOICING_AGREE}), share of guarded F0 frames "
+          f"past {WORLD_F0_REL} relative {worst['f0_outlier_share']:.4f} (< "
+          f"{WORLD_F0_OUTLIER_SHARE}; largest error {worst['f0_rel']:.4e}), envelope median "
+          f"{worst['envelope_median']:.4e} nats (< {WORLD_ENVELOPE_MEDIAN})", flush=True)
+    if not (worst["voicing_agree"] > WORLD_VOICING_AGREE
+            and worst["f0_outlier_share"] < WORLD_F0_OUTLIER_SHARE
+            and worst["envelope_median"] < WORLD_ENVELOPE_MEDIAN):
+        fail(f"world device: the card parts from the host analysis beyond the JAX rules: {worst}")
+
+    # the card against the CPU's device backend on the first clips
+    on_card = WORLDVocoder(use_mcep=True, analysis_backend="device", device=device)
+    cpu = WORLDVocoder(use_mcep=True, analysis_backend="device", device="cpu")
+    errs = {"f0_rel": 0.0, "feature": 0.0, "codeap_db": 0.0}
+    start = time.perf_counter()
+    for clip in clip_ids[:WORLD_PARITY_CLIPS]:
+        wav = load_audio(os.path.join(data_dir, "dummy-speech-en", "wavs", f"{clip}.wav"))
+        f0, mcep, codeap = on_card.encode(np.asarray(wav, np.float64))
+        cf0, cmcep, ccodeap = cpu.encode(np.asarray(wav, np.float64))
+        if not np.array_equal(f0 > 0, cf0 > 0):
+            fail(f"world device: voicing of {clip} differs between the card and the CPU")
+        v = cf0 > 0
+        errs["f0_rel"] = max(errs["f0_rel"], float(np.max(np.abs(f0[v] - cf0[v]) / cf0[v],
+                                                           initial=0.0)))
+        errs["feature"] = max(errs["feature"], float(np.abs(mcep - cmcep).max()))
+        errs["codeap_db"] = max(errs["codeap_db"], float(np.abs(codeap - ccodeap).max()))
+    cpu_s = time.perf_counter() - start
+    print(f"world device card vs CPU device backend ({WORLD_PARITY_CLIPS} clips, CPU "
+          f"{cpu_s:.2f} s): F0 {errs['f0_rel']:.3e} relative (tol {WORLD_F0_RTOL:.0e}), mcep "
+          f"{errs['feature']:.3e} (tol {WORLD_FEATURE_ATOL:.0e}), codeap {errs['codeap_db']:.3e} "
+          f"dB (tol {WORLD_CODEAP_DB_ATOL})", flush=True)
+    if not (errs["f0_rel"] <= WORLD_F0_RTOL and errs["feature"] <= WORLD_FEATURE_ATOL
+            and errs["codeap_db"] <= WORLD_CODEAP_DB_ATOL):
+        fail(f"world device: the card parts from the CPU's device backend: {errs}")
+
+    # the reanalysis bars on the card
+    vocoder = WORLDVocoder(analysis_backend="device", device=device)
+    bars = {p: reanalysis_metrics(p, vocoder) for p in REANALYSIS_PITCHES}
+    print("world device reanalysis " + json.dumps(bars), flush=True)
+    for pitch, m in bars.items():
+        if not (m["n_voiced"] > 30 and m["f0_rmse_rel"] < 0.01 and m["octave_rate"] < 0.01
+                and m["voicing_acc"] > 0.97 and m["envelope_rmse_db"] < 6.0
+                and m["envelope_lsd45_db"] < 5.0):
+            fail(f"world device: the reanalysis bars fail at {pitch} Hz: {m}")
+    return {"clips": len(clip_ids), "audio_s": audio_s, "device_cold_s": device_s,
+            "host_cold_s": host_s, "vs_host": worst, "vs_cpu": errs, "cpu_parity_s": cpu_s,
+            "reanalysis": bars}
+
+
+# Deployment: each v2 predict surface exported by the export CLI on the card
+# (a torch.export program, its manifest, its .onnx), the program against
+# the direct call (bit for bit, the same biLSTM launches), the .onnx under
+# the NumPy runtime against the card (EXPORT_ONNX_TOL abs on valid frames),
+# a reference-layout .ckpt through the import CLI (bit for bit), OnnxASR on
+# the serve clips against the card's ASRPipeline under the margin rule, and
+# the native WORLD synthesis against the NumPy one on the periodic path
+EXPORT_ONNX_TOL = 2e-3
+NATIVE_SYNTHESIS_TOL = 1e-4  # of the waveform's peak (tests/test_native.py:200-202)
+EXPORT_LENGTHS = {"asr": 473, "align": 101, "tts": 101}
+
+
+def export_inputs(kind, model, device):
+    """Seeded inputs at the exported static shapes, with a length short of
+    the full extent."""
+    rng = np.random.default_rng(SEED + 40)
+    n = torch.tensor([EXPORT_LENGTHS[kind]], dtype=torch.int32, device=device)
+    if kind == "asr":
+        x = rng.standard_normal((1, 512, model.audio_size)).astype(np.float32)
+    else:
+        x = rng.integers(1, model.vocab_size, (1, 128)).astype(np.int32)
+    return torch.from_numpy(x).to(device), n
+
+
+def check_bilstm_export(device):
+    """Kernel 1 against its plain version at the exported programs'
+    shapes: B=1 at the static extent, the valid length of
+    ``export_inputs``; asr T'=256 (H=512, D=512), align T=128 (H=256,
+    D=256), tts T=128 (H=512, D=512)."""
+    from voice100_tpu_torch.models.layers import conv_stack_output_length
+
+    settings = ASR_EN_BASE["encoder_settings"]
+    shapes = {
+        "asr": (conv_stack_output_length(settings, 512),
+                conv_stack_output_length(settings, EXPORT_LENGTHS["asr"]),
+                ASR_EN_BASE["decoder_hidden_size"], settings[-1][0]),
+        "align": (128, EXPORT_LENGTHS["align"], ALIGN_EN_BASE["hidden_size"],
+                  ALIGN_EN_BASE["hidden_size"]),
+        "tts": (128, EXPORT_LENGTHS["tts"], TTS_EN_BASE["encoder_hidden_size"],
+                TTS_EN_BASE["encoder_hidden_size"]),
+    }
+    return {f"export_{kind}": check_bilstm(device, 1, steps, [valid], hidden=hidden,
+                                           input_size=d_in, plain_iters=1)
+            for kind, (steps, valid, hidden, d_in) in shapes.items()}
+
+
+def export_phase(device, card, workdir, align_args):
+    """The deployment surface on the card (see the constants above); the
+    launch counts set to 0 just before the exported programs run and the
+    ONNX serving check's card side runs, and read just after."""
+    from voice100_tpu_torch.dsp.world.synthesis_np import synthesize_np
+    from voice100_tpu_torch.inference import ASRPipeline
+    from voice100_tpu_torch.native.world import synthesize_native
+    from voice100_tpu_torch.onnx.runtime import load_model as load_onnx
+    from voice100_tpu_torch.onnx.serve import OnnxASR
+    from voice100_tpu_torch.ops.lstm_cuda import bilstm_cuda
+    from voice100_tpu_torch.ops.melspec_cuda import log_mel_spectrogram_cuda
+    from voice100_tpu_torch.tools.export import load_exported, predict_module
+    from voice100_tpu_torch.tools.import_torch import cli_main as import_main
+    from voice100_tpu_torch.training.cli import load_model
+
+    root = os.path.join(workdir, "export")
+    os.makedirs(root)
+    tts = write_tts_checkpoints(root)
+    sources = {"asr": (align_args["config"], align_args["checkpoint"]),
+               "align": tts["align"], "tts": tts["audio"]}
+    start = time.perf_counter()
+    procs = {kind: subprocess.Popen(
+        [sys.executable, "-m", "voice100_tpu_torch.tools.export", "--config", cfg,
+         "--ckpt_path", ckpt, "--output", os.path.join(root, f"{kind}.pt2"),
+         "--device", str(device)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for kind, (cfg, ckpt) in sources.items()}
+    for kind, proc in procs.items():
+        try:
+            out, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for p in procs.values():
+                p.kill()
+            fail(f"export: the export CLI for {kind} did not finish in 600 s")
+        if proc.returncode != 0:
+            fail(f"export: the export CLI for {kind} exited {proc.returncode}:\n{out[-3000:]}")
+    export_s = time.perf_counter() - start
+
+    summary, outputs = {"export_cli_s": export_s}, {}
+    for kind, (cfg, ckpt) in sources.items():
+        path = os.path.join(root, f"{kind}.pt2")
+        with open(path + ".json") as f:
+            manifest = json.load(f)
+        if (manifest["kind"], manifest["format"], torch.device(manifest["device"]).type) != (
+                kind, "torch.export", device.type):
+            fail(f"export: the {kind} manifest reads {manifest}")
+        model = load_model(cfg, ckpt, device=device)
+        args = export_inputs(kind, model, device)
+        direct_fn = predict_module(model)
+        with torch.inference_mode():
+            direct_fn(*args)
+            torch.cuda.synchronize()
+            before = bilstm_cuda.launches
+            direct = direct_fn(*args)
+            torch.cuda.synchronize()
+            direct_launches = bilstm_cuda.launches - before
+        start = time.perf_counter()
+        program = load_exported(path)
+        load_s = time.perf_counter() - start
+        program(*args)  # warm-up: cuDNN plans
+        # the reference layout: the state dict under Lightning's key
+        ref_ckpt = os.path.join(root, f"{kind}-reference.ckpt")
+        torch.save({"state_dict": {k: v.cpu() for k, v in model.state_dict().items()},
+                    "epoch": 0, "global_step": 0}, ref_ckpt)
+        imported_ckpt = os.path.join(root, f"{kind}-imported.pt")
+        import_main(["--config", cfg, "--ckpt_path", ref_ckpt, "--output", imported_ckpt])
+        imported_fn = predict_module(load_model(cfg, imported_ckpt, device=device))
+        with torch.inference_mode():
+            imported = imported_fn(*args)
+        onnx = load_onnx(os.path.splitext(path)[0] + ".onnx")
+        start = time.perf_counter()
+        onnx_out = onnx(*(t.cpu().numpy() for t in args))
+        onnx_ms = (time.perf_counter() - start) * 1e3
+        # the program as load_exported runs it (deterministic cuDNN), and
+        # its module alone, which the direct call's regular convolutions
+        # match; in turns, with the card's time and the host's enqueue time
+        # a call (a B=1 call is host-bound where the enqueue is the longer)
+        timing = {"direct": lambda: direct_fn(*args), "exported": lambda: program(*args),
+                  "exported_module": lambda: program.module(*args)}
+        with torch.inference_mode():
+            turns = timed_in_turns(timing, iters=10)
+            enqueue = {name: enqueue_ms(fn) for name, fn in timing.items()}
+        ms = {name: turns[name]["ms"] for name in timing}
+        outputs[kind] = (program, args, direct, direct_launches, imported, onnx_out)
+        summary[kind] = {"export_load_s": load_s, "exported_ms": ms["exported"],
+                         "exported_module_ms": ms["exported_module"],
+                         "direct_ms": ms["direct"],
+                         "device_ms": {name: turns[name]["device_ms"] for name in timing},
+                         "enqueue_ms": enqueue, "onnx_numpy_ms": onnx_ms,
+                         "pt2_bytes": os.path.getsize(path),
+                         "onnx_bytes": os.path.getsize(os.path.splitext(path)[0] + ".onnx")}
+
+    # the main path: the exported programs, then OnnxASR's card side
+    asr_model = load_model(*sources["asr"], device=device)
+    rng = np.random.default_rng(SEED)
+    clips = int16_clips(rng, rng.uniform(2.0, 10.0, size=16))
+    pipes = [ASRPipeline(asr_model, batch_size=1, buckets_sec=(len(c) / SAMPLE_RATE,),
+                         device=device) for c in clips]
+    for pipe, clip in zip(pipes, clips):
+        pipe.transcribe([clip])  # warm-up: constants, cuDNN plans
+    torch.cuda.synchronize()
+    bilstm_cuda.launches = log_mel_spectrogram_cuda.launches = 0
+    exported = {}
+    for kind, (program, args, *_rest) in outputs.items():
+        before = bilstm_cuda.launches
+        exported[kind] = program(*args)
+        torch.cuda.synchronize()
+        exported[kind] = (exported[kind], bilstm_cuda.launches - before)
+    texts = [pipe.transcribe([clip])[0] for pipe, clip in zip(pipes, clips)]
+    torch.cuda.synchronize()
+    launches = {"log_mel": log_mel_spectrogram_cuda.launches,
+                "bilstm_recurrence": bilstm_cuda.launches}
+    layers = ASR_EN_BASE["decoder_num_layers"]
+    programs = sum(entry[3] for entry in outputs.values())
+    if launches != {"log_mel": len(clips), "bilstm_recurrence": programs + layers * len(clips)}:
+        fail(f"export: launches {launches}, not the programs' {programs} and {len(clips)} "
+             f"clips' worth")
+
+    for kind, (_, args, direct, direct_launches, imported, onnx_out) in outputs.items():
+        got, got_launches = exported[kind]
+        got, direct, imported = (x if isinstance(x, tuple) else (x,)
+                                 for x in (got, direct, imported))
+        if got_launches != direct_launches or got_launches < 1:
+            fail(f"export: the {kind} program launched kernel 1 {got_launches} times, the "
+                 f"direct call {direct_launches}")
+        if not all(torch.equal(a, b) for a, b in zip(got, direct)):
+            fail(f"export: the {kind} program's outputs are not the direct call's bit for bit")
+        if not all(torch.equal(a, b) for a, b in zip(imported, direct)):
+            fail(f"export: the imported {kind} checkpoint's outputs are not bit-equal")
+        n = int(args[1][0])
+        if kind == "asr" and not np.array_equal(onnx_out[1], direct[1].cpu().numpy()):
+            fail("export: the asr .onnx gives other logit lengths than the card")
+        valid = int(direct[1][0]) if kind == "asr" else n if kind == "align" else 2 * n - 1
+        err = max(float(np.abs(np.asarray(o)[:, :valid] - d.cpu().numpy()[:, :valid]).max())
+                  for o, d in zip(onnx_out, direct) if d.dim() > 1)
+        summary[kind]["onnx_max_abs_err"] = err
+        if not err <= EXPORT_ONNX_TOL:
+            fail(f"export: the {kind} .onnx under the NumPy runtime is {err:.3e} from the card")
+
+    # OnnxASR on the serve clips against the card under the margin rule
+    onnx_asr = OnnxASR(os.path.join(root, "asr.onnx"))
+    start = time.perf_counter()
+    onnx_texts = [onnx_asr(c.astype(np.float32) / 32768.0) for c in clips]
+    onnx_asr_s = time.perf_counter() - start
+    exact = 0
+    for pipe, clip, text, onnx_text in zip(pipes, clips, texts, onnx_texts):
+        (_, wav, lens), = list(pipe.batches([clip]))
+        logits, n = pipe.logits(wav, lens)
+        _, choices = near_max_ids(logits[0].cpu(), int(n[0]))
+        if not transcript_reachable(choices, onnx_text, pipe.tokenizer):
+            fail(f"export: OnnxASR's transcript {onnx_text!r} is not within the margin rule of "
+                 f"the card's {text!r}")
+        exact += onnx_text == text
+
+    # the native WORLD synthesis on one TTS call's features, on the
+    # periodic path where both synthesizers run the same operations (the
+    # noise path differs by RNG, tests/test_native.py:187-189): the call's
+    # envelope and F0, its unvoiced frames at its mean voiced F0,
+    # aperiodicity 1e-6
+    f0, logspc, _ = (t[0].cpu().numpy().astype(np.float64) for t in exported["tts"][0])
+    frames = 2 * EXPORT_LENGTHS["tts"] - 1
+    f0, spc = f0[:frames], np.exp(logspc[:frames])
+    voiced = f0 > 0
+    if not voiced.any():
+        fail("export: the TTS call gave no voiced frame")
+    f0 = np.where(voiced, f0, f0[voiced].mean())
+    ap = np.full_like(spc, 1e-6)
+    ref = synthesize_np(f0, spc, ap, fs=SAMPLE_RATE, frame_period=10.0)
+    nat = synthesize_native(f0, spc, ap, fs=SAMPLE_RATE, frame_period=10.0)
+    native_err = float(np.abs(ref - nat).max() / np.abs(ref).max()) if len(ref) == len(nat) else 1.0
+    if not native_err <= NATIVE_SYNTHESIS_TOL:
+        fail(f"export: the native synthesis is {native_err:.3e} of peak from the NumPy one")
+    summary.update({"onnx_asr_clips": len(clips), "onnx_asr_exact": exact,
+                    "onnx_asr_s": onnx_asr_s, "native_synthesis_err": native_err,
+                    "voiced_frames": int(voiced.sum())})
+    return launches, summary
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -4715,6 +5203,7 @@ def main() -> None:
     serving[0]["b1_stream"] = check_melspec(device, 1, STREAM_B1_SECONDS)
     frames = int(STREAM_B1_SECONDS * SAMPLE_RATE) // 320 + 1
     serving[1]["b1_stream"] = check_bilstm(device, 1, frames, [frames], plain_iters=1)
+    serving[1].update(check_bilstm_export(device))
     # each CTC kernel's and the Viterbi launch's step split by cause, and
     # the chain floors; the Viterbi check reads its phases from it
     from voice100_tpu_torch.tools.probe_ctc import probe
@@ -4742,6 +5231,11 @@ def main() -> None:
         by_path["tts"], tts_kernel, tts_summary = tts_phase(device, card, workdir)
         tts_train_paths, tts_train_kernels, tts_train_summary, tts_data = tts_train_phase(
             device, card, workdir, args)
+        new_start = time.perf_counter()
+        world_summary = world_device_phase(device, card, workdir,
+                                           tts_train_summary["world_analysis_cold_s"])
+        by_path["export"], export_summary = export_phase(device, card, workdir, args)
+        export_summary["new_phases_wall_s"] = time.perf_counter() - new_start
         shell_paths, shell_summary = data_shell_phase(device, card, workdir, args,
                                                       os.path.join(workdir, "tts_data"))
         phone_start = time.perf_counter()
@@ -4785,6 +5279,8 @@ def main() -> None:
     print(f"serve_beam_summary ({card}) " + json.dumps(beam_summary), flush=True)
     print(f"data_shell_summary ({card}) " + json.dumps(shell_summary), flush=True)
     print(f"server_summary ({card}) " + json.dumps(server_summary), flush=True)
+    print(f"world_device_summary ({card}) " + json.dumps(world_summary), flush=True)
+    print(f"export_summary ({card}) " + json.dumps(export_summary), flush=True)
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s from the kernel build to here",
           flush=True)
     print(json.dumps({"kernels": serving + training + aligning + bf16_lines}), flush=True)

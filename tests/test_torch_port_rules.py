@@ -48,6 +48,11 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "        'voice100_tpu_torch.text.ngram', 'voice100_tpu_torch.tools.train_lm',\n"
         "        'voice100_tpu_torch.server', 'voice100_tpu_torch.utils.profiling',\n"
         "        'voice100_tpu_torch.tools.cache_dataset',\n"
+        "        'voice100_tpu_torch.dsp.world.dio_device', 'voice100_tpu_torch.dsp.world.synthesis_np',\n"
+        "        'voice100_tpu_torch.native.world', 'voice100_tpu_torch.onnx.schema',\n"
+        "        'voice100_tpu_torch.onnx.builder', 'voice100_tpu_torch.onnx.runtime',\n"
+        "        'voice100_tpu_torch.onnx.export', 'voice100_tpu_torch.onnx.serve',\n"
+        "        'voice100_tpu_torch.tools.export', 'voice100_tpu_torch.tools.import_torch',\n"
         "        } <= set(names), names\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n"

@@ -189,9 +189,15 @@ def test_decode_matches_jax_and_noise_sources():
 
 
 def test_encode_raises():
-    # the host analysis runs (held to the JAX package in
-    # test_torch_world_analysis.py); the device analysis is not ported
-    f0, mcep, codeap = WORLDVocoder(device="cpu", use_mcep=True).encode(np.zeros(1600, np.float32))
+    # the host analysis and the device one (its "jax" alias too) run and
+    # give one shape (held to the JAX package in test_torch_world_analysis.py
+    # and test_torch_world_device.py); an unknown backend name raises
+    silence = np.zeros(1600, np.float32)
+    f0, mcep, codeap = WORLDVocoder(device="cpu", use_mcep=True).encode(silence)
     assert (f0.shape, mcep.shape, codeap.shape) == ((11,), (11, 25), (11, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
-        WORLDVocoder(device="cpu", analysis_backend="jax").encode(np.zeros(1600, np.float32))
+    for name in ("jax", "device"):
+        out = WORLDVocoder(device="cpu", use_mcep=True, analysis_backend=name).encode(silence)
+        assert [a.shape for a in out] == [(11,), (11, 25), (11, 1)]
+        assert all(a.dtype == np.float32 for a in out) and not out[0].any()
+    with pytest.raises(ValueError, match="WORLD analysis backend 'tpu'"):
+        WORLDVocoder(device="cpu", analysis_backend="tpu").encode(silence)

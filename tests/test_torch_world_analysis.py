@@ -7,8 +7,8 @@ of the JAX package's NumPy paths, so the features are held bit for bit:
 moves in 90-260 Hz, with an unvoiced stretch and noise) and unvoiced
 ones (noise alone), at 16 and 22.05 kHz, with and without mel-cepstra;
 DIO, CheapTrick and every band-aperiodicity estimator on their own; the
-sp2mc and mc2sp matrices. A device analysis backend raises naming its
-ROADMAP item, from the argument or the environment.
+sp2mc and mc2sp matrices. The device backend runs under its two names,
+from the argument or the environment; an unknown name raises.
 """
 
 import numpy as np
@@ -107,18 +107,26 @@ def test_mcep_matrices_equal_jax(fftlen, order, alpha):
 
 
 def test_device_backend_raises_naming_the_item(monkeypatch):
+    # the device backend runs under both names, from the argument or the
+    # environment, and the two names agree; an unknown name raises
     from voice100_tpu_torch.dsp.world import WORLDVocoder, band_aperiodicity, cheaptrick
-    from voice100_tpu_torch.dsp.world.backend import ANALYSIS_ITEM
 
     wav = _clip(0, 0.4, 16000, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
-        WORLDVocoder(device="cpu", analysis_backend="jax").encode(wav)
+    by_name = {name: WORLDVocoder(device="cpu", analysis_backend=name).encode(wav)
+               for name in ("jax", "device")}
     monkeypatch.setenv("VOICE100_TPU_WORLD_BACKEND", "jax")
-    vocoder = WORLDVocoder(device="cpu")
-    with pytest.raises(NotImplementedError, match=ANALYSIS_ITEM):
-        vocoder.encode(wav)
+    from_env = WORLDVocoder(device="cpu").encode(wav)
+    for a, b, c in zip(by_name["jax"], by_name["device"], from_env):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    assert (by_name["jax"][0] > 0).mean() > 0.5
+    monkeypatch.setenv("VOICE100_TPU_WORLD_BACKEND", "pallas")
+    with pytest.raises(ValueError, match="unknown WORLD analysis backend 'pallas'"):
+        WORLDVocoder(device="cpu")
     x, f0, pos = wav.astype(np.float64), np.full(41, 150.0), np.arange(41) * 0.01
-    with pytest.raises(NotImplementedError, match="item 7"):
-        cheaptrick(x, f0, pos, 16000, backend="jax")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        band_aperiodicity(x, f0, pos, 16000, backend="jax")
+    np.testing.assert_array_equal(cheaptrick(x, f0, pos, 16000, backend="jax", device="cpu"),
+                                  cheaptrick(x, f0, pos, 16000, backend="device", device="cpu"))
+    with pytest.raises(ValueError, match="unknown WORLD analysis backend"):
+        cheaptrick(x, f0, pos, 16000, backend="xla")
+    with pytest.raises(ValueError, match="unknown WORLD analysis backend"):
+        band_aperiodicity(x, f0, pos, 16000, backend="xla")

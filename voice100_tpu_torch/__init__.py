@@ -12,7 +12,8 @@ This package imports neither ``jax`` nor anything of ``voice100_tpu``:
 what it needs from there is copied (``text/`` with the G2P and the
 Japanese reader and the n-gram LM, ``dsp/``, ``native/`` with its C++
 audio decoders, ``data/datasets.py``, ``data/registry.py``,
-``tools/prepare_dataset.py``, ``tools/train_lm.py``, ``ops/ctc_beam.py``)
+``tools/prepare_dataset.py``, ``tools/train_lm.py``, ``ops/ctc_beam.py``,
+``onnx/``, ``dsp/world/synthesis_np.py``)
 or rebuilt (the DFT and mel constants in ``ops/melspec.py``).
 
 Ported so far: ASR v2 serving (``inference.ASRPipeline`` ->
@@ -35,7 +36,14 @@ first use), English and Japanese phonemization, ``tools.prepare_dataset``;
 the training data shell (the loader's worker pool, packed uploads, device
 prefetch, the device feature cache and multi-step dispatch); and CTC
 prefix beam search with trigram LM fusion (``ops/ctc_beam_device.py``,
-``ops/ctc_beam.py``, ``text/ngram.py``).
+``ops/ctc_beam.py``, ``text/ngram.py``); long-form streaming and the HTTP
+server; the device WORLD analysis (``dsp/world/dio_device.py`` and the
+device backends of CheapTrick and the band aperiodicity); and the
+deployment surface: ``tools.export`` (a ``torch.export`` program holding
+kernel 1 as the op ``voice100_torch::bilstm_infer``, and an ``.onnx``),
+``onnx/`` (the emitter on protobuf classes built without ``protoc``, the NumPy
+runtime, ``OnnxASR``/``OnnxTTS``), ``native/world.cpp`` and
+``tools.import_torch``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 see :func:`voice100_tpu_torch.device.resolve_device`.

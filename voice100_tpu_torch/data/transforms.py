@@ -92,9 +92,10 @@ class MelSpectrogramAudioTransform:
 
 class WORLDAudioProcessor:
     """audio file -> ``(f0 [T], logspc or mcep [T, D], codeap [T, C])``
-    float32 WORLD features, analysed on the host (reference
-    voice100/data_modules.py:295-316). ``device`` (default ``cuda``) is
-    the vocoder's, for decoding."""
+    float32 WORLD features (reference voice100/data_modules.py:295-316),
+    analysed on the host, or on ``device`` under the device analysis
+    backend (``VOICE100_TPU_WORLD_BACKEND=device``). ``device`` (default
+    ``cuda``) is the vocoder's."""
 
     def __init__(self, sample_rate: int, use_mcep: bool, device=None) -> None:
         from ..dsp.world import WORLDVocoder
@@ -107,8 +108,8 @@ class WORLDAudioProcessor:
         return sum(self.vocoder.output_dims)
 
     def to_host(self) -> None:
-        """The analysis is host code already; the vocoder decodes on the
-        CPU from now on (the loader's worker processes call it)."""
+        """The vocoder decodes, and the device analysis backend analyses,
+        on the CPU from now on (the loader's worker processes call it)."""
         self.vocoder.to_host()
 
     def __call__(self, audiopath: str, wav: Optional[np.ndarray] = None):

@@ -1,4 +1,4 @@
-"""WORLD vocoder: analysis (host NumPy, float64) and decoding.
+"""WORLD vocoder: analysis (host NumPy float64, or the device) and decoding.
 
 Port of ``voice100_tpu/dsp/world/__init__.py`` ``WORLDVocoder`` (the
 reference's voice100/vocoder.py:14-102): the same rates (16 kHz: n_fft
@@ -6,7 +6,10 @@ reference's voice100/vocoder.py:14-102): the same rates (16 kHz: n_fft
 ``output_dims``. ``encode`` runs the host analysis the JAX package runs
 by default, copied without JAX (:mod:`.dio`, :mod:`.cheaptrick`,
 :mod:`.aperiodicity`), so the features are the JAX package's bit for
-bit; the device analysis is not ported (:mod:`.backend`). Decoding maps
+bit; with ``analysis_backend="device"`` (alias ``"jax"``, :mod:`.backend`)
+it runs the JAX package's device analysis in torch float32 on the
+vocoder's device (:mod:`.dio_device` YIN F0, ``_cheaptrick_device``,
+``_harmonic_device``) and fetches once at the end. Decoding maps
 mel-cepstra to log spectra by one matmul (float32 on the device),
 decodes the coded aperiodicity on the host in float64 as the JAX package
 does, and synthesizes on the device (:mod:`.synthesis`).
@@ -22,28 +25,32 @@ import torch
 
 from ...device import resolve_device
 from ..mcep import create_mc2sp_matrix, create_sp2mc_matrix
-from .aperiodicity import band_aperiodicity, d4c
-from .backend import ANALYSIS_ITEM, require_host_backend
-from .cheaptrick import cheaptrick
+from .aperiodicity import _harmonic_device, band_aperiodicity, d4c
+from .backend import DEVICE, analysis_backend as analysis_backend_of
+from .cheaptrick import _cheaptrick_device, cheaptrick
 from .codec import decode_aperiodicity, get_num_aperiodicities
 from .dio import dio
+from .dio_device import dio_device, dio_device_tensors
 from .synthesis import NoiseSource, synthesis_shape, synthesize_batch
 
-__all__ = ["WORLDVocoder", "FEATURE_VERSION", "dio", "cheaptrick", "d4c", "band_aperiodicity",
-           "decode_aperiodicity", "get_num_aperiodicities", "synthesis_shape",
-           "synthesize_batch", "ANALYSIS_ITEM"]
+__all__ = ["WORLDVocoder", "FEATURE_VERSION", "dio", "dio_device", "cheaptrick", "d4c",
+           "band_aperiodicity", "decode_aperiodicity", "get_num_aperiodicities",
+           "synthesis_shape", "synthesize_batch"]
 
 # the analysis algorithms' version, keyed into the feature cache's salt
-# (data/datamodule.py): the JAX package's token, so both read one cache
+# (data/datamodule.py): the JAX package's token, so both read one cache.
+# The salt does not name the analysis backend, in either package: a cache
+# one backend wrote is read by the other.
 FEATURE_VERSION = "ap-harmonic1"
 
 
 class WORLDVocoder:
     """Encode waveforms to WORLD features ``(f0, logspc or mcep, codeap)``
-    on the host, and decode them to waveforms on ``device`` (default
-    ``cuda``; ``"cpu"`` runs on the CPU). ``analysis_backend`` (default
-    ``$VOICE100_TPU_WORLD_BACKEND`` or ``"numpy"``) must be ``"numpy"``
-    when ``encode`` runs."""
+    and decode them to waveforms on ``device`` (default ``cuda``;
+    ``"cpu"`` runs on the CPU). ``analysis_backend`` (default
+    ``$VOICE100_TPU_WORLD_BACKEND`` or ``"numpy"``): ``"numpy"`` analyses
+    on the host in float64, ``"device"`` (or ``"jax"``) in float32 on
+    ``device``; another name raises ``ValueError``."""
 
     def __init__(self, sample_rate: int = 16000, frame_period: float = 10.0, n_fft: int = None,
                  use_mcep: bool = False, log_offset: float = 1e-15, device=None,
@@ -53,6 +60,7 @@ class WORLDVocoder:
         self.frame_period = frame_period
         self.analysis_backend = analysis_backend or os.environ.get(
             "VOICE100_TPU_WORLD_BACKEND", "numpy")
+        self._device_analysis = analysis_backend_of(self.analysis_backend) == DEVICE
         if sample_rate == 16000:
             self.mcep_dim, self.mcep_alpha, self.codeap_dim = 24, 0.410, 1
             self.n_fft = n_fft or 512
@@ -68,16 +76,18 @@ class WORLDVocoder:
         self.sp2mc_matrix = (create_sp2mc_matrix(self.n_fft, self.mcep_dim, self.mcep_alpha)
                              if use_mcep else None)
         self._mc2sp32 = None  # the float32 mc2sp matrix on the device, made at first use
+        self._sp2mc64 = None  # the float64 sp2mc matrix of the device analysis, likewise
 
     def __getstate__(self):
         # a pickled vocoder (the loader's spawned workers) carries no device
         # tensor: unpickling one would open a CUDA context in the worker
-        return {**self.__dict__, "_mc2sp32": None}
+        return {**self.__dict__, "_mc2sp32": None, "_sp2mc64": None}
 
     def to_host(self) -> None:
-        """Decode on the CPU from now on (the loader's workers call it)."""
+        """Decode, and analyse on the device backend, on the CPU from now
+        on (the loader's workers call it)."""
         self.device = torch.device("cpu")
-        self._mc2sp32 = None
+        self._mc2sp32 = self._sp2mc64 = None
 
     @property
     def output_dims(self) -> Tuple[int, int, int]:
@@ -87,10 +97,12 @@ class WORLDVocoder:
 
     def encode(self, waveform, f0_floor: float = 80.0, f0_ceil: float = 400.0):
         """waveform -> ``(f0 [T], logspc or mcep [T, D], codeap [T, C])``,
-        float32, computed on the host in float64: DIO F0, the CheapTrick
-        envelope, its log (and mel-cepstrum), the harmonic band
-        aperiodicity."""
-        require_host_backend(self.analysis_backend)
+        float32 host arrays: F0, the CheapTrick envelope, its log (and
+        mel-cepstrum), the harmonic band aperiodicity. On the host backend
+        DIO and the rest in float64; on the device backend YIN F0 and the
+        rest in float32 on ``self.device``, one clip a call."""
+        if self._device_analysis:
+            return self._encode_device(waveform, f0_floor, f0_ceil)
         x = np.asarray(waveform, dtype=np.float64)
         f0, positions = dio(x, self.sample_rate, f0_floor=f0_floor, f0_ceil=f0_ceil,
                             frame_period=self.frame_period)
@@ -99,6 +111,29 @@ class WORLDVocoder:
         codeap = band_aperiodicity(x, f0, positions, self.sample_rate)
         feat = logspc @ self.sp2mc_matrix if self.use_mcep else logspc
         return f0.astype(np.float32), feat.astype(np.float32), codeap.astype(np.float32)
+
+    def _encode_device(self, waveform, f0_floor: float, f0_ceil: float):
+        """The device analysis (``voice100_tpu/dsp/world/__init__.py:104-140``
+        with ``analysis_backend="jax"``): the waveform uploaded as float32,
+        every estimator on the device, one fetch of the three streams. The
+        log envelope is float32 and the sp2mc product float64, as the JAX
+        package computes them on its host."""
+        dev = self.device
+        x = torch.from_numpy(np.array(waveform, np.float32)).to(dev)
+        fs = self.sample_rate
+        f0, positions = dio_device_tensors(x, fs, f0_floor=f0_floor, f0_ceil=f0_ceil,
+                                           frame_period=self.frame_period)
+        spc = _cheaptrick_device(x, f0, positions, fs, self.n_fft)
+        logspc = torch.log(spc + self.log_offset)
+        codeap = _harmonic_device(x, f0, positions, fs)
+        if self.use_mcep:
+            if self._sp2mc64 is None or self._sp2mc64.device != dev:
+                self._sp2mc64 = torch.from_numpy(np.array(self.sp2mc_matrix)).to(dev)
+            feat = (logspc.double() @ self._sp2mc64).float()
+        else:
+            feat = logspc
+        f0, feat, codeap = (t.cpu().numpy() for t in (f0, feat, codeap))
+        return f0, feat, codeap
 
     def _aperiodicity(self, codeap: np.ndarray) -> np.ndarray:
         """Coded aperiodicity ``[..., C]`` -> ``[..., n_fft//2+1]`` float64 on

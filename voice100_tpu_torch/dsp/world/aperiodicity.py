@@ -1,9 +1,12 @@
 """Band aperiodicity estimation (host NumPy), a D4C-equivalent interface.
 
-A copy of the NumPy paths of ``voice100_tpu/dsp/world/aperiodicity.py``
-(its ``_jax`` functions are not copied: the device analysis is
-``ROADMAP.md`` queue 1, item 7, and a device backend raises). The same
-code on the same input gives the JAX package's bands bit for bit.
+A copy of the NumPy paths of ``voice100_tpu/dsp/world/aperiodicity.py``:
+the same code on the same input gives the JAX package's bands bit for
+bit. The device backend (``backend="device"``, alias ``"jax"``) is
+:func:`_harmonic_device` and :func:`_band_aperiodicity_device`, the
+counterparts of ``_harmonic_jax`` and ``_band_aperiodicity_jax``: the
+basis least-squares formulation and the comb correlation in torch
+float32 on the tensors' device.
 
 The reference obtains aperiodicity from pyworld's D4C
 (voice100/vocoder.py:72): the band amplitude ratio of the aperiodic
@@ -22,8 +25,9 @@ power-weighted circular resultant of the per-bin group delay
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from .backend import require_host_backend
+from .backend import DEVICE, analysis_backend, const, uploader
 from .codec import decode_aperiodicity, get_num_aperiodicities
 
 __all__ = [
@@ -66,15 +70,19 @@ def band_aperiodicity(
     fs: int,
     backend: str = "numpy",
     method: str = "harmonic",
+    device=None,
 ) -> np.ndarray:
     """Coarse aperiodicity in dB, ``[T, n_bands]`` (bands at 3k, 6k..).
 
     ``method="harmonic"`` (default) is the harmonic least-squares
     noise-share estimator; ``method="comb"`` is the comb-correlation
-    cross-check. ``backend`` must be ``"numpy"``."""
-    require_host_backend(backend)
+    cross-check. ``backend="device"`` (or ``"jax"``) runs every frame in
+    one batch in float32 on ``device`` (default ``cuda``)."""
     if method == "harmonic":
-        return band_aperiodicity_harmonic(x, f0, positions, fs)
+        return band_aperiodicity_harmonic(x, f0, positions, fs, backend=backend, device=device)
+    if analysis_backend(backend) == DEVICE:
+        up = uploader(device)
+        return _band_aperiodicity_device(up(x), up(f0), up(positions), fs).cpu().numpy()
     x = np.asarray(x, dtype=np.float64)
     return _band_ap_impl(x, f0, positions, fs)
 
@@ -170,6 +178,7 @@ def band_aperiodicity_harmonic(
     fs: int,
     backend: str = "numpy",
     n_periods: float = 4.0,
+    device=None,
 ) -> np.ndarray:
     """Coarse aperiodicity in dB via harmonic least squares, ``[T, B]``.
 
@@ -190,9 +199,11 @@ def band_aperiodicity_harmonic(
     note), with a closed-form degrees-of-freedom correction making the
     noise-share estimate unbiased.
     """
-    require_host_backend(backend)
     f0 = np.asarray(f0, np.float64)
     positions = np.asarray(positions, np.float64)
+    if analysis_backend(backend) == DEVICE:
+        up = uploader(device)
+        return _harmonic_device(up(x), up(f0), up(positions), fs, float(n_periods)).cpu().numpy()
     return _harmonic_fft_impl(
         np.asarray(x, np.float64), f0, positions, fs,
         float(n_periods),
@@ -530,3 +541,135 @@ def band_aperiodicity_gd(
     return np.where(
         (f0 > 0)[:, None], out, 20.0 * np.log10(1.0 - _SAFE_MIN)
     )
+
+
+# ----------------------------------------------------------------------
+# The device backend: torch float32 on the tensors' device, every frame
+# in one batch (the JAX package's ``_harmonic_impl`` and ``_band_ap_impl``
+# on ``jax.numpy``). Constant vectors are made in float32 NumPy and
+# uploaded; divisions are tensor by tensor (a CUDA tensor divided by a
+# Python scalar is multiplied by its reciprocal).
+# ----------------------------------------------------------------------
+
+
+def _harmonic_device(x: torch.Tensor, f0: torch.Tensor, positions: torch.Tensor, fs: int,
+                     n_periods: float = 4.0) -> torch.Tensor:
+    """Harmonic least-squares band aperiodicity ``[T, B]`` in dB of float32
+    tensors on one device (``_harmonic_impl`` of the JAX package on its
+    device): the window and harmonic extents of the 47 Hz floor, so every
+    clip has one shape a frame; the ``[P, T, W]`` basis filled in place by
+    the angle-addition recurrence; float32 products (TF32 off, as
+    :func:`voice100_tpu_torch.device.resolve_device` sets it)."""
+    n_bands = get_num_aperiodicities(fs)
+    T = positions.shape[0]
+    tiny = 1e-18
+    eff = torch.where(f0 > 0, torch.clamp(f0, min=_F0_FLOOR_D4C), 200.0)
+    floor = _F0_FLOOR_D4C
+    half = int(n_periods / 2.0 * fs / floor) + 1
+    offsets = np.arange(-half, half + 1)
+    W = offsets.shape[0]
+    centers = torch.round(positions * fs).to(torch.int64)
+    idx = torch.clamp(centers[:, None] + const(offsets, x)[None, :], 0, x.shape[0] - 1)
+    seg = x[idx]                                               # [T, W]
+    tloc = const((offsets / fs).astype(np.float32), x)        # [W] seconds
+    u = tloc[None, :] * eff[:, None] / x.new_tensor(n_periods / 2.0)
+    w = torch.where(u.abs() <= 1.0, 0.5 + 0.5 * torch.cos(np.pi * u), 0.0)
+
+    K = int((fs / 2.0) / floor)
+    P = 2 * K + 1
+    fk = eff[:, None] * const(np.arange(1, K + 1, dtype=np.int32), x)[None, :]  # [T, K]
+    valid = (fk < fs / 2.0 - 50.0).to(torch.float32)
+    ang1 = (2.0 * np.pi) * eff[:, None] * tloc[None, :]
+    c1, s1 = torch.cos(ang1), torch.sin(ang1)
+    # [P, T, W]: the DC column, then the cosines, then the sines, each
+    # masked past Nyquist and windowed as it is written
+    basis = torch.empty(P, T, W, device=x.device)
+    basis[0] = w
+    ck, sk = c1, s1
+    for i in range(K):
+        if i:
+            ck, sk = ck * c1 - sk * s1, sk * c1 + ck * s1
+        vi = valid[:, i:i + 1]
+        torch.mul(ck * vi, w, out=basis[1 + i])
+        torch.mul(sk * vi, w, out=basis[1 + K + i])
+    y = seg * w
+    # the diagonal normal equations (near-orthogonal windowed harmonics)
+    rhs = torch.einsum("ptw,tw->tp", basis, y)
+    colnorm = torch.einsum("ptw,ptw->tp", basis, basis)
+    coef = rhs / (colnorm + tiny)
+    resid = y - torch.einsum("tp,ptw->tw", coef, basis)
+    del basis
+
+    nfft = 1
+    while nfft < W:
+        nfft *= 2
+    spec_r = torch.fft.rfft(resid, n=nfft, dim=1)
+    spec_y = torch.fft.rfft(y, n=nfft, dim=1)
+    p_r = spec_r.real ** 2 + spec_r.imag ** 2
+    p_y = spec_y.real ** 2 + spec_y.imag ** 2
+    df = fs / float(nfft)
+    dof_keep = x.new_tensor(1.0 - 35.0 / (18.0 * n_periods))
+    cols = []
+    for band in range(n_bands):
+        center = _FREQ_INTERVAL * (band + 1)
+        lo = int((center - _FREQ_INTERVAL / 2) / df)
+        hi = int((center + _FREQ_INTERVAL / 2) / df)
+        e_r = p_r[:, lo:hi].sum(dim=1)
+        e_y = p_y[:, lo:hi].sum(dim=1)
+        ratio = torch.clamp(e_r / (e_y + tiny) / dof_keep, _SAFE_MIN, 1.0)
+        cols.append(10.0 * torch.log10(ratio))
+    coded = torch.stack(cols, dim=1)
+    aperiodic_db = float(np.float32(20.0 * np.log10(1.0 - _SAFE_MIN)))
+    return torch.where((f0 > 0)[:, None], torch.clamp(coded, _FLOOR_DB, 0.0), aperiodic_db)
+
+
+def _band_aperiodicity_device(x: torch.Tensor, f0: torch.Tensor, positions: torch.Tensor,
+                              fs: int) -> torch.Tensor:
+    """Comb-correlation band aperiodicity ``[T, B]`` in dB of float32
+    tensors on one device (``_band_ap_impl`` of the JAX package on its
+    device)."""
+    n_bands = get_num_aperiodicities(fs)
+    eff_f0 = torch.where(f0 > 0, f0, 200.0)
+    win_len = 1024
+    while win_len < int(6 * fs / 80.0):
+        win_len *= 2
+    offsets = const(np.arange(win_len, dtype=np.int32) - win_len // 2, x)
+    centers = torch.round(positions * fs).to(torch.int64)
+    idx = torch.clamp(centers[:, None] + offsets[None, :], 0, x.shape[0] - 1)
+    edge = win_len // 8
+    ramp = 0.5 - 0.5 * np.cos(np.float32(np.pi) * np.arange(edge, dtype=np.float32)
+                              / np.float32(edge))
+    taper = const(np.concatenate([ramp, np.ones(win_len - 2 * edge, np.float32),
+                                   ramp[::-1]]).astype(np.float32), x)
+    seg = x[idx] * taper[None, :]
+    spec = torch.fft.rfft(seg, dim=1)
+    freqs = const((np.arange(win_len // 2 + 1, dtype=np.int32) * fs).astype(np.float32)
+                   / np.float32(win_len), x)
+    lag = x.new_tensor(float(fs)) / eff_f0  # [T] fractional samples
+    central = offsets.abs()[None, :] <= (2.0 * lag[:, None])
+    cols = []
+    for b in range(n_bands):
+        center = _FREQ_INTERVAL * (b + 1)
+        mask = (freqs >= center - _FREQ_INTERVAL) & (freqs < center + _FREQ_INTERVAL)
+        band = torch.fft.irfft(spec * mask[None, :], n=win_len, dim=1)
+        r = _fractional_autocorr_device(band, lag, central)
+        ratio = torch.sqrt(torch.clamp(1.0 - r, _SAFE_MIN ** 2, 1.0))
+        cols.append(torch.clamp(20.0 * torch.log10(ratio), _FLOOR_DB, 0.0))
+    coded = torch.stack(cols, dim=1)
+    return torch.where((f0 > 0)[:, None], coded, float(20.0 * np.log10(1.0 - _SAFE_MIN)))
+
+
+def _fractional_autocorr_device(band, lag, region):
+    t_frames, width = band.shape
+    base = torch.arange(width, device=band.device)
+    li = torch.floor(lag).to(torch.int64)
+    frac = (lag - li)[:, None]
+    idx0 = torch.clamp(base[None, :] + li[:, None], 0, width - 1)
+    idx1 = torch.clamp(idx0 + 1, 0, width - 1)
+    shifted = torch.gather(band, 1, idx0) * (1 - frac) + torch.gather(band, 1, idx1) * frac
+    valid = region & (base[None, :] + lag[:, None] + 1 < width)
+    a = band * valid
+    b = shifted * valid
+    num = (a * b).sum(dim=1)
+    den = torch.sqrt((a * a).sum(dim=1) * (b * b).sum(dim=1)) + torch.finfo(band.dtype).tiny
+    return torch.clamp(num / den, 0.0, 1.0)

@@ -10,7 +10,9 @@ state dicts carry across (``tools/weights.py``).
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -19,7 +21,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.lstm import default_compute_dtype, stack_directions
-from ..ops.lstm_cuda import bilstm_cuda, bilstm_train_cuda
+from ..ops.lstm_cuda import bilstm_infer, bilstm_train_cuda
 
 __all__ = [
     "ConvSetting",
@@ -30,6 +32,7 @@ __all__ = [
     "BiLSTM",
     "WORLDNorm",
     "uniform_",
+    "deterministic_cudnn",
 ]
 
 # (out_channels, transpose, kernel_size, stride, padding, bias), as in
@@ -106,12 +109,8 @@ class ConvTransposeLayerBlock(nn.Module):
         # in the last bits, and a vocoder pulse downstream move by a sample.
         # The JAX block is deterministic, so this one asks for a
         # deterministic algorithm.
-        deterministic = torch.backends.cudnn.deterministic
-        torch.backends.cudnn.deterministic = True
-        try:
+        with deterministic_cudnn():
             x = self.conv(x.transpose(1, 2)).transpose(1, 2)
-        finally:
-            torch.backends.cudnn.deterministic = deterministic
         return F.gelu(self.layer_norm(x))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -122,6 +121,33 @@ class ConvTransposeLayerBlock(nn.Module):
         if self.conv.bias is not None:
             uniform_(self.conv.bias, bound, generator)
         self.layer_norm.reset_parameters()
+
+
+_DETERMINISTIC_LOCK = threading.Lock()
+_deterministic_users = 0
+_deterministic_saved = False
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms for the calls inside. The switch
+    (``torch.backends.cudnn.deterministic``) is one for the process: it is
+    set when the first of overlapping users enters and restored when the
+    last leaves, so calls from several threads (the server's batchers)
+    neither race on it nor leave it set."""
+    global _deterministic_users, _deterministic_saved
+    with _DETERMINISTIC_LOCK:
+        if _deterministic_users == 0:
+            _deterministic_saved = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+        _deterministic_users += 1
+    try:
+        yield
+    finally:
+        with _DETERMINISTIC_LOCK:
+            _deterministic_users -= 1
+            if _deterministic_users == 0:
+                torch.backends.cudnn.deterministic = _deterministic_saved
 
 
 class ConvStack(nn.Sequential):
@@ -154,8 +180,9 @@ class BiLSTM(nn.Module):
     Parameters follow ``torch.nn.LSTM``'s names and layout. When no
     gradient is needed (``torch.no_grad``, ``inference_mode``, or no
     parameter or input that requires one), each layer runs the inference
-    kernel :func:`voice100_tpu_torch.ops.lstm_cuda.bilstm_cuda` on
-    weights stacked once and cached. Otherwise it runs the training pair
+    kernel through the op :func:`voice100_tpu_torch.ops.lstm_cuda.bilstm_infer`
+    (``voice100_torch::bilstm_infer``, which ``torch.export`` keeps as one
+    node) on weights stacked once and cached. Otherwise it runs the training pair
     through :func:`voice100_tpu_torch.ops.lstm_cuda.bilstm_train_cuda`,
     on weights stacked from the parameters in each call so that the
     gradients reach them. Either way CUDA tensors take the kernels and
@@ -230,8 +257,10 @@ class BiLSTM(nn.Module):
         """``[B, T, D] -> [B, T, 2H]``, zero past each length."""
         needs_grad = torch.is_grad_enabled() and (
             x.requires_grad or any(p.requires_grad for p in self.parameters()))
-        layers, layer_fn = ((self._stack(), bilstm_train_cuda) if needs_grad
-                            else (self.stacked_layers(), bilstm_cuda))
+        if needs_grad:
+            layers, layer_fn = self._stack(), bilstm_train_cuda
+        else:
+            layers, layer_fn = self.stacked_layers(), bilstm_infer
         compute_dtype = default_compute_dtype()
         for i, (w_ih, w_hh, bias) in enumerate(layers):
             x = layer_fn(w_ih, w_hh, bias, x, lengths, compute_dtype)

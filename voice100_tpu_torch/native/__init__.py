@@ -1,10 +1,11 @@
-"""Native (C++) audio library: FLAC and MP3 decode, resampling, batch decode.
+"""Native (C++) audio library: FLAC and MP3 decode, resampling, batch
+decode, WORLD synthesis.
 
-Port of ``voice100_tpu/native/__init__.py``: ``audioio.cpp`` (a copy of
-the JAX package's) builds with ``g++ -O3 -shared -fPIC -ldl`` into a
-shared library on first use and binds with ctypes. The library goes to
-``voice100_tpu_torch/_build/`` under a name that carries a hash of the
-source and the flags, as ``kernels/build.py`` names the CUDA libraries,
+Port of ``voice100_tpu/native/__init__.py``: ``audioio.cpp`` and
+``world.cpp`` (copies of the JAX package's) build with ``g++ -O3 -shared
+-fPIC -ldl`` into one shared library on first use and bind with ctypes.
+The library goes to ``voice100_tpu_torch/_build/`` under a name that
+carries a hash of both sources and the flags, as ``kernels/build.py`` names the CUDA libraries,
 so an edited source is rebuilt and a stale library never loaded. The
 build writes a temporary name and then renames it, so processes that
 build at once never load a half-written library. MP3 decoding
@@ -27,6 +28,7 @@ __all__ = ["get_lib", "library_path", "NativeUnavailable"]
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = Path(__file__).resolve().parent / "audioio.cpp"
+WORLD_SOURCE = Path(__file__).resolve().parent / "world.cpp"
 BUILD_DIR = _PKG / "_build"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC")
 LINK_FLAGS = ("-ldl",)
@@ -42,14 +44,15 @@ class NativeUnavailable(ImportError):
 
 def library_path() -> Path:
     digest = hashlib.sha1(" ".join(GXX_FLAGS + LINK_FLAGS).encode())
-    digest.update(SOURCE.name.encode() + b"\0" + SOURCE.read_bytes())
+    for source in (SOURCE, WORLD_SOURCE):
+        digest.update(source.name.encode() + b"\0" + source.read_bytes())
     return BUILD_DIR / f"libaudioio-{digest.hexdigest()[:12]}.so"
 
 
 def _build(out: Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = ["g++", *GXX_FLAGS, "-o", str(tmp), str(SOURCE), *LINK_FLAGS]
+    cmd = ["g++", *GXX_FLAGS, "-o", str(tmp), str(SOURCE), str(WORLD_SOURCE), *LINK_FLAGS]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
     except OSError as e:
@@ -108,6 +111,19 @@ def get_lib() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
             ctypes.POINTER(ctypes.c_long),
             ctypes.POINTER(ctypes.c_int),
+        ]
+        lib.v100_world_synthesize.restype = ctypes.c_int
+        lib.v100_world_synthesize.argtypes = [
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.c_int,
+            ctypes.c_int,
+            ctypes.c_int,
+            ctypes.c_double,
+            ctypes.c_uint64,
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
+            ctypes.POINTER(ctypes.c_long),
         ]
         lib.v100_free.restype = None
         lib.v100_free.argtypes = [ctypes.POINTER(ctypes.c_float)]

@@ -7,7 +7,13 @@
   training pair, replace ``_kernel_train_fwd`` and ``_kernel_train_bwd``;
 * :class:`BiLSTMFunction` (:func:`bilstm_train_cuda`) is the
   ``torch.autograd.Function`` in the shape of ``_bilstm_op``
-  (``lstm_pallas.py:482-573``).
+  (``lstm_pallas.py:482-573``);
+* :func:`bilstm_infer` registers :func:`bilstm_cuda` as the custom op
+  ``voice100_torch::bilstm_infer``: its CUDA implementation launches
+  kernel 1, its CPU implementation is the plain twin, a fake
+  implementation gives ``torch.export`` the output's shape, and the
+  compute dtype is an argument, so an exported program holds one op a
+  layer with its dtype fixed.
 
 Each kernel has a float32 variant and a bf16 one, the mixed-precision
 mode of ``ops/lstm.py`` (the ``*_bf16`` entries of the CUDA sources):
@@ -51,7 +57,7 @@ import torch
 from ..kernels.build import check, load
 from .lstm import bilstm, bilstm_train_bwd, bilstm_train_fwd, matmul_f32, project_inputs
 
-__all__ = ["bilstm_cuda", "bilstm_train_fwd_cuda", "bilstm_train_bwd_cuda",
+__all__ = ["bilstm_cuda", "bilstm_infer", "bilstm_train_fwd_cuda", "bilstm_train_bwd_cuda",
            "BiLSTMFunction", "bilstm_train_cuda", "length_order"]
 
 _MULTIPLE = 32  # hidden must be a multiple of this (the kernels' k chunks and tiles)
@@ -157,6 +163,22 @@ def bilstm_cuda(w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,
     out, _ = _forward("bilstm_cuda", xg, w_hh, lengths, save_states=False)
     _count(bilstm_cuda, xg)
     return out
+
+
+@torch.library.custom_op("voice100_torch::bilstm_infer", mutates_args=())
+def bilstm_infer(w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+                 lengths: torch.Tensor, compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """:func:`bilstm_cuda` as one op (``voice100_torch::bilstm_infer``): on
+    CUDA tensors kernel 1 (float32, or its bf16 variant with
+    ``compute_dtype=torch.bfloat16``), counted in ``bilstm_cuda``'s
+    counters; on CPU tensors the plain twin. The biLSTM's inference path
+    calls it, so ``torch.export`` traces one node a layer through it."""
+    return bilstm_cuda(w_ih, w_hh, bias, x, lengths, compute_dtype)
+
+
+@bilstm_infer.register_fake
+def _bilstm_infer_fake(w_ih, w_hh, bias, x, lengths, compute_dtype=None):
+    return x.new_empty(x.shape[0], x.shape[1], 2 * w_hh.shape[2], dtype=torch.float32)
 
 
 _COUNT_LOCK = threading.Lock()  # serving launches from more than one thread

@@ -10,6 +10,8 @@ mel projection as a third, in float32, as the JAX reference runs them at
 This is the plain version of the fused CUDA kernel in
 ``ops/melspec_cuda.py``; that wrapper runs it for tensors on the CPU.
 The numpy constants are rebuilt here because the JAX module imports jax.
+:func:`log_mel_spectrogram_np` is a copy of the JAX package's host NumPy
+twin (``voice100_tpu/ops/melspec.py:165``), which ONNX serving runs.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ __all__ = [
     "mel_filterbank",
     "frame_signal",
     "log_mel_spectrogram",
+    "log_mel_spectrogram_np",
     "num_frames",
     "LOG_OFFSET",
     "MELSPEC_DIM",
@@ -124,3 +127,26 @@ def log_mel_spectrogram(
     im = torch.matmul(frames, sin_m)
     mel = torch.matmul(re * re + im * im, fb)
     return torch.log(mel + log_offset)
+
+
+def log_mel_spectrogram_np(
+    waveform: np.ndarray,
+    sample_rate: int = 16000,
+    n_fft: int = 512,
+    win_length: int = 400,
+    hop_length: int = 160,
+    n_mels: int = MELSPEC_DIM,
+    log_offset: float = LOG_OFFSET,
+) -> np.ndarray:
+    """Host NumPy twin of :func:`log_mel_spectrogram` (the same torch.stft
+    semantics through ``np.fft.rfft``), for serving paths without torch
+    (:mod:`voice100_tpu_torch.onnx.serve`)."""
+    window, _, _, fb = _constants(n_fft, win_length, n_mels, sample_rate)
+    x = np.asarray(waveform, np.float32)
+    pad = n_fft // 2
+    xp = np.pad(x, (pad, pad), mode="reflect")
+    frames = x.shape[-1] // hop_length + 1
+    idx = np.arange(frames)[:, None] * hop_length + np.arange(n_fft)[None, :]
+    spec = np.fft.rfft(xp[idx] * window, axis=-1)
+    power = (spec.real ** 2 + spec.imag ** 2).astype(np.float32)
+    return np.log(power @ fb + log_offset)
