@@ -263,7 +263,25 @@ toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
     (the ``export`` path); kernel 1 against its plain version at the
     three programs' shapes (B=1: asr T'=256, H=512; align T=128, H=256;
     tts T=128, H=512);
-23. prints one JSON line of per-kernel results (the bf16 variants as
+23. after step 13 (``distributed_phase``), trains asr_en_base through
+    the training CLI on the align corpus with half of it held out (64
+    train clips: one full global batch of 64 an epoch, 3 epochs) from
+    step 13's warm cache, in one collate bucket: a plain ``fit`` twice;
+    ``fit --distributed`` in a one-rank NCCL group; a plain and a one-rank
+    NCCL fit under deterministic algorithms, bit-equal in losses, val
+    losses and final weights (without them two plain fits part: the CTC
+    vocabulary scatter and cuDNN add with atomics); two ranks on the one
+    card over gloo at batch 32 each (NCCL refuses two ranks on one GPU;
+    each rank a process, ``chip_smoke.py --dp-rank``); every fit's launches
+    exact, one gradient all-reduce a step in a group, losses within 1e-5
+    relative and Adam's first moments within 1e-4 relative L2 of the plain
+    fit's, the weights against the JAX test's rtol 2e-5 / atol 2e-6
+    reported; the gradient all-reduce of a step timed over NCCL and gloo;
+    then ASRPipeline (the
+    serve phase's 16 clips) and TTSPipeline (the TTS phase's 16 texts)
+    over a mesh of the one device, bit-equal to the plain calls with the
+    same launches;
+24. prints one JSON line of per-kernel results (the bf16 variants as
     their own lines), then, last, {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line is printed. Without
@@ -282,6 +300,7 @@ SXM data sheet's peaks (67 TFLOP/s float32 outside the tensor cores,
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import json
@@ -549,6 +568,21 @@ def enqueue_ms(fn, iters: int = 20) -> float:
     ms = (time.perf_counter() - start) / iters * 1e3
     torch.cuda.synchronize()
     return ms
+
+
+@contextlib.contextmanager
+def environ(values):
+    """``os.environ`` updated with ``values`` inside, restored after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
 
 
 def fmt_ms(value) -> str:
@@ -4650,18 +4684,10 @@ def data_shell_phase(device, card, workdir, align_args, tts_data_dir):
     from voice100_tpu_torch.data import AudioTextDataModule
 
     start = time.perf_counter()
-    saved = {k: os.environ.get(k) for k in DATA_SHELL_BUCKETS}
-    os.environ.update(DATA_SHELL_BUCKETS)
-    try:
+    with environ(DATA_SHELL_BUCKETS):
         runs = {k: data_shell_fit(device, workdir, align_args, f"data_shell_k{k}", k)
                 for k in (DATA_SHELL_STEPS, 1)}
         syncs = dispatch_syncs(device, align_args, runs[1][3])
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k)
-            else:
-                os.environ[k] = v
     data = AudioTextDataModule(vocoder="mel", dataset="dummy_en", data_dir=align_args["data_dir"],
                                cache_dir=runs[1][3], batch_size=DATA_SHELL_BATCH, device=device)
     data.setup("fit")
@@ -5159,6 +5185,382 @@ def export_phase(device, card, workdir, align_args):
     return launches, summary
 
 
+# Data parallelism (the distributed phase): asr_en_base through the training
+# CLI on the align corpus, half of it held out, so that each epoch's 64 train
+# clips are one full global batch of 64 (a short last global batch is padded
+# by each rank on its own, as in the JAX package, and would differ from one
+# process's padding); its warm feature cache
+DP_EPOCHS = 3
+DP_VALID_RATIO = 0.5
+# a fit against the plain fit (two ranks, one rank, the plain fit again):
+# step and val losses relatively (the CPU test's bound), and the Adam first
+# moments after the last step (the running mean of the all-reduced
+# gradients) by relative L2 difference. Two plain fits part by ~1e-6 in
+# loss and ~1e-5 in moments (the CTC vocabulary scatter and cuDNN's
+# convolution backward add with atomics); a rank's share dropped or
+# counted twice, or rows given to the wrong rank, moves the moments by
+# O(0.1-1). Adam is scale-free, so the weights alone would not show a
+# gradient off by a constant factor.
+DP_LOSS_REL_TOL = 1e-5
+DP_MOMENT_REL_TOL = 1e-4
+# the JAX test's weight bound (tests/test_distributed.py:186), reported:
+# at full width two plain fits on the card already part past it on a few
+# of the 12M weights (Adam's steps amplify rounding where the first moment
+# nearly cancels against the second), so it is not a gate here
+DP_WEIGHT_RTOL, DP_WEIGHT_ATOL = 2e-5, 2e-6
+DP_RANK_TIMEOUT_S = 400
+DP_ALL_REDUCE_ITERS = 20
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def all_reduce_step_ms(device) -> dict:
+    """The gradient all-reduce of one asr_en_base step over the process
+    group this process has joined (the flat buffer, the collective, the
+    copy back), CUDA-event ms a call, and the buffer's bytes."""
+    from voice100_tpu_torch.models import AudioToAlignText
+    from voice100_tpu_torch.parallel import mesh as parallel
+
+    model = AudioToAlignText(**ASR_EN_BASE, device=device,
+                             generator=torch.Generator().manual_seed(SEED))
+    for p in model.parameters():
+        p.grad = torch.randn_like(p)
+    n = sum(p.numel() for p in model.parameters())
+    ms = time_ms(lambda: parallel.all_reduce_gradients(model.parameters()),
+                 iters=DP_ALL_REDUCE_ITERS)
+    return {"ms": ms, "bytes": 4 * n, "backend": torch.distributed.get_backend()}
+
+
+def dp_rank_child(spec_path: str) -> None:
+    """One rank of the two-rank gloo fit (``python3 chip_smoke.py --dp-rank
+    SPEC``): the CLI's ``fit`` with this rank's arguments, its launch and
+    collective counts, then the gradient all-reduce of a step timed over a
+    second group of the same two ranks; written to the spec's ``out``."""
+    from voice100_tpu_torch.parallel import mesh as parallel
+    from voice100_tpu_torch.training.cli import main
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    counters = cli_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    collectives = dict(parallel.collective_counts)
+    start = time.perf_counter()
+    main(spec["argv"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    result = {"wall_s": wall, "launches": {k: fn.launches for k, fn in counters.items()},
+              "collectives": {k: v - collectives[k]
+                              for k, v in parallel.collective_counts.items()}}
+    device = torch.device(spec["device"])
+    parallel.init_distributed(spec["timing_address"], 2, spec["rank"], device=device,
+                              backend="gloo")
+    try:
+        result["all_reduce"] = all_reduce_step_ms(device)
+    finally:
+        parallel.shutdown_distributed()
+    with open(spec["out"], "w") as f:
+        json.dump(result, f)
+
+
+def dp_fit(root, name):
+    """A distributed-phase fit's results: rank 0's log (steps' and epochs'
+    losses, train time by epoch, fit_start) and last.pt's weights and
+    Adam first moments (the running mean of the all-reduced gradients)."""
+    with open(os.path.join(root, f"{name}.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    epochs = [r for r in records if "train_time_s" in r]
+    saved = torch.load(os.path.join(root, name, "last.pt"), map_location="cpu",
+                       weights_only=True)
+    return {"losses": [r["train_loss"] for r in records
+                       if "train_loss" in r and "train_time_s" not in r],
+            "val": [r["val_loss"] for r in epochs],
+            "train_time_s": [r["train_time_s"] for r in epochs],
+            "start": next(r for r in records if r.get("event") == "fit_start"),
+            "weights": saved["model"],
+            "moments": torch.cat([state["exp_avg"].reshape(-1) for _, state in
+                                  sorted(saved["optimizer"]["state"].items())])}
+
+
+def dp_compare(got, want) -> dict:
+    """Two fits' losses (steps' and epochs' val) by the largest relative
+    difference; their final weights against rtol DP_WEIGHT_RTOL / atol
+    DP_WEIGHT_ATOL (the entries past it, and the largest Adam first moment
+    among them beside the median one); their first moments by relative L2
+    difference."""
+    ours, theirs = got["losses"] + got["val"], want["losses"] + want["val"]
+    diff = torch.cat([(got["weights"][k] - w).reshape(-1) for k, w in want["weights"].items()])
+    w = torch.cat([w.reshape(-1) for w in want["weights"].values()])
+    past = diff.abs() > DP_WEIGHT_ATOL + DP_WEIGHT_RTOL * w.abs()
+    m = want["moments"]
+    return {"loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(ours, theirs))
+            if len(ours) == len(theirs) else float("inf"),
+            "weight_max_abs_err": float(diff.abs().max()),
+            "weights_past_bound": int(past.sum()), "weights": int(w.numel()),
+            "past_bound_max_abs_moment": float(m[past].abs().max()) if past.any() else None,
+            "median_abs_moment": float(m.abs().median()),
+            "moment_rel_l2_err": float((got["moments"] - m).norm() / m.norm()),
+            "bit_equal": ours == theirs and bool((diff == 0).all())}
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(on: bool = True):
+    """torch's deterministic algorithms (and cuDNN's) inside, where ``on``."""
+    if not on:
+        yield
+        return
+    saved = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with environ({"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}):
+            yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[1:]
+
+
+def dp_mesh_pipelines(device, card, workdir):
+    """ASRPipeline and TTSPipeline over a mesh of one device, [cuda:0], at
+    the serve and TTS phases' inputs, against the plain pipelines: the
+    launches of one call each, and the results bit for bit."""
+    from voice100_tpu_torch.inference import ASRPipeline, TTSPipeline
+    from voice100_tpu_torch.models import AudioToAlignText
+    from voice100_tpu_torch.parallel import make_mesh
+    from voice100_tpu_torch.training.cli import load_model
+
+    counters = cli_counters()
+    mesh = make_mesh([torch.device("cuda", torch.cuda.current_device())
+                      if device.type == "cuda" else device])
+
+    def run(pipe, call):
+        call(pipe)  # warm-up
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        out = call(pipe)
+        torch.cuda.synchronize()
+        return out, {k: fn.launches for k, fn in counters.items()}
+
+    model = AudioToAlignText(**ASR_EN_BASE, device="cpu",
+                             generator=torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    clips = int16_clips(rng, rng.uniform(2.0, 10.0, size=16))
+    asr = {name: ASRPipeline(copy.deepcopy(model), batch_size=BATCH, **kw)
+           for name, kw in (("plain", {"device": device}), ("mesh", {"mesh": mesh}))}
+    results, launches = {}, {}
+    for name, pipe in asr.items():
+        results[name], launches[f"asr_{name}"] = run(pipe, lambda p: p.transcribe(clips))
+    if results["mesh"] != results["plain"] or launches["asr_mesh"] != launches["asr_plain"]:
+        fail(f"dp mesh: ASRPipeline over [{device}] gave other transcripts or launches "
+             f"{launches}")
+    for (_, wav, lens) in asr["plain"].batches(clips):
+        if not all(torch.equal(a, b) for a, b in zip(asr["mesh"]._decode(wav, lens),
+                                                      asr["plain"]._decode(wav, lens))):
+            fail("dp mesh: ASRPipeline over a one-device mesh is not bit-equal to the plain call")
+    paths = write_tts_checkpoints(os.path.join(workdir, "dp_tts"))
+    tts = {name: TTSPipeline(load_model(*paths["align"], device=device),
+                             load_model(*paths["audio"], device=device), use_phone=False, **kw)
+           for name, kw in (("plain", {"device": device}), ("mesh", {"mesh": mesh}))}
+    for name, pipe in tts.items():
+        results[name], launches[f"tts_{name}"] = run(pipe, lambda p: p.synthesize(TTS_TEXTS))
+    if (not all(map(np.array_equal, results["mesh"], results["plain"]))
+            or launches["tts_mesh"] != launches["tts_plain"]):
+        fail(f"dp mesh: TTSPipeline over [{device}] gave other waveforms or launches {launches}")
+    print(f"dp mesh on {card}: ASRPipeline ({len(clips)} clips, batch {BATCH}) and TTSPipeline "
+          f"({len(TTS_TEXTS)} texts) "
+          f"over a mesh of [{device}] bit-equal to the plain calls; launches {launches}",
+          flush=True)
+    return launches
+
+
+def distributed_phase(device, card, workdir, align_args):
+    """Data parallelism on the card (see the constants above), every fit
+    in one collate bucket (DATA_SHELL_BUCKETS; ranks whose batches collate
+    to other extents stop, as in the JAX trainer): (a) a one-rank NCCL
+    group through ``fit --distributed`` against a plain ``fit`` (bit for bit
+    under deterministic algorithms, equal launches, one gradient all-reduce
+    a step); (b) two ranks on the one card over gloo at batch 32 against
+    the plain fit at 64 (NCCL refuses two ranks on one GPU); (c) both
+    pipelines over a mesh of one device. Returns the launches by path and a
+    summary."""
+    with environ(DATA_SHELL_BUCKETS):  # the rank processes inherit it
+        return _distributed_phase(device, card, workdir, align_args)
+
+
+def _distributed_phase(device, card, workdir, align_args):
+    import yaml
+    from voice100_tpu_torch.parallel import mesh as parallel
+    from voice100_tpu_torch.training.cli import load_config, main
+
+    root = os.path.join(workdir, "dp")
+    os.makedirs(root)
+    config = load_config(align_args["config"])
+    config["trainer"].update(max_epochs=DP_EPOCHS, log_every_n_steps=1)
+    config["data"]["init_args"]["valid_ratio"] = DP_VALID_RATIO
+    batch = config["data"]["init_args"]["batch_size"]
+    cfg = os.path.join(root, "asr_en_base_dp.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump(config, f)
+
+    def fit_argv(name, extra=()):
+        return ["fit", "--config", cfg, "--data_dir", align_args["data_dir"],
+                "--cache_dir", os.path.join(workdir, "cli_cache"),
+                "--checkpoint_dir", os.path.join(root, name),
+                "--log_path", os.path.join(root, f"{name}.jsonl"), "--device", str(device),
+                *extra]
+
+    counters = cli_counters()
+    runs = {}
+    # the plain fit twice, the one-rank NCCL fit, then both again under
+    # deterministic algorithms: the CTC backward's vocabulary scatter
+    # (scatter_add_) and cuDNN's convolution backward add with atomics, so
+    # two plain fits need not agree bit for bit
+    for name, distributed, deterministic in (
+            ("plain", False, False), ("plain_again", False, False), ("nccl1", True, False),
+            ("plain_det", False, True), ("nccl1_det", True, True)):
+        extra = ("--distributed", "--coordinator_address", f"localhost:{free_port()}",
+                 "--num_processes", "1", "--process_id", "0") if distributed else ()
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        collectives = dict(parallel.collective_counts)
+        start = time.perf_counter()
+        with deterministic_algorithms(deterministic):
+            main(fit_argv(name, extra))
+            torch.cuda.synchronize()
+        runs[name] = {"wall_s": time.perf_counter() - start,
+                      "launches": {k: fn.launches for k, fn in counters.items()},
+                      "collectives": {k: v - collectives[k]
+                                      for k, v in parallel.collective_counts.items()},
+                      **dp_fit(root, name)}
+    if parallel.in_process_group():
+        fail("dp: the CLI left its process group behind")
+    layers = ASR_EN_BASE["decoder_num_layers"]
+    steps = evals = DP_EPOCHS  # one train and one val batch of 64 an epoch
+    want = {"log_mel": 0, "bilstm_recurrence": 2 * layers * evals, "viterbi_align": 0,
+            "bilstm_train_fwd": layers * steps, "bilstm_train_bwd": 2 * layers * steps,
+            "ctc_alpha": steps + evals, "ctc_adjoint": steps}
+    for name, r in runs.items():
+        grads = r["collectives"]["all_reduce_gradients"]
+        if r["launches"] != want or grads != (steps if name.startswith("nccl") else 0) or (
+                r["start"]["processes"], r["start"]["devices"]) != (1, 1):
+            fail(f"dp {name} fit: launches {r['launches']}, collectives {r['collectives']}, "
+                 f"fit_start {r['start']}; not {want} and one gradient all-reduce a step in "
+                 f"the NCCL group")
+    plain = runs["plain"]
+    if len(plain["losses"]) != steps or not np.all(np.isfinite(plain["losses"])):
+        fail(f"dp plain fit: losses {plain['losses']}")
+    det, nccl_det = runs["plain_det"], runs["nccl1_det"]
+    if (nccl_det["losses"] != det["losses"] or nccl_det["val"] != det["val"]
+            or not all(torch.equal(nccl_det["weights"][k], det["weights"][k])
+                       for k in det["weights"])):
+        fail(f"dp: under deterministic algorithms the one-rank NCCL fit (losses "
+             f"{nccl_det['losses']}, val {nccl_det['val']}) is not bit-equal to the plain fit "
+             f"({det['losses']}, val {det['val']})")
+    agreement = {name: dp_compare(runs[name], plain)
+                 for name in ("plain_again", "nccl1", "plain_det")}
+    for name, cmp in agreement.items():
+        if not (cmp["loss_rel_err"] <= DP_LOSS_REL_TOL
+                and cmp["moment_rel_l2_err"] <= DP_MOMENT_REL_TOL):
+            fail(f"dp {name} fit against the plain fit: {cmp}")
+    parallel.init_distributed(f"localhost:{free_port()}", 1, 0, device=device)
+    try:
+        nccl_ms = all_reduce_step_ms(device)
+    finally:
+        parallel.shutdown_distributed()
+
+    # (b) two ranks on cuda:0 over gloo, batch 32 each
+    config["data"]["init_args"]["batch_size"] = batch // 2
+    cfg_half = os.path.join(root, "asr_en_base_dp_half.yaml")
+    with open(cfg_half, "w") as f:
+        yaml.safe_dump(config, f)
+    ports = (free_port(), free_port())
+    procs, outs = [], []
+    for rank in range(2):
+        argv = fit_argv("gloo2", ("--distributed", "--dist_backend", "gloo",
+                                  "--coordinator_address", f"localhost:{ports[0]}",
+                                  "--num_processes", "2", "--process_id", str(rank)))
+        argv[argv.index(cfg)] = cfg_half
+        # each rank on cuda:{rank % device_count}: both on the one card
+        rank_device = (f"cuda:{rank % torch.cuda.device_count()}" if device.type == "cuda"
+                       else str(device))
+        spec = {"argv": argv, "rank": rank, "timing_address": f"localhost:{ports[1]}",
+                "device": rank_device, "out": os.path.join(root, f"gloo2_rank{rank}.json")}
+        path = os.path.join(root, f"gloo2_rank{rank}_spec.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        outs.append(spec["out"])
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank",
+                                       path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    start = time.perf_counter()
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=DP_RANK_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    gloo_wall = time.perf_counter() - start
+    for rank, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            fail(f"dp gloo rank {rank} exited {p.returncode}:\n{text[-6000:]}")
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    for rank, r in enumerate(ranks):
+        if r["launches"] != want or r["collectives"]["all_reduce_gradients"] != steps:
+            fail(f"dp gloo rank {rank}: launches {r['launches']}, collectives "
+                 f"{r['collectives']}, not {want} and one gradient all-reduce a step")
+    gloo = dp_fit(root, "gloo2")
+    agreement["gloo2"] = dp_compare(gloo, plain)
+    if (len(gloo["losses"]) != steps or (gloo["start"]["processes"], gloo["start"]["devices"])
+            != (2, 2) or not (agreement["gloo2"]["loss_rel_err"] <= DP_LOSS_REL_TOL
+                              and agreement["gloo2"]["moment_rel_l2_err"] <= DP_MOMENT_REL_TOL)):
+        fail(f"dp gloo: losses {gloo['losses']} / val {gloo['val']} against one process's "
+             f"{plain['losses']} / {plain['val']}: {agreement['gloo2']}; fit_start "
+             f"{gloo['start']}")
+
+    mesh_launches = dp_mesh_pipelines(device, card, root)
+    runs["gloo2"] = gloo
+    summary = {
+        "card": card, "epochs": DP_EPOCHS, "steps": steps, "global_batch": batch,
+        "losses": {name: r["losses"] for name, r in runs.items()},
+        "val_losses": {name: r["val"] for name, r in runs.items()},
+        "against_plain": agreement,
+        "all_reduce_ms_per_step": {"nccl1": nccl_ms, "gloo2": [r["all_reduce"] for r in ranks]},
+        "train_time_s_by_epoch": {name: r["train_time_s"] for name, r in runs.items()},
+        "fit_wall_s": {**{name: r["wall_s"] for name, r in runs.items() if "wall_s" in r},
+                       "gloo2_ranks": [r["wall_s"] for r in ranks], "gloo2_with_start": gloo_wall},
+    }
+    print(f"dp on {card}: one-rank NCCL fit bit-equal to the plain fit under deterministic "
+          f"algorithms ({steps} steps at batch {batch}, losses {det['losses']}); without them, "
+          f"against the plain fit: " + ", ".join(
+              f"{name} losses within {c['loss_rel_err']:.2e} relative, weights within "
+              f"{c['weight_max_abs_err']:.2e} abs ({c['weights_past_bound']} of {c['weights']} "
+              f"past rtol {DP_WEIGHT_RTOL:.0e} / atol {DP_WEIGHT_ATOL:.0e}), Adam first moments "
+              f"within {c['moment_rel_l2_err']:.2e} relative L2" for name, c in agreement.items())
+          + f" (two gloo ranks on {rank_device} at batch {batch // 2}); all-reduce a step NCCL "
+          f"{nccl_ms['ms']:.4f} ms, gloo {[round(r['all_reduce']['ms'], 4) for r in ranks]} ms "
+          f"({nccl_ms['bytes']} bytes); train time by epoch "
+          f"{summary['train_time_s_by_epoch']}", flush=True)
+    paths = {"dp_plain_fit": runs["plain"]["launches"], "dp_nccl1_fit": runs["nccl1"]["launches"],
+             **{f"dp_gloo2_rank{i}": r["launches"] for i, r in enumerate(ranks)},
+             **{f"dp_mesh_{k}": v for k, v in mesh_launches.items() if k.endswith("mesh")}}
+    return paths, summary
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -5228,6 +5630,10 @@ def main() -> None:
         parity = align_parity(device, args, workdir)
         cli_launches, _ = cli_phase(device, card, workdir, args, samples)
         by_path.update({f"cli_{sub}": launches for sub, launches in cli_launches.items()})
+        dp_start = time.perf_counter()
+        dp_paths, dp_summary = distributed_phase(device, card, workdir, args)
+        dp_summary["wall_s"] = time.perf_counter() - dp_start
+        by_path.update(dp_paths)
         by_path["tts"], tts_kernel, tts_summary = tts_phase(device, card, workdir)
         tts_train_paths, tts_train_kernels, tts_train_summary, tts_data = tts_train_phase(
             device, card, workdir, args)
@@ -5281,6 +5687,7 @@ def main() -> None:
     print(f"server_summary ({card}) " + json.dumps(server_summary), flush=True)
     print(f"world_device_summary ({card}) " + json.dumps(world_summary), flush=True)
     print(f"export_summary ({card}) " + json.dumps(export_summary), flush=True)
+    print(f"dp_summary ({card}) " + json.dumps(dp_summary), flush=True)
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s from the kernel build to here",
           flush=True)
     print(json.dumps({"kernels": serving + training + aligning + bf16_lines}), flush=True)
@@ -5293,4 +5700,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:  # a rank of the distributed phase's gloo fit
+        dp_rank_child(sys.argv[2])
+    else:
+        main()

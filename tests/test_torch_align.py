@@ -15,6 +15,8 @@ JAX and carried across with ``from_jax_variables``.
 * ``build_from_config`` and the port's checkpoints.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import os
 import subprocess
 import sys

@@ -8,6 +8,8 @@ recurrence sum in different orders (measured ~1e-7 here), well inside
 that bound. Transcripts from the two pipelines must be equal.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import numpy as np
 import pytest
 
@@ -126,3 +128,37 @@ def test_training_mode_and_long_inputs_raise(jax_model):
         list(pipe.batches([np.zeros(8001, np.float32)]))
     assert isinstance(pipe.transcribe([np.zeros(8001, np.float32)])[0], str)
     assert [r["samples"] for r in pipe.streamed] == [8001]
+
+
+def test_pipeline_over_a_mesh_equals_the_plain_call(jax_model):
+    """``mesh=`` runs each batch's rows on the devices of its data axis
+    (two CPU devices here) and puts them back in order: ids equal, log
+    probs within 1e-6, transcripts equal, for greedy and both beams; a
+    mesh of one device is the plain call. A batch size the data axis does
+    not divide raises the JAX pipeline's ``ValueError``."""
+    from voice100_tpu_torch.inference import ASRPipeline
+    from voice100_tpu_torch.parallel import make_mesh
+
+    variables = jax_model[1]
+    rng = np.random.default_rng(5)
+    clips = [(rng.standard_normal(n) * 0.3).astype(np.float32)
+             for n in (4000, 9000, 2500, 7000, 6100, 3000)]
+    kwargs = dict(batch_size=4, buckets_sec=(0.5, 1.0))
+    for beam in (dict(), dict(beam_size=4, beam_device=False), dict(beam_size=4)):
+        plain = ASRPipeline(_port_model(variables), device="cpu", **kwargs, **beam)
+        meshed = ASRPipeline(_port_model(variables), mesh=make_mesh(["cpu", "cpu"]), **kwargs,
+                             **beam)
+        one = ASRPipeline(_port_model(variables), mesh=make_mesh(["cpu"]), **kwargs, **beam)
+        for (_, wav, lengths), _ in zip(plain.batches(clips), range(2)):
+            want, want_len = plain._decode(wav, lengths)
+            got, got_len = meshed._decode(wav, lengths)
+            np.testing.assert_array_equal(got_len.numpy(), want_len.numpy())
+            if want.dtype.is_floating_point:
+                np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)
+            else:
+                np.testing.assert_array_equal(got.numpy(), want.numpy())
+            assert all(torch.equal(a, b) for a, b in zip(one._decode(wav, lengths),
+                                                         (want, want_len)))
+        assert meshed.transcribe(clips) == plain.transcribe(clips) == one.transcribe(clips)
+    with pytest.raises(ValueError, match="batch_size 3 must be divisible by the mesh data axis 2"):
+        ASRPipeline(_port_model(variables), mesh=make_mesh(["cpu", "cpu"]), batch_size=3)

@@ -9,6 +9,8 @@ least one case. ``draw_augment``'s own draws are checked for their
 ranges: the JAX bounds, exclusive at the top.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import math
 
 import numpy as np

@@ -13,6 +13,8 @@ package (CPU).
   its host beam on the same model outputs.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import numpy as np
 import pytest
 

@@ -32,6 +32,8 @@ against outputs of unit scale (about one bf16 ulp at 1); measured
 7.2e-7, the float32 LayerNorm's order alone.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import numpy as np
 import pytest
 

@@ -8,6 +8,8 @@ build needs it. The step probe (``tools/probe_bilstm.py``) finds its text
 anchors in the committed kernels.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import os
 import pathlib
 import re

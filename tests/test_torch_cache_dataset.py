@@ -8,6 +8,8 @@ float32 features, within the 1e-4 of tests/test_torch_data.py, round to
 neighbouring values.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import os
 
 import numpy as np

@@ -20,6 +20,8 @@
 * without CUDA the CLI raises unless ``--device cpu`` is passed.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import os
 
 import numpy as np
@@ -134,19 +136,21 @@ def test_configs_the_port_cannot_build_raise_naming_the_class(name):
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("mesh_model_axis", 2, "item 10"), ("mesh_model_axis", 8, "item 10"),
+    ("mesh_model_axis", 2, "item 4: tensor-parallel"),
+    ("mesh_model_axis", 8, "item 4: tensor-parallel"),
 ])
 def test_unported_trainer_settings_raise_naming_their_item(tmp_path, key, value, item):
     from voice100_tpu_torch.training.cli import cli_main
 
     cfg = tiny_config(tmp_path / "tiny.yaml", **{key: value})
-    with pytest.raises(NotImplementedError, match=f"{key}.*ROADMAP.md queue 1, {item}"):
+    with pytest.raises(NotImplementedError, match=f"{key}.*ROADMAP.md §1, {item}"):
         cli_main(["fit", "--config", cfg, "--device", "cpu"])
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--mesh_model_axis", "2"], NotImplementedError, "mesh_model_axis.*item 10"),
-    (["--distributed"], NotImplementedError, "distributed.*item 10"),
+    (["--mesh_model_axis", "2"], NotImplementedError, "mesh_model_axis.*item 4: tensor-parallel"),
+    (["--distributed", "--num_processes", "2"], ValueError,
+     "--coordinator_address, --num_processes and --process_id go together"),
     (["--precision", "8"], ValueError, "precision '8'.*'16', 'bf16', 'bfloat16', '16-mixed'"),
 ])
 def test_unported_flags_raise(tmp_path, flags, error, match):

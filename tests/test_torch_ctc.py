@@ -11,6 +11,8 @@ within 1e-4, as ``tests/test_ops_parity.py:117-145`` holds the JAX one.
 The CUDA kernels run only on the card (``chip_smoke.py``).
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import numpy as np
 import pytest
 

@@ -10,6 +10,8 @@ feature cache is shared: an entry either package writes, the other reads
 back byte for byte.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import os
 
 import numpy as np

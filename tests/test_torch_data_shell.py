@@ -16,6 +16,8 @@ prefetcher.
 * ``DevicePrefetcher`` keeps tests/test_prefetch.py's cases on the CPU.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import os
 import threading
 import time

@@ -13,6 +13,8 @@ package (CPU).
   rtol 1e-4; the CLI takes the settings and ``num_workers``.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import json
 
 import numpy as np
@@ -206,8 +208,12 @@ def test_layout_drift_raises():
 
 def test_mesh_and_missing_cuda_raise():
     from voice100_tpu_torch.data import DeviceFeatureCache
+    from voice100_tpu_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError, match="item 10"):
+    assert DeviceFeatureCache(4, mesh=make_mesh(["cpu"])).device == torch.device("cpu")
+    with pytest.raises(NotImplementedError, match="one process a device \\(--distributed\\)"):
+        DeviceFeatureCache(4, mesh=make_mesh(["cpu", "cpu"]))
+    with pytest.raises(TypeError, match="mesh must be a voice100_tpu_torch.parallel.Mesh"):
         DeviceFeatureCache(4, mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -12,6 +12,8 @@ of the clips' character error rates under 0.25. The weights are trained
 here; nothing is downloaded.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import os
 
 import numpy as np

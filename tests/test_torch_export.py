@@ -12,6 +12,8 @@ names the surface; the CLI runs from a config and a port checkpoint; a v1
 architecture raises naming ROADMAP item 9.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import json
 
 import numpy as np

@@ -5,8 +5,8 @@ The narrow config of test_torch_cli.py on an 8-clip dummy_en corpus
 
 * ``fit`` for 2 epochs writes ``best.pt``, ``last.pt`` and ``epoch_2.pt``;
   its records have the keys of the JAX CLI's ``fit`` records at the same
-  config (``fit_start`` names the device in place of ``devices`` and
-  ``processes``); ``--restore_from last.pt --max_epochs 3`` resumes at
+  config (``fit_start`` also names the device; one device a process, so
+  ``devices`` is the process count); ``--restore_from last.pt --max_epochs 3`` resumes at
   epoch 2 for one more epoch; ``validate`` on ``last.pt`` gives the last
   epoch's ``val_loss`` within 1e-6 relative, which holds the biLSTM's
   cached stacked weights to the weights Adam and ``load_state_dict``
@@ -19,6 +19,8 @@ The narrow config of test_torch_cli.py on an 8-clip dummy_en corpus
   gives, epoch by epoch; ``bucket_by_length`` batches by time bucket once
   the feature cache is warm, and ``fit`` trains on the loader's batches.
 """
+
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
 
 import json
 import signal
@@ -103,9 +105,11 @@ def test_fit_through_the_cli_checkpoints_resumes_and_validates(corpus, tmp_path,
              "--max_epochs", "1", "--log_path", jax_log, "--platform", "cpu"])
     jax_records = _records(jax_log)
     jax_start = next(r for r in jax_records if r.get("event") == "fit_start")
-    assert start.keys() == (jax_start.keys() - {"devices", "processes"}) | {"device"}
-    assert (start["params"], start["steps_per_epoch"], start["upload"]) == (
-        jax_start["params"], jax_start["steps_per_epoch"], jax_start["upload"])
+    assert start.keys() == jax_start.keys() | {"device"}
+    assert (start["params"], start["steps_per_epoch"], start["upload"], start["processes"]) == (
+        jax_start["params"], jax_start["steps_per_epoch"], jax_start["upload"],
+        jax_start["processes"])
+    assert start["devices"] == 1
     jax_epoch = next(r for r in jax_records if "train_time_s" in r)
     jax_step = next(r for r in jax_records if "train_loss" in r and "train_time_s" not in r)
     assert all(r.keys() == jax_epoch.keys() for r in epochs)

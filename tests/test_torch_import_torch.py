@@ -11,6 +11,8 @@ port checkpoint that ``load_model_weights`` reads. v1 raises naming
 ROADMAP item 9.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,8 @@ runs only on the card (chip_smoke.py); here its wrapper takes the plain
 path.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import numpy as np
 import pytest
 

@@ -13,6 +13,8 @@ only on the card (``chip_smoke.py``); here the wrappers take the plain
 path.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import numpy as np
 import pytest
 

@@ -10,6 +10,8 @@ with the float32 twiddle table, the band-table mel sums) is replayed in
 numpy against ``np.fft.rfft`` and the plain version.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import numpy as np
 import pytest
 

@@ -17,6 +17,8 @@ place (no test process of the port's ever leaves it half written), and
 loads again if another test process was rebuilding it in place.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import os
 import shutil
 import subprocess

@@ -8,6 +8,8 @@ synthesizer equals the JAX package's bit for bit. Skipped where no C++
 compiler is present, as the JAX package's native tests are.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import shutil
 
 import numpy as np

@@ -16,6 +16,8 @@ Narrow v2 models are initialised in JAX and carried to the port with
   included.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import numpy as np
 import pytest
 

@@ -21,6 +21,8 @@ The slice as a whole, at small widths:
   CLI trains on it from the config's seed.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import json
 import os
 

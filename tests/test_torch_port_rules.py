@@ -9,6 +9,8 @@
   package beside it.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import os
 import pathlib
 import re
@@ -53,6 +55,7 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "        'voice100_tpu_torch.onnx.builder', 'voice100_tpu_torch.onnx.runtime',\n"
         "        'voice100_tpu_torch.onnx.export', 'voice100_tpu_torch.onnx.serve',\n"
         "        'voice100_tpu_torch.tools.export', 'voice100_tpu_torch.tools.import_torch',\n"
+        "        'voice100_tpu_torch.parallel', 'voice100_tpu_torch.parallel.mesh',\n"
         "        } <= set(names), names\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n"
@@ -140,6 +143,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     with trace(str(tmp_path / "trace"), device="cpu") as prof:
         torch.ones(2).sum()
     assert prof.trace_path and os.path.exists(prof.trace_path)
+    # data parallelism: a rank of --distributed, a mesh's default devices
+    from voice100_tpu_torch.parallel import make_mesh
+    from voice100_tpu_torch.training.cli import main as fit_main
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fit_main(["fit", "--config", str(ROOT / "config" / "asr_en_base.yaml"), "--distributed",
+                  "--coordinator_address", "localhost:1", "--num_processes", "1",
+                  "--process_id", "0"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
 
 
 def test_chip_smoke_drives_asr_en_base_at_full_width():

@@ -9,6 +9,8 @@ transcripts pass through. The kokoro branch's three ``ValueError``\\ s
 ja) are raised by both with the same text.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import os
 import shutil
 

@@ -14,6 +14,8 @@ train clips, batch 4: two steps an epoch):
   module's on the CPU.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import json
 import os
 

@@ -14,6 +14,8 @@ across with ``from_jax_variables``; the port's pipelines run on the CPU.
   CUDA otherwise.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import concurrent.futures as cf
 import http.client
 import json

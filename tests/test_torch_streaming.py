@@ -17,6 +17,8 @@ H=16) is initialised in JAX and carried across with
   256, 293) against the port; the last trains with the port's ``fit``.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import numpy as np
 import pytest
 

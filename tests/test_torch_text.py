@@ -19,6 +19,8 @@ output is held with ``==``:
   them, as in the JAX package).
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import ast
 import os
 import subprocess

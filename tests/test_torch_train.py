@@ -14,6 +14,8 @@ frameworks moves its weight by a fraction of ``lr = 1e-3``; 2e-5 bounds
 that, while a wrong sign or scale anywhere would show as ~1e-3.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import json
 
 import numpy as np

@@ -40,6 +40,8 @@ that part by ~0.5% of ``1 / sqrt(eps)`` in float32 as well
 (``ROADMAP.md`` §3, reference behaviour).
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import json
 
 import numpy as np

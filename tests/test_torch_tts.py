@@ -18,6 +18,8 @@ JAX biLSTM runs its scan on the CPU. Tolerances, each with its reason:
   float32 rounding of an integer.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import numpy as np
 import pytest
 from hypothesis import given, settings, strategies as st

@@ -16,6 +16,8 @@ shapes equal the JAX ``_run_predict``'s on the same weights, their values
 within 1e-4 (the models' float32 forward, as in test_torch_tts.py).
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import os
 
 import numpy as np

@@ -14,6 +14,8 @@ realistic WORLD statistics and carried across. Held to JAX's
 * ``_split_long`` pieces equal; int16 = ``round(clip(float) * 32767)`` +/- 1.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import os
 import wave
 
@@ -262,7 +264,7 @@ def test_unported_paths_raise(pipes):
         assert port(text) == ref(text) != ""
     with pytest.raises(ValueError):
         get_phonemizer("xx", use_phone=False)
-    with pytest.raises(NotImplementedError, match="mesh.*item 10"):
+    with pytest.raises(TypeError, match="mesh must be a voice100_tpu_torch.parallel.Mesh"):
         TTSPipeline(pipe.align_model, pipe.audio_model, use_phone=False, mesh=object(),
                     device="cpu")
     phone_pipe = TTSPipeline(pipe.align_model, pipe.audio_model, device="cpu")
@@ -293,3 +295,25 @@ def test_chip_smoke_drives_the_tts_configs_at_full_width():
         assert got == want, name
     lengths = [len(t) for t in chip_smoke.TTS_TEXTS]
     assert len(lengths) == 16 and min(lengths) >= 20 and max(lengths) <= 240
+
+
+def test_pipeline_over_a_mesh_equals_the_plain_call(pipes):
+    """``mesh=`` runs the align and audio models on each device's shard
+    of the texts (two CPU devices; three texts pad to four rows, cut off
+    after the models): the waveforms of the plain call within 1e-6 of the
+    peak, the noise drawn from one seed; a mesh of one device is the plain
+    call."""
+    from voice100_tpu_torch.parallel import make_mesh
+
+    pipe = pipes[-1]
+    want = pipe.synthesize(TEXTS, noise=torch.Generator().manual_seed(3))
+    for devices in (["cpu", "cpu"], ["cpu"]):
+        meshed = TTSPipeline(pipe.align_model, pipe.audio_model, use_phone=False,
+                             mesh=make_mesh(devices), **BUCKETS)
+        got = meshed.synthesize(TEXTS, noise=torch.Generator().manual_seed(3))
+        assert [g.shape for g in got] == [w.shape for w in want]
+        for g, w in zip(got, want):
+            if len(devices) == 1:
+                np.testing.assert_array_equal(g, w)
+            else:
+                np.testing.assert_allclose(g, w, rtol=0, atol=1e-6 * np.abs(w).max())

@@ -29,6 +29,8 @@ Dropout draws cannot match flax's, so training mode is held to
 reproducibility under one ``torch.Generator`` instead.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import json
 
 import numpy as np

@@ -13,6 +13,8 @@ also held against the NumPy oracle of ``tests/test_ops_parity.py:165``,
 moves included. The CUDA kernels run only on the card (``chip_smoke.py``).
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import numpy as np
 import pytest
 

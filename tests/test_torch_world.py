@@ -19,6 +19,8 @@
     spans, and through ``WORLDVocoder.decode_batch`` with muted frames.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import numpy as np
 import pytest
 

@@ -11,6 +11,8 @@ sp2mc and mc2sp matrices. The device backend runs under its two names,
 from the argument or the environment; an unknown name raises.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import numpy as np
 import pytest
 

@@ -14,6 +14,8 @@ bars of ``tests/test_world_invariants.py`` hold on the port's device
 backend, and noise is unvoiced there as in the JAX package.
 """
 
+import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
+
 import importlib
 
 import numpy as np

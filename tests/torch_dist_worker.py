@@ -1,0 +1,82 @@
+"""One rank of a data-parallel run of the port, for tests/test_torch_distributed.py.
+
+``python tests/torch_dist_worker.py SPEC.json`` joins a gloo group on the
+CPU (``coordinator``, ``world``, ``rank`` of the spec), builds a small
+model, takes its contiguous rows of each global batch in ``batches`` (a
+``torch.save`` file of ``{"train": [...], "val": [...]}`` collated NumPy
+batches) and either fits it (``mode: fit``: ``Trainer.fit`` with the
+spec's ``TrainerConfig`` fields, log and checkpoints included) or takes
+one optimizer step a train batch with augmentation and dropout off
+(``mode: steps``), writing the global batch's losses and the final
+weights to ``out``. :func:`run` without ``world`` is the same run in one
+process, over the whole global batches. Imports neither jax nor the JAX
+package, so a rank starts in a few seconds.
+"""
+
+import json
+import sys
+
+import numpy as np
+import torch
+
+from voice100_tpu_torch.models import AlignTextToAudio, AudioToAlignText
+from voice100_tpu_torch.parallel import mesh as parallel
+from voice100_tpu_torch.training import Trainer, TrainerConfig, TrainState, make_task
+
+MODELS = {"asr": AudioToAlignText, "tts": AlignTextToAudio}
+
+
+def _tensors(batch):
+    return tuple(tuple(torch.from_numpy(np.array(a)) for a in pair) for pair in batch)
+
+
+def _rows(batch, rank, world):
+    """This rank's contiguous rows of a global batch."""
+    n = batch[0][0].shape[0] // world
+    return tuple(tuple(a[rank * n:(rank + 1) * n] for a in pair) for pair in batch)
+
+
+def build_model(spec):
+    model = MODELS[spec["model"]](**spec["model_args"], device="cpu",
+                                  generator=torch.Generator().manual_seed(spec.get("seed", 0)))
+    if spec.get("weights"):
+        model.load_state_dict(torch.load(spec["weights"], weights_only=True))
+    for name, value in (spec.get("norm") or {}).items():
+        getattr(model.norm, name).copy_(torch.tensor(value, dtype=torch.float32))
+    return model
+
+
+def run(spec):
+    world = spec.get("world")
+    if world:
+        parallel.init_distributed(spec["coordinator"], world, spec["rank"], device="cpu")
+    rank, world = parallel.process_index(), parallel.process_count()
+    try:
+        data = torch.load(spec["batches"], weights_only=False)
+        train = [_tensors(_rows(b, rank, world)) for b in data["train"]]
+        val = [_tensors(_rows(b, rank, world)) for b in data.get("val", [])]
+        model = build_model(spec)
+        trainer = Trainer(TrainerConfig(**spec.get("config", {})))
+        if spec["mode"] == "fit":
+            try:
+                trainer.fit(model, train, val or None, restore_from=spec.get("restore_from"))
+            finally:
+                trainer.close()
+            return
+        task = make_task(model)
+        state = TrainState(model, task.make_optimizer())
+        losses = []
+        for batch in train:
+            loss = trainer.train_step(task, state, batch, None, train=False)["loss"]
+            if world > 1:
+                loss = parallel.all_reduce_(loss.clone())
+            losses.append(float(loss))
+        if rank == 0:
+            torch.save({"losses": losses, "model": model.state_dict()}, spec["out"])
+    finally:
+        parallel.shutdown_distributed()
+
+
+if __name__ == "__main__":
+    with open(sys.argv[1]) as f:
+        run(json.load(f))

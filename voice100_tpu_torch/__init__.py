@@ -43,7 +43,10 @@ deployment surface: ``tools.export`` (a ``torch.export`` program holding
 kernel 1 as the op ``voice100_torch::bilstm_infer``, and an ``.onnx``),
 ``onnx/`` (the emitter on protobuf classes built without ``protoc``, the NumPy
 runtime, ``OnnxASR``/``OnnxTTS``), ``native/world.cpp`` and
-``tools.import_torch``.
+``tools.import_torch``; and data parallelism (``parallel``): training one
+process a device over ``torch.distributed`` (the CLI's ``--distributed``),
+each rank launching the same kernels on its rows of every global batch,
+and the serving pipelines over a mesh of devices.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 see :func:`voice100_tpu_torch.device.resolve_device`.

@@ -18,6 +18,14 @@ voice100/data_modules.py:503-670,685-742):
 ``AudioTextDataModule``'s ``num_workers`` and ``prefetch`` reach its
 loaders: ``num_workers > 0`` reads and collates in spawned worker
 processes on the host CPU (``data/loader.py``).
+
+In a process group (``parallel/mesh.py``) the train, val and test
+loaders of both modules read this rank's share of each global batch
+(``process_index`` of ``process_count``,
+``voice100_tpu/data/datamodule.py:185-186``); the predict loaders read
+every row. The JAX package's align-text loaders are not sharded; the
+port shards them as it does the audio ones, so that each rank trains on
+its share of the global batch.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..parallel.mesh import process_count, process_index
 from ..text import get_tokenizer
 from .collate import collate_text_align, get_collate_fn
 from .datasets import AlignTextDataset, SubsetDataset
@@ -135,13 +144,14 @@ class AudioTextDataModule:
             self.train_ds = self._wrap_cache(train_ds)
             self.valid_ds = self._wrap_cache(valid_ds)
 
-    def _loader(self, ds, shuffle: bool) -> Optional[DataLoader]:
+    def _loader(self, ds, shuffle: bool, shard: bool = True) -> Optional[DataLoader]:
         if ds is None:
             return None
         return DataLoader(
             ds, batch_size=self.batch_size, collate_fn=self.collate_fn, shuffle=shuffle,
             seed=self.seed, num_workers=self.num_workers, prefetch=self.prefetch,
             length_hint=ds.audio_frames if self.bucket_by_length and shuffle else None,
+            **_shard_args(shard),
         )
 
     def train_dataloader(self):
@@ -154,7 +164,14 @@ class AudioTextDataModule:
         return self._loader(self.test_ds, shuffle=False)
 
     def predict_dataloader(self):
-        return self._loader(self.predict_ds, shuffle=False)
+        return self._loader(self.predict_ds, shuffle=False, shard=False)
+
+
+def _shard_args(shard: bool) -> dict:
+    """A loader's share of each global batch: this rank's, or every row."""
+    if not shard:
+        return {}
+    return {"process_index": process_index(), "process_count": process_count()}
 
 
 class AlignTextDataModule:
@@ -194,8 +211,9 @@ class AlignTextDataModule:
         self.train_ds = SubsetDataset(ds, order[valid_len:])
         self.valid_ds = SubsetDataset(ds, order[:valid_len])
 
-    def _loader(self, ds, shuffle: bool) -> DataLoader:
-        return DataLoader(ds, self.batch_size, self.collate_fn, shuffle=shuffle, seed=self.seed)
+    def _loader(self, ds, shuffle: bool, shard: bool = True) -> DataLoader:
+        return DataLoader(ds, self.batch_size, self.collate_fn, shuffle=shuffle, seed=self.seed,
+                          **_shard_args(shard))
 
     def train_dataloader(self):
         return self._loader(self.train_ds, shuffle=True)
@@ -204,4 +222,4 @@ class AlignTextDataModule:
         return self._loader(self.valid_ds, shuffle=False)
 
     def predict_dataloader(self):
-        return self._loader(self.predict_ds, shuffle=False)
+        return self._loader(self.predict_ds, shuffle=False, shard=False)

@@ -30,7 +30,12 @@ maximal runs of consecutive batches of one collate bucket: the
 multi-step dispatch of the trainer (``steps_per_dispatch``) runs each
 group's steps at the group's extents through :meth:`gather_rows`.
 
-A store sharded over a mesh is not ported: ``mesh`` raises.
+``mesh`` takes a :class:`voice100_tpu_torch.parallel.Mesh` of one
+device, which places the store there, as ``device`` does. A mesh of more
+devices raises: the JAX package shards the store over a one-process
+mesh, while the port trains over several devices one process a device
+(``--distributed``), where the trainer turns the cache off, as the JAX
+multi-process trainer does.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel.mesh import Mesh
 from .collate import bucket_extent
 from .pack import device_put_packed, host_tensor, tree_flatten, tree_unflatten
 
@@ -59,10 +65,15 @@ class DeviceFeatureCache:
     def __init__(self, n_items: int, max_bytes: Optional[int] = None, pad_values=None,
                  mesh=None, var_specs=None, device=None) -> None:
         if mesh is not None:
-            from ..training.cli import DISTRIBUTED_ITEM
-
-            raise NotImplementedError(f"a device cache sharded over a mesh is not ported yet "
-                                      f"({DISTRIBUTED_ITEM})")
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a voice100_tpu_torch.parallel.Mesh, got "
+                                f"{type(mesh).__name__}")
+            if mesh.size > 1:
+                raise NotImplementedError(
+                    f"a device cache over a mesh of {mesh.size} devices: the port trains over "
+                    f"several devices one process a device (--distributed), where the cache is "
+                    f"off, as in the JAX multi-process trainer")
+            device = mesh.devices.flat[0]
         self.device = resolve_device(device)
         self.n_items = int(n_items)
         self.max_bytes = max_bytes

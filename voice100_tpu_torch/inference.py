@@ -32,8 +32,8 @@ block decoding of a live stream, each window at B=1 through the greedy
 path, frames older than the right context committed, the left context
 kept as warm-up.
 
-Not ported yet: meshes and the mel-kernel switch (the port always takes
-the kernel on CUDA).
+Not ported yet: the mel-kernel switch (the port always takes the kernel
+on CUDA).
 
 ``TTSPipeline`` ports ``voice100_tpu/inference.py:435-670``: texts ->
 tokens (host) -> durations (the align model, biLSTM kernel) -> one fetch
@@ -41,7 +41,19 @@ of the durations, which sizes the frame bucket and feeds the host cursor
 -> aligned ids (expanded on the device) -> WORLD features (the audio
 model, biLSTM kernel) -> waveforms (batched WORLD synthesis on the
 device; the coded aperiodicity makes a float64 round trip through the
-host, as in the JAX package). Meshes are not ported and raise.
+host, as in the JAX package).
+
+Both pipelines take ``mesh``, a :class:`voice100_tpu_torch.parallel.Mesh`
+(data-parallel serving, ``voice100_tpu/inference.py:114-126, 614-626``):
+the models are copied onto each device of its ``data`` axis, and each
+batch's rows are cut into contiguous shards, one a device, run there (the
+kernels of each model on each shard) and put back in order on the first
+device, which runs the rest. ``ASRPipeline`` needs ``batch_size`` to
+divide by the data axis (the JAX package's ``ValueError``);
+``TTSPipeline`` pads a batch's rows up to a multiple of it (wrap-around
+repeats, cut off after the models). A mesh of one device is the plain
+call on that device. Long-form streaming windows (B=1) run on the first
+device.
 """
 
 from __future__ import annotations
@@ -61,6 +73,7 @@ from .ops.ctc_beam import ctc_prefix_beam_search
 from .ops.ctc_beam_device import ctc_prefix_beam_search_batched
 from .ops.mask import BLANK_AUDIO, sequence_mask
 from .ops.melspec_cuda import log_mel_spectrogram_cuda
+from .parallel.mesh import Mesh, pad_batch_to_multiple, replicate, shard_batch
 from .text import get_phonemizer, get_tokenizer
 from .text.ngram import CharNgramLM
 
@@ -73,6 +86,37 @@ def _bucket(n: int, sizes: Sequence[int]) -> int:
         if n <= s:
             return s
     return sizes[-1]
+
+
+def _serving_devices(mesh, device) -> List[torch.device]:
+    """The devices a pipeline runs on: ``mesh``'s data axis, else ``device``."""
+    if mesh is None:
+        return [resolve_device(device)]
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a voice100_tpu_torch.parallel.Mesh, got "
+                        f"{type(mesh).__name__}")
+    return [resolve_device(d) for d in mesh.data_devices]
+
+
+def _over_mesh(mesh, fn, *rows):
+    """``fn(i, *shard)`` for each device ``i`` of ``mesh``'s data axis on
+    its contiguous shard of ``rows`` (tensors with a leading batch axis,
+    padded by wrap-around repeats to a multiple of the axis); the outputs'
+    rows (a tensor or a tuple of them) come back in order on the first
+    device, cut to the rows given. Without a mesh, or with one device,
+    ``fn(0, *rows)``."""
+    if mesh is None or mesh.shape["data"] == 1:
+        return fn(0, *rows)
+    padded, n = pad_batch_to_multiple(rows, mesh.shape["data"])
+    outs = [fn(i, *shard) for i, shard in enumerate(shard_batch(padded, mesh))]
+    first = mesh.data_devices[0]
+
+    def cat(parts):
+        return torch.cat([part.to(first) for part in parts])[:n]
+
+    if isinstance(outs[0], tuple):
+        return tuple(cat(parts) for parts in zip(*outs))
+    return cat(outs)
 
 
 class ASRPipeline:
@@ -94,9 +138,19 @@ class ASRPipeline:
         lm=None,
         lm_weight: float = 0.5,
         lm_bonus: float = 0.0,
+        mesh=None,
     ) -> None:
-        self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        devices = _serving_devices(mesh, device)
+        if mesh is not None and batch_size % mesh.shape["data"] != 0:
+            raise ValueError(f"batch_size {batch_size} must be divisible by the mesh data axis "
+                             f"{mesh.shape['data']}")
+        self.mesh = mesh
+        self.device = devices[0]
+        # one copy of the model a device of the mesh (the model itself on the first)
+        self._models = ([model.to(self.device)] if mesh is None else replicate(model, mesh))
+        for m in self._models:
+            m.eval()
+        self.model = self._models[0]
         self.tokenizer = get_tokenizer(language, use_phone)
         self.beam_size = beam_size
         self.beam_device = beam_device
@@ -115,8 +169,9 @@ class ASRPipeline:
                     f"{self.tokenizer.vocab_size} (language={language!r}, "
                     f"use_phone={use_phone}) — train the LM on the same prepared corpus "
                     "(tools/train_lm.py)")
-        self._lm_device = (None if self.lm_table is None
-                           else torch.from_numpy(self.lm_table).to(self.device))
+        # the LM table on each device of the mesh
+        self._lm_tables = [None if self.lm_table is None
+                           else torch.from_numpy(self.lm_table).to(d) for d in devices]
         self.sample_rate = sample_rate
         self.batch_size = batch_size
         self.buckets = [int(s * sample_rate) for s in buckets_sec]
@@ -155,15 +210,24 @@ class ASRPipeline:
     @torch.inference_mode()
     def _decode(self, wav: torch.Tensor, wav_len: torch.Tensor):
         """The batch's device result: greedy ids, the device beam's
-        collapsed ids, or (host beam) the log-probs; each with its lengths."""
+        collapsed ids, or (host beam) the log-probs; each with its lengths.
+        Over a mesh each device decodes its shard of the rows."""
+        return _over_mesh(self.mesh, self._decode_rows, wav, wav_len)
+
+    def _decode_rows(self, i: int, wav: torch.Tensor, wav_len: torch.Tensor):
+        """:meth:`_decode` of rows on the mesh's ``i``-th device (the
+        pipeline's device without a mesh), with that device's model."""
+        model = self._models[i]
+        features = self._features(wav, wav_len)
         if self.beam_size <= 0:
-            return self._greedy(wav, wav_len)
-        log_probs, out_len = self.log_probs(wav, wav_len)
+            return model.greedy_decode(*features)
+        logits, out_len = model(*features)
+        log_probs = torch.log_softmax(logits, dim=-1)
         if not self.beam_device:
             return log_probs, out_len
         return ctc_prefix_beam_search_batched(
             log_probs, out_len, beam_size=self.beam_size, topk=self.beam_topk,
-            lm_table=self._lm_device, lm_weight=self.lm_weight, lm_bonus=self.lm_bonus)
+            lm_table=self._lm_tables[i], lm_weight=self.lm_weight, lm_bonus=self.lm_bonus)
 
     def _text(self, out: np.ndarray, n: int) -> str:
         """One row's transcript from its fetched device result."""
@@ -379,14 +443,15 @@ class TTSPipeline:
         mesh=None,
         device=None,
     ) -> None:
-        if mesh is not None:
-            from .training.cli import DISTRIBUTED_ITEM
-
-            raise NotImplementedError(f"data-parallel serving over a mesh is not ported yet "
-                                      f"({DISTRIBUTED_ITEM})")
-        self.device = resolve_device(device)
-        self.align_model = align_model.to(self.device).eval()
-        self.audio_model = audio_model.to(self.device).eval()
+        self.mesh = mesh
+        self.device = _serving_devices(mesh, device)[0]
+        # one copy of each model a device of the mesh (the models themselves on the first)
+        self._align_models, self._audio_models = (
+            ([m.to(self.device)] if mesh is None else replicate(m, mesh))
+            for m in (align_model, audio_model))
+        for m in self._align_models + self._audio_models:
+            m.eval()
+        self.align_model, self.audio_model = self._align_models[0], self._audio_models[0]
         self.phonemizer = get_phonemizer(language, use_phone)
         self.tokenizer = get_tokenizer(language, use_phone)
         self.sample_rate = sample_rate
@@ -492,7 +557,8 @@ class TTSPipeline:
         text_t = torch.from_numpy(text).to(self.device)
         text_len_t = torch.from_numpy(text_len).to(self.device)
 
-        durations = self.align_model.predict(text_t, text_len_t)
+        durations = _over_mesh(self.mesh, lambda i, *rows: self._align_models[i].predict(*rows),
+                               text_t, text_len_t)
         # the one fetch of the durations: it sizes the frame bucket and feeds
         # the cursor (ops/duration.py)
         durations = durations.cpu().numpy()
@@ -501,7 +567,9 @@ class TTSPipeline:
         need = int(np.max(totals)) + text_bucket + 16
         out_len = _bucket(need, self.frame_buckets)
         aligntext, aligntext_len = self.align_model.align(text_t, durations, text_len_t, out_len)
-        f0, feat, codeap = self.audio_model.predict(aligntext, aligntext_len)
+        f0, feat, codeap = _over_mesh(
+            self.mesh, lambda i, *rows: self._audio_models[i].predict(*rows), aligntext,
+            aligntext_len)
         audio_lens = np.minimum(aligntext_len.cpu().numpy() * 2, f0.shape[1])
         batch_wav = self.vocoder.decode_batch(f0, feat, codeap, audio_lens, dtype=output_dtype,
                                               noise=noise)

@@ -22,6 +22,7 @@ from torch import nn
 from ..device import resolve_device
 from ..ops.lstm import default_compute_dtype, stack_directions
 from ..ops.lstm_cuda import bilstm_infer, bilstm_train_cuda
+from ..parallel.mesh import own_rows_of_draw
 
 __all__ = [
     "ConvSetting",
@@ -265,7 +266,9 @@ class BiLSTM(nn.Module):
         for i, (w_ih, w_hh, bias) in enumerate(layers):
             x = layer_fn(w_ih, w_hh, bias, x, lengths, compute_dtype)
             if self.training and self.dropout > 0.0 and i < self.num_layers - 1:
-                keep = torch.empty_like(x).bernoulli_(1.0 - self.dropout, generator=generator)
+                # a rank draws the global batch's mask and keeps its own rows
+                keep = own_rows_of_draw(lambda shape: x.new_empty(shape).bernoulli_(
+                    1.0 - self.dropout, generator=generator), x.shape)
                 x = torch.where(keep.bool(), x / (1.0 - self.dropout), 0.0)
         return x
 

@@ -5,7 +5,10 @@ WORLDLoss v2, voice100/models/_layers_v2.py:106-161, and the masked
 log-duration L1 loss, voice100/models/_align_v2.py:86-95). Every stream
 is cropped to the common time length of prediction and target
 (:func:`adjust_size`), then masked by the target lengths; each loss is a
-masked sum over the mask's sum (at least 1). The v1 loss and its mel
+masked sum over the mask's sum (at least 1). Inside
+:func:`voice100_tpu_torch.parallel.mesh.global_batch` the mask's sum is
+the global batch's (:func:`~voice100_tpu_torch.parallel.mesh.global_sum`),
+so the ranks' losses add up to the global batch's loss. The v1 loss and its mel
 weights wait for the v1 models (``ROADMAP.md`` queue 1, item 9).
 """
 
@@ -16,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.mask import sequence_mask
+from ..parallel.mesh import global_sum
 
 __all__ = ["WORLDLossValues", "world_loss_v2", "duration_loss", "adjust_size"]
 
@@ -58,7 +62,7 @@ def world_loss_v2(length, hasf0_logits, f0_hat, logspc_hat, hascodeap_logits, co
     codeap_hat, codeap = adjust_size(codeap_hat, codeap)
 
     mask = sequence_mask(length.to(f0.device), f0.shape[1], dtype=f0.dtype)
-    mask_sum = torch.clamp(mask.sum(), min=1.0)
+    mask_sum = torch.clamp(global_sum(mask.sum()), min=1.0)
     return WORLDLossValues(
         (_bce_with_logits(hasf0_logits, hasf0) * mask).sum() / mask_sum,
         (err(f0_hat, f0) * hasf0 * mask).sum() / mask_sum,
@@ -76,4 +80,4 @@ def duration_loss(pred: torch.Tensor, align: torch.Tensor, text: torch.Tensor,
     logalign = torch.log1p(align.to(pred.dtype))
     per_tok = (logalign - pred).abs().mean(dim=2)                  # [B, L]
     mask = sequence_mask(text_len.to(pred.device), text.shape[1], dtype=pred.dtype)
-    return (per_tok * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (per_tok * mask).sum() / torch.clamp(global_sum(mask.sum()), min=1.0)

@@ -17,6 +17,12 @@ of the batch, ``roll(shift=-1)``) or maskaudio, both re-masking the
 padding to the blank level ``log(1e-6)``. Integer draws keep the JAX
 bounds, exclusive at the top (``randint(50, 150)`` and the others).
 Everything stays on the device: no draw is read back by the host.
+
+A rank of a data-parallel run
+(:func:`voice100_tpu_torch.parallel.mesh.global_batch`) draws the noise
+for the global batch and keeps its own rows, and its last row blends with
+the next rank's first: its rows come out as one process's global batch
+gives them.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import Dict
 
 import torch
 
+from ..parallel.mesh import own_rows_of_draw, roll_rows
 from .mask import BLANK_AUDIO
 from .melspec import LOG_OFFSET
 
@@ -66,7 +73,7 @@ def draw_augment(generator: torch.Generator, batch: int, time: int, dim: int) ->
         "fmask_val": uniform(-BLANK_AUDIO, -5.0),
         "noise_coin": coin(), "noise_low": -5.0 + 5.0 * uniform(0.0, 1.0),
         "noise_high": -5.0 + 5.0 * uniform(0.0, 1.0), "noise_std": 5.0 * uniform(0.0, 1.0),
-        "noise": uniform(0.0, 1.0, (batch, time, dim)),
+        "noise": own_rows_of_draw(lambda shape: uniform(0.0, 1.0, shape), (batch, time, dim)),
         "mix_coin": coin(),
     }
 
@@ -120,7 +127,7 @@ def apply_augment(audio: torch.Tensor, audio_len: torch.Tensor, draws: Draws):
     # mixaudio or maskaudio, one of which always runs (audio.py:100-108)
     mask = (t_idx[None, :, None] < audio_len[:, None, None]).to(audio.dtype)
     x = torch.exp(audio) * mask
-    rolled = torch.roll(x, shifts=-1, dims=0)
+    rolled = roll_rows(x)
     mixed = torch.log(torch.clamp((0.9 * x + 0.1 * rolled) * mask, min=LOG_OFFSET))
     masked = torch.log(torch.clamp(x, min=LOG_OFFSET))
     return torch.where(d["mix_coin"], mixed, masked), audio_len

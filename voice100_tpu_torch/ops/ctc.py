@@ -29,6 +29,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.mesh import global_batch_active, global_sum
+
 __all__ = ["NEG_INF", "ctc_prep", "ctc_alpha", "ctc_alpha_adjoint", "ll_from_alpha",
            "reduce_loss", "ctc_loss", "ViterbiResult", "check_viterbi_args", "viterbi_forward",
            "viterbi_final", "viterbi_backtrace", "ctc_viterbi_align"]
@@ -151,7 +153,10 @@ def ll_from_alpha(alpha_last: torch.Tensor, target_lengths: torch.Tensor):
 def reduce_loss(ll: torch.Tensor, target_lengths: torch.Tensor, reduction: str = "mean",
                 zero_infinity: bool = True) -> torch.Tensor:
     """``-ll`` with ``zero_infinity`` and the reduction
-    (``voice100_tpu/ops/ctc.py:146-154``)."""
+    (``voice100_tpu/ops/ctc.py:146-154``). Inside
+    :func:`voice100_tpu_torch.parallel.mesh.global_batch` the mean is
+    this rank's share of the global batch's mean: the ranks' means add up
+    to it."""
     loss = -ll
     if zero_infinity:
         loss = torch.where(loss >= -NEG_INF / 2, 0.0, loss)
@@ -161,7 +166,13 @@ def reduce_loss(ll: torch.Tensor, target_lengths: torch.Tensor, reduction: str =
         return loss.sum()
     if reduction != "mean":
         raise ValueError(f"reduction must be 'mean', 'sum' or 'none', got {reduction!r}")
-    return (loss / target_lengths.to(loss.device).clamp(min=1).to(loss.dtype)).mean()
+    mean = (loss / target_lengths.to(loss.device).clamp(min=1).to(loss.dtype)).mean()
+    if global_batch_active():
+        # this rank's share of the global batch's mean: its rows' mean times
+        # its part of the rows (exactly 1.0 on one rank)
+        rows = loss.new_full((), float(loss.shape[0]))  # filled on the device: no upload
+        mean = mean * (rows / global_sum(rows))
+    return mean
 
 
 def ctc_loss(log_probs: torch.Tensor, targets: torch.Tensor, input_lengths: torch.Tensor,

@@ -7,6 +7,10 @@ reads back the model's weights alone, and :func:`merge_world_stats` loads
 WORLD feature statistics into a TTS model's ``norm`` buffers. An orbax
 checkpoint of the JAX package cannot be read without jax; weights cross
 over through ``tools/weights.py``.
+
+In a data-parallel run (``parallel/mesh.py``) rank 0 writes a checkpoint,
+every rank waits for the write, and every rank reads: the ranks hold the
+same state.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..parallel import mesh as parallel
 
 __all__ = ["TrainState", "save_checkpoint", "restore_checkpoint", "load_model_weights",
            "merge_world_stats"]
@@ -32,18 +38,22 @@ class TrainState:
 
 
 def save_checkpoint(path: str, state: TrainState) -> None:
-    """Write ``state`` to ``path`` (a file), atomically."""
-    path = os.path.abspath(path)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save({
-        "model": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
-        "step": state.step,
-        "epoch": state.epoch,
-        "best_monitor": state.best_monitor,
-    }, tmp)
-    os.replace(tmp, path)
+    """Write ``state`` to ``path`` (a file), atomically: rank 0 writes,
+    and every rank of a process group waits for it, so that none reads
+    the checkpoint before it exists."""
+    if parallel.process_index() == 0:
+        path = os.path.abspath(path)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save({
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": state.step,
+            "epoch": state.epoch,
+            "best_monitor": state.best_monitor,
+        }, tmp)
+        os.replace(tmp, path)
+    parallel.barrier()
 
 
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:

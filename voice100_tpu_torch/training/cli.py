@@ -31,10 +31,21 @@ Checkpoints are the port's ``.pt`` files (``best.pt``, ``last.pt``,
 read ``--restore_from``, else ``best.pt``, else ``last.pt``. ``predict``
 writes CTC transcripts (``.txt``), or per-text durations or per-clip
 WORLD features (``.npz`` of object arrays). An orbax checkpoint of the
-JAX package crosses over through ``tools/weights.py``. Meshes and
-multi-process runs (``--mesh_model_axis`` > 1, ``--distributed``) are
-not ported yet and raise. Serving builds a model from a config and a
-checkpoint alone with :func:`load_model`.
+JAX package crosses over through ``tools/weights.py``. Serving builds a
+model from a config and a checkpoint alone with :func:`load_model`.
+
+``--distributed`` runs one process a device, joined by
+``torch.distributed`` (``parallel/mesh.py``; ``voice100_tpu/training/
+cli.py:295-334``): with ``--coordinator_address host:port``,
+``--num_processes N`` and ``--process_id i`` over ``tcp://``, or with none
+of them from torchrun's environment. Rank i runs on
+``cuda:{i % device_count}`` (``--device cpu``: the CPU) over NCCL on CUDA
+and gloo on the CPU; ``--dist_backend gloo`` takes gloo for tensors on a
+card too, which lets two ranks share one GPU (NCCL refuses that). Each
+rank reads its share of every global batch of ``batch_size *
+num_processes`` rows (``training/trainer.py``); ``predict`` runs on rank
+0 alone, over every row. Tensor-parallel meshes (``--mesh_model_axis`` >
+1) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -52,6 +63,8 @@ import numpy as np
 
 from ..data.datamodule import AlignTextDataModule, AudioTextDataModule
 from ..models import AlignTextToAudio, AudioToAlignText, TextToAlignText
+from ..parallel import mesh as parallel
+from ..parallel.mesh import TENSOR_PARALLEL_ITEM
 from .checkpoint import load_model_weights, merge_world_stats
 from .tasks import make_task
 from .trainer import Trainer, TrainerConfig, _host
@@ -59,13 +72,11 @@ from .trainer import Trainer, TrainerConfig, _host
 __all__ = ["load_config", "build_from_config", "build_trainer_config", "config_audio_stat",
            "load_model", "main", "cli_main", "UNPORTED"]
 
-DISTRIBUTED_ITEM = "ROADMAP.md queue 1, item 10: serving, tools and distributed"
-
 # The JAX trainer's settings that the port does not run: a config key
 # -> (the values that ask for nothing the port lacks, the item that ports
 # the rest)
 UNPORTED = {
-    "mesh_model_axis": ((1,), DISTRIBUTED_ITEM),
+    "mesh_model_axis": ((1,), TENSOR_PARALLEL_ITEM),
 }
 
 _MODEL_CLASSES = {"AudioToAlignText": AudioToAlignText, "TextToAlignText": TextToAlignText,
@@ -270,9 +281,23 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (default) or cpu (the plain PyTorch path)")
     parser.add_argument("--mesh_model_axis", type=int, default=1,
-                        help=f"1 only; meshes are not ported yet ({DISTRIBUTED_ITEM})")
+                        help=f"1 only; tensor-parallel meshes are not ported yet "
+                             f"({TENSOR_PARALLEL_ITEM})")
     parser.add_argument("--distributed", action="store_true",
-                        help=f"not ported yet ({DISTRIBUTED_ITEM})")
+                        help="data-parallel training, one process a device: join the process "
+                             "group (the three flags below, or torchrun's environment) before "
+                             "building anything; each rank loads its share of every global "
+                             "batch")
+    parser.add_argument("--coordinator_address", type=str, default=None,
+                        help="with --distributed: host:port of rank 0")
+    parser.add_argument("--num_processes", type=int, default=None,
+                        help="with --distributed: the number of processes")
+    parser.add_argument("--process_id", type=int, default=None,
+                        help="with --distributed: this process's rank")
+    parser.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
+                        help="with --distributed: nccl (the default on cuda) or gloo (the "
+                             "default on cpu; on cuda it carries the gradients through host "
+                             "memory, and lets ranks share a GPU)")
     return parser
 
 
@@ -282,15 +307,37 @@ def main(argv=None) -> Optional[Dict[str, float]]:
     return _run(_parser().parse_args(argv))
 
 
+def _join_process_group(args):
+    """``--distributed``: join the process group; returns this rank's
+    device, ``cuda:{rank % device_count}`` unless ``--device`` names the
+    CPU."""
+    device = torch.device(args.device or "cuda")
+    parallel.init_distributed(args.coordinator_address, args.num_processes, args.process_id,
+                              device=device, backend=args.dist_backend)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", parallel.process_index() % torch.cuda.device_count())
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return device
+
+
 def _run(args) -> Optional[Dict[str, float]]:
-    if args.distributed:
-        raise NotImplementedError(f"--distributed: multi-process training is not ported yet "
-                                  f"({DISTRIBUTED_ITEM})")
     overrides = {k: v for k, v in vars(args).items()
                  if v is not None and k not in ("subcommand", "config", "distributed", "device",
-                                                "audio_stat")}
+                                                "audio_stat", "coordinator_address",
+                                                "num_processes", "process_id", "dist_backend")}
     config = load_config(args.config)
     tc = build_trainer_config(config, overrides)
+    if not args.distributed:
+        return _run_subcommand(args, config, overrides, tc, args.device)
+    device = _join_process_group(args)
+    try:
+        return _run_subcommand(args, config, overrides, tc, device)
+    finally:
+        parallel.shutdown_distributed()
+
+
+def _run_subcommand(args, config, overrides, tc, device) -> Optional[Dict[str, float]]:
     base = os.path.splitext(os.path.basename(args.config))[0]
     if tc.checkpoint_dir is None:
         tc.checkpoint_dir = os.path.join("checkpoints", base)
@@ -301,7 +348,7 @@ def _run(args) -> Optional[Dict[str, float]]:
         # JAX trainer draws them from PRNGKey(seed); the other subcommands
         # load theirs from a checkpoint
         generator = torch.Generator().manual_seed(tc.seed) if args.subcommand == "fit" else None
-        model, data = build_from_config(config, overrides, device=args.device,
+        model, data = build_from_config(config, overrides, device=device,
                                         generator=generator)
         if args.subcommand == "fit":
             audio_stat = args.audio_stat or config_audio_stat(config)
@@ -318,8 +365,9 @@ def _run(args) -> Optional[Dict[str, float]]:
                              f"pass --restore_from")
         load_model_weights(ckpt, model)
         if args.subcommand == "predict":
-            data.setup("predict")
-            _run_predict(model, data, args.output or f"{base}-predictions")
+            if parallel.process_index() == 0:  # one writer, over every row
+                data.setup("predict")
+                _run_predict(model, data, args.output or f"{base}-predictions")
             return None
         stage = "test" if args.subcommand == "test" else "fit"
         return trainer.run_eval(model, data, stage=stage)

@@ -68,8 +68,25 @@ trace in that directory; ``trainer.py:690-726``) and logs ``{"event":
 writes it. A profiled fit takes the per-step path, whatever
 ``steps_per_dispatch`` says (``trainer.py:623``).
 
-The JAX trainer's meshes are not ported; their setting has no field
-here, and a config that sets it raises (``training/cli.py``
+Data parallelism is one process a device, joined by ``torch.distributed``
+(``parallel/mesh.py``; the CLI's ``--distributed``): each rank holds a
+replica of the model and its loaders read its contiguous rows of each
+global batch of ``batch_size * process_count`` rows
+(``voice100_tpu/training/trainer.py:253-264``). A rank's step runs inside
+:func:`voice100_tpu_torch.parallel.mesh.global_batch` (losses over the
+global batch's denominators, draws for the global batch's shape), then
+sums the gradients over the ranks in one flat all-reduce, then clips and
+steps Adam on the same gradients as every other rank. Metrics are summed
+over the ranks before they are logged; ``evaluate`` and the validation
+CER/WER sum over every rank's real rows. The first train batch's shapes
+are checked across ranks (one all-gather of a digest) and later batches
+against it (``trainer.py:460-500``). Only rank 0 writes the log file and
+checkpoints (``training/checkpoint.py``), every rank restores the same
+``restore_from``, and a run of more than one process streams its batches:
+the device cache is off, with the JAX trainer's warning record
+(``trainer.py:560-575``), so ``steps_per_dispatch`` takes the per-step
+path. Tensor-parallel meshes are not ported: their setting has no field
+here, and a config that sets one raises (``training/cli.py``
 ``UNPORTED``).
 """
 
@@ -92,6 +109,7 @@ from ..data.pack import device_put_packed, tree_flatten
 from ..data.prefetch import DevicePrefetcher
 from ..ops.lstm import set_default_compute_dtype
 from ..ops.metrics import error_rate
+from ..parallel import mesh as parallel
 from ..utils.profiling import trace
 from .checkpoint import TrainState, restore_checkpoint, save_checkpoint
 from .tasks import Task, make_task
@@ -102,9 +120,13 @@ __all__ = ["Trainer", "TrainerConfig", "TrainState", "clip_by_global_norm"]
 # (voice100_tpu/training/trainer.py:243, 431-440)
 BF16_PRECISIONS = ("16", "bf16", "bfloat16", "16-mixed")
 PRECISIONS = ("32",) + BF16_PRECISIONS
-# the JAX trainer's words (voice100_tpu/training/trainer.py:293-297)
+# the JAX trainer's words (voice100_tpu/training/trainer.py:293-297, 567-572, 479-499)
 IDENTITY_STATS_WARNING = ("WORLD norm stats are identity; run tools.calc_stat and pass "
                           "--audio_stat, or the f0 stream will dominate the TTS loss")
+MULTIPROCESS_CACHE_WARNING = ("device_cache disabled: multi-process runs stream batches "
+                              "(per-host cache states would diverge)")
+_PIN_BUCKET = ("pin one collate bucket (set VOICE100_TPU_TIME_BUCKET/TEXT_BUCKET above the "
+               "corpus max) so every {} pads to the same static extents")
 
 
 @dataclass
@@ -182,7 +204,9 @@ class Trainer:
         self._stop_requested = False
         self._trace: Optional[contextlib.ExitStack] = None  # the profile in flight
         self._log_file = None
-        if config.log_path:
+        self._batch_shapes = None  # a multi-process run's first train batch's shapes
+        if config.log_path and parallel.process_index() == 0:
+            # one writer: every rank is given the same log_path
             os.makedirs(os.path.dirname(config.log_path) or ".", exist_ok=True)
             self._log_file = open(config.log_path, "a")
 
@@ -194,10 +218,38 @@ class Trainer:
     def _log(self, record: Dict[str, Any]) -> None:
         msg = " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
                        for k, v in record.items())
-        print(f"[trainer] {msg}", flush=True)
+        tag = (f"[trainer p{parallel.process_index()}]" if parallel.process_count() > 1
+               else "[trainer]")
+        print(f"{tag} {msg}", flush=True)
         if self._log_file:
             self._log_file.write(json.dumps(record) + "\n")
             self._log_file.flush()
+
+    def _global_metrics(self, metrics):
+        """A step's metrics of the global batch: the ranks' shares summed
+        (one all-reduce) where there is more than one rank; ``metrics``
+        elsewhere."""
+        if metrics is None or parallel.process_count() == 1:
+            return metrics
+        names = list(metrics)
+        summed = parallel.all_reduce_(torch.stack([metrics[k].float() for k in names]))
+        return dict(zip(names, summed))
+
+    def _check_batch_shapes(self, batch) -> None:
+        """Every rank's train batches collate to one shape, so that each
+        rank's rows are a share of one global batch: the first batch's
+        shapes are compared across ranks (an all-gather of a digest), later
+        batches with the first (``voice100_tpu/training/trainer.py:460-500``)."""
+        shapes = tuple(tuple(t.shape) for pair in batch for t in pair)
+        if self._batch_shapes is None:
+            digests = parallel.all_gather_digest(hash(shapes) & 0x7FFFFFFF)
+            if len(set(digests)) > 1:
+                raise RuntimeError("multi-process batch shapes differ across hosts; "
+                                   + _PIN_BUCKET.format("host"))
+            self._batch_shapes = shapes
+        elif shapes != self._batch_shapes:
+            raise RuntimeError(f"multi-process batch shapes drifted ({shapes} vs "
+                               f"{self._batch_shapes}); " + _PIN_BUCKET.format("batch"))
 
     def _bf16(self) -> bool:
         return str(self.config.precision) in BF16_PRECISIONS
@@ -248,10 +300,18 @@ class Trainer:
                    generator: Optional[torch.Generator] = None, train: bool = True):
         """One optimizer step on ``batch``; returns the metrics as device
         tensors. ``train=False`` runs it without augmentation and dropout
-        (the JAX ``task.loss(..., train=False)``)."""
+        (the JAX ``task.loss(..., train=False)``). In a process group the
+        batch is this rank's share of the global batch, the gradients are
+        summed over the ranks before the clip, and the metrics are this
+        rank's shares (:meth:`_global_metrics` sums them)."""
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = task.loss(batch, train, generator)
+        grouped = parallel.in_process_group()
+        with parallel.global_batch(grouped):
+            loss, metrics = task.loss(batch, train, generator)
         loss.backward()
+        if grouped:
+            # the ranks' gradients of their shares of the global loss, summed
+            parallel.all_reduce_gradients(state.model.parameters())
         if self.config.gradient_clip_val and self.config.gradient_clip_val > 0:
             clip_by_global_norm(state.model.parameters(), self.config.gradient_clip_val)
         state.optimizer.step()
@@ -265,13 +325,25 @@ class Trainer:
         ``iter_with_counts`` says how many leading rows of each batch are
         real, and the repeated rows after them are cut before the loss
         (``voice100_tpu/training/trainer.py:807-849`` on one process).
-        Other iterables count every row."""
+        Other iterables count every row. In a process group each rank's
+        batch is its share of a global batch: a batch's metrics and real
+        rows are summed over the ranks, so every rank returns the metrics
+        one process would over the global batches' real rows."""
         totals: Dict[str, float] = {}
         count = 0
+        grouped = parallel.process_count() > 1
         for batch, n_real in _iter_counted(batches):
             if n_real < int(batch[0][0].shape[0]):
                 batch = tuple(tuple(t[:n_real] for t in pair) for pair in batch)
-            _, metrics = task.loss(batch, train=False)
+            with parallel.global_batch(grouped):
+                _, metrics = task.loss(batch, train=False)
+            if grouped:
+                # the global batch's metrics and real rows: the ranks' shares summed
+                names = list(metrics)
+                summed = parallel.all_reduce_(torch.stack(
+                    [metrics[k].detach().float() for k in names]
+                    + [metrics[names[0]].new_full((), float(n_real))]))
+                metrics, n_real = dict(zip(names, summed[:-1])), int(summed[-1])
             for k, v in metrics.items():
                 totals[k] = totals.get(k, 0.0) + float(v) * n_real
             count += n_real
@@ -285,7 +357,9 @@ class Trainer:
         ``merge_repeated`` against each real row's decoded text. WER only
         where decoded text has word boundaries (char tokenizers: the
         phone tokenizers join with a ``_separator``). None without the
-        data module's tokenizer."""
+        data module's tokenizer. In a process group the edit and length
+        counts are summed over the ranks' rows
+        (``trainer.py:924-929``)."""
         tokenizer = getattr(datamodule, "text_transform", None)
         if tokenizer is None or not hasattr(type(model), "greedy_decode"):
             return None
@@ -305,6 +379,11 @@ class Trainer:
             if word_level:
                 e, t = error_rate([r.split() for r in refs], [h.split() for h in hyps])
                 w_edits, w_total = w_edits + e, w_total + t
+        if parallel.process_count() > 1:
+            device = next(model.parameters()).device
+            sums = parallel.all_reduce_(torch.tensor([edits, total, w_edits, w_total],
+                                                     dtype=torch.int64, device=device))
+            edits, total, w_edits, w_total = (int(x) for x in sums.cpu())
         rates = {"cer": edits / max(total, 1)}
         if word_level:
             rates["wer"] = w_edits / max(w_total, 1)
@@ -366,11 +445,19 @@ class Trainer:
             # identity statistics mean calc_stat never ran: the raw f0
             # stream (hundreds of Hz) then dominates the WORLD loss
             self._log({"event": "warning", "message": IDENTITY_STATS_WARNING})
+        processes = parallel.process_count()
+        # one device a process: the run's devices are its processes
         self._log({"event": "fit_start", "params": sum(p.numel() for p in model.parameters()),
                    "steps_per_epoch": len(train_batches), "device": str(device),
+                   "devices": processes, "processes": processes,
                    "upload": "bf16" if self._upload_bf16() else "f32"})
         cache = None
-        if cfg.device_cache:
+        self._batch_shapes = None
+        if cfg.device_cache and processes > 1:
+            # each rank sees other rows of the corpus, so the ranks' caches
+            # would fill (and engage the dispatch) at different steps
+            self._log({"event": "warning", "message": MULTIPROCESS_CACHE_WARNING})
+        elif cfg.device_cache:
             cache = DeviceFeatureCache(len(train_batches.dataset),
                                        max_bytes=cfg.device_cache_max_bytes,
                                        pad_values=getattr(train_batches.collate_fn, "pad_values",
@@ -455,6 +542,8 @@ class Trainer:
                     self._trace = contextlib.ExitStack()
                     self._trace.enter_context(trace(cfg.profile_dir,
                                                     next(task.model.parameters()).device))
+                if parallel.process_count() > 1:
+                    self._check_batch_shapes(batch)
                 running = self.train_step(task, state, batch, generator)
                 if self._stop_requested:
                     self._close_trace()
@@ -464,7 +553,8 @@ class Trainer:
                     self._log({"event": "profile_written", "dir": cfg.profile_dir})
                 if state.step % cfg.log_every_n_steps == 0:
                     self._log({"epoch": epoch, "step": state.step,
-                               **{f"train_{k}": float(v) for k, v in running.items()}})
+                               **{f"train_{k}": float(v)
+                                  for k, v in self._global_metrics(running).items()}})
         finally:
             batches.close()  # ends the loader's threads when the loop leaves early
         return running, False
@@ -525,7 +615,7 @@ class Trainer:
                   "train_time_s": round(time.time() - start, 2),
                   "lr": float(state.optimizer.param_groups[0]["lr"])}
         if running is not None:
-            record["train_loss"] = float(running["loss"])
+            record["train_loss"] = float(self._global_metrics(running)["loss"])
         val_metrics = {}
         if val_batches is not None and len(val_batches) > 0:
             val_metrics = self.evaluate(task, state, val_batches)
