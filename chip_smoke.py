@@ -438,6 +438,35 @@ TTS_WAVE_TOL = 1e-3
 TTS_CURSOR_TIE = 1e-5
 # kernel 1's shared memory a block at B=128, H=512 (persistent::smem_bytes)
 TTS_B128_SMEM = 156672
+# The v1 model family (ROADMAP item 9) at full width, seeded weights: the
+# train-v1 CLIs' defaults (voice100_tpu/tools/train_v1.py), 64 log-mel bins
+# and the character vocabulary of 29 (the multi-task model's phone targets:
+# the English phone vocabulary of 71); every CLI's batch of 32
+V1_ASR = dict(audio_size=64, vocab_size=29, embed_size=512, hidden_size=512)
+V1_ALIGN = dict(audio_size=64, vocab_size=29, hidden_size=128, num_layers=2)
+V1_TTS_ALIGN = dict(vocab_size=29, hidden_size=512)
+V1_TTS_AUDIO = dict(vocab_size=29, hidden_size=512)      # world: 257 spectral bins
+V1_TTS_MT = dict(vocab_size=29, target_vocab_size=71, hidden_size=512)
+V1_BATCH = 32
+# AudioAlignCTC's biLSTM on 10 s clips: 1001 log-mel frames, stride 2
+V1_T, V1_H = 501, 128
+V1_TIMED_STEPS = 5
+# AudioToTextCTC's staircase: a boundary (step 2) inside the 3 parity steps
+V1_STEPS_PER_EPOCH = 2
+# card vs CPU in evaluation mode: the models' raw outputs (normalized WORLD
+# streams, log-durations, logits) absolutely, where the float32 differences
+# of nine BatchNorm blocks and two decoders' convolutions gather
+V1_PREDICT_TOL = 2e-3
+# card vs CPU gradients of a v1 step: within this many times what float32
+# costs the model (its CPU float32 gradients against its float64 ones).
+# Two float32 paths that sum in other orders (cuDNN's algorithms, the
+# CPU's) sit at distances of the same order from float64: on an H100
+# 80GB HBM3 (700 W) the card's distance was up to about 3 times the
+# CPU's, where the costs ran 2e-4 to 5e-3; a fault moves a gradient by O(1)
+V1_CONDITIONING = 10.0
+# card vs CPU steps of a v1 model: the first rows of a batch of 32 on both
+# sides (a BatchNorm's statistics are the batch's)
+V1_PARITY_ROWS = 4
 PEAK_F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 # kernel and library call timed in turns: rounds, each of `iters` calls
@@ -3537,7 +3566,8 @@ def phone_phase(device, card, workdir):
 # steps on the card against the CPU, and the CLI at --precision 16
 BF16_SHAPES = {"asr_en_base": (TRAIN_BATCH, 501, 512, 512),
                "tts_en_base": (TTS_TRAIN_BATCH, 512, 512, 512),
-               "align_en_base": (TTS_TRAIN_BATCH, 144, 256, 256)}
+               "align_en_base": (TTS_TRAIN_BATCH, 144, 256, 256),
+               "align_v1": (V1_BATCH, V1_T, V1_H, V1_H)}
 # card against CPU at bf16, 3 steps: the losses as the float32 rule; the
 # first step's gradients within one bf16 step relative (2^-8), the size of
 # a rounding that lands one step away (the conv weights' gradients are
@@ -3939,7 +3969,7 @@ def bf16_kernel_lines(kernels, by_path):
         entry["library"] = ("cuDNN nn.LSTM in bf16, packed (the nearest library call, not the "
                             "same function)")
         entry["launches_by_path"] = {p: c[counter] for p, c in by_path.items() if counter in c}
-        for config in ("tts_en_base", "align_en_base"):
+        for config in ("tts_en_base", "align_en_base", "align_v1"):
             entry[config] = kernels[config][key]
         entries.append(entry)
     return entries
@@ -5561,6 +5591,515 @@ def _distributed_phase(device, card, workdir, align_args):
     return paths, summary
 
 
+# -- the v1 model family (ROADMAP item 9) ------------------------------------
+
+
+def check_v1_kernels(device):
+    """Kernels 1, 2 and 3 at AudioAlignCTC's shapes (B=32, T'=501, H=128,
+    input 128, seeded ragged lengths with T' and 1) against their plain
+    versions, timed with cuDNN: the cooperative launches at 2 H / 8 = 32
+    blocks. Returns the three kernel lines."""
+    lengths = train_lengths(np.random.default_rng(SEED + 40), V1_T, V1_BATCH)
+    k1 = check_bilstm(device, V1_BATCH, V1_T, [int(n) for n in lengths], hidden=V1_H,
+                      input_size=V1_H)
+    k2, k3 = check_lstm_train(device, V1_BATCH, V1_T, V1_H, V1_H, lengths)
+    return {"bilstm_recurrence": k1, "bilstm_train_fwd": k2, "bilstm_train_bwd": k3}
+
+
+@contextlib.contextmanager
+def v1_no_draws(model):
+    """Augmentation and dropout off for a v1 model's card-against-CPU
+    steps (the two sides' generators draw other numbers), its BatchNorms
+    still on the batch's statistics in training mode."""
+    from voice100_tpu_torch.models import align_v1, asr_v1
+
+    saved = [(m, m.draw_augment, m.apply_augment) for m in (asr_v1, align_v1)]
+    for m in (asr_v1, align_v1):
+        m.draw_augment = lambda *shape: None
+        m.apply_augment = lambda audio, audio_len, draws: (audio, audio_len)
+    drops = [m for m in model.modules() if isinstance(m, torch.nn.Dropout)]
+    rates = [m.p for m in drops]
+    lstm = getattr(model, "lstm", None)
+    lstm_rate = lstm.dropout if lstm is not None else None
+    for m in drops:
+        m.p = 0.0
+    if lstm is not None:
+        lstm.dropout = 0.0
+    try:
+        yield
+    finally:
+        for m, draw, apply in saved:
+            m.draw_augment, m.apply_augment = draw, apply
+        for m, p in zip(drops, rates):
+            m.p = p
+        if lstm is not None:
+            lstm.dropout = lstm_rate
+
+
+def v1_rows(batch, rows=PARITY_BATCH):
+    return tuple(tuple(np.asarray(a)[:rows] for a in group) for group in batch)
+
+
+def v1_outputs(model, batch):
+    """The model's raw outputs in evaluation mode on ``batch``'s inputs:
+    logits, log-durations, or the WORLD streams (normalized) and phone
+    logits; CPU float32 tensors."""
+    from voice100_tpu_torch.training import make_task
+
+    args = make_task(model).upload(batch)
+    name = type(model).__name__
+    model.eval()
+    with torch.no_grad():
+        if name == "AudioAlignCTC":
+            out = model(args[0], args[1])[:1]
+        elif name.startswith("AlignTextToAudio"):
+            out = model(args[4])
+        else:  # AudioToTextCTC on audio, TextToAlignTextModel on text
+            out = (model(args[0]),)
+    return [t.float().cpu() for t in out]
+
+
+def fmt_list(values) -> str:
+    return "[" + ", ".join(f"{v:.3e}" for v in values) + "]"
+
+
+def v1_rel(got, want, scale: float = 0.0) -> float:
+    """``||got - want||`` over ``max(||want||, scale)``."""
+    return ((got - want).norm() / max(want.norm().item(), scale, 1e-30)).item()
+
+
+def v1_float64_grads(model, rows):
+    """The gradients of a training-mode loss of a float64 copy of
+    ``model`` on ``rows`` (augmentation and dropout off), on the CPU,
+    clipped as Trainer.train_step clips them (global norm 1.0)."""
+    from voice100_tpu_torch.training import make_task
+    from voice100_tpu_torch.training.trainer import clip_by_global_norm
+
+    m64 = copy.deepcopy(model).double()
+    rows64 = tuple(tuple(a.astype(np.float64) if a.dtype.kind == "f" else a for a in group)
+                   for group in rows)
+    with v1_no_draws(m64):
+        loss, _ = make_task(m64).loss(rows64, train=True)
+    loss.backward()
+    clip_by_global_norm(m64.parameters(), 1.0)
+    return {n: p.grad.detach().float() for n, p in m64.named_parameters()}
+
+
+def v1_parity(device, name, cpu_model, batch, steps_per_epoch=1):
+    """PARITY_STEPS train steps (Trainer.train_step, training mode, the
+    BatchNorms on batch statistics) of a v1 model on the first
+    V1_PARITY_ROWS rows of ``batch``, augmentation and dropout off, on
+    the card and on the CPU's plain path, in lockstep: before each step
+    the CPU side takes the card's weights, running averages and Adam
+    state, so each step is compared from one state. BatchNorm makes some
+    directions of the loss flat (a bias a later BatchNorm absorbs, a scale
+    ReLU6 and a depthwise conv carry to the next BatchNorm), their
+    gradients are round-off on both sides, and Adam turns those into
+    steps of up to lr either way: run free, the two trajectories part,
+    though each step agrees. Each step: the loss and the rate; each
+    gradient tensor and running average by ``||card - cpu||`` over the
+    larger of its norm and 1e-3 of the largest (a flat direction's
+    round-off sits under that floor). A model with BatchNorms also takes
+    each step in float64 on the CPU from the same state: its gradients'
+    bound is the larger of PARITY_GRAD_TOL and V1_CONDITIONING times what
+    float32 costs that step (the CPU's float32 gradients against the
+    float64 ones; a BatchNorm model at full width loses up to 5e-3
+    there), and the card's are held to the float64 ones within the same
+    bound. The running averages within PARITY_GRAD_TOL; then the
+    evaluation-mode outputs within V1_PREDICT_TOL."""
+    from voice100_tpu_torch.training import Trainer, TrainerConfig, TrainState, make_task
+
+    rows = v1_rows(batch, V1_PARITY_ROWS)
+    models = (copy.deepcopy(cpu_model).to(device), cpu_model)
+    batchnorm = any("running" in n for n, _ in cpu_model.named_buffers())
+    trainers = [Trainer(TrainerConfig(gradient_clip_val=1.0)) for _ in models]
+    tasks = [make_task(m) for m in models]
+    states = [TrainState(m, t.make_optimizer(steps_per_epoch)) for m, t in zip(models, tasks)]
+    seconds = [0.0, 0.0]
+    record = {"losses": [], "loss_rel_err": 0.0, "grad_rel_err": 0.0, "stats_rel_err": 0.0,
+              "lrs": [], "float32_cost": [], "card_vs_float64": [], "grad_tol": []}
+    for _ in range(PARITY_STEPS):
+        models[1].load_state_dict(models[0].state_dict())
+        states[1].optimizer.load_state_dict(states[0].optimizer.state_dict())
+        states[1].step = states[0].step
+        g64 = v1_float64_grads(models[1], rows) if batchnorm else None
+        sides = []
+        for i, (model, trainer, task, state) in enumerate(zip(models, trainers, tasks, states)):
+            start = time.perf_counter()
+            with v1_no_draws(model):
+                loss = float(trainer.train_step(task, state, rows, train=True)["loss"])
+            grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+            stats = {n: b.detach().cpu() for n, b in model.named_buffers() if "running" in n}
+            seconds[i] += time.perf_counter() - start
+            sides.append((loss, grads, stats, state.optimizer.param_groups[0]["lr"]))
+        (loss, grads, stats, lr), (cpu_loss, cpu_grads, cpu_stats, cpu_lr) = sides
+        top = max(g.norm().item() for g in cpu_grads.values())
+        grad_tol, card64 = PARITY_GRAD_TOL, 0.0
+        if g64 is not None:
+            top64 = max(g.norm().item() for g in g64.values())
+            cost = max(v1_rel(cpu_grads[n], g, 1e-3 * top64) for n, g in g64.items())
+            card64 = max(v1_rel(grads[n], g, 1e-3 * top64) for n, g in g64.items())
+            grad_tol = max(PARITY_GRAD_TOL, V1_CONDITIONING * cost)
+            record["float32_cost"].append(cost)
+            record["card_vs_float64"].append(card64)
+        record["grad_tol"].append(grad_tol)
+        top_stats = max((b.norm().item() for b in cpu_stats.values()), default=0.0)
+        record["losses"].append([loss, cpu_loss])
+        record["lrs"].append(lr)
+        record["loss_rel_err"] = max(record["loss_rel_err"], abs(loss - cpu_loss) / abs(cpu_loss))
+        grad_err = max(v1_rel(grads[n], g, 1e-3 * top) for n, g in cpu_grads.items())
+        record["grad_rel_err"] = max(record["grad_rel_err"], grad_err)
+        if not (grad_err <= grad_tol and card64 <= grad_tol):
+            fail(f"v1 train parity {name}: step {states[0].step}: gradients differ by "
+                 f"{grad_err:.3e} (from float64 {card64:.3e}; tol {grad_tol:.3e})")
+        record["stats_rel_err"] = max(record["stats_rel_err"], max(
+            (v1_rel(stats[n], b, 1e-3 * top_stats) for n, b in cpu_stats.items()), default=0.0))
+        if lr != cpu_lr:
+            fail(f"v1 train parity {name}: rates {lr} vs {cpu_lr}")
+    models[1].load_state_dict(models[0].state_dict())
+    outs = [v1_outputs(m, rows) for m in models]
+    record["eval_max_abs_err"] = max((a - b).abs().max().item() for a, b in zip(*outs))
+    record["card_s"], record["cpu_s"] = seconds
+    print(f"v1 train parity {name}, card vs CPU plain path ({V1_PARITY_ROWS} rows, "
+          f"{PARITY_STEPS} steps in lockstep, augmentation and dropout off, BatchNorms on "
+          f"batch statistics): losses [card, CPU] {record['losses']}, max rel err "
+          f"{record['loss_rel_err']:.3e} (tol {PARITY_LOSS_TOL:.0e}); gradients max rel err "
+          f"{record['grad_rel_err']:.3e} over {len(cpu_grads)} tensors (tol by step "
+          f"{fmt_list(record['grad_tol'])}; float64 against the CPU's float32 "
+          f"{fmt_list(record['float32_cost'])}, the card's "
+          f"{fmt_list(record['card_vs_float64'])}), running averages "
+          f"{record['stats_rel_err']:.3e} over {len(cpu_stats)} (tol {PARITY_GRAD_TOL:.0e}), "
+          f"each over the larger of its norm and "
+          f"1e-3 of the largest; rates {record['lrs']}; "
+          f"evaluation outputs max_abs_err {record['eval_max_abs_err']:.3e} (tol "
+          f"{V1_PREDICT_TOL:.0e}); card {seconds[0]:.2f} s, CPU {seconds[1]:.2f} s", flush=True)
+    if not all(np.isfinite(loss) for loss, _ in record["losses"]) or \
+            not record["loss_rel_err"] <= PARITY_LOSS_TOL:
+        fail(f"v1 train parity {name}: losses [card, CPU] {record['losses']}")
+    if not record["stats_rel_err"] <= PARITY_GRAD_TOL:
+        fail(f"v1 train parity {name}: running averages differ by "
+             f"{record['stats_rel_err']:.3e}")
+    if not record["eval_max_abs_err"] <= V1_PREDICT_TOL:
+        fail(f"v1 parity {name}: evaluation outputs differ by {record['eval_max_abs_err']:.3e}")
+    return record
+
+
+def v1_steps(device, card, name, model, batch, want, steps_per_epoch=1):
+    """1 + V1_TIMED_STEPS train steps of a v1 model on a batch of V1_BATCH,
+    augmentation and dropout on, the launch counts set to 0 just before
+    the timed steps and read just after, against ``want`` a step."""
+    from voice100_tpu_torch.training import Trainer, TrainerConfig, TrainState, make_task
+
+    trainer = Trainer(TrainerConfig(gradient_clip_val=1.0))
+    task = make_task(model)
+    state = TrainState(model, task.make_optimizer(steps_per_epoch))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    placed = tuple(tuple(torch.as_tensor(np.asarray(a)).to(device) for a in group)
+                   for group in batch)
+    counters = cli_counters()
+    trainer.train_step(task, state, placed, gen)  # warm-up
+    zero_counts(counters)
+    losses, step_ms = [], []
+    for _ in range(V1_TIMED_STEPS):
+        start = time.perf_counter()
+        losses.append(float(trainer.train_step(task, state, placed, gen)["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - start) * 1e3)
+    launches = read_counts(counters)
+    expected = {k: want.get(k, 0) * V1_TIMED_STEPS for k in counters}
+    median = float(np.median(step_ms))
+    print(f"v1 train {name}: batch {V1_BATCH} {[list(np.asarray(a).shape) for a in batch[0]]}, "
+          f"augmentation and dropout on; losses {[round(v, 4) for v in losses]}; step median "
+          f"{median:.2f} ms (min {min(step_ms):.2f}, max {max(step_ms):.2f}) on {card}; "
+          f"launches over {V1_TIMED_STEPS} steps {launches}", flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"v1 train {name}: non-finite loss {losses}")
+    if launches != expected:
+        fail(f"v1 train {name}: launches {launches}, not {expected}")
+    return {"step_ms": median, "step_ms_all": step_ms, "losses": losses}, launches
+
+
+def v1_batch(data, stage="fit"):
+    """The first batch of a data module's train (or predict) loader, all
+    its rows real."""
+    data.setup(stage)
+    loader = data.train_dataloader() if stage == "fit" else data.predict_dataloader()
+    batch, n_real = next(loader.iter_with_counts())
+    if n_real != V1_BATCH:
+        fail(f"v1: a {type(data).__name__} batch has {n_real} real rows, not {V1_BATCH}")
+    return batch
+
+
+def v1_best_path(device, model, cpu_model, batch):
+    """AudioAlignCTC.ctc_best_path on one predict batch of V1_BATCH on the
+    card (kernel 1 once a layer, one Viterbi launch, nothing else), its
+    result bit-equal to the plain Viterbi on the card's own log-probs; then
+    the first PARITY_BATCH rows on the card and on the CPU: log-probs,
+    scores and paths."""
+    from voice100_tpu_torch.ops.ctc import ctc_viterbi_align
+    from voice100_tpu_torch.tools.align_text import upload_batch
+
+    counters = cli_counters()
+    audio, audio_len, text, text_len = upload_batch(batch, device)
+    model.eval()
+    with torch.inference_mode():
+        model.ctc_best_path(audio, audio_len, text, text_len)  # warm-up
+        zero_counts(counters)
+        res, logits_len = model.ctc_best_path(audio, audio_len, text, text_len)
+        launches = read_counts(counters)
+        log_probs = torch.log_softmax(model(audio, audio_len)[0], dim=-1)
+        ref = ctc_viterbi_align(log_probs, text, logits_len, torch.minimum(logits_len, text_len))
+    want = {k: 0 for k in counters}
+    want.update(bilstm_recurrence=V1_ALIGN["num_layers"], viterbi_align=1)
+    if launches != want:
+        fail(f"v1 align ctc_best_path: launches {launches}, not {want}")
+    if not (torch.equal(res.labels, ref.labels) and torch.equal(res.path, ref.path)
+            and torch.equal(res.score, ref.score)):
+        fail("v1 align ctc_best_path: the Viterbi launch differs from the plain Viterbi on the "
+             "same log-probs")
+    sides = []
+    for m, where in ((model, device), (cpu_model.eval(), "cpu")):
+        args = upload_batch(v1_rows(batch), where)
+        with torch.inference_mode():
+            lp = torch.log_softmax(m(args[0], args[1])[0], dim=-1).cpu()
+            r, n = m.ctc_best_path(*args)
+        sides.append((lp, n.cpu(), r.score.cpu(), r.path.cpu()))
+    (lp, n, score, path), (lp_c, n_c, score_c, path_c) = sides
+    valid = torch.arange(lp.shape[1])[None, :] < n[:, None]
+    lp_err = (lp - lp_c).abs()[valid].max().item()
+    score_err = ((score - score_c).abs() / score_c.abs()).max().item()
+    agree = (path == path_c)[valid].float().mean().item()
+    print(f"v1 align ctc_best_path: batch {V1_BATCH} on the card, launches {launches}, labels, "
+          f"paths and scores equal to the plain Viterbi on the card's log-probs; card vs CPU "
+          f"({PARITY_BATCH} rows): log-probs max_abs_err {lp_err:.3e} (tol {LOGIT_TOL:.0e}), "
+          f"scores max rel err {score_err:.3e} (tol {ALIGN_SCORE_REL_TOL:.0e}), paths equal on "
+          f"{agree:.4%} of frames (min {ALIGN_PATH_AGREEMENT:.0%})", flush=True)
+    if not (torch.equal(n, n_c) and lp_err <= LOGIT_TOL and score_err <= ALIGN_SCORE_REL_TOL
+            and agree >= ALIGN_PATH_AGREEMENT):
+        fail(f"v1 align ctc_best_path: card vs CPU log-probs {lp_err:.3e}, scores "
+             f"{score_err:.3e}, paths {agree:.4%}")
+    return {"log_probs_max_abs_err": lp_err, "score_max_rel_err": score_err,
+            "path_agreement": agree}, launches
+
+
+def write_phone_align(data_dir):
+    """The multi-task model's targets beside a corpus's align file: for each
+    line of ``dummy_en-align-train.txt``, as many seeded English phones
+    (the phone tokenizer's vocabulary, "/"-joined) as the aligned text has
+    characters, in ``dummy_en-phone-align-train.txt`` (the content does not
+    matter to a training step)."""
+    from voice100_tpu_torch.text import get_tokenizer
+
+    phones = [p for p in get_tokenizer("en", True)._vocab if p != "_"]
+    rng = np.random.default_rng(SEED + 41)
+    out = []
+    with open(os.path.join(data_dir, "dummy_en-align-train.txt"), encoding="utf-8") as f:
+        for line in f:
+            text, aligntext, counts = line.rstrip("\n").split("|")
+            out.append(f"{text}|{'/'.join(rng.choice(phones, size=len(aligntext)))}|{counts}\n")
+    with open(os.path.join(data_dir, "dummy_en-phone-align-train.txt"), "w",
+              encoding="utf-8") as f:
+        f.writelines(out)
+
+
+def v1_config(path, class_path, init_args, data):
+    """A unified-CLI config of a v1 model (the train-v1 CLI's settings)."""
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump({"seed_everything": 1234, "trainer": {"max_epochs": 1},
+                        "model": {"class_path": f"voice100.models.{class_path}",
+                                  "init_args": init_args},
+                        "data": data}, f)
+    return path
+
+
+def v1_cli_phase(device, card, workdir, align_args, tts_dir, tts_cache, stat_path, samples):
+    """The five train-v1 CLIs, one epoch each at their batch of 32 on the
+    corpora on disk (the align corpus for asr and align, the voiced TTS
+    corpus for the rest; the feature caches warm); each writes last.pt,
+    and the unified CLI's validate on it gives the epoch's val_loss (1e-5
+    relative). The align model's last.pt aligns the align corpus through
+    the align CLI; the TTS models' predict writes 2 * aligntext_len frames
+    a clip. Launch counts set to 0 just before each command, read just
+    after."""
+    from voice100_tpu_torch.tools import train_v1
+    from voice100_tpu_torch.tools.align_text import cli_main as align_main
+    from voice100_tpu_torch.training.cli import main as cli
+
+    root = os.path.join(workdir, "v1")
+    os.makedirs(root, exist_ok=True)
+    mel = {"vocoder": "mel", "dataset": "dummy_en", "language": "en", "batch_size": V1_BATCH}
+    world = {"vocoder": "world", "dataset": "dummy_en", "language": "en", "use_align": True,
+             "batch_size": V1_BATCH}
+    audio_module = "voice100.data_modules.AudioTextDataModule"
+    runs = [
+        ("asr", train_v1.asr_cli_main, "AudioToTextCTC", V1_ASR, (audio_module, mel),
+         align_args, ["--embed_size", str(V1_ASR["embed_size"])]),
+        ("align", train_v1.align_cli_main, "AudioAlignCTC", V1_ALIGN, (audio_module, mel),
+         align_args, []),
+        ("ttsalign", train_v1.ttsalign_cli_main, "TextToAlignTextModel", V1_TTS_ALIGN,
+         ("voice100.data_modules.AlignTextDataModule",
+          {"dataset": "dummy_en", "language": "en", "batch_size": V1_BATCH}),
+         {"data_dir": tts_dir, "cache_dir": tts_cache}, []),
+        ("ttsaudio", train_v1.ttsaudio_cli_main, "AlignTextToAudioModel", V1_TTS_AUDIO,
+         (audio_module, world), {"data_dir": tts_dir, "cache_dir": tts_cache},
+         ["--audio_stat", stat_path]),
+        ("ttsaudio-mt", train_v1.ttsaudio_mt_cli_main, "AlignTextToAudioMultiTaskModel",
+         V1_TTS_MT, (audio_module, dict(world, use_target=True)),
+         {"data_dir": tts_dir, "cache_dir": tts_cache}, ["--audio_stat", stat_path]),
+    ]
+    counters = cli_counters()
+    out, by_path = {}, {}
+    for name, fit_main, cls, init_args, (data_cls, data_args), dirs, extra in runs:
+        ckpt_dir = os.path.join(root, name)
+        argv = ["--dataset", "dummy_en", "--data_dir", dirs["data_dir"], "--cache_dir",
+                dirs["cache_dir"], "--batch_size", str(V1_BATCH), "--max_epochs", "1",
+                "--hidden_size", str(init_args["hidden_size"]), "--checkpoint_dir", ckpt_dir,
+                "--device", str(device), *extra]
+        zero_counts(counters)
+        start = time.perf_counter()
+        fit_main(argv)
+        fit_s = time.perf_counter() - start
+        fit_launches = read_counts(counters)
+        last = os.path.join(ckpt_dir, "last.pt")
+        saved = torch.load(last, map_location="cpu", weights_only=True)
+        val_loss, steps = float(saved["best_monitor"]), int(saved["step"])
+        config = v1_config(os.path.join(root, f"{name}.yaml"), cls, init_args,
+                           {"class_path": data_cls, "init_args": data_args})
+        common = ["--config", config, "--restore_from", last, "--data_dir", dirs["data_dir"],
+                  "--cache_dir", dirs["cache_dir"], "--device", str(device)]
+        zero_counts(counters)
+        metrics = cli(["validate", *common])
+        validate_launches = read_counts(counters)
+        err = abs(metrics["loss"] - val_loss) / abs(val_loss)
+        layers = V1_ALIGN["num_layers"]
+        evals = 1  # the 10% val split of either corpus is one batch of 32
+        want_fit = {k: 0 for k in counters}
+        want_validate = dict(want_fit)
+        if name in ("asr", "align"):
+            want_fit.update(ctc_alpha=steps + evals, ctc_adjoint=steps)
+            want_validate.update(ctc_alpha=evals)
+        if name == "align":
+            want_fit.update(bilstm_train_fwd=layers * steps, bilstm_train_bwd=2 * layers * steps,
+                            bilstm_recurrence=layers * evals)
+            want_validate.update(bilstm_recurrence=layers * evals)
+        record = {"fit_s": fit_s, "steps": steps, "val_loss": val_loss,
+                  "validate_loss": metrics["loss"], "validate_rel_err": err,
+                  "fit_launches": fit_launches, "validate_launches": validate_launches}
+        if name == "align":
+            out_path = os.path.join(root, "align-v1-align.txt")
+            zero_counts(counters)
+            align_main(["--config", config, "--checkpoint", last, "--data_dir",
+                        dirs["data_dir"], "--cache_dir", dirs["cache_dir"], "--output", out_path,
+                        "--device", str(device)])
+            record["align_launches"] = read_counts(counters)
+            with open(os.path.join(dirs["data_dir"], "dummy_en-train.txt"),
+                      encoding="utf-8") as f:
+                texts = [line.rstrip("\n").split("|")[1] for line in f]
+            batches = -(-len(texts) // V1_BATCH)
+            want_align = dict(want_validate, ctc_alpha=0, bilstm_recurrence=layers * batches,
+                              viterbi_align=batches)
+            check_align_lines(out_path, texts, samples)
+            if record["align_launches"] != want_align:
+                fail(f"v1 align CLI with AudioAlignCTC: launches {record['align_launches']}, not "
+                     f"{want_align}")
+            by_path["v1_cli_align_text"] = record["align_launches"]
+        if name.startswith("tts"):
+            predict_path = os.path.join(root, f"{name}-predict")
+            cli(["predict", *common, "--output", predict_path])
+            with np.load(predict_path + ".npz", allow_pickle=True) as f:
+                rows = {k: f[k] for k in f.files}
+            record["predict_rows"] = {k: len(v) for k, v in rows.items()}
+            if not all(len(v) == len(rows[next(iter(rows))]) > 0 for v in rows.values()):
+                fail(f"v1 {name} predict: rows {record['predict_rows']}")
+            if name != "ttsalign":
+                record["predict_frames_first"] = int(rows["f0"][0].shape[0])
+        print(f"v1 cli {name} on {card}: fit 1 epoch ({steps} steps at batch {V1_BATCH}) "
+              f"{fit_s:.2f} s, launches {fit_launches}; validate on last.pt val_loss "
+              f"{metrics['loss']:.6f} against the epoch's {val_loss:.6f} (rel err {err:.2e}, "
+              f"tol {CLI_VAL_REL_TOL:.0e}), launches {validate_launches}", flush=True)
+        if fit_launches != want_fit or validate_launches != want_validate:
+            fail(f"v1 cli {name}: launches fit {fit_launches} / validate {validate_launches}, "
+                 f"not {want_fit} / {want_validate}")
+        if not (np.isfinite(val_loss) and err <= CLI_VAL_REL_TOL):
+            fail(f"v1 cli {name}: validate gave {metrics['loss']} against the fit's {val_loss}")
+        out[name] = record
+        by_path[f"v1_cli_{name}_fit"] = fit_launches
+        by_path[f"v1_cli_{name}_validate"] = validate_launches
+    return out, by_path
+
+
+def v1_phase(device, card, workdir, align_args, samples):
+    """The v1 family on the card at full width with seeded weights: (b)
+    AudioAlignCTC (H=128) and (c) AudioToTextCTC on the align corpus, (d)
+    the three v1 TTS models on the voiced TTS corpus, each timed at batch
+    32 with exact launches and held 3 steps to the CPU path; (e) the five
+    train-v1 CLIs. Kernels 1-3 at H=128 are checked early in the run
+    (check_v1_kernels). Returns the launches by path and a summary."""
+    from voice100_tpu_torch.data import AlignTextDataModule, AudioTextDataModule
+    from voice100_tpu_torch.models import (AlignTextToAudioModel, AlignTextToAudioMultiTaskModel,
+                                           AudioAlignCTC, AudioToTextCTC, TextToAlignTextModel)
+    from voice100_tpu_torch.training import merge_world_stats
+
+    from voice100_tpu_torch.tools.calc_stat import cli_main as stat_main
+
+    start = time.perf_counter()
+    tts_dir = os.path.join(workdir, "tts_data")
+    tts_cache = os.path.join(workdir, "tts_world_cache")
+    # the v1 acoustic models' "world" vocoder: 257 spectral bins, from the
+    # warm (mel-cepstrum) WORLD cache of the TTS training phase
+    stat_path = os.path.join(workdir, "dummy_en-world-stat.npz")
+    stat_main(["--output", stat_path, "--dataset", "dummy_en", "--vocoder", "world",
+               "--data_dir", tts_dir, "--cache_dir", tts_cache, "--device", str(device)])
+    write_phone_align(tts_dir)
+    mel = AudioTextDataModule(vocoder="mel", dataset="dummy_en", data_dir=align_args["data_dir"],
+                              cache_dir=align_args["cache_dir"], batch_size=V1_BATCH,
+                              device=device)
+    mel_batch = v1_batch(mel)
+    predict_batch = v1_batch(mel, "predict")
+    text_batch = v1_batch(AlignTextDataModule(data_dir=tts_dir, dataset="dummy_en",
+                                              batch_size=V1_BATCH))
+    world = dict(vocoder="world", dataset="dummy_en", use_align=True, data_dir=tts_dir,
+                 cache_dir=tts_cache, batch_size=V1_BATCH, device=device)
+    world_batch = v1_batch(AudioTextDataModule(**world))
+    target_batch = v1_batch(AudioTextDataModule(**world, use_target=True))
+    layers = V1_ALIGN["num_layers"]
+    models = [
+        ("align", AudioAlignCTC, V1_ALIGN, mel_batch, 1,
+         {"bilstm_train_fwd": layers, "bilstm_train_bwd": 2 * layers, "ctc_alpha": 1,
+          "ctc_adjoint": 1}),
+        ("asr", AudioToTextCTC, V1_ASR, mel_batch, V1_STEPS_PER_EPOCH,
+         {"ctc_alpha": 1, "ctc_adjoint": 1}),
+        ("ttsalign", TextToAlignTextModel, V1_TTS_ALIGN, text_batch, 1, {}),
+        ("ttsaudio", AlignTextToAudioModel, V1_TTS_AUDIO, world_batch, 1, {}),
+        ("ttsaudio_mt", AlignTextToAudioMultiTaskModel, V1_TTS_MT, target_batch, 1, {}),
+    ]
+    summary, by_path = {"card": card}, {}
+    for i, (name, cls, kwargs, batch, spe, want) in enumerate(models):
+        cpu_model = cls(**kwargs, device="cpu", generator=torch.Generator().manual_seed(
+            SEED + 50 + i))
+        if hasattr(cpu_model, "norm"):
+            merge_world_stats(cpu_model, stat_path)
+        params = sum(p.numel() for p in cpu_model.parameters())
+        summary[name] = {"params": params,
+                         "parity": v1_parity(device, name, copy.deepcopy(cpu_model), batch, spe)}
+        model = copy.deepcopy(cpu_model).to(device)
+        summary[name]["steps"], by_path[f"v1_train_{name}"] = v1_steps(
+            device, card, name, model, batch, want, spe)
+        if name == "align":
+            summary[name]["best_path"], by_path["v1_align_best_path"] = v1_best_path(
+                device, copy.deepcopy(cpu_model).to(device), cpu_model, predict_batch)
+    summary["cli"], cli_paths = v1_cli_phase(device, card, workdir, align_args, tts_dir,
+                                             tts_cache, stat_path, samples)
+    by_path.update(cli_paths)
+    summary["wall_s"] = time.perf_counter() - start
+    print(f"v1 phase on {card}: step ms at batch {V1_BATCH} "
+          + json.dumps({n: summary[n]["steps"]["step_ms"] for n, *_ in models})
+          + f"; {summary['wall_s']:.1f} s", flush=True)
+    return by_path, summary
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -5589,6 +6128,8 @@ def main() -> None:
     # late in long runs
     bf16_kernels = {config: check_bf16_kernels(device, config, *shape)
                     for config, shape in BF16_SHAPES.items()}
+    # kernels 1-3 at the v1 aligner's H=128, early for the same reason
+    v1_kernels = check_v1_kernels(device)
     # the align path's shapes: kernel 1 at the config's batch of 64 (eight
     # batch tiles), kernel 8 on one clip at a time; the Viterbi launch below
     lengths = np.random.default_rng(SEED + 7).integers(1, VITERBI_T + 1, size=ALIGN_BATCH)
@@ -5650,7 +6191,9 @@ def main() -> None:
         # kernel 1 at the TTS configs' training batch
         serving[1]["b128_h512"] = check_bilstm_b128_h512(device)
         bf16_paths, bf16_summary = bf16_phase(device, card, workdir, args, samples, tts_data)
+        v1_paths, v1_summary = v1_phase(device, card, workdir, args, samples)
     by_path.update(tts_train_paths)
+    by_path.update(v1_paths)
     by_path.update(shell_paths)
     by_path.update(phone_paths)
     serving[1].update(tts_kernel)
@@ -5662,6 +6205,12 @@ def main() -> None:
     for name, (fwd, bwd) in tts_train_kernels.items():
         training[0][name] = shape_line(fwd)
         training[1][name] = shape_line(bwd)
+    # kernels 1-3 at AudioAlignCTC's shapes (H=128)
+    serving[1]["align_v1_h128"] = dict(shape_line(v1_kernels["bilstm_recurrence"]),
+                                       recurrence_device_ms=v1_kernels["bilstm_recurrence"][
+                                           "recurrence_device_ms"])
+    training[0]["align_v1_h128"] = shape_line(v1_kernels["bilstm_train_fwd"])
+    training[1]["align_v1_h128"] = shape_line(v1_kernels["bilstm_train_bwd"])
     # "launches" counts the path each kernel was ported for (the timed
     # align run for kernels 6 and 7, the phases of one launch); every
     # path's counts stand beside it
@@ -5688,6 +6237,7 @@ def main() -> None:
     print(f"world_device_summary ({card}) " + json.dumps(world_summary), flush=True)
     print(f"export_summary ({card}) " + json.dumps(export_summary), flush=True)
     print(f"dp_summary ({card}) " + json.dumps(dp_summary), flush=True)
+    print(f"v1_summary ({card}) " + json.dumps(v1_summary), flush=True)
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s from the kernel build to here",
           flush=True)
     print(json.dumps({"kernels": serving + training + aligning + bf16_lines}), flush=True)

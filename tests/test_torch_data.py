@@ -63,10 +63,9 @@ def test_bucket_extent_and_env_overrides_match_jax(monkeypatch):
         tc.bucket_extent("time", 5)
     assert (tc.TIME_BUCKET, tc.TEXT_BUCKET) == (jc.TIME_BUCKET, jc.TEXT_BUCKET)
     assert tc.get_collate_fn("mel") is tc.collate_audio_text
-    # the WORLD collates are ported (test_torch_tts_data.py); the multi-task
-    # batches wait for the v1 models
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tc.get_collate_fn("world_mcep", use_target=True)
+    # the WORLD collates are ported (test_torch_tts_data.py), the multi-task
+    # batches with the v1 models
+    assert tc.get_collate_fn("world_mcep", use_target=True) is tc.collate_world_text_target
 
 
 class _Lengths:
@@ -326,5 +325,9 @@ def test_datamodule_matches_jax_split_salt_and_batches(tmp_path):
         assert [n for _, n in got] == [n for _, n in want]
         for (a, _), (b, _) in zip(got, want):
             _assert_batches_equal(a, b)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        AudioTextDataModule(vocoder="world", use_target=True, device="cpu")
+    # the multi-task module: the phone tokenizer's targets and their collate
+    from voice100_tpu_torch.data.collate import collate_world_text_target
+
+    target = AudioTextDataModule(vocoder="world", use_target=True, device="cpu")
+    assert target.collate_fn is collate_world_text_target
+    assert target.target_vocab_size == JaxData(vocoder="world", use_target=True).target_vocab_size

@@ -9,7 +9,7 @@ inputs), and stays within the port's parity tolerances of the JAX model's
 test_torch_tts.py``: durations rtol 1e-5, TTS streams 1e-4 abs); its graph
 holds one ``voice100_torch::bilstm_infer`` node a layer; the manifest
 names the surface; the CLI runs from a config and a port checkpoint; a v1
-architecture raises naming ROADMAP item 9.
+architecture raises naming ROADMAP item 11.
 """
 
 import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
@@ -151,12 +151,12 @@ def test_v1_architectures_raise_naming_the_item(tmp_path):
                         "init_args": {"audio_size": 64, "vocab_size": VOCAB}},
               "data": {"class_path": "voice100_tpu.data.AudioTextDataModule"}}
     (tmp_path / "v1.yaml").write_text(yaml.safe_dump(config))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         cli_main(["--config", str(tmp_path / "v1.yaml"), "--ckpt_path", "none", "--device", "cpu"])
     v1 = type("AlignTextToAudioModel", (torch.nn.Module,), {})()
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         export_onnx(v1, str(tmp_path / "v1.onnx"))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         export_model(v1, str(tmp_path / "v1.pt2"))
 
 

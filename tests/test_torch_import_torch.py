@@ -8,7 +8,7 @@ go through the port's importer and through the JAX importer followed by
 strict load. Lightning's ``state_dict`` wrapper and a ``model.`` prefix
 are taken, missing statistics keep the identity, and the CLI writes a
 port checkpoint that ``load_model_weights`` reads. v1 raises naming
-ROADMAP item 9.
+ROADMAP item 11.
 """
 
 import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
@@ -102,11 +102,11 @@ def test_missing_tensors_raise_and_v1_names_the_item(tmp_path):
     with pytest.raises(ValueError, match="dense.weight"):
         convert_state_dict(state, _models("asr")[1])
     v1 = type("AudioAlignCTC", (nn.Module,), {})()
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         convert_state_dict({}, v1)
     config = {"model": {"class_path": "voice100_tpu.models.AudioToTextCTC", "init_args": {}}}
     (tmp_path / "v1.yaml").write_text(yaml.safe_dump(config))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         cli_main(["--config", str(tmp_path / "v1.yaml"), "--ckpt_path", "x.ckpt",
                   "--output", str(tmp_path / "o.pt")])
 

@@ -56,6 +56,8 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "        'voice100_tpu_torch.onnx.export', 'voice100_tpu_torch.onnx.serve',\n"
         "        'voice100_tpu_torch.tools.export', 'voice100_tpu_torch.tools.import_torch',\n"
         "        'voice100_tpu_torch.parallel', 'voice100_tpu_torch.parallel.mesh',\n"
+        "        'voice100_tpu_torch.models.asr_v1', 'voice100_tpu_torch.models.align_v1',\n"
+        "        'voice100_tpu_torch.models.tts_v1', 'voice100_tpu_torch.tools.train_v1',\n"
         "        } <= set(names), names\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n"
@@ -153,6 +155,22 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
                   "--process_id", "0"])
     with pytest.raises(RuntimeError, match="CUDA"):
         make_mesh()
+    # the v1 family: each model and each train-v1 CLI
+    from voice100_tpu_torch import models
+    from voice100_tpu_torch.tools import train_v1
+
+    for cls, args in ((models.AudioToTextCTC, (64, 29)), (models.AudioAlignCTC, (64, 29)),
+                      (models.TextToAlignTextModel, (29,)), (models.AlignTextToAudioModel, (29,)),
+                      (models.AlignTextToAudioMultiTaskModel, (29, 71))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(*args, hidden_size=8)
+        assert next(cls(*args, hidden_size=8, device="cpu").parameters()).device.type == "cpu"
+    for main in (train_v1.asr_cli_main, train_v1.align_cli_main, train_v1.ttsaudio_cli_main,
+                 train_v1.ttsaudio_mt_cli_main):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(["--data_dir", str(tmp_path), "--hidden_size", "8"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_v1.ttsalign_cli_main(["--data_dir", str(tmp_path), "--hidden_size", "8"])
 
 
 def test_chip_smoke_drives_asr_en_base_at_full_width():

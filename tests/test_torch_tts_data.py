@@ -119,14 +119,14 @@ def test_collates_and_buckets_match_jax(monkeypatch):
         text_kwargs = {k: v for k, v in kwargs.items() if k == "text_bucket"}
         _assert_batches_equal(tc.collate_text_align(aligns, **text_kwargs),
                               jc.collate_text_align(aligns, **text_kwargs))
-    for fn in ("collate_audio_text", "collate_world_text", "collate_text_align"):
+    for fn in ("collate_audio_text", "collate_world_text", "collate_world_text_target",
+               "collate_text_align"):
         assert getattr(tc, fn).pad_values == getattr(jc, fn).pad_values
         assert getattr(tc, fn).var_specs == getattr(jc, fn).var_specs
     for n in (1, 31, 32, 33, 97):
         assert tc.bucket_extent("align", n) == jc.bucket_extent("align", n)
     assert tc.get_collate_fn("world") is tc.get_collate_fn("world_mcep") is tc.collate_world_text
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 9"):
-        tc.get_collate_fn("world_mcep", use_target=True)
+    assert tc.get_collate_fn("world_mcep", use_target=True) is tc.collate_world_text_target
 
 
 @pytest.mark.parametrize("sample_rate", [16000, 22050])

@@ -19,11 +19,11 @@ import sys
 import numpy as np
 import torch
 
-from voice100_tpu_torch.models import AlignTextToAudio, AudioToAlignText
+from voice100_tpu_torch.models import AlignTextToAudio, AudioToAlignText, AudioToTextCTC
 from voice100_tpu_torch.parallel import mesh as parallel
 from voice100_tpu_torch.training import Trainer, TrainerConfig, TrainState, make_task
 
-MODELS = {"asr": AudioToAlignText, "tts": AlignTextToAudio}
+MODELS = {"asr": AudioToAlignText, "tts": AlignTextToAudio, "asr_v1": AudioToTextCTC}
 
 
 def _tensors(batch):

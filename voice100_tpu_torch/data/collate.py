@@ -6,6 +6,8 @@ voice100/data_modules.py:446-474,673-682). Batches are NumPy arrays:
 * mel:        ``((audio [B, T, D], audio_len), (text [B, L], text_len))``
 * world:      ``((f0 [B, T], f0_len, logspc [B, T, S], codeap [B, T, C]),
   (aligntext [B, L], aligntext_len))``
+* world with a target (the v1 multi-task model, ``use_target``): the
+  world batch and ``(phonetext [B, L'], phonetext_len)``
 * text-align: ``((text [B, L], text_len), (align [B, A], align_len))``
 
 Audio pads with ``BLANK_AUDIO`` (``log(1e-6)``), tokens with blank 0, the
@@ -14,8 +16,7 @@ bucket multiple (``TIME_BUCKET`` frames, ``TEXT_BUCKET`` tokens, twice
 that for durations; ``VOICE100_TPU_TIME_BUCKET`` and
 ``VOICE100_TPU_TEXT_BUCKET`` override them, read at call time), so batches
 come in few shapes and equal the JAX package's byte for byte. Each
-collate carries the JAX package's ``pad_values`` and ``var_specs``. The
-multi-task WORLD batches (``use_target``) wait for the v1 models.
+collate carries the JAX package's ``pad_values`` and ``var_specs``.
 """
 
 from __future__ import annotations
@@ -28,9 +29,8 @@ import numpy as np
 from ..ops.mask import BLANK_AUDIO
 
 __all__ = ["pad_stack", "bucket_extent", "collate_audio_text", "collate_world_text",
-           "collate_text_align", "get_collate_fn", "TIME_BUCKET", "TEXT_BUCKET", "V1_ITEM"]
-
-V1_ITEM = "ROADMAP.md queue 1, item 9: the v1 models"
+           "collate_world_text_target", "collate_text_align", "get_collate_fn", "TIME_BUCKET",
+           "TEXT_BUCKET"]
 
 BLANK_IDX = 0
 TIME_BUCKET = 64   # frames (mel 10 ms hop: 0.64 s granularity)
@@ -120,6 +120,21 @@ collate_world_text.pad_values = ((0.0, 0, 0.0, 0.0), (BLANK_IDX, 0))
 collate_world_text.var_specs = {0: (1, "time"), 2: (1, "time"), 3: (1, "time"), 4: (5, "text")}
 
 
+def collate_world_text_target(batch, time_bucket: int = None, text_bucket: int = None):
+    """Multi-task batches: the WORLD batch of :func:`collate_world_text`
+    and ``(phonetext, phonetext_len)``, the target ids padded with blank 0
+    to the text bucket (reference generate_audio_text_align_target_batch,
+    data_modules.py:477-496)."""
+    text_bucket = _text_bucket(text_bucket)
+    world, text = collate_world_text([b[:2] for b in batch], time_bucket, text_bucket)
+    return world, text, pad_stack([b[2] for b in batch], BLANK_IDX, text_bucket)
+
+
+collate_world_text_target.pad_values = ((0.0, 0, 0.0, 0.0), (BLANK_IDX, 0), (BLANK_IDX, 0))
+collate_world_text_target.var_specs = {0: (1, "time"), 2: (1, "time"), 3: (1, "time"),
+                                       4: (5, "text"), 6: (7, "text")}
+
+
 def collate_text_align(batch, text_bucket: int = None):
     """Duration-model batches: ``((text, text_len), (align, align_len))``,
     the flat durations padded to twice the text bucket (reference
@@ -139,8 +154,5 @@ def get_collate_fn(vocoder: str, use_target: bool = False):
     if vocoder == "mel":
         return collate_audio_text
     if vocoder in ("world", "world_mcep"):
-        if use_target:
-            raise NotImplementedError(f"vocoder {vocoder!r} with use_target: the multi-task "
-                                      f"batches wait for the v1 models ({V1_ITEM})")
-        return collate_world_text
+        return collate_world_text_target if use_target else collate_world_text
     raise ValueError(f"Unknown vocoder {vocoder!r}")

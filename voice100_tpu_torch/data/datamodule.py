@@ -10,8 +10,11 @@ voice100/data_modules.py:503-670,685-742):
   stage loaders. ``vocoder="mel"`` runs the log-mel kernel on ``device``
   (default ``cuda``) and caches float16 (``mel@float16``);
   ``"world"`` and ``"world_mcep"`` analyse on the host and share one
-  float32 cache (``world@ap-harmonic1``). The multi-task targets
-  (``use_target``) wait for the v1 models.
+  float32 cache (``world@ap-harmonic1``). ``use_target`` (the v1
+  multi-task model, WORLD vocoders and ``use_align``) adds each clip's
+  phone-aligned text as a target, tokenized by the phone tokenizer
+  (``target_vocab_size``), and batches with ``collate_world_text_target``
+  (``voice100_tpu/data/datamodule.py:104-125``).
 * ``AlignTextDataModule``: the duration model's ``{ds}-[phone-]align-
   train.txt``, a 90/10 split seeded with ``seed``, ``collate_text_align``.
 
@@ -77,6 +80,7 @@ class AudioTextDataModule:
         self.language = language
         self.use_align = use_align
         self.use_phone = use_phone
+        self.use_target = use_target
         self.data_dir = data_dir
         self.cache_dir = cache_dir
         # the JAX package's salt: the vocoder (world and world_mcep share
@@ -106,6 +110,7 @@ class AudioTextDataModule:
         self.collate_fn = get_collate_fn(vocoder, use_target)
         self.audio_transform = get_audio_transform(vocoder, sample_rate, device=device)
         self.text_transform = get_tokenizer(language, use_phone)
+        self.targettext_transform = get_tokenizer(language, True) if use_target else None
         self.train_ds = self.valid_ds = self.test_ds = self.predict_ds = None
 
     @property
@@ -116,14 +121,19 @@ class AudioTextDataModule:
     def vocab_size(self) -> int:
         return self.text_transform.vocab_size
 
+    @property
+    def target_vocab_size(self) -> int:
+        return self.targettext_transform.vocab_size
+
     def _wrap_cache(self, ds):
         return EncodedCacheDataset(ds, self.audio_transform, self.text_transform,
                                    cachedir=self.cache_dir, salt=self.cache_salt,
-                                   cache_dtype=self.cache_dtype)
+                                   cache_dtype=self.cache_dtype,
+                                   targettext_transform=self.targettext_transform)
 
     def _get_dataset(self, split: str):
         return get_dataset(self.data_dir, self.dataset, split=split, use_align=self.use_align,
-                           use_phone=self.use_phone)
+                           use_phone=self.use_phone, use_target=self.use_target)
 
     def setup(self, stage: Optional[str] = None) -> None:
         ds = self._get_dataset("train")

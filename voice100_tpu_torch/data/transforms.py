@@ -130,13 +130,17 @@ def get_audio_transform(vocoder: str, sample_rate: int, device=None):
 class EncodedCacheDataset:
     """Applies the audio and text transforms with a feature cache
     (reference voice100/data_modules.py:162-241); items are ``(audio,
-    text)``, ``audio`` one array (log-mel) or a tuple (WORLD)."""
+    text)``, ``audio`` one array (log-mel) or a tuple (WORLD), and ``(audio,
+    text, targettext)`` with a ``targettext_transform`` (the multi-task
+    model's phone targets)."""
 
     def __init__(self, dataset, audio_transform, text_transform, cachedir: Optional[str] = None,
-                 salt: bytes = b"", cache_dtype: Optional[str] = None) -> None:
+                 salt: bytes = b"", cache_dtype: Optional[str] = None,
+                 targettext_transform=None) -> None:
         self._dataset = dataset
         self.audio_transform = audio_transform
         self.text_transform = text_transform
+        self.targettext_transform = targettext_transform
         self._cachedir = cachedir
         self._salt = salt
         self._cache_dtype = np.dtype(cache_dtype) if cache_dtype is not None else None
@@ -156,6 +160,10 @@ class EncodedCacheDataset:
         return len(self._dataset)
 
     def __getitem__(self, index: int):
+        if self.targettext_transform is not None:
+            clipid, audio, text, targettext = self._dataset[index]
+            return (self._get_encoded_audio(clipid, audio), self.text_transform(text),
+                    self.targettext_transform(targettext))
         clipid, audio, text = self._dataset[index]
         return self._get_encoded_audio(clipid, audio), self.text_transform(text)
 

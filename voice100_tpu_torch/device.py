@@ -6,7 +6,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "default_generator"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -34,3 +34,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def default_generator(device: torch.device) -> torch.Generator:
+    """torch's default generator of ``device`` (the CPU's or a card's)."""
+    return (torch.default_generator if device.type == "cpu" else
+            torch.cuda.default_generators[device.index or 0])

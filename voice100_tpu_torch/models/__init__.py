@@ -1,7 +1,19 @@
-"""Models of the port: ASR v2 and the TTS v2 pair."""
+"""Models of the port: the v2 models (ASR and the TTS pair) and the v1
+family (``AudioToTextCTC``, ``AudioAlignCTC``, ``TextToAlignTextModel``,
+``AlignTextToAudioModel``, ``AlignTextToAudioMultiTaskModel``), as
+``voice100_tpu/models/__init__.py`` exports them."""
 
+from .align_v1 import AudioAlignCTC
 from .align_v2 import TextToAlignText
+from .asr_v1 import AudioToTextCTC
 from .asr_v2 import AudioToAlignText
+from .tts_v1 import AlignTextToAudioModel, AlignTextToAudioMultiTaskModel, TextToAlignTextModel
 from .tts_v2 import AlignTextToAudio
 
-__all__ = ["AudioToAlignText", "TextToAlignText", "AlignTextToAudio"]
+__all__ = ["AudioToAlignText", "TextToAlignText", "AlignTextToAudio", "AudioToTextCTC",
+           "AudioAlignCTC", "TextToAlignTextModel", "AlignTextToAudioModel",
+           "AlignTextToAudioMultiTaskModel"]
+
+# what the v1 halves of the deployment tools (onnx/export.py,
+# tools/export.py, tools/import_torch.py) wait for
+V1_DEPLOYMENT_ITEM = "ROADMAP.md §1, item 11: the v1 halves of the deployment tools"

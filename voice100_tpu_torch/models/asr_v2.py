@@ -15,7 +15,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..device import resolve_device
+from ..device import default_generator, resolve_device
 from ..ops.augment import apply_augment, draw_augment
 from ..ops.ctc import ViterbiResult
 from ..ops.ctc_cuda import ctc_loss_cuda
@@ -85,8 +85,7 @@ class AudioToAlignText(nn.Module):
         generator if None), which must lie on the model's device."""
         if not deterministic:
             if generator is None:
-                generator = (torch.default_generator if audio.device.type == "cpu" else
-                             torch.cuda.default_generators[audio.device.index or 0])
+                generator = default_generator(audio.device)
             draws = draw_augment(generator, *audio.shape)
             audio, audio_len = apply_augment(audio, audio_len, draws)
         logits, logits_len = self(audio, audio_len, generator)

@@ -1,4 +1,5 @@
-"""Shared building blocks: conv blocks, the masked biLSTM, WORLDNorm.
+"""Shared building blocks: conv blocks, the masked biLSTM, WORLDNorm, and
+the v1 family's flax-exact BatchNorm and dropout.
 
 Port of ``voice100_tpu/models/layers.py``. Modules take and return
 batch-major ``[B, T, C]`` tensors, as the JAX modules do, and keep the
@@ -22,7 +23,7 @@ from torch import nn
 from ..device import resolve_device
 from ..ops.lstm import default_compute_dtype, stack_directions
 from ..ops.lstm_cuda import bilstm_infer, bilstm_train_cuda
-from ..parallel.mesh import own_rows_of_draw
+from ..parallel.mesh import global_sum_autograd, own_rows_of_draw
 
 __all__ = [
     "ConvSetting",
@@ -32,6 +33,9 @@ __all__ = [
     "conv_stack_output_length",
     "BiLSTM",
     "WORLDNorm",
+    "BatchNorm",
+    "dropout",
+    "reset_conv",
     "uniform_",
     "deterministic_cudnn",
 ]
@@ -48,6 +52,20 @@ def uniform_(param: torch.Tensor, bound: float,
     ``generator`` so a seed gives the same weights on any device."""
     values = torch.empty(param.shape, dtype=param.dtype).uniform_(-bound, bound, generator=generator)
     param.copy_(values)
+
+
+def reset_conv(conv: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+    """torch's default bound ``1/sqrt(fan_in)`` for a Conv1d or a
+    ConvTranspose1d (whose fan-in is ``out/groups * k``), drawn from
+    ``generator`` on the CPU."""
+    if isinstance(conv, nn.ConvTranspose1d):
+        fan_in = conv.out_channels // conv.groups * conv.kernel_size[0]
+    else:
+        fan_in = conv.in_channels // conv.groups * conv.kernel_size[0]
+    bound = 1.0 / math.sqrt(fan_in)
+    uniform_(conv.weight, bound, generator)
+    if conv.bias is not None:
+        uniform_(conv.bias, bound, generator)
 
 
 class ConvLayerBlock(nn.Module):
@@ -265,12 +283,83 @@ class BiLSTM(nn.Module):
         compute_dtype = default_compute_dtype()
         for i, (w_ih, w_hh, bias) in enumerate(layers):
             x = layer_fn(w_ih, w_hh, bias, x, lengths, compute_dtype)
-            if self.training and self.dropout > 0.0 and i < self.num_layers - 1:
-                # a rank draws the global batch's mask and keeps its own rows
-                keep = own_rows_of_draw(lambda shape: x.new_empty(shape).bernoulli_(
-                    1.0 - self.dropout, generator=generator), x.shape)
-                x = torch.where(keep.bool(), x / (1.0 - self.dropout), 0.0)
+            if i < self.num_layers - 1:
+                x = dropout(x, self.dropout, self.training, generator)
         return x
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's ``nn.Dropout``: in training, each element zeroed with
+    probability ``p`` and the rest scaled by ``1 / (1 - p)``, the mask
+    drawn from ``generator`` (the default generator if None); ``x`` as it
+    is otherwise. A rank of a data-parallel run draws the global batch's
+    mask and keeps its own rows."""
+    if not training or p <= 0.0:
+        return x
+    keep = own_rows_of_draw(lambda shape: x.new_empty(shape).bernoulli_(
+        1.0 - p, generator=generator), x.shape)
+    return torch.where(keep.bool(), x / (1.0 - p), 0.0)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over the channel axis 1 of ``[B, C, T]`` with flax's
+    semantics (``flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5)``,
+    ``voice100_tpu/models/asr_v1.py:46-50``), which ``nn.BatchNorm1d``
+    does not have:
+
+    * the batch variance is ``E[x^2] - E[x]^2`` clipped at 0 (flax's
+      ``use_fast_variance``), over every ``[B, T]`` position, padding
+      included, as in the JAX package and the reference;
+    * the running averages take the biased batch variance, ``ra = 0.9 ra
+      + 0.1 batch`` (``momentum`` is flax's: the share kept);
+    * ``y = (x - mean) * (weight * rsqrt(var + eps)) + bias``.
+
+    In training mode it normalizes by the batch's statistics and updates
+    the running averages (buffers, so checkpoints carry them); in
+    evaluation mode it normalizes by the running averages. Inside
+    :func:`voice100_tpu_torch.parallel.mesh.global_batch` the count, sum
+    and sum of squares are summed over the ranks with autograd through
+    the collective, so every rank normalizes by the global batch's
+    statistics, as XLA reduces them over the global array, and every rank
+    keeps the same running averages. With one process that is this
+    process's arithmetic. Parameter and buffer names are torch's
+    (``weight``, ``bias``, ``running_mean``, ``running_var``)."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5,
+                 device=None) -> None:
+        super().__init__()
+        device = resolve_device(device)
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+        self.register_buffer("running_mean", torch.zeros(num_features, device=device))
+        self.register_buffer("running_var", torch.ones(num_features, device=device))
+
+    def reset_parameters(self) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            c = x.shape[1]
+            count = x.new_full((1,), float(x.numel() // c))
+            stats = global_sum_autograd(torch.cat([x.sum(dim=(0, 2)), (x * x).sum(dim=(0, 2)),
+                                                   count]))
+            mean, mean2 = stats[:c] / stats[-1], stats[c:2 * c] / stats[-1]
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
+            with torch.no_grad():
+                keep = self.momentum
+                self.running_mean.copy_(keep * self.running_mean + (1.0 - keep) * mean)
+                self.running_var.copy_(keep * self.running_var + (1.0 - keep) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None]) * mul[:, None] + self.bias[:, None]
 
 
 class WORLDNorm(nn.Module):

@@ -5,8 +5,8 @@ bodies read a flax-layout variable tree, which :func:`export_onnx` builds
 from a port model's state dict with
 :func:`voice100_tpu_torch.tools.weights.to_jax_variables`, and the
 model's sizes, so a port model and the JAX model with the same weights
-give the same file. The five v1 architectures wait for their models
-(``ROADMAP.md`` item 9) and raise.
+give the same file. The five v1 architectures' graphs are not ported
+yet: they raise naming their ``ROADMAP.md`` item (``V1_DEPLOYMENT_ITEM``).
 
 Parity with the reference's export_onnx.py:12-161: three serving
 graphs with dynamic batch/time axes —
@@ -38,7 +38,7 @@ __all__ = ["export_onnx", "export_asr_onnx", "export_align_onnx", "export_tts_on
            "V1_CLASSES"]
 
 # the JAX package's v1 architectures (voice100_tpu/onnx/export.py:311-567),
-# which wait for their models
+# whose graphs are not ported yet
 V1_CLASSES = ("AudioToTextCTC", "AudioAlignCTC", "TextToAlignTextModel",
               "AlignTextToAudioModel", "AlignTextToAudioMultiTaskModel")
 
@@ -318,7 +318,7 @@ def export_onnx(model, path: str) -> str:
     or TTS) to ``path``; returns the path. The weights go through
     :func:`voice100_tpu_torch.tools.weights.to_jax_variables` into the
     layout the graph bodies read."""
-    from ..data.collate import V1_ITEM
+    from ..models import V1_DEPLOYMENT_ITEM
     from ..models import AlignTextToAudio, AudioToAlignText, TextToAlignText
     from ..tools.weights import to_jax_variables
 
@@ -340,6 +340,7 @@ def export_onnx(model, path: str) -> str:
                                logspc_size=model.logspc_size, codeap_size=model.codeap_size)
         return export_tts_onnx(spec, to_jax_variables(state, model.decoder_settings), path)
     if type(model).__name__ in V1_CLASSES:
-        raise NotImplementedError(f"no ONNX exporter for {type(model).__name__} yet ({V1_ITEM})")
+        raise NotImplementedError(f"no ONNX exporter for {type(model).__name__} yet "
+                                  f"({V1_DEPLOYMENT_ITEM})")
     raise ValueError(f"No ONNX exporter for {type(model).__name__}")
 

@@ -19,6 +19,11 @@ What makes a rank's step a slice of the global batch's step
   (:func:`global_sum`: row counts, mask sums), so the ranks' losses add
   up to the loss of the global batch, and the gradient all-reduce
   (:func:`all_reduce_gradients`, one flat buffer) is a plain sum;
+* a BatchNorm in training mode normalizes by the global batch's
+  statistics: its per-channel count, sum and sum of squares are summed
+  over the ranks in the forward, with autograd through the collective
+  (:func:`global_sum_autograd`), as XLA reduces them over the whole
+  array in the JAX package;
 * random draws (augmentation noise, dropout masks) are made for the
   global batch's shape from the trainer's seeded generator, which every
   rank holds in the same state, and each rank keeps its own rows
@@ -60,8 +65,8 @@ __all__ = [
     "TENSOR_PARALLEL_ITEM", "Mesh", "make_mesh", "fit_mesh_for_batch", "pad_batch_to_multiple",
     "shard_batch", "replicate", "mesh_spans_processes", "init_distributed",
     "shutdown_distributed", "process_index", "process_count", "in_process_group", "barrier",
-    "global_batch",
-    "global_batch_active", "global_sum", "own_rows_of_draw", "roll_rows", "all_reduce_",
+    "global_batch", "global_batch_active", "global_sum", "global_sum_autograd",
+    "own_rows_of_draw", "roll_rows", "all_reduce_",
     "all_reduce_through_host_", "all_reduce_gradients", "all_gather_digest", "collective_counts",
     "infer_param_spec", "shard_params",
 ]
@@ -71,8 +76,8 @@ TENSOR_PARALLEL_ITEM = "ROADMAP.md §1, item 4: tensor-parallel meshes"
 log = logging.getLogger(__name__)
 
 # calls of each collective since the last reset (chip_smoke.py reads them)
-collective_counts = {"all_reduce_gradients": 0, "global_sum": 0, "all_reduce": 0,
-                     "roll_rows": 0, "all_gather_digest": 0}
+collective_counts = {"all_reduce_gradients": 0, "global_sum": 0, "global_sum_autograd": 0,
+                     "all_reduce": 0, "roll_rows": 0, "all_gather_digest": 0}
 
 
 def _tensor_parallel(what: str) -> NotImplementedError:
@@ -374,6 +379,31 @@ def global_sum(t: torch.Tensor) -> torch.Tensor:
     out = t.detach().clone()
     all_reduce_(out)
     return out
+
+
+class _GlobalSum(torch.autograd.Function):
+    """A sum over the ranks whose gradient is the ranks' gradients summed:
+    every rank's share of the global loss reads the summed value, so the
+    global loss's gradient with respect to one rank's addend is the sum of
+    every rank's gradient with respect to the total."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return all_reduce_(t.clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_(grad.clone())
+
+
+def global_sum_autograd(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the ranks of the global batch, differentiable (a
+    BatchNorm's per-channel sums); ``t`` itself outside
+    :func:`global_batch`."""
+    if _GLOBAL_BATCH is None:
+        return t
+    collective_counts["global_sum_autograd"] += 1
+    return _GlobalSum.apply(t)
 
 
 def own_rows_of_draw(draw, shape) -> torch.Tensor:

@@ -123,9 +123,10 @@ def _kind(model) -> str:
     if isinstance(model, AlignTextToAudio):
         return "tts"
     if type(model).__name__ in V1_CLASSES:
-        from ..data.collate import V1_ITEM
+        from ..models import V1_DEPLOYMENT_ITEM
 
-        raise NotImplementedError(f"cannot export {type(model).__name__} yet ({V1_ITEM})")
+        raise NotImplementedError(f"cannot export {type(model).__name__} yet "
+                                  f"({V1_DEPLOYMENT_ITEM})")
     raise ValueError(f"Cannot export {type(model).__name__}")
 
 
@@ -210,7 +211,7 @@ def load_exported(path: str) -> ExportedPredict:
 
 
 def cli_main(argv=None) -> None:
-    from ..training.cli import _MODEL_CLASSES, load_config, load_model
+    from ..training.cli import load_config, load_model
 
     parser = ArgumentParser(description="Export a port checkpoint's predict surface.")
     parser.add_argument("--config", required=True)
@@ -221,13 +222,12 @@ def cli_main(argv=None) -> None:
     args = parser.parse_args(argv)
 
     name = load_config(args.config)["model"]["class_path"].rsplit(".", 1)[-1]
-    if name not in _MODEL_CLASSES:
-        from ..onnx.export import V1_CLASSES
+    from ..onnx.export import V1_CLASSES
 
-        if name in V1_CLASSES:
-            from ..data.collate import V1_ITEM
+    if name in V1_CLASSES:
+        from ..models import V1_DEPLOYMENT_ITEM
 
-            raise NotImplementedError(f"cannot export {name} yet ({V1_ITEM})")
+        raise NotImplementedError(f"cannot export {name} yet ({V1_DEPLOYMENT_ITEM})")
     model = load_model(args.config, args.ckpt_path, device=args.device)
     output = args.output or (os.path.splitext(os.path.basename(args.config))[0] + ".pt2")
     export_model(model, output)

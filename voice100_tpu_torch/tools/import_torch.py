@@ -15,8 +15,9 @@ A Lightning ``model.`` prefix is dropped; keys the model does not have
 are ignored, as the JAX converters pick theirs by name; a statistic the
 checkpoint lacks keeps the model's identity value (mean 0, std 1); any
 other missing tensor raises, and the result loads with
-``load_state_dict(strict=True)``. The five v1 architectures wait for their
-models (``ROADMAP.md`` item 9) and raise.
+``load_state_dict(strict=True)``. The five v1 architectures' converters
+are not ported yet: they raise naming their ``ROADMAP.md`` item
+(``V1_DEPLOYMENT_ITEM``).
 
   python -m voice100_tpu_torch.tools.import_torch --config C \\
       --ckpt_path reference.ckpt --output port.pt [--device cpu]
@@ -62,9 +63,10 @@ def convert_state_dict(state: Mapping[str, np.ndarray], model) -> Dict[str, torc
     from ..onnx.export import V1_CLASSES
 
     if type(model).__name__ in V1_CLASSES:
-        from ..data.collate import V1_ITEM
+        from ..models import V1_DEPLOYMENT_ITEM
 
-        raise NotImplementedError(f"no converter for {type(model).__name__} yet ({V1_ITEM})")
+        raise NotImplementedError(f"no converter for {type(model).__name__} yet "
+                                  f"({V1_DEPLOYMENT_ITEM})")
     if not isinstance(model, (AudioToAlignText, TextToAlignText, AlignTextToAudio)):
         raise ValueError(f"no converter for {type(model).__name__}")
     state = _strip_prefix(state)
@@ -110,9 +112,9 @@ def cli_main(argv=None) -> None:
     model_cfg = load_config(args.config)["model"]
     name = model_cfg["class_path"].rsplit(".", 1)[-1]
     if name in V1_CLASSES:
-        from ..data.collate import V1_ITEM
+        from ..models import V1_DEPLOYMENT_ITEM
 
-        raise NotImplementedError(f"no converter for {name} yet ({V1_ITEM})")
+        raise NotImplementedError(f"no converter for {name} yet ({V1_DEPLOYMENT_ITEM})")
     cls = _resolve_class(model_cfg["class_path"], _MODEL_CLASSES)
     kwargs = dict(model_cfg.get("init_args") or {})
     kwargs.pop("audio_stat", None)

@@ -1,8 +1,8 @@
-"""Carry v2 model weights between the JAX package and the port.
+"""Carry model weights between the JAX package and the port.
 
 The JAX models keep flax variables; the port keeps the torch reference's
-state-dict names, as ``voice100_tpu/tools/import_torch.py:57-157`` maps
-them:
+state-dict names, as ``voice100_tpu/tools/import_torch.py:57-335`` maps
+them. The v2 models:
 
 * ``AudioToAlignText``: ``ConvStack_0/ConvLayerBlock_{i}/{Conv_0,
   LayerNorm_0}``, ``BiLSTM_0/l{k}_{fwd,bwd}_{w_ih,w_hh,b_ih,b_hh}``,
@@ -15,6 +15,34 @@ them:
   ``projection`` and the second collection ``world_norm/norm/*`` <->
   ``embedding.weight``, ``lstm.*``, ``decoder.{i}.*``, ``projection.*``,
   ``norm.*``.
+
+The v1 models (``params`` and ``batch_stats``, whose ``mean`` and ``var``
+are the BatchNorms' ``running_mean`` and ``running_var``):
+
+* ``AudioToTextCTC``: ``ConvVoiceEncoder_0/InvertedResidual_{i}``,
+  ``Conv_0`` <-> ``encoder.layers.{i}``, ``decoder.layers.1``;
+* ``AudioAlignCTC``: ``Conv_0``, ``BiLSTM_0``, ``Dense_0`` <-> ``conv``,
+  ``lstm``, ``dense``;
+* ``TextToAlignTextModel``: ``Embed_0``, ``InvertedResidual_{0-3}``,
+  ``Conv_0`` <-> ``embedding``, ``layers.{0-3}``, ``layers.4``;
+* ``AlignTextToAudioModel``: ``embedding``, ``decoder/InvertedResidual_
+  {0-6}``, ``decoder/up_{kernel,bias}``, ``decoder/Conv_0`` and
+  ``world_norm`` <-> ``embedding``, ``decoder.layers.{0-3,5-7}``,
+  ``decoder.layers.4``, ``decoder.layers.8``, ``norm.*``;
+* ``AlignTextToAudioMultiTaskModel``: ``decoder/InvertedResidual_{0-7}``,
+  ``decoder/Conv_0`` (the phone head), ``decoder/up_*``,
+  ``decoder/Conv_1`` <-> ``decoder.layer1.{0-5}``, ``decoder.layer2.
+  {1,2}``, ``decoder.layer3``, ``decoder.layer2.0``, ``decoder.layer2.3``.
+
+An inverted residual block's ``ConvBNActivate_{0,1}/{Conv_0,BatchNorm_0}``,
+``Conv_0`` and ``BatchNorm_0`` are ``conv.{0,1}.{0,1}``, ``conv.2`` and
+``conv.3``.
+
+Both directions dispatch on ``model``: a module of the port, its class or
+its class name (a ``class_path`` works too). Without it the model is
+told by names that only its variables have; ``TextToAlignText`` and
+``TextToAlignTextModel`` both have ``Embed_0`` at the top, so the
+top-level name alone does not tell them apart.
 
 Flax names a conv stack's blocks by per-class counters
 (``ConvLayerBlock_0``, ``ConvTransposeLayerBlock_0``, ``ConvLayerBlock_1``
@@ -41,7 +69,11 @@ from typing import Dict, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ["from_jax_variables", "to_jax_variables"]
+__all__ = ["from_jax_variables", "to_jax_variables", "MODEL_NAMES"]
+
+MODEL_NAMES = ("AudioToAlignText", "TextToAlignText", "AlignTextToAudio", "AudioToTextCTC",
+               "AudioAlignCTC", "TextToAlignTextModel", "AlignTextToAudioModel",
+               "AlignTextToAudioMultiTaskModel")
 
 _LSTM_NAMES = (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
                ("b_ih", "bias_ih"), ("b_hh", "bias_hh"))
@@ -62,6 +94,26 @@ def _block_names(transposed: Sequence[bool]):
     return names
 
 
+def _conv_from_jax(conv: Mapping, prefix: str, transpose: bool = False):
+    kernel = np.asarray(conv["kernel"])
+    weight = np.transpose(kernel[::-1], (1, 2, 0)) if transpose else np.transpose(kernel,
+                                                                                  (2, 1, 0))
+    state = {f"{prefix}.weight": _tensor(weight)}
+    if "bias" in conv:
+        state[f"{prefix}.bias"] = _tensor(conv["bias"])
+    return state
+
+
+def _conv_to_jax(state: Mapping, prefix: str, arr, transpose: bool = False) -> dict:
+    weight = arr(f"{prefix}.weight")
+    kernel = (np.ascontiguousarray(np.transpose(weight, (2, 0, 1))[::-1]) if transpose
+              else np.transpose(weight, (2, 1, 0)))
+    conv = {"kernel": kernel}
+    if f"{prefix}.bias" in state:
+        conv["bias"] = arr(f"{prefix}.bias")
+    return conv
+
+
 def _stack_from_jax(stack: Mapping, prefix: str, transposed: Sequence[bool]):
     if set(stack) != set(_block_names(transposed)):
         raise ValueError(f"{prefix}: blocks {sorted(stack)} do not match the settings "
@@ -69,12 +121,7 @@ def _stack_from_jax(stack: Mapping, prefix: str, transposed: Sequence[bool]):
     state = {}
     for i, (name, t) in enumerate(zip(_block_names(transposed), transposed)):
         block = stack[name]
-        conv = block if t else block["Conv_0"]
-        kernel = np.asarray(conv["kernel"])
-        weight = np.transpose(kernel[::-1], (1, 2, 0)) if t else np.transpose(kernel, (2, 1, 0))
-        state[f"{prefix}.{i}.conv.weight"] = _tensor(weight)
-        if "bias" in conv:
-            state[f"{prefix}.{i}.conv.bias"] = _tensor(conv["bias"])
+        state.update(_conv_from_jax(block if t else block["Conv_0"], f"{prefix}.{i}.conv", t))
         state[f"{prefix}.{i}.layer_norm.weight"] = _tensor(block["LayerNorm_0"]["scale"])
         state[f"{prefix}.{i}.layer_norm.bias"] = _tensor(block["LayerNorm_0"]["bias"])
     return state
@@ -83,12 +130,7 @@ def _stack_from_jax(stack: Mapping, prefix: str, transposed: Sequence[bool]):
 def _stack_to_jax(state: Mapping, prefix: str, transposed: Sequence[bool], arr):
     stack = {}
     for i, (name, t) in enumerate(zip(_block_names(transposed), transposed)):
-        weight = arr(f"{prefix}.{i}.conv.weight")
-        kernel = np.ascontiguousarray(np.transpose(weight, (2, 0, 1))[::-1]) if t \
-            else np.transpose(weight, (2, 1, 0))
-        conv = {"kernel": kernel}
-        if f"{prefix}.{i}.conv.bias" in state:
-            conv["bias"] = arr(f"{prefix}.{i}.conv.bias")
+        conv = _conv_to_jax(state, f"{prefix}.{i}.conv", arr, t)
         norm = {"scale": arr(f"{prefix}.{i}.layer_norm.weight"),
                 "bias": arr(f"{prefix}.{i}.layer_norm.bias")}
         stack[name] = {**conv, "LayerNorm_0": norm} if t else {"Conv_0": conv,
@@ -133,27 +175,192 @@ def _transposed(settings, n_blocks: int, has_transposed: bool) -> list:
     return [False] * n_blocks
 
 
-def from_jax_variables(variables: Mapping,
-                       conv_settings: Optional[Sequence] = None) -> Dict[str, torch.Tensor]:
-    """JAX variables of ``AudioToAlignText``, ``TextToAlignText`` or
-    ``AlignTextToAudio`` -> the port's state dict (CPU float32 tensors),
-    by the top-level names. Takes ``{"params": ..., ...}`` or the params
-    alone, and reads ``world_norm`` where the variables have it. A conv
-    stack with a transposed block needs ``conv_settings``."""
-    params = variables["params"] if "params" in variables else variables
+def _model_name(model) -> Optional[str]:
+    """The class name of ``model`` (a module, a class, a name or a
+    ``class_path``), checked; None for None."""
+    if model is None:
+        return None
+    if isinstance(model, str):
+        name = model.rsplit(".", 1)[-1]
+    else:
+        name = model.__name__ if isinstance(model, type) else type(model).__name__
+    if name not in MODEL_NAMES:
+        raise ValueError(f"no weights mapping for {name}; the port maps {list(MODEL_NAMES)}")
+    return name
 
-    def stack(name, prefix):
-        blocks = params[name]
+
+def _name_of_params(params: Mapping) -> str:
+    """The model whose flax params these are, from names only it has."""
+    decoder = params.get("decoder", {})
+    for name, test in (
+            ("AudioToAlignText", "ConvStack_0" in params),
+            ("AudioToTextCTC", "ConvVoiceEncoder_0" in params),
+            ("AudioAlignCTC", "Conv_0" in params and "BiLSTM_0" in params),
+            ("TextToAlignText", "Embed_0" in params and "BiLSTM_0" in params),
+            ("TextToAlignTextModel", "Embed_0" in params and "InvertedResidual_0" in params),
+            ("AlignTextToAudio", "projection" in params),
+            ("AlignTextToAudioMultiTaskModel", "Conv_1" in decoder),
+            ("AlignTextToAudioModel", "up_kernel" in decoder)):
+        if test:
+            return name
+    raise ValueError(f"unknown model variables {sorted(params)}")
+
+
+def _name_of_state(state: Mapping) -> str:
+    """The model whose state dict this is, from names only it has."""
+    for name, key in (("AlignTextToAudio", "projection.weight"),
+                      ("AlignTextToAudioMultiTaskModel", "decoder.layer3.weight"),
+                      ("AlignTextToAudioModel", "decoder.layers.4.weight"),
+                      ("TextToAlignTextModel", "layers.4.weight"),
+                      ("TextToAlignText", "embedding.weight"),
+                      ("AudioToTextCTC", "decoder.layers.1.weight"),
+                      ("AudioAlignCTC", "conv.weight")):
+        if key in state:
+            return name
+    return "AudioToAlignText"
+
+
+def _v1_layout(name: str):
+    """``(kind, flax path, torch prefix)`` of each part of a v1 model:
+    ``ir`` an inverted residual block, ``conv`` a 1-D conv, ``up`` the
+    transposed conv (``up_kernel``/``up_bias`` of the path), ``embed``,
+    ``lstm``, ``dense``."""
+    if name == "AudioToTextCTC":
+        return ([("ir", ("ConvVoiceEncoder_0", f"InvertedResidual_{i}"), f"encoder.layers.{i}")
+                 for i in range(9)] + [("conv", ("Conv_0",), "decoder.layers.1")])
+    if name == "AudioAlignCTC":
+        return [("conv", ("Conv_0",), "conv"), ("lstm", ("BiLSTM_0",), "lstm"),
+                ("dense", ("Dense_0",), "dense")]
+    if name == "TextToAlignTextModel":
+        return ([("embed", ("Embed_0",), "embedding")]
+                + [("ir", (f"InvertedResidual_{i}",), f"layers.{i}") for i in range(4)]
+                + [("conv", ("Conv_0",), "layers.4")])
+    if name == "AlignTextToAudioModel":
+        return ([("embed", ("embedding",), "embedding")]
+                + [("ir", ("decoder", f"InvertedResidual_{i}"), f"decoder.layers.{i + (i > 3)}")
+                   for i in range(7)]
+                + [("up", ("decoder",), "decoder.layers.4"),
+                   ("conv", ("decoder", "Conv_0"), "decoder.layers.8")])
+    return ([("embed", ("embedding",), "embedding")]
+            + [("ir", ("decoder", f"InvertedResidual_{i}"), f"decoder.layer1.{i}")
+               for i in range(6)]
+            + [("ir", ("decoder", f"InvertedResidual_{i + 6}"), f"decoder.layer2.{i + 1}")
+               for i in range(2)]
+            + [("conv", ("decoder", "Conv_0"), "decoder.layer3"),
+               ("up", ("decoder",), "decoder.layer2.0"),
+               ("conv", ("decoder", "Conv_1"), "decoder.layer2.3")])
+
+
+def _at(tree: Mapping, path) -> Mapping:
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _put(tree: dict, path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _bn_from_jax(params: Mapping, stats: Mapping, prefix: str):
+    return {f"{prefix}.weight": _tensor(params["scale"]), f"{prefix}.bias": _tensor(params["bias"]),
+            f"{prefix}.running_mean": _tensor(stats["mean"]),
+            f"{prefix}.running_var": _tensor(stats["var"])}
+
+
+def _bn_to_jax(prefix: str, arr):
+    return ({"scale": arr(f"{prefix}.weight"), "bias": arr(f"{prefix}.bias")},
+            {"mean": arr(f"{prefix}.running_mean"), "var": arr(f"{prefix}.running_var")})
+
+
+# an inverted residual block's (flax child, torch child) pairs
+_IR_PARTS = ((("ConvBNActivate_0", "Conv_0"), "conv.0.0", ("ConvBNActivate_0", "BatchNorm_0"),
+              "conv.0.1"),
+             (("ConvBNActivate_1", "Conv_0"), "conv.1.0", ("ConvBNActivate_1", "BatchNorm_0"),
+              "conv.1.1"),
+             (("Conv_0",), "conv.2", ("BatchNorm_0",), "conv.3"))
+
+
+def _v1_from_jax(name: str, params: Mapping, variables: Mapping) -> Dict[str, torch.Tensor]:
+    stats = variables.get("batch_stats", {})
+    state = {}
+    for kind, path, prefix in _v1_layout(name):
+        if kind == "ir":
+            p, s = _at(params, path), _at(stats, path)
+            for conv, conv_prefix, bn, bn_prefix in _IR_PARTS:
+                state.update(_conv_from_jax(_at(p, conv), f"{prefix}.{conv_prefix}"))
+                state.update(_bn_from_jax(_at(p, bn), _at(s, bn), f"{prefix}.{bn_prefix}"))
+        elif kind == "conv":
+            state.update(_conv_from_jax(_at(params, path), prefix))
+        elif kind == "up":
+            node = _at(params, path)
+            state.update(_conv_from_jax({"kernel": node["up_kernel"], "bias": node["up_bias"]},
+                                        prefix, transpose=True))
+        elif kind == "embed":
+            state[f"{prefix}.weight"] = _tensor(_at(params, path)["embedding"])
+        elif kind == "lstm":
+            state.update(_lstm_from_jax(_at(params, path)))
+        else:
+            state.update(_dense_from_jax(_at(params, path), prefix))
+    norm = (variables.get("world_norm") or {}).get("norm", {})
+    state.update({f"norm.{k}": _tensor(v) for k, v in norm.items()})
+    return state
+
+
+def _v1_to_jax(name: str, state: Mapping, arr) -> dict:
+    params, stats = {}, {}
+    for kind, path, prefix in _v1_layout(name):
+        if kind == "ir":
+            for conv, conv_prefix, bn, bn_prefix in _IR_PARTS:
+                _put(params, path + conv, _conv_to_jax(state, f"{prefix}.{conv_prefix}", arr))
+                bn_params, bn_stats = _bn_to_jax(f"{prefix}.{bn_prefix}", arr)
+                _put(params, path + bn, bn_params)
+                _put(stats, path + bn, bn_stats)
+        elif kind == "conv":
+            _put(params, path, _conv_to_jax(state, prefix, arr))
+        elif kind == "up":
+            up = _conv_to_jax(state, prefix, arr, transpose=True)
+            _put(params, path + ("up_kernel",), up["kernel"])
+            _put(params, path + ("up_bias",), up["bias"])
+        elif kind == "embed":
+            _put(params, path, {"embedding": arr(f"{prefix}.weight")})
+        elif kind == "lstm":
+            _put(params, path, _lstm_to_jax(state, arr))
+        else:
+            _put(params, path, {"kernel": arr(f"{prefix}.weight").T, "bias": arr(f"{prefix}.bias")})
+    variables = {"params": params}
+    if stats:
+        variables["batch_stats"] = stats
+    norm = {k[len("norm."):]: arr(k) for k in state if k.startswith("norm.")}
+    if norm:
+        variables["world_norm"] = {"norm": norm}
+    return variables
+
+
+def from_jax_variables(variables: Mapping, conv_settings: Optional[Sequence] = None,
+                       model=None) -> Dict[str, torch.Tensor]:
+    """JAX variables of any of :data:`MODEL_NAMES` -> the port's state dict
+    (CPU float32 tensors), dispatched on ``model`` (see the module's
+    docstring). Takes ``{"params": ..., ...}`` or the params alone, and
+    reads ``batch_stats`` and ``world_norm`` where the variables have
+    them. A v2 conv stack with a transposed block needs
+    ``conv_settings``."""
+    params = variables["params"] if "params" in variables else variables
+    name = _model_name(model) or _name_of_params(params)
+
+    def stack(key, prefix):
+        blocks = params[key]
         return _stack_from_jax(blocks, prefix, _transposed(
             conv_settings, len(blocks), any(b.startswith("ConvTranspose") for b in blocks)))
 
-    if "ConvStack_0" in params:  # AudioToAlignText
+    if name == "AudioToAlignText":
         return {**stack("ConvStack_0", "encoder"),
                 **_lstm_from_jax(params["BiLSTM_0"]), **_dense_from_jax(params["Dense_0"], "dense")}
-    if "Embed_0" in params:  # TextToAlignText
+    if name == "TextToAlignText":
         return {"embedding.weight": _tensor(params["Embed_0"]["embedding"]),
                 **_lstm_from_jax(params["BiLSTM_0"]), **_dense_from_jax(params["Dense_0"], "dense")}
-    if "projection" in params:  # AlignTextToAudio
+    if name == "AlignTextToAudio":
         state = {"embedding.weight": _tensor(params["embedding"]["embedding"]),
                  **_lstm_from_jax(params["lstm"]),
                  **stack("decoder", "decoder"),
@@ -161,16 +368,19 @@ def from_jax_variables(variables: Mapping,
         norm = (variables.get("world_norm") or {}).get("norm", {})
         state.update({f"norm.{k}": _tensor(v) for k, v in norm.items()})
         return state
-    raise ValueError(f"unknown model variables {sorted(params)}")
+    return _v1_from_jax(name, params, variables)
 
 
 def to_jax_variables(state: Mapping[str, torch.Tensor],
-                     conv_settings: Optional[Sequence] = None) -> dict:
-    """The port's state dict -> JAX variables of numpy arrays:
-    ``{"params": ...}``, and for ``AlignTextToAudio`` also
-    ``{"world_norm": {"norm": ...}}``. Without ``conv_settings`` a conv
-    stack is taken for Conv1d blocks only, so ``AlignTextToAudio``'s
-    decoder needs them."""
+                     conv_settings: Optional[Sequence] = None, model=None) -> dict:
+    """The port's state dict -> JAX variables of numpy arrays, dispatched
+    on ``model`` (see the module's docstring): ``{"params": ...}``, with
+    ``batch_stats`` for the v1 models that have BatchNorms and
+    ``world_norm`` for the TTS acoustic models. Without ``conv_settings``
+    a v2 conv stack is taken for Conv1d blocks only, so
+    ``AlignTextToAudio``'s decoder needs them."""
+    name = _model_name(model) or _name_of_state(state)
+
     def arr(key):
         return state[key].detach().cpu().numpy()
 
@@ -181,18 +391,20 @@ def to_jax_variables(state: Mapping[str, torch.Tensor],
                              "as conv_settings")
         return _stack_to_jax(state, prefix, _transposed(conv_settings, n_blocks, False), arr)
 
-    def dense(name):
-        return {"kernel": arr(f"{name}.weight").T, "bias": arr(f"{name}.bias")}
+    def dense(key):
+        return {"kernel": arr(f"{key}.weight").T, "bias": arr(f"{key}.bias")}
 
-    if "projection.weight" in state:  # AlignTextToAudio
+    if name == "AlignTextToAudio":
         params = {"embedding": {"embedding": arr("embedding.weight")},
                   "lstm": _lstm_to_jax(state, arr),
                   "decoder": stack("decoder"),
                   "projection": dense("projection")}
         norm = {k[len("norm."):]: arr(k) for k in state if k.startswith("norm.")}
         return {"params": params, "world_norm": {"norm": norm}}
-    if "embedding.weight" in state:  # TextToAlignText
+    if name == "TextToAlignText":
         return {"params": {"Embed_0": {"embedding": arr("embedding.weight")},
                            "BiLSTM_0": _lstm_to_jax(state, arr), "Dense_0": dense("dense")}}
-    return {"params": {"ConvStack_0": stack("encoder"),
-                       "BiLSTM_0": _lstm_to_jax(state, arr), "Dense_0": dense("dense")}}
+    if name == "AudioToAlignText":
+        return {"params": {"ConvStack_0": stack("encoder"),
+                           "BiLSTM_0": _lstm_to_jax(state, arr), "Dense_0": dense("dense")}}
+    return _v1_to_jax(name, state, arr)

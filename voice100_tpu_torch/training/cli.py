@@ -1,9 +1,13 @@
 """YAML CLI: ``python -m voice100_tpu_torch fit --config config/asr_en_base.yaml``.
 
-Port of ``voice100_tpu/training/cli.py`` for the v2 models the port
-trains: ``AudioToAlignText`` with ``AudioTextDataModule`` (log-mel), and
+Port of ``voice100_tpu/training/cli.py`` for every model of the JAX
+package: ``AudioToAlignText`` with ``AudioTextDataModule`` (log-mel),
 the TTS pair, ``TextToAlignText`` with ``AlignTextDataModule`` and
-``AlignTextToAudio`` with ``AudioTextDataModule`` (WORLD features). The
+``AlignTextToAudio`` with ``AudioTextDataModule`` (WORLD features), and
+the v1 family (``AudioToTextCTC``, ``AudioAlignCTC``,
+``TextToAlignTextModel``, ``AlignTextToAudioModel``,
+``AlignTextToAudioMultiTaskModel``; ``tools/train_v1.py`` has their
+argparse CLIs). The
 subcommands ``fit``, ``validate``, ``test`` and ``predict`` and the JAX
 CLI's flags, with ``--device`` (default ``cuda``; ``cpu`` runs the plain
 PyTorch path) in place of ``--platform``. Configs keep their
@@ -11,8 +15,9 @@ PyTorch path) in place of ``--platform``. Configs keep their
 ``voice100.*``); the last component names the port's class. Keys a
 constructor does not take are dropped with a note, lists become tuples,
 ``data_dir``, ``cache_dir`` and ``batch_size`` can be overridden, and an
-audio-input model whose ``vocab_size`` or ``audio_size`` disagrees with
-the data's stops the run (TTS models use ``audio_size`` for their output
+audio-input model (one with ``greedy_decode`` or ``ctc_best_path``)
+whose ``vocab_size`` or ``audio_size`` disagrees with the data's stops
+the run (TTS models use ``audio_size`` for their output
 width). A TTS config's ``audio_stat``, or ``--audio_stat`` over it, names
 the WORLD statistics (``tools/calc_stat.py``) that ``fit`` loads into the
 model's ``norm`` buffers before the first step, where the file exists.
@@ -30,7 +35,8 @@ Checkpoints are the port's ``.pt`` files (``best.pt``, ``last.pt``,
 ``checkpoints/<config stem>``); ``validate``, ``test`` and ``predict``
 read ``--restore_from``, else ``best.pt``, else ``last.pt``. ``predict``
 writes CTC transcripts (``.txt``), or per-text durations or per-clip
-WORLD features (``.npz`` of object arrays). An orbax checkpoint of the
+WORLD features (``.npz`` of object arrays); the v1 CTC models have no
+``predict``, as in the JAX CLI. An orbax checkpoint of the
 JAX package crosses over through ``tools/weights.py``. Serving builds a
 model from a config and a checkpoint alone with :func:`load_model`.
 
@@ -62,7 +68,9 @@ import yaml
 import numpy as np
 
 from ..data.datamodule import AlignTextDataModule, AudioTextDataModule
-from ..models import AlignTextToAudio, AudioToAlignText, TextToAlignText
+from .. import models as _models
+from ..models import (AlignTextToAudio, AlignTextToAudioModel, TextToAlignText,
+                      TextToAlignTextModel)
 from ..parallel import mesh as parallel
 from ..parallel.mesh import TENSOR_PARALLEL_ITEM
 from .checkpoint import load_model_weights, merge_world_stats
@@ -79,8 +87,7 @@ UNPORTED = {
     "mesh_model_axis": ((1,), TENSOR_PARALLEL_ITEM),
 }
 
-_MODEL_CLASSES = {"AudioToAlignText": AudioToAlignText, "TextToAlignText": TextToAlignText,
-                  "AlignTextToAudio": AlignTextToAudio}
+_MODEL_CLASSES = {name: getattr(_models, name) for name in _models.__all__}
 _DATA_CLASSES = {"AudioTextDataModule": AudioTextDataModule,
                  "AlignTextDataModule": AlignTextDataModule}
 
@@ -137,7 +144,8 @@ def build_from_config(config: Dict[str, Any], overrides: Dict[str, Any], device=
     # out-of-range labels would make the CTC lattice read past the logits;
     # audio_size is a shared contract of the audio-input models only (the
     # TTS model's is its output width, reference models/_tts_v2.py:34)
-    checks = ("vocab_size", "audio_size") if hasattr(model, "greedy_decode") else ("vocab_size",)
+    audio_input = hasattr(model, "greedy_decode") or hasattr(model, "ctc_best_path")
+    checks = ("vocab_size", "audio_size") if audio_input else ("vocab_size",)
     for attr in checks:
         if getattr(model, attr) != getattr(data, attr):
             raise SystemExit(
@@ -212,12 +220,17 @@ def build_trainer_config(config: Dict[str, Any], overrides: Dict[str, Any]) -> T
 
 def _run_predict(model, data, output: str) -> None:
     """``predict`` over the predict loader's real rows
-    (``voice100_tpu/training/cli.py:153-258``): the CTC model writes greedy
+    (``voice100_tpu/training/cli.py:153-262``): the CTC model writes greedy
     transcripts, one a line, to ``output`` (``.txt`` appended where
-    missing); the duration model each text's ``durations [len, 2]``, the
-    acoustic model each clip's ``f0``, ``logspc`` and ``codeap`` cut to its
-    output length, as object arrays of an ``.npz`` (appended where
-    missing)."""
+    missing); the duration models each text's ``durations [len, 2]``
+    (``exp(y) - 1``), the acoustic models each clip's ``f0``, ``logspc``
+    and ``codeap``, as object arrays of an ``.npz`` (appended where
+    missing). The v2 acoustic model's rows are cut to its output length,
+    the v1 models' to ``2 * aligntext_len`` frames, as the JAX CLI cuts
+    them (the decoder gives ``2 T - 1``). The v1 acoustic models read the
+    batch's aligned text (its second pair; the JAX CLI reads the last
+    pair, which in the multi-task layout is the phone target). Any other
+    model stops with the JAX CLI's ``predict is not supported``."""
     task = make_task(model)
     model.eval()
     if hasattr(type(model), "greedy_decode"):
@@ -234,24 +247,32 @@ def _run_predict(model, data, output: str) -> None:
                     n += 1
         print(f"[predict] wrote {n} transcripts to {path}")
         return
+    duration_models = (TextToAlignText, TextToAlignTextModel)
+    if not isinstance(model, duration_models + (AlignTextToAudio, AlignTextToAudioModel)):
+        raise SystemExit(f"predict is not supported for {type(model).__name__}")
     path = output if output.endswith(".npz") else output + ".npz"
     device = next(model.parameters()).device
     rows = {}
     for batch, n_real in data.predict_dataloader().iter_with_counts():
-        if isinstance(model, TextToAlignText):
+        if isinstance(model, duration_models):
             text, text_len = (torch.as_tensor(t).to(device) for t in batch[0])
-            outputs = {"durations": model.predict(text, text_len)}
-            lengths = _host(text_len)
-        else:
+            durations = (model.predict(text, text_len) if isinstance(model, TextToAlignText)
+                         else model.predict(text))
+            outputs, lengths = {"durations": durations}, _host(text_len)
+        elif isinstance(model, AlignTextToAudio):
             text, text_len = (torch.as_tensor(t).to(device) for t in batch[-1])
             outputs = dict(zip(("f0", "logspc", "codeap"), model.predict(text, text_len)))
             lengths = _host(model.output_length(text_len))
+        else:
+            text, text_len = (torch.as_tensor(t).to(device) for t in batch[1])
+            outputs = dict(zip(("f0", "logspc", "codeap"), model.predict(text)[:3]))
+            lengths = 2 * _host(text_len)
         for name, out in outputs.items():
             out = _host(out)
             rows.setdefault(name, []).extend(out[i, :int(lengths[i])] for i in range(n_real))
     np.savez(path, **{name: np.asarray(r, dtype=object) for name, r in rows.items()})
     n = len(next(iter(rows.values())))
-    what = "durations for {} texts" if isinstance(model, TextToAlignText) else \
+    what = "durations for {} texts" if isinstance(model, duration_models) else \
         "WORLD features for {} clips"
     print(f"[predict] wrote {what.format(n)} to {path}")
 

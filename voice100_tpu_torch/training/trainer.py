@@ -15,8 +15,13 @@ loader's epoch is set before each epoch (``set_epoch``), and evaluation
 cuts the rows that ``pad_to_full`` repeats (``iter_with_counts``).
 
 The step is ``step_body`` of the JAX trainer (``trainer.py:161-177``):
-the loss, its gradients, ``clip_by_global_norm`` then Adam, as
-``optax.chain`` runs them. The clip follows optax's rule, not
+the loss, its gradients, ``clip_by_global_norm`` then the task's
+optimizer (Adam, or AdamW for ``AudioToTextCTC``), as ``optax.chain``
+runs them, at the learning rate of the task's schedule at the state's
+step (the epoch record's ``lr`` is the schedule at the epoch's end, as
+in ``trainer.py:763-765``). A v1 model's BatchNorm running averages move
+on train steps only (the per-step path and the dispatched chunks);
+evaluation reads them. The clip follows optax's rule, not
 ``torch.nn.utils.clip_grad_norm_``'s: gradients are scaled by
 ``max / norm`` only when ``norm >= max`` (torch adds 1e-6 to the norm
 and scales whenever ``norm > max``).
@@ -305,6 +310,11 @@ class Trainer:
         summed over the ranks before the clip, and the metrics are this
         rank's shares (:meth:`_global_metrics` sums them)."""
         state.optimizer.zero_grad(set_to_none=True)
+        if task.lr_schedule is not None:
+            # the schedule at the state's step, so a restored state resumes
+            # at its rate (optax evaluates it at the update count)
+            for group in state.optimizer.param_groups:
+                group["lr"] = task.lr_schedule(state.step)
         grouped = parallel.in_process_group()
         with parallel.global_batch(grouped):
             loss, metrics = task.loss(batch, train, generator)
@@ -436,7 +446,9 @@ class Trainer:
             raise TypeError("device_cache needs a loader (its iter_with_indices gives the rows' "
                             "dataset indices the cache keys on), not a plain iterable of batches")
         task = make_task(model)
-        state = TrainState(model, task.make_optimizer())
+        # a rank's loader length: the global batches of an epoch
+        # (voice100_tpu/training/trainer.py:269-270)
+        state = TrainState(model, task.make_optimizer(len(train_batches)))
         if restore_from:
             state = restore_checkpoint(restore_from, state)
         device = next(model.parameters()).device
@@ -613,7 +625,7 @@ class Trainer:
         cfg = self.config
         record = {"epoch": epoch, "step": state.step,
                   "train_time_s": round(time.time() - start, 2),
-                  "lr": float(state.optimizer.param_groups[0]["lr"])}
+                  "lr": float(task.lr_schedule(state.step))}
         if running is not None:
             record["train_loss"] = float(self._global_metrics(running)["loss"])
         val_metrics = {}
