@@ -300,6 +300,7 @@ SXM data sheet's peaks (67 TFLOP/s float32 outside the tensor cores,
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import functools
@@ -1146,11 +1147,31 @@ def check_lstm_train(device, batch=TRAIN_BATCH, time_steps=501, hidden=512, inpu
 
 def check_not_resident(device):
     """Kernels 1, 2 and 3's recurrence are each one cooperative grid of
-    2 H / 8 blocks, one an SM: at H=544 (136 blocks) on a card of fewer SMs
-    each wrapper must raise before launching anything, with no other path
-    taken."""
+    2 H / 8 blocks, one an SM, and 3b's a grid of clusters of them: at H=544
+    (136 blocks) on a card of fewer SMs each wrapper must raise before
+    launching anything, with no other path taken. 3b also raises a
+    ValueError, before loading or launching anything, at one row past the
+    batch its shared memory takes (``bwd_cluster_batch_cap``)."""
     from voice100_tpu_torch.ops.lstm_cuda import (bilstm_cuda, bilstm_train_bwd_cuda,
-                                                  bilstm_train_fwd_cuda)
+                                                  bilstm_train_fwd_cuda, bwd_cluster_batch_cap)
+
+    zeros = lambda *shape, dtype=torch.float32: torch.zeros(  # noqa: E731
+        *shape, device=device, dtype=dtype)
+    bf16 = torch.bfloat16
+    hidden, time_steps = 512, 2
+    batch = bwd_cluster_batch_cap(hidden) + 1
+    before = launches_of(bilstm_train_bwd_cuda)
+    try:
+        bilstm_train_bwd_cuda(zeros(2, batch, time_steps, 4 * hidden, dtype=bf16),
+                              zeros(2, 4 * hidden, hidden),
+                              torch.full((batch,), time_steps, device=device),
+                              *[zeros(2, batch, time_steps, hidden, dtype=bf16)] * 2,
+                              zeros(batch, time_steps, 2 * hidden, dtype=bf16))
+        fail(f"kernel 3b ran at batch {batch}, past its shared memory")
+    except ValueError as err:
+        if launches_of(bilstm_train_bwd_cuda) != before:
+            fail("kernel 3b launched before finding its batch does not fit")
+        print(f"kernel 3b at B={batch}, H={hidden} raised, launching nothing: {err}", flush=True)
 
     hidden, batch, time_steps = 544, 2, 5
     blocks = 2 * hidden // 8
@@ -1158,9 +1179,9 @@ def check_not_resident(device):
     if sms >= blocks:
         print(f"residency checks skipped: {sms} SMs hold {blocks} blocks", flush=True)
         return
-    zeros = lambda *shape: torch.zeros(*shape, device=device)  # noqa: E731
     lengths = torch.tensor([5, 3], device=device)
     state = zeros(2, batch, time_steps, hidden)
+    state16 = zeros(2, batch, time_steps, hidden, dtype=bf16)
     calls = {
         "kernel 1": (bilstm_cuda, lambda: bilstm_cuda(
             zeros(2, 4 * hidden, 8), zeros(2, 4 * hidden, hidden), zeros(2, 4 * hidden),
@@ -1170,13 +1191,16 @@ def check_not_resident(device):
         "kernel 3": (bilstm_train_bwd_cuda, lambda: bilstm_train_bwd_cuda(
             zeros(2, batch, time_steps, 4 * hidden), zeros(2, 4 * hidden, hidden), lengths,
             state, state, zeros(batch, time_steps, 2 * hidden))),
+        "kernel 3b": (bilstm_train_bwd_cuda, lambda: bilstm_train_bwd_cuda(
+            zeros(2, batch, time_steps, 4 * hidden, dtype=bf16), zeros(2, 4 * hidden, hidden),
+            lengths, state16, state16, zeros(batch, time_steps, 2 * hidden, dtype=bf16))),
     }
     for name, (wrapper, call) in calls.items():
-        before = wrapper.launches
+        before = launches_of(wrapper)
         try:
             call()
         except RuntimeError as err:
-            if wrapper.launches != before:
+            if launches_of(wrapper) != before:
                 fail(f"{name} launched before finding its grid cannot be resident")
             print(f"{name} at H={hidden} ({blocks} blocks, {sms} SMs) raised, launching "
                   f"nothing: {err}", flush=True)
@@ -3630,6 +3654,108 @@ def plain_function_grads(w_ih, w_hh, bias, x, lengths, dout):
             dg2.float().sum(dim=1), matmul_f32(dg2, w_ih).sum(dim=0).reshape(x.shape)]
 
 
+def launches_in_turns(launches, rounds: int = TURN_ROUNDS):
+    """CUDA-event ms of one launch of each C entry of ``launches`` ({name:
+    (launch, before)}, ``launch()`` returning the entry's status, ``before``
+    None or run untimed first), timed in turns: ``rounds`` rounds, the order
+    reversed every other round, after one untimed call of each; the median
+    per name. The profiler drops cooperative launches' events, so events
+    around each launch time them one by one."""
+    samples = {name: [] for name in launches}
+    order = list(launches)
+    for r in range(rounds + 1):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            launch, before = launches[name]
+            if before is not None:
+                before()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            status = launch()
+            end.record()
+            end.synchronize()
+            if status:
+                fail(f"{name} returned CUDA error {status}")
+            if r:
+                samples[name].append(start.elapsed_time(end))
+    return {name: float(np.median(s)) for name, s in samples.items()}
+
+
+def check_bf16_recurrence(config, w_hh, lengths, xg, h_prev, c_prev, dout):
+    """Kernel 3b's recurrence (csrc/bilstm_bwd_cluster.cuh) through the
+    library's entries, so that the gate pass drops out of the comparison:
+    3b's gate pass writes the float32 gates; its recurrence reads them with
+    the bf16 ``c_prev`` and ``dout``; kernel 3's unchanged float32
+    recurrence runs on a copy of the same gates with ``c_prev`` and
+    ``dout`` widened to float32. 3b's dG must equal the bf16 rounding of
+    that float32 dG bit for bit (0 differing elements), and the library's
+    cluster size and shared memory must equal ``bwd_cluster_plan``'s. The
+    gate pass, the recurrence and the float32 recurrence ("before": the
+    design 3b replaced, on the same data) are timed in turns by CUDA events,
+    launch by launch."""
+    from voice100_tpu_torch.kernels.build import check
+    from voice100_tpu_torch.ops.lstm_cuda import _train_lib, bwd_cluster_plan, length_order
+
+    lib = _train_lib()
+    _, batch, time_steps, gates4 = xg.shape
+    hidden = gates4 // 4
+    plan = bwd_cluster_plan(batch, hidden)
+    library = {"cluster": lib.lstm_train_bwd_cluster_size(hidden),
+               "smem_bytes": lib.lstm_train_bwd_cluster_smem_bytes(batch, hidden)}
+    if any(library[k] != plan[k] for k in library):
+        fail(f"kernel 3b at {config}: the library launches {library}, the wrapper plans {plan}")
+    stream = torch.cuda.current_stream().cuda_stream
+    lengths = lengths.to(torch.int32).contiguous()
+    order = length_order(lengths)
+    gates = torch.empty(xg.shape, device=xg.device)
+    xchg = torch.empty(2, 2, batch, gates4, device=xg.device)
+    ready = torch.empty(2 * hidden // 8, dtype=torch.int32, device=xg.device)
+    dg = torch.empty(xg.shape, device=xg.device, dtype=torch.bfloat16)
+    c_wide, dout_wide = c_prev.float(), dout.float()
+    size = (batch, time_steps, hidden, stream)
+
+    def gate_pass():
+        return lib.lstm_train_bwd_gates_bf16(xg.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(),
+                                             h_prev.data_ptr(), gates.data_ptr(), *size)
+
+    def recurrence():
+        return lib.lstm_train_bwd_recurrence_bf16(
+            w_hh.data_ptr(), lengths.data_ptr(), order.data_ptr(), c_prev.data_ptr(),
+            dout.data_ptr(), gates.data_ptr(), xchg.data_ptr(), ready.data_ptr(), dg.data_ptr(),
+            *size)
+
+    check(lib, gate_pass(), "lstm_train_bwd_gates_bf16")
+    before_dg = gates.clone()
+
+    def before():
+        return lib.lstm_train_bwd_recurrence_f32(w_hh.data_ptr(), lengths.data_ptr(),
+                                                 c_wide.data_ptr(), dout_wide.data_ptr(),
+                                                 before_dg.data_ptr(), *size)
+
+    check(lib, recurrence(), "lstm_train_bwd_recurrence_bf16")
+    check(lib, before(), "lstm_train_bwd_recurrence_f32")
+    torch.cuda.synchronize()
+    differing = int((dg.view(torch.int16)
+                     != before_dg.to(torch.bfloat16).view(torch.int16)).sum().item())
+    elements = dg.numel()
+    ms = launches_in_turns({"gate_pass": (gate_pass, None), "recurrence": (recurrence, None),
+                            "before": (before, lambda: before_dg.copy_(gates))})
+    del gates, xchg, dg, before_dg, c_wide, dout_wide
+    print(f"kernel 3b recurrence at {config} ({plan['blocks']} blocks in clusters of "
+          f"{plan['cluster']}, {plan['smem_bytes']} B of shared memory a block): dG differs from "
+          f"the bf16 rounding of kernel 3's float32 recurrence in {differing} of {elements} "
+          f"elements (must be 0); event ms gate pass {ms['gate_pass']:.4f}, recurrence "
+          f"{ms['recurrence']:.4f}, the float32 recurrence before {ms['before']:.4f}",
+          flush=True)
+    if differing:
+        fail(f"kernel 3b at {config}: dG differs from the float32 recurrence's in {differing} "
+             "elements")
+    return {"gate_pass_ms": ms["gate_pass"], "recurrence_ms": ms["recurrence"],
+            "before_recurrence_ms": ms["before"], "cluster_size": plan["cluster"],
+            "clusters": plan["clusters"], "smem_bytes": plan["smem_bytes"],
+            "dg_bits_differing_from_f32_recurrence": differing}
+
+
 def check_bf16_kernels(device, config, batch, time_steps, hidden, input_size):
     """The bf16 variants of kernels 1, 2 and 3 at one config's shapes
     (one layer, input ``input_size``, seeded ragged lengths with T and 1)
@@ -3637,7 +3763,10 @@ def check_bf16_kernels(device, config, batch, time_steps, hidden, input_size):
     LSTM_TOL / LSTM_STATE_TOL, the bf16 ones (saved states, dG) within one
     bf16 step of the twin's past the float32 tolerance, with the share of
     elements that differ; BiLSTMFunction's bf16 gradients (dG through its
-    whole backward) against the same products of the plain twins' dG.
+    whole backward) against the same products of the plain twins' dG; 3b's
+    recurrence bit for bit against kernel 3's float32 recurrence on the
+    same gates (:func:`check_bf16_recurrence`, which also times the gate
+    pass, the recurrence and that "before" in turns, launch by launch).
     Each variant timed in turns with its float32 variant and cuDNN's
     nn.LSTM in bf16 (the nearest library call: cuDNN rounds its own gates
     and states, it is not the same function), event and device time, and
@@ -3700,6 +3829,9 @@ def check_bf16_kernels(device, config, batch, time_steps, hidden, input_size):
     if not (k1_err <= LSTM_TOL and k2_err <= LSTM_STATE_TOL and h_excess <= LSTM_STATE_TOL
             and c_excess <= LSTM_STATE_TOL and dg_excess <= dg_tol and grad_err <= GRAD_REL_TOL):
         fail(f"bf16 kernels at {config} disagree with their plain twins")
+    with torch.no_grad():  # on the twin's states, as the dG check above
+        recurrence = check_bf16_recurrence(config, w_hh, lengths, xg, r_h, r_c, dout16)
+    del r_h, r_c
 
     lstm = torch.nn.LSTM(input_size, hidden, bidirectional=True, batch_first=True,
                          device=device)
@@ -3789,6 +3921,7 @@ def check_bf16_kernels(device, config, batch, time_steps, hidden, input_size):
     lines["k2"]["state_share_differing"] = [h_share, c_share]
     lines["k3"]["dg_share_differing"] = dg_share
     lines["k3"]["function_grad_rel_err"] = grad_err
+    lines["k3"].update(recurrence)
     print(f"bf16_kernels_ms {config} " + json.dumps(
         {k: {n: v for n, v in line.items() if n.endswith("ms") or n == "bound_by"}
          for k, line in lines.items()}), flush=True)
@@ -6112,12 +6245,20 @@ def main() -> None:
     card = card_line()
     print(card, flush=True)
     start = time.perf_counter()
-    report = build.build()
-    for name, info in report.items():
-        ptxas = [line.strip() for line in info["log"].splitlines()
-                 if "registers" in line or "spill" in line]
-        print(f"built {name} in {info['seconds']:.1f} s: " + " | ".join(ptxas), flush=True)
-    print(f"kernel build: {time.perf_counter() - start:.1f} s", flush=True)
+
+    def print_build(report):
+        for name, info in report.items():
+            ptxas = [line.strip() for line in info["log"].splitlines()
+                     if "registers" in line or "spill" in line]
+            print(f"built {name} in {info['seconds']:.1f} s: " + " | ".join(ptxas), flush=True)
+
+    # the Viterbi source compiles for about two minutes, the other four in
+    # seconds: it builds in the background while the checks before the CTC
+    # probe run, none of which launches it
+    slow_build = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    viterbi_build = slow_build.submit(build.build, ["viterbi"])
+    print_build(build.build([name for name in build.KERNELS if name != "viterbi"]))
+    print(f"kernel build (all but viterbi): {time.perf_counter() - start:.1f} s", flush=True)
 
     device = resolve_device("cuda")
     serving = [check_melspec(device), check_bilstm(device)]
@@ -6151,6 +6292,10 @@ def main() -> None:
     # the chain floors; the Viterbi check reads its phases from it
     from voice100_tpu_torch.tools.probe_ctc import probe
 
+    print_build(viterbi_build.result())
+    slow_build.shutdown()
+    print(f"kernel build (viterbi, in the background): done at {time.perf_counter() - start:.1f} s",
+          flush=True)
     steps = probe()
     print("probe_ctc " + json.dumps(steps), flush=True)
     for entry, key in zip(training[2:], ("alpha", "adjoint")):

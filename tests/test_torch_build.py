@@ -3,7 +3,8 @@
 A library's name carries a hash of its ``.cu`` source and of every header
 of ``csrc/`` that source includes, so editing a shared header such as
 ``bilstm_persistent.cuh`` rebuilds every library that includes it, and no
-other. The module imports and names its libraries without nvcc; only a
+other (``bilstm_bwd_cluster.cuh``, kernel 3b's recurrence, only the train
+library). The module imports and names its libraries without nvcc; only a
 build needs it. The step probe (``tools/probe_bilstm.py``) finds its text
 anchors in the committed kernels.
 """
@@ -35,7 +36,8 @@ def csrc(tmp_path, monkeypatch):
 def test_sources_list_the_included_headers(csrc):
     names = {name: [p.name for p in build.sources(name)] for name in build.KERNELS}
     assert names["bilstm"] == ["bilstm.cu", "bilstm_persistent.cuh"]
-    assert names["bilstm_train"] == ["bilstm_train.cu", "bilstm_persistent.cuh"]
+    assert names["bilstm_train"] == ["bilstm_train.cu", "bilstm_persistent.cuh",
+                                     "bilstm_bwd_cluster.cuh"]
     for name in ("melspec", "ctc", "viterbi"):
         assert names[name] == [f"{name}.cu"]
 
@@ -49,6 +51,15 @@ def test_editing_a_header_renames_exactly_the_libraries_that_include_it(csrc):
         changed = name in ("bilstm", "bilstm_train")
         assert (after[name] != before[name]) == changed, name
         assert after[name].parent == build.BUILD_DIR
+
+
+def test_editing_the_cluster_header_renames_the_train_library_only(csrc):
+    before = {name: build.library_path(name) for name in build.KERNELS}
+    header = csrc / "bilstm_bwd_cluster.cuh"
+    header.write_text(header.read_text() + "\n// an edit\n")
+    after = {name: build.library_path(name) for name in build.KERNELS}
+    for name in build.KERNELS:
+        assert (after[name] != before[name]) == (name == "bilstm_train"), name
 
 
 def test_headers_included_through_a_header_count_too(csrc):
@@ -82,7 +93,8 @@ def test_build_module_imports_and_names_libraries_without_nvcc(tmp_path):
 
 
 @pytest.mark.parametrize("kind,source", [("forward", "bilstm_persistent.cuh"),
-                                         ("backward", "bilstm_train.cu")])
+                                         ("backward", "bilstm_train.cu"),
+                                         ("backward_cluster", "bilstm_bwd_cluster.cuh")])
 def test_probe_anchors_are_found_in_the_committed_kernels(kind, source):
     """The step probe cuts parts of a kernel by text anchors: each anchor
     must occur once, and every variant must differ from the kernel."""

@@ -37,11 +37,13 @@
 //           dc  = dc~ f + (1 - v) dc
 //       then a grid sync, then dh = dG[d, :, ts] @ W_hh[d] + (1 - v) dh.
 //       The blocks exchange the float32 dG of the step for that product,
-//       as JAX forms dh from its float32 da (lstm_pallas.py:315-319): the
-//       float32 variant through the dg rows themselves, the bf16 variant
-//       through a ping-pong buffer [2, 2, B, 4H] (step s writes half s % 2;
-//       the grid sync of step s - 1 lies between the reads of a half and
-//       its next write), and stores the bf16 dG beside it.
+//       as JAX forms dh from its float32 da (lstm_pallas.py:315-319),
+//       through the dg rows themselves. The bf16 variant's recurrence is
+//       the kernel of bilstm_bwd_cluster.cuh: clusters of blocks share each
+//       step's float32 dG (a ping-pong exchange by sorted row), a barrier
+//       for each direction, the same arithmetic in the same order, and dG
+//       stored in bf16; the template below keeps its bf16 branches, which
+//       no entry instantiates.
 // dW_ih, dW_hh, db and dx are plain products over (B, T) outside (cuBLAS),
 // as the JAX package computes them outside its kernel.
 //
@@ -78,6 +80,7 @@
 #include <type_traits>
 
 #include "bilstm_persistent.cuh"
+#include "bilstm_bwd_cluster.cuh"
 
 namespace {
 
@@ -424,9 +427,9 @@ extern "C" int lstm_train_fwd_bf16(const __nv_bfloat16* xg, const float* w_hh,
                                                  h_prev, c_prev, batch, time, hidden, stream);
 }
 
-// Dynamic shared memory of the backward recurrence launch: the resident
-// W_hh columns, the per-warp dG chunk buffers and the (dh, dc) carry. The
-// same for both variants.
+// Dynamic shared memory of the float32 backward recurrence launch: the
+// resident W_hh columns, the per-warp dG chunk buffers and the (dh, dc)
+// carry.
 extern "C" int lstm_train_bwd_smem_bytes(int batch, int hidden) {
   return static_cast<int>((4 * hidden * REC_UNITS + REC_WARPS * 2 * REC_STAGE
                            + 2 * batch * REC_UNITS) * sizeof(float));
@@ -485,14 +488,32 @@ int bwd_recurrence(const float* w_hh, const int* lengths, const IT* c_prev, cons
 
 }  // namespace
 
-// 0 if the recurrence can run with all 2 * hidden / 8 blocks resident on
-// the current device, else a CUDA error (see bwd_check); one for each
-// variant.
+// 0 if the float32 recurrence can run with all 2 * hidden / 8 blocks
+// resident on the current device, else a CUDA error (see bwd_check).
 extern "C" int lstm_train_bwd_check(int batch, int hidden) {
   return bwd_check<float>(batch, hidden);
 }
-extern "C" int lstm_train_bwd_check_bf16(int batch, int hidden) {
-  return bwd_check<__nv_bfloat16>(batch, hidden);
+
+// The bf16 variant's recurrence (bilstm_bwd_cluster.cuh): its dynamic
+// shared memory a block, its blocks a cluster, and 0 if all its clusters
+// can be resident at once on the current device, else a CUDA error (see
+// bwd_cluster::check).
+extern "C" int lstm_train_bwd_cluster_smem_bytes(int batch, int hidden) {
+  return bwd_cluster::smem_bytes(batch, hidden);
+}
+extern "C" int lstm_train_bwd_cluster_size(int hidden) {
+  return bwd_cluster::cluster_size(hidden);
+}
+extern "C" int lstm_train_bwd_cluster_check_bf16(int batch, int hidden) {
+  return bwd_cluster::check(batch, hidden);
+}
+
+// How many clusters of `cluster` blocks of that launch the current device
+// holds resident at once, or minus a CUDA error (tools/probe_bilstm.py).
+extern "C" int lstm_train_bwd_cluster_occupancy(int batch, int hidden, int cluster) {
+  int clusters = 0;
+  const cudaError_t err = bwd_cluster::max_clusters(batch, hidden, cluster, &clusters);
+  return err == cudaSuccess ? clusters : -static_cast<int>(err);
 }
 
 // Backward launch (1), the gate pass: gates = xg + h_prev W_hh^T into dg
@@ -526,17 +547,19 @@ extern "C" int lstm_train_bwd_recurrence_f32(const float* w_hh, const int* lengt
                                hidden, stream);
 }
 
-// The bf16 variant's recurrence: c_prev and dout in bf16, the float32
-// gates of lstm_train_bwd_gates_bf16 in gates (left as scratch), the
-// float32 scratch xchg [2, 2, B, 4H] (any contents) for the exchange of
-// dG, and dG in bf16 into dg [2, B, T, 4H], zero past each length.
-// Returns lstm_train_bwd_check_bf16's error without launching when the
-// grid cannot be resident, else the launch's error.
+// The bf16 variant's recurrence (bilstm_bwd_cluster.cuh): order (the rows
+// by descending length, int32), c_prev and dout in bf16, the float32 gates
+// of lstm_train_bwd_gates_bf16 (read only), the float32 scratch xchg
+// [2, 2, B, 4H] and the int32 flags ready [2 * hidden / 8] (any contents:
+// the flags are zeroed on the stream first), and dG in bf16 into dg
+// [2, B, T, 4H], zero past each length. Returns
+// lstm_train_bwd_cluster_check_bf16's error without launching when the
+// grid cannot be resident, else the memset's or the launch's error.
 extern "C" int lstm_train_bwd_recurrence_bf16(const float* w_hh, const int* lengths,
-                                              const __nv_bfloat16* c_prev,
-                                              const __nv_bfloat16* dout, float* gates,
-                                              float* xchg, __nv_bfloat16* dg, int batch,
-                                              int time, int hidden, void* stream) {
-  return bwd_recurrence<__nv_bfloat16>(w_hh, lengths, c_prev, dout, gates, xchg, dg, batch,
-                                       time, hidden, stream);
+                                              const int* order, const __nv_bfloat16* c_prev,
+                                              const __nv_bfloat16* dout, const float* gates,
+                                              float* xchg, int* ready, __nv_bfloat16* dg,
+                                              int batch, int time, int hidden, void* stream) {
+  return bwd_cluster::launch(w_hh, lengths, order, c_prev, dout, gates, xchg, ready, dg, batch,
+                             time, hidden, stream);
 }

@@ -33,7 +33,10 @@ wrappers pass the batch rows ordered by descending length
 (:func:`length_order`), so the rows valid at a step are a prefix in both
 directions, and scratch for the exchange of ``h`` and the blocks' step
 flags. The train backward launches twice a layer (a gate pass, then
-one cooperative launch for the whole reverse recurrence). Each
+one cooperative launch for the whole reverse recurrence); its bf16
+recurrence is the kernel of ``csrc/bilstm_bwd_cluster.cuh``, clusters of
+blocks that share each step's float32 dG (:func:`bwd_cluster_plan`
+gives its launch), which also takes the rows in length order. Each
 cooperative grid holds ``2 H / 8`` blocks, one an SM, with ``H`` a
 multiple of 32: where it cannot be resident (``H > 528`` on 132 SMs) or
 its shared memory does not fit, the wrapper raises before launching
@@ -58,7 +61,8 @@ from ..kernels.build import check, load
 from .lstm import bilstm, bilstm_train_bwd, bilstm_train_fwd, matmul_f32, project_inputs
 
 __all__ = ["bilstm_cuda", "bilstm_infer", "bilstm_train_fwd_cuda", "bilstm_train_bwd_cuda",
-           "BiLSTMFunction", "bilstm_train_cuda", "length_order"]
+           "BiLSTMFunction", "bilstm_train_cuda", "length_order", "bwd_cluster_plan",
+           "bwd_cluster_batch_cap"]
 
 _MULTIPLE = 32  # hidden must be a multiple of this (the kernels' k chunks and tiles)
 _SMEM_OPTIN_LIMIT = 232448  # the H100's shared memory a block can opt into
@@ -95,11 +99,63 @@ def _train_lib():
         _declare(lib, 9, ("lstm_train_fwd_f32", "lstm_train_fwd_bf16"))
         _declare(lib, 5, ("lstm_train_bwd_gates_f32", "lstm_train_bwd_gates_bf16",
                           "lstm_train_bwd_recurrence_f32"))
-        _declare(lib, 7, ("lstm_train_bwd_recurrence_bf16",))
+        _declare(lib, 9, ("lstm_train_bwd_recurrence_bf16",))
         _declare_sizes(lib, ("lstm_train_fwd_smem_bytes", "lstm_train_fwd_check",
                              "lstm_train_fwd_check_bf16", "lstm_train_bwd_smem_bytes",
-                             "lstm_train_bwd_check", "lstm_train_bwd_check_bf16"))
+                             "lstm_train_bwd_check", "lstm_train_bwd_cluster_smem_bytes",
+                             "lstm_train_bwd_cluster_check_bf16"))
+        lib.lstm_train_bwd_cluster_size.argtypes = [_I]
+        lib.lstm_train_bwd_cluster_size.restype = _I
     return lib
+
+
+# The launch of kernel 3b's recurrence (csrc/bilstm_bwd_cluster.cuh): its
+# constants, for the shared memory a block.
+_UNITS = 8           # hidden units a block
+_BWD_WARPS = 8       # warps a block, each with a ring of chunk slots
+_BWD_SLOTS = 4       # slots a warp, each a chunk of 32 rows
+_BWD_PASS = 64       # rows a pass of the dh product
+_BWD_Q = 32          # gate rows a chunk
+_BWD_BARRIERS = 2 * _BWD_SLOTS * _BWD_WARPS  # mbarriers, 8 bytes each
+
+
+def _bwd_cluster_smem(batch: int, hidden: int) -> int:
+    return ((_BWD_WARPS * _BWD_SLOTS * _BWD_PASS // 2 * _BWD_Q + 4 * hidden * _UNITS
+             + _BWD_WARPS * _BWD_PASS // 2 * _UNITS) * 4 + _BWD_BARRIERS * 8
+            + batch * (2 * _UNITS * 4 + 2 * 4))
+
+
+def bwd_cluster_batch_cap(hidden: int) -> int:
+    """The largest batch whose kernel 3b recurrence fits one block's
+    shared memory at ``hidden``."""
+    return (_SMEM_OPTIN_LIMIT - _bwd_cluster_smem(0, hidden)) // (2 * _UNITS * 4 + 2 * 4)
+
+
+def bwd_cluster_plan(batch: int, hidden: int) -> dict:
+    """The launch of kernel 3b's recurrence for a layer, as
+    ``csrc/bilstm_bwd_cluster.cuh`` makes it: ``cluster`` blocks a cluster
+    (up to 120 blocks, 8 where a direction's ``H / 8`` blocks split into
+    clusters of 8, else 4; past 120, 2: the H100 holds 15 clusters of 8,
+    30 of 4 and 66 of 2 resident), ``blocks`` (``2 H / 8``, a direction's
+    in whole clusters), ``clusters`` and ``smem_bytes`` a block. Raises
+    ``ValueError`` for
+    ``H`` not a multiple of 32, an empty batch, or a block whose shared
+    memory passes the opt-in (``B > bwd_cluster_batch_cap(H)``)."""
+    if hidden <= 0 or hidden % _MULTIPLE:
+        raise ValueError(f"kernel 3b: hidden {hidden} must be a multiple of {_MULTIPLE}")
+    if batch <= 0:
+        raise ValueError(f"kernel 3b: batch {batch} must be positive")
+    smem = _bwd_cluster_smem(batch, hidden)
+    if smem > _SMEM_OPTIN_LIMIT:
+        raise ValueError(f"kernel 3b: the slots, W_hh's columns and the carry of batch {batch}, "
+                         f"hidden {hidden} take {smem} B of shared memory, past the "
+                         f"{_SMEM_OPTIN_LIMIT} B a block can have (batch <= "
+                         f"{bwd_cluster_batch_cap(hidden)})")
+    per_direction = hidden // _UNITS
+    cluster = (8 if per_direction % 8 == 0 else 4) if per_direction <= 60 else 2
+    blocks = 2 * per_direction
+    return {"cluster": cluster, "blocks": blocks, "clusters": blocks // cluster,
+            "smem_bytes": smem}
 
 
 def _variant(name: str, xg: torch.Tensor) -> str:
@@ -182,6 +238,12 @@ def _bilstm_infer_fake(w_ih, w_hh, bias, x, lengths, compute_dtype=None):
 
 
 _COUNT_LOCK = threading.Lock()  # serving launches from more than one thread
+# A residency check sets the kernel's shared-memory limit for its shape
+# (cudaFuncSetAttribute, one value a kernel function for the process) and
+# the launch relies on it: the two must not interleave with another
+# thread's check at another shape (the server's ASR and TTS batchers
+# launch kernel 1 at H=512 and H=256), or the launch is refused.
+_LAUNCH_LOCK = threading.Lock()
 
 
 def _count(wrapper, xg: torch.Tensor) -> None:
@@ -245,11 +307,11 @@ def _forward(name: str, xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Ten
     device = xg.device
     order = length_order(lengths)
     xchg = torch.empty(2, 2, batch, hidden, device=device)        # [ping-pong, dir, B, H]
-    ready = torch.empty(2 * hidden // 8, dtype=torch.int32, device=device)  # a flag a block
+    ready = torch.empty(2 * hidden // _UNITS, dtype=torch.int32, device=device)  # a flag a block
     out = torch.empty(batch, time, 2 * hidden, device=device)
     states = [torch.empty(2, batch, time, hidden, device=device, dtype=xg.dtype)
               for _ in range(2)] if save_states else []
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), _LAUNCH_LOCK:
         _check_resident(name, lib, prefix, variant, batch, hidden)
         status = getattr(lib, f"{prefix}_{variant}")(
             xg.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(), order.data_ptr(),
@@ -288,14 +350,16 @@ def bilstm_train_bwd_cuda(xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.T
     recurrence overwrites with dG. A bf16 ``xg`` launches the bf16
     variant, which takes bf16 ``h_prev``, ``c_prev`` and ``dout`` and
     returns dG in bf16; its gates go to a float32 buffer of their own and
-    the blocks exchange the float32 dG through a second one, so nothing
-    that forms the next step is rounded.
+    its recurrence (``csrc/bilstm_bwd_cluster.cuh``, launched as
+    :func:`bwd_cluster_plan` says) takes the rows in length order and
+    exchanges the float32 dG through a second one, so nothing that forms
+    the next step is rounded.
 
     Raises ``ValueError`` for another dtype than the variant's, or for
     shapes whose ``W_hh`` columns and carry do not fit one block's shared
-    memory, and ``RuntimeError`` when the device cannot launch the
-    recurrence cooperatively with all its ``2 H / 8`` blocks resident;
-    there is no other path.
+    memory (before loading or launching anything), and ``RuntimeError``
+    when the device cannot launch the recurrence cooperatively with all
+    its ``2 H / 8`` blocks resident; there is no other path.
     """
     if xg.device.type == "cpu":
         return bilstm_train_bwd(xg, w_hh, lengths, h_prev, c_prev, dout)
@@ -304,14 +368,23 @@ def bilstm_train_bwd_cuda(xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.T
     variant = _variant(name, xg)
     _check_cuda(name, (h_prev, c_prev, dout),
                 ((2, batch, time, hidden),) * 2 + ((batch, time, 2 * hidden),), (xg.dtype,) * 3)
+    bf16 = variant == "bf16"
+    if bf16:
+        bwd_cluster_plan(batch, hidden)  # raises before anything is loaded or launched
     lib = _train_lib()
     dg = torch.empty_like(xg)
-    bf16 = variant == "bf16"
-    # bf16: the float32 gates, and the float32 dG exchange [ping-pong, dir, B, 4H]
-    gates = torch.empty(xg.shape, device=xg.device) if bf16 else dg
-    scratch = [torch.empty(2, 2, batch, 4 * hidden, device=xg.device), dg] if bf16 else []
-    with torch.cuda.device(xg.device):
-        _check_resident(name, lib, "lstm_train_bwd", variant, batch, hidden)
+    if bf16:  # the float32 gates; the rows in length order, the float32 dG exchange
+        # [ping-pong, dir, 4H / 32, B, 32] and a flag a block
+        gates = torch.empty(xg.shape, device=xg.device)
+        pointers = [lengths, length_order(lengths), c_prev, dout, gates,
+                    torch.empty(2, 2, batch, 4 * hidden, device=xg.device),
+                    torch.empty(2 * hidden // _UNITS, dtype=torch.int32, device=xg.device), dg]
+    else:
+        gates = dg
+        pointers = [lengths, c_prev, dout, dg]
+    with torch.cuda.device(xg.device), _LAUNCH_LOCK:
+        _check_resident(name, lib, "lstm_train_bwd_cluster" if bf16 else "lstm_train_bwd",
+                        variant, batch, hidden)
         stream = torch.cuda.current_stream().cuda_stream
         entry = f"lstm_train_bwd_gates_{variant}"
         status = getattr(lib, entry)(xg.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(),
@@ -320,10 +393,8 @@ def bilstm_train_bwd_cuda(xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.T
         check(lib, status, entry)
         _count(bilstm_train_bwd_cuda, xg)
         entry = f"lstm_train_bwd_recurrence_{variant}"
-        status = getattr(lib, entry)(w_hh.data_ptr(), lengths.data_ptr(), c_prev.data_ptr(),
-                                     dout.data_ptr(), gates.data_ptr(),
-                                     *[t.data_ptr() for t in scratch], batch, time, hidden,
-                                     stream)
+        status = getattr(lib, entry)(w_hh.data_ptr(), *[t.data_ptr() for t in pointers],
+                                     batch, time, hidden, stream)
         check(lib, status, entry)
         _count(bilstm_train_bwd_cuda, xg)
     return dg

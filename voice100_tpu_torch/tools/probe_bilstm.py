@@ -36,8 +36,29 @@ gate pass as input:
 * ``no_dh_product``: the dG phase and the grid sync only;
 * ``sync_only``: the grid sync only.
 
+Kernel 3b's recurrence, the bf16 variant's (``csrc/bilstm_bwd_cluster.cuh``,
+clusters sharing each step's dG), at the bf16 ``asr_en_base`` (B=64,
+T=501) and ``tts_en_base`` (B=128, T=512) shapes, H=512, seeded ragged
+lengths with 1 and T, the bf16 gate pass's gates as input:
+
+* ``full``; ``no_sharing``: clusters of one block, each block fetching
+  every chunk of dG from L2 itself;
+* ``cluster_scope_release``: a warp releases its slot with a release at
+  cluster scope, not block scope;
+* ``no_l2_prefetch``: without the prefetch of the next step's inputs;
+* ``no_dh_compute``: the dh product streams dG but does no arithmetic;
+* ``no_dh_product``: the dG phase and the barrier only;
+* ``barrier_only``: the barrier and the valid-row count only;
+* ``f32_before``: kernel 3's float32 recurrence on the same gates, with
+  ``c_prev`` and ``dout`` widened (the design this one replaced).
+
+It also prints how many clusters of 1, 2, 4, 8 and 16 blocks of that
+recurrence the card holds resident at once at each shape
+(``max_active_clusters``), which sets its cluster size.
+
 Prints one line a variant and a JSON object ``{"card", "forward":
-{"shapes", "us_per_step": {variant: {shape: us}}}, "backward": {...}}``.
+{"shapes", "us_per_step": {variant: {shape: us}}}, "backward": {...},
+"backward_cluster": {...}}``.
 """
 
 from __future__ import annotations
@@ -75,6 +96,17 @@ _DH_COMPUTE = "for (int kq = 0; kq < REC_Q; kq += 4) {"
 _DG_STREAM = "cp_async16(dst + r * REC_Q_PAD + col, ex + row * ex_stride + chunk * REC_Q + col, live);"
 
 
+# text anchors in kernel 3b's cluster recurrence
+CLUSTER_HEADER = "bilstm_bwd_cluster.cuh"
+_C_SIZE = "return per_direction <= 60 ? (per_direction % 8 == 0 ? 8 : 4) : 2;"
+_C_PREFETCH = "if (len_s[pos] <= tn) continue;"
+_C_COMPUTE = "for (int kq = 0; kq < Q; kq += 4) {"
+_C_STREAMED = "const int streamed = n;"
+_C_DG = "for (int p0 = tid; p0 < n * UNITS; p0 += CELLS * THREADS) {"
+_C_FROZEN = "for (int p = tid; p < (batch - n) * UNITS; p += THREADS) {"
+_C_ARRIVE = "mbarrier.arrive.shared::cluster.b64 _, [remote];"
+
+
 def _check_anchors(src: str, anchors, where: str) -> None:
     for anchor in anchors:
         if src.count(anchor) != 1:
@@ -109,6 +141,25 @@ def backward_variants(src: str):
         "no_dg_stream": src.replace(_DG_STREAM, "(void)dst; (void)row; (void)col; (void)live;"),
         "no_dh_product": no_dh,
         "sync_only": no_dh.replace(_DG_PHASE, _DG_PHASE.replace("p < batch", "p < 0")),
+    }
+
+
+def backward_cluster_variants(src: str):
+    """Variants of ``bilstm_bwd_cluster.cuh``'s text, by name."""
+    _check_anchors(src, (_C_SIZE, _C_PREFETCH, _C_COMPUTE, _C_STREAMED, _C_DG, _C_FROZEN,
+                         _C_ARRIVE), CLUSTER_HEADER)
+    no_product = src.replace(_C_STREAMED, "const int streamed = 0;")
+    return {
+        "full": src,
+        "no_sharing": src.replace(_C_SIZE, "return 1;"),
+        "cluster_scope_release": src.replace(
+            _C_ARRIVE, _C_ARRIVE.replace("arrive.shared", "arrive.release.cluster.shared")),
+        "no_l2_prefetch": src.replace(_C_PREFETCH, "continue;"),
+        "no_dh_compute": src.replace(_C_COMPUTE, _C_COMPUTE.replace("kq < Q", "kq < 0")),
+        "no_dh_product": no_product,
+        "barrier_only": no_product.replace(_C_DG, _C_DG.replace("p0 < n * UNITS", "p0 < 0"))
+                                  .replace(_C_FROZEN, _C_FROZEN.replace("p < (batch - n) * UNITS",
+                                                                        "p < 0")),
     }
 
 
@@ -234,6 +285,72 @@ def probe_backward(workdir: Path):
     return result
 
 
+def probe_backward_cluster(workdir: Path):
+    hidden = 512
+    shapes = {"asr_en_base": (64, 501), "tts_en_base": (128, 512)}
+    stream = torch.cuda.current_stream().cuda_stream
+    variants = backward_cluster_variants((CSRC / CLUSTER_HEADER).read_text())
+    libs = _build(workdir / "backward_cluster", "bilstm_train.cu", CLUSTER_HEADER, variants)
+    for lib in libs.values():
+        lib.lstm_train_bwd_gates_bf16.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+        lib.lstm_train_bwd_recurrence_f32.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+        lib.lstm_train_bwd_recurrence_bf16.argtypes = [_P] * 9 + [_I] * 3 + [_P]
+        for fn in (lib.lstm_train_bwd_gates_bf16, lib.lstm_train_bwd_recurrence_f32,
+                   lib.lstm_train_bwd_recurrence_bf16):
+            fn.restype = _I
+    result = {"shapes": f"H={hidden}, bf16: " + "; ".join(
+        f"{key} B={b}, T={t}" for key, (b, t) in shapes.items()),
+        "us_per_step": {name: {} for name in [*libs, "f32_before"]},
+        "max_active_clusters": {}}
+    full = libs["full"]
+    full.lstm_train_bwd_cluster_occupancy.argtypes = [_I] * 3
+    full.lstm_train_bwd_cluster_occupancy.restype = _I
+    for key, (batch, _) in shapes.items():
+        result["max_active_clusters"][key] = {
+            c: full.lstm_train_bwd_cluster_occupancy(batch, hidden, c) for c in (1, 2, 4, 8, 16)}
+    print(f"backward_cluster max active clusters by size: {result['max_active_clusters']}",
+          flush=True)
+    for key, (batch, time) in shapes.items():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        randn = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)  # noqa: E731
+        bf16 = torch.bfloat16
+        xg = randn(2, batch, time, 4 * hidden).to(bf16)
+        w_hh = randn(2, 4 * hidden, hidden) / hidden ** 0.5
+        h_prev = (randn(2, batch, time, hidden) * 0.5).to(bf16)
+        c_prev = randn(2, batch, time, hidden).to(bf16)
+        dout = randn(batch, time, 2 * hidden).to(bf16)
+        lens = torch.tensor(_ragged(batch, time), dtype=torch.int32, device="cuda")
+        order = length_order(lens)
+        gates = torch.empty(2, batch, time, 4 * hidden, device="cuda")
+        status = full.lstm_train_bwd_gates_bf16(xg.data_ptr(), w_hh.data_ptr(), lens.data_ptr(),
+                                                h_prev.data_ptr(), gates.data_ptr(), batch, time,
+                                                hidden, stream)
+        if status:
+            raise RuntimeError(f"gate pass failed: {full.error_string(status).decode()}")
+        del xg, h_prev
+        xchg = torch.empty(2, 2, batch, 4 * hidden, device="cuda")
+        ready = torch.empty(2 * hidden // 8, dtype=torch.int32, device="cuda")
+        dg = torch.empty(2, batch, time, 4 * hidden, device="cuda", dtype=bf16)
+        pointers = [t.data_ptr() for t in (w_hh, lens, order, c_prev, dout, gates, xchg, ready,
+                                            dg)]
+        for name, lib in libs.items():
+            launch = lib.lstm_train_bwd_recurrence_bf16
+            result["us_per_step"][name][key] = _time(
+                lib, lambda: launch(*pointers, batch, time, hidden, stream)) * 1e3 / time
+        del xchg, dg
+        c32, d32, dg32 = c_prev.float(), dout.float(), torch.empty_like(gates)
+        before = full.lstm_train_bwd_recurrence_f32
+        result["us_per_step"]["f32_before"][key] = _time(full, lambda: before(
+            w_hh.data_ptr(), lens.data_ptr(), c32.data_ptr(), d32.data_ptr(), dg32.data_ptr(),
+            batch, time, hidden, stream), before=lambda: dg32.copy_(gates)) * 1e3 / time
+        del gates, c32, d32, dg32
+        torch.cuda.empty_cache()
+    for name, us in result["us_per_step"].items():
+        print(f"backward_cluster {name}: " + ", ".join(f"{k} {v:.2f}" for k, v in us.items())
+              + " us a step", flush=True)
+    return result
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("probe_bilstm: CUDA is not available")
@@ -241,7 +358,8 @@ def main() -> None:
                           capture_output=True, text=True).stdout.strip()
     with tempfile.TemporaryDirectory() as workdir:
         result = {"card": card, "forward": probe_forward(Path(workdir)),
-                  "backward": probe_backward(Path(workdir))}
+                  "backward": probe_backward(Path(workdir)),
+                  "backward_cluster": probe_backward_cluster(Path(workdir))}
     print(json.dumps(result), flush=True)
 
 
