@@ -469,6 +469,7 @@ V1_CONDITIONING = 10.0
 # sides (a BatchNorm's statistics are the batch's)
 V1_PARITY_ROWS = 4
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12  # dense, tensor cores
 HBM_BYTES_PER_S = 3.35e12
 # kernel and library call timed in turns: rounds, each of `iters` calls
 TURN_ROUNDS = 5
@@ -499,9 +500,9 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 
 def counted_kernels():
-    """The port's kernels by a part of their names on the card, each with
-    the wrappers that count its launches (kernels 1 and 2 share one
-    template)."""
+    """The port's kernels by parts of their names on the card (one of the
+    parts split by "|"), each with the wrappers that count its launches
+    (kernels 1 and 2 share one template, 1b and 2b another)."""
     from voice100_tpu_torch.ops.ctc_cuda import ctc_alpha_adjoint_cuda, ctc_alpha_cuda
     from voice100_tpu_torch.ops.lstm_cuda import (bilstm_cuda, bilstm_train_bwd_cuda,
                                                   bilstm_train_fwd_cuda)
@@ -509,10 +510,17 @@ def counted_kernels():
     from voice100_tpu_torch.ops.viterbi_cuda import viterbi_align_lattice_cuda
 
     return {"log_mel_kernel": (log_mel_spectrogram_cuda,),
-            "bilstm_persistent_kernel": (bilstm_cuda, bilstm_train_fwd_cuda),
+            "bilstm_persistent_kernel|bilstm_fwd_mma_kernel": (bilstm_cuda,
+                                                               bilstm_train_fwd_cuda),
             "lstm_train_bwd_": (bilstm_train_bwd_cuda,),
             "ctc_alpha_kernel": (ctc_alpha_cuda,), "ctc_adjoint_kernel": (ctc_alpha_adjoint_cuda,),
             "viterbi_align_kernel": (viterbi_align_lattice_cuda,)}
+
+
+def kernel_named(part: str, name: str) -> bool:
+    """Whether a card event's kernel name holds one of ``part``'s names
+    (a key of :func:`counted_kernels`)."""
+    return any(p in name for p in part.split("|"))
 
 
 def launches_of(wrapper) -> int:
@@ -550,7 +558,7 @@ def device_profile(fn, calls: int = 2):
                 by_name[evt.name] = (by_name.get(evt.name, 0.0)
                                      + evt.time_range.elapsed_us() * 1e-3 / calls)
                 for part in kernels:
-                    events[part] += part in evt.name
+                    events[part] += kernel_named(part, evt.name)
     except Exception as err:  # the profiler is a measurement aid, not a check
         print(f"torch.profiler failed ({err!r}): device time not measured", flush=True)
         return None, {}, {}
@@ -1146,14 +1154,16 @@ def check_lstm_train(device, batch=TRAIN_BATCH, time_steps=501, hidden=512, inpu
 
 
 def check_not_resident(device):
-    """Kernels 1, 2 and 3's recurrence are each one cooperative grid of
-    2 H / 8 blocks, one an SM, and 3b's a grid of clusters of them: at H=544
-    (136 blocks) on a card of fewer SMs each wrapper must raise before
-    launching anything, with no other path taken. 3b also raises a
-    ValueError, before loading or launching anything, at one row past the
-    batch its shared memory takes (``bwd_cluster_batch_cap``)."""
+    """Kernels 1, 2, 1b, 2b and 3's recurrence are each one cooperative
+    grid of 2 H / 8 blocks, one an SM, and 3b's a grid of clusters of them:
+    at H=544 (136 blocks) on a card of fewer SMs each wrapper must raise
+    before launching anything, with no other path taken. 3b, 1b and 2b also
+    raise a ValueError, before loading or launching anything, at one row
+    past the batch their shared memory takes (``bwd_cluster_batch_cap``,
+    ``fwd_mma_batch_cap``)."""
     from voice100_tpu_torch.ops.lstm_cuda import (bilstm_cuda, bilstm_train_bwd_cuda,
-                                                  bilstm_train_fwd_cuda, bwd_cluster_batch_cap)
+                                                  bilstm_train_fwd_cuda, bwd_cluster_batch_cap,
+                                                  fwd_mma_batch_cap)
 
     zeros = lambda *shape, dtype=torch.float32: torch.zeros(  # noqa: E731
         *shape, device=device, dtype=dtype)
@@ -1172,6 +1182,25 @@ def check_not_resident(device):
         if launches_of(bilstm_train_bwd_cuda) != before:
             fail("kernel 3b launched before finding its batch does not fit")
         print(f"kernel 3b at B={batch}, H={hidden} raised, launching nothing: {err}", flush=True)
+    batch = fwd_mma_batch_cap(hidden) + 1
+    full = torch.full((batch,), time_steps, device=device)
+    past_cap = {
+        "kernel 1b": (bilstm_cuda, lambda: bilstm_cuda(
+            zeros(2, 4 * hidden, 8), zeros(2, 4 * hidden, hidden), zeros(2, 4 * hidden),
+            zeros(batch, time_steps, 8), full, bf16)),
+        "kernel 2b": (bilstm_train_fwd_cuda, lambda: bilstm_train_fwd_cuda(
+            zeros(2, batch, time_steps, 4 * hidden, dtype=bf16), zeros(2, 4 * hidden, hidden),
+            full)),
+    }
+    for name, (wrapper, call) in past_cap.items():
+        before = launches_of(wrapper)
+        try:
+            call()
+            fail(f"{name} ran at batch {batch}, past its shared memory")
+        except ValueError as err:
+            if launches_of(wrapper) != before:
+                fail(f"{name} launched before finding its batch does not fit")
+            print(f"{name} at B={batch}, H={hidden} raised, launching nothing: {err}", flush=True)
 
     hidden, batch, time_steps = 544, 2, 5
     blocks = 2 * hidden // 8
@@ -1188,6 +1217,12 @@ def check_not_resident(device):
             zeros(batch, time_steps, 8), lengths)),
         "kernel 2": (bilstm_train_fwd_cuda, lambda: bilstm_train_fwd_cuda(
             zeros(2, batch, time_steps, 4 * hidden), zeros(2, 4 * hidden, hidden), lengths)),
+        "kernel 1b": (bilstm_cuda, lambda: bilstm_cuda(
+            zeros(2, 4 * hidden, 8), zeros(2, 4 * hidden, hidden), zeros(2, 4 * hidden),
+            zeros(batch, time_steps, 8), lengths, bf16)),
+        "kernel 2b": (bilstm_train_fwd_cuda, lambda: bilstm_train_fwd_cuda(
+            zeros(2, batch, time_steps, 4 * hidden, dtype=bf16), zeros(2, 4 * hidden, hidden),
+            lengths)),
         "kernel 3": (bilstm_train_bwd_cuda, lambda: bilstm_train_bwd_cuda(
             zeros(2, batch, time_steps, 4 * hidden), zeros(2, 4 * hidden, hidden), lengths,
             state, state, zeros(batch, time_steps, 2 * hidden))),
@@ -3756,6 +3791,100 @@ def check_bf16_recurrence(config, w_hh, lengths, xg, h_prev, c_prev, dout):
             "dg_bits_differing_from_f32_recurrence": differing}
 
 
+def check_bf16_forward(config, w_ih, w_hh, bias, x, lengths):
+    """Kernels 1b and 2b (csrc/bilstm_fwd_mma.cuh) through the library's
+    entries, so that the projection drops out of their times: the
+    library's shared memory a block must equal ``fwd_mma_plan``'s; each
+    launch's ``out`` on the bf16 ``xg`` of ``bilstm_cuda`` (the float32
+    projection rounded to bf16) is held to the plain twin recurrence on
+    the same ``xg`` (1b within LSTM_TOL, 2b within LSTM_STATE_TOL and its
+    bf16 states within one bf16 step beyond it). Timed in turns, launch by
+    launch by CUDA events: 1b, 2b, "before" (the float32 kernels 1 and 2 of
+    bilstm_persistent.cuh on the widened ``xg``, the template 1b and 2b ran
+    on before) and the projection with its rounding. Returns the numbers
+    and the launches' work (bytes, float32-accurate operations)."""
+    from voice100_tpu_torch.kernels.build import check
+    from voice100_tpu_torch.ops.lstm import bilstm_train_fwd, project_inputs
+    from voice100_tpu_torch.ops.lstm_cuda import _lib, _train_lib, fwd_mma_plan, length_order
+
+    bf16 = torch.bfloat16
+    lib, train = _lib(), _train_lib()
+    xg = project_inputs(w_ih, bias, x).to(bf16).contiguous()
+    _, batch, time_steps, gates4 = xg.shape
+    hidden = gates4 // 4
+    plan = fwd_mma_plan(batch, hidden)
+    library = {"bilstm_bf16": lib.bilstm_smem_bytes_bf16(batch, hidden),
+               "lstm_train_fwd_bf16": train.lstm_train_fwd_smem_bytes_bf16(batch, hidden)}
+    if any(v != plan["smem_bytes"] for v in library.values()):
+        fail(f"kernels 1b/2b at {config}: the library's shared memory {library}, the wrapper "
+             f"plans {plan}")
+    lengths = lengths.to(torch.int32).contiguous()
+    order = length_order(lengths)
+    wide = xg.float()
+    device = xg.device
+    xchg = torch.empty(2, 2, plan["exchange_rows"], hidden, device=device)
+    ready = torch.empty(2 * hidden // 8, dtype=torch.int32, device=device)
+    out = torch.empty(batch, time_steps, 2 * hidden, device=device)
+    states = {dtype: [torch.empty(2, batch, time_steps, hidden, device=device, dtype=dtype)
+                      for _ in range(2)] for dtype in (bf16, torch.float32)}
+    size = (batch, time_steps, hidden, torch.cuda.current_stream().cuda_stream)
+
+    def pointers(src, dtype=None):
+        return [src.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(), order.data_ptr(),
+                xchg.data_ptr(), ready.data_ptr(), out.data_ptr(),
+                *[s.data_ptr() for s in states.get(dtype, [])]]
+
+    launches = {"1b": lambda: lib.bilstm_bf16(*pointers(xg), *size),
+                "1_f32": lambda: lib.bilstm_f32(*pointers(wide), *size),
+                "2b": lambda: train.lstm_train_fwd_bf16(*pointers(xg, bf16), *size),
+                "2_f32": lambda: train.lstm_train_fwd_f32(*pointers(wide, torch.float32), *size)}
+    r_out, r_h, r_c = bilstm_train_fwd(xg, w_hh, lengths)
+    check(lib, launches["1b"](), "bilstm_bf16")
+    torch.cuda.synchronize()
+    k1_err = (out - r_out).abs().max().item()
+    check(train, launches["2b"](), "lstm_train_fwd_bf16")
+    torch.cuda.synchronize()
+    k2_err = (out - r_out).abs().max().item()
+    h16, c16 = states[bf16]
+    (h_excess, _), (c_excess, _) = (bf16_excess(h16, r_h, LSTM_STATE_TOL),
+                                    bf16_excess(c16, r_c, LSTM_STATE_TOL))
+    del r_out, r_h, r_c
+    def projection():
+        project_inputs(w_ih, bias, x).to(bf16)
+        return 0
+
+    ms = launches_in_turns({**{k: (f, None) for k, f in launches.items()},
+                            "projection": (projection, None)})
+    valid = int(lengths.sum().item())
+    n_bytes = (2 * valid * gates4 * 2 + w_hh.numel() * 4 + batch * 4
+               + batch * time_steps * 2 * hidden * 4)
+    state_bytes = 2 * (2 * batch * time_steps * hidden * 2)
+    ops = 2 * valid * 8 * hidden * hidden
+    del xchg, out, states, wide, xg
+    print(f"kernels 1b/2b launches at {config} ({plan['blocks']} blocks, {plan['smem_bytes']} B "
+          f"of shared memory a block): against the twin recurrence on the same bf16 xg, 1b out "
+          f"max_abs_err {k1_err:.3e} (tol {LSTM_TOL:.0e}), 2b out {k2_err:.3e}, states beyond one "
+          f"bf16 step {h_excess:.3e} / {c_excess:.3e} (tol {LSTM_STATE_TOL:.0e}); event ms in "
+          f"turns 1b {ms['1b']:.4f} (before: float32 kernel 1 on the widened xg "
+          f"{ms['1_f32']:.4f}), 2b {ms['2b']:.4f} (before: float32 kernel 2 {ms['2_f32']:.4f}), "
+          f"the projection and its rounding {ms['projection']:.4f}", flush=True)
+    if not (k1_err <= LSTM_TOL and k2_err <= LSTM_STATE_TOL and h_excess <= LSTM_STATE_TOL
+            and c_excess <= LSTM_STATE_TOL):
+        fail(f"kernels 1b/2b at {config}: the launches disagree with the twin recurrence")
+    for key in ("1b", "2b"):
+        if ms[key] > ms[key[0] + "_f32"]:
+            print(f"note: kernel {key} at {config} took longer than the float32 kernel it "
+                  f"replaced in this run ({ms[key]:.4f} > {ms[key[0] + '_f32']:.4f} ms)",
+                  flush=True)
+    return {"k1": {"launch_ms": ms["1b"], "launch_before_ms": ms["1_f32"],
+                   "projection_ms": ms["projection"], "launch_max_abs_err": k1_err,
+                   "smem_bytes": plan["smem_bytes"]},
+            "k2": {"launch_ms": ms["2b"], "launch_before_ms": ms["2_f32"],
+                   "launch_max_abs_err": max(k2_err, h_excess, c_excess),
+                   "smem_bytes": plan["smem_bytes"]},
+            "work": {"k1": (n_bytes, ops), "k2": (n_bytes + state_bytes, ops)}}
+
+
 def check_bf16_kernels(device, config, batch, time_steps, hidden, input_size):
     """The bf16 variants of kernels 1, 2 and 3 at one config's shapes
     (one layer, input ``input_size``, seeded ragged lengths with T and 1)
@@ -3831,7 +3960,8 @@ def check_bf16_kernels(device, config, batch, time_steps, hidden, input_size):
         fail(f"bf16 kernels at {config} disagree with their plain twins")
     with torch.no_grad():  # on the twin's states, as the dG check above
         recurrence = check_bf16_recurrence(config, w_hh, lengths, xg, r_h, r_c, dout16)
-    del r_h, r_c
+        del r_h, r_c
+        forward = check_bf16_forward(config, w_ih, w_hh, bias, x, lengths)
 
     lstm = torch.nn.LSTM(input_size, hidden, bidirectional=True, batch_first=True,
                          device=device)
@@ -3918,12 +4048,22 @@ def check_bf16_kernels(device, config, batch, time_steps, hidden, input_size):
                       "plain_ms": plain[key], "bound_ms": bound, "bound_by": bound_by,
                       "library_ms": library["ms"], "library_device_ms": library["device_ms"],
                       "events_launches": turns["kernel"]["events_launches"]}
+    # the recurrence launches alone (kernels 1b and 2b, no projection): the
+    # bound of their bytes and float32 operations, and the tensor-core bound
+    # of the same float32-accurate work (three bf16 products at the dense
+    # bf16 rate)
+    for key in ("k1", "k2"):
+        n_bytes, ops = forward["work"][key]
+        bound, bound_by = bound_ms(n_bytes, ops)
+        lines[key].update(forward[key], launch_bound_ms=bound, launch_bound_by=bound_by,
+                          launch_bound_tc_ms=max(n_bytes / HBM_BYTES_PER_S,
+                                                 3 * ops / PEAK_BF16_FLOPS) * 1e3)
     lines["k2"]["state_share_differing"] = [h_share, c_share]
     lines["k3"]["dg_share_differing"] = dg_share
     lines["k3"]["function_grad_rel_err"] = grad_err
     lines["k3"].update(recurrence)
     print(f"bf16_kernels_ms {config} " + json.dumps(
-        {k: {n: v for n, v in line.items() if n.endswith("ms") or n == "bound_by"}
+        {k: {n: v for n, v in line.items() if n.endswith("ms") or n.endswith("bound_by")}
          for k, line in lines.items()}), flush=True)
     return lines
 
@@ -4087,9 +4227,9 @@ def bf16_kernel_lines(kernels, by_path):
     at --precision 16 (kernel 1), every path's beside them."""
     entries = []
     for key, name, source, line, counter, path in (
-            ("k1", "bilstm_recurrence_bf16", "voice100_tpu_torch/csrc/bilstm.cu",
+            ("k1", "bilstm_recurrence_bf16", "voice100_tpu_torch/csrc/bilstm_fwd_mma.cuh",
              "voice100_tpu/ops/lstm_pallas.py:41", "bilstm_recurrence_bf16", "bf16_cli_validate"),
-            ("k2", "bilstm_train_fwd_bf16", "voice100_tpu_torch/csrc/bilstm_train.cu",
+            ("k2", "bilstm_train_fwd_bf16", "voice100_tpu_torch/csrc/bilstm_fwd_mma.cuh",
              "voice100_tpu/ops/lstm_pallas.py:232", "bilstm_train_fwd_bf16",
              "bf16_train_asr_en_base"),
             ("k3", "bilstm_train_bwd_bf16", "voice100_tpu_torch/csrc/bilstm_train.cu",
@@ -4618,7 +4758,8 @@ def profile_fit(device, card, workdir, align_args):
     except ValueError as err:
         fail(f"profile fit: the trace {path} is not closed JSON: {err}")
     on_card = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    counted = {part: [sum(part in e["name"] for e in on_card if e.get("cat") == "kernel"),
+    counted = {part: [sum(kernel_named(part, e["name"]) for e in on_card
+                          if e.get("cat") == "kernel"),
                       window.get(part, 0)] for part in kernels}
     counted = {part: c for part, c in counted.items() if any(c)}
     busy = None

@@ -4,7 +4,8 @@ A library's name carries a hash of its ``.cu`` source and of every header
 of ``csrc/`` that source includes, so editing a shared header such as
 ``bilstm_persistent.cuh`` rebuilds every library that includes it, and no
 other (``bilstm_bwd_cluster.cuh``, kernel 3b's recurrence, only the train
-library). The module imports and names its libraries without nvcc; only a
+library; ``bilstm_fwd_mma.cuh``, kernels 1b and 2b, both biLSTM libraries).
+The module imports and names its libraries without nvcc; only a
 build needs it. The step probe (``tools/probe_bilstm.py``) finds its text
 anchors in the committed kernels.
 """
@@ -35,9 +36,9 @@ def csrc(tmp_path, monkeypatch):
 
 def test_sources_list_the_included_headers(csrc):
     names = {name: [p.name for p in build.sources(name)] for name in build.KERNELS}
-    assert names["bilstm"] == ["bilstm.cu", "bilstm_persistent.cuh"]
+    assert names["bilstm"] == ["bilstm.cu", "bilstm_persistent.cuh", "bilstm_fwd_mma.cuh"]
     assert names["bilstm_train"] == ["bilstm_train.cu", "bilstm_persistent.cuh",
-                                     "bilstm_bwd_cluster.cuh"]
+                                     "bilstm_bwd_cluster.cuh", "bilstm_fwd_mma.cuh"]
     for name in ("melspec", "ctc", "viterbi"):
         assert names[name] == [f"{name}.cu"]
 
@@ -60,6 +61,15 @@ def test_editing_the_cluster_header_renames_the_train_library_only(csrc):
     after = {name: build.library_path(name) for name in build.KERNELS}
     for name in build.KERNELS:
         assert (after[name] != before[name]) == (name == "bilstm_train"), name
+
+
+def test_editing_the_mma_header_renames_the_two_bilstm_libraries(csrc):
+    before = {name: build.library_path(name) for name in build.KERNELS}
+    header = csrc / "bilstm_fwd_mma.cuh"
+    header.write_text(header.read_text() + "\n// an edit\n")
+    after = {name: build.library_path(name) for name in build.KERNELS}
+    for name in build.KERNELS:
+        assert (after[name] != before[name]) == (name in ("bilstm", "bilstm_train")), name
 
 
 def test_headers_included_through_a_header_count_too(csrc):
@@ -94,7 +104,8 @@ def test_build_module_imports_and_names_libraries_without_nvcc(tmp_path):
 
 @pytest.mark.parametrize("kind,source", [("forward", "bilstm_persistent.cuh"),
                                          ("backward", "bilstm_train.cu"),
-                                         ("backward_cluster", "bilstm_bwd_cluster.cuh")])
+                                         ("backward_cluster", "bilstm_bwd_cluster.cuh"),
+                                         ("forward_mma", "bilstm_fwd_mma.cuh")])
 def test_probe_anchors_are_found_in_the_committed_kernels(kind, source):
     """The step probe cuts parts of a kernel by text anchors: each anchor
     must occur once, and every variant must differ from the kernel."""

@@ -9,10 +9,13 @@
 // float32 matmul outside the kernel, as in the JAX wrapper
 // (lstm_pallas.py:134-139), rounded to bf16 there for the bf16 mode; the
 // recurrence of both directions is one persistent cooperative launch a
-// layer, the kernel of bilstm_persistent.cuh without the state saves. What
-// bounds it and what its design does about it are noted there.
+// layer without the state saves: for float32 the kernel of
+// bilstm_persistent.cuh (kernel 1), for bf16 the tensor-core kernel of
+// bilstm_fwd_mma.cuh (kernel 1b). What bounds each and what its design
+// does about it are noted there.
 
 #include "bilstm_persistent.cuh"
+#include "bilstm_fwd_mma.cuh"
 
 extern "C" const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -26,12 +29,17 @@ extern "C" int bilstm_smem_bytes(int batch, int hidden) {
 // 0 if the launch can run with all 2 * hidden / 8 blocks resident on the
 // current device, else a CUDA error (see persistent::check).
 extern "C" int bilstm_check(int batch, int hidden) {
-  return persistent::check<false, float>(batch, hidden);
+  return persistent::check<false>(batch, hidden);
 }
 
-// The same for the bf16 variant's launch.
+// The bf16 variant's launch (bilstm_fwd_mma.cuh): its dynamic shared
+// memory a block, and 0 if all its blocks can be resident on the current
+// device, else a CUDA error (see fwd_mma::check).
+extern "C" int bilstm_smem_bytes_bf16(int batch, int hidden) {
+  return fwd_mma::smem_bytes(batch, hidden);
+}
 extern "C" int bilstm_check_bf16(int batch, int hidden) {
-  return persistent::check<false, __nv_bfloat16>(batch, hidden);
+  return fwd_mma::check<false>(batch, hidden);
 }
 
 // The whole layer: xg [2, B, T, 4H] (source time in both directions),
@@ -43,15 +51,19 @@ extern "C" int bilstm_check_bf16(int batch, int hidden) {
 extern "C" int bilstm_f32(const float* xg, const float* w_hh, const int* lengths,
                           const int* order, float* xchg, int* ready, float* out, int batch,
                           int time, int hidden, void* stream) {
-  return persistent::launch<false, float>(xg, w_hh, lengths, order, xchg, ready, out, nullptr,
-                                          nullptr, batch, time, hidden, stream);
+  return persistent::launch<false>(xg, w_hh, lengths, order, xchg, ready, out, nullptr,
+                                   nullptr, batch, time, hidden, stream);
 }
 
-// bilstm_f32 with xg [2, B, T, 4H] in bf16; everything else as there.
-// Returns bilstm_check_bf16's error without launching, else the launch's.
+// The bf16 variant (bilstm_fwd_mma.cuh): xg [2, B, T, 4H] in bf16, and the
+// scratch xchg of 2 * 2 * ceil(B / 16) * 16 * H floats' bytes, holding h
+// split in bf16 halves in the mma's fragment order, and ready (the flags
+// are zeroed on the stream first), any contents; everything else as
+// bilstm_f32. Returns bilstm_check_bf16's error without launching, else
+// the memset's or the launch's.
 extern "C" int bilstm_bf16(const __nv_bfloat16* xg, const float* w_hh, const int* lengths,
                            const int* order, float* xchg, int* ready, float* out, int batch,
                            int time, int hidden, void* stream) {
-  return persistent::launch<false, __nv_bfloat16>(xg, w_hh, lengths, order, xchg, ready, out,
-                                                  nullptr, nullptr, batch, time, hidden, stream);
+  return fwd_mma::launch<false>(xg, w_hh, lengths, order, xchg, ready, out, nullptr, nullptr,
+                                batch, time, hidden, stream);
 }

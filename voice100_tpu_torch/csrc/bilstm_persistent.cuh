@@ -4,15 +4,12 @@
 // bilstm_train.cu (state-saving train forward, kernel 2).
 //
 // Replaces the TPU kernels voice100_tpu/ops/lstm_pallas.py::_kernel (via
-// _bilstm_pallas_call) and ::_kernel_train_fwd (via _lstm_train_fwd_pair),
-// both their variants: the kernel is a template on the element type XT of
-// xg. XT = float is the float32 variant. XT = __nv_bfloat16 is the
-// mixed-precision one (lstm_pallas.py:140-146, :259-264, :380): xg streams
-// in bf16 and each value is widened to float32 as it is loaded, and kernel
-// 2 stores the saved states in bf16 (round to nearest even). Everything
-// else stays float32 in both: W_hh in shared memory, the (h, c) carry, the
-// exchange of h, the products and the cell, and out. Both directions, in
-// natural (source) time: loop step s
+// _bilstm_pallas_call) and ::_kernel_train_fwd (via _lstm_train_fwd_pair)
+// in their float32 variant (VOICE100_TPU_LSTM_XG_DTYPE=float32, float32
+// states): xg, W_hh in shared memory, the (h, c) carry, the exchange of h,
+// the products, the cell and out are all float32. Their bf16 variant
+// (kernels 1b and 2b) is the kernel of bilstm_fwd_mma.cuh. Both
+// directions, in natural (source) time: loop step s
 // touches ts = s for the forward direction and T-1-s for the backward one.
 // Each step, for each row b and direction d:
 //
@@ -214,9 +211,9 @@ __device__ __forceinline__ void product_pass(const float* h_src, int live, int h
   }
 }
 
-template <bool SAVE_STATES, typename XT>
+template <bool SAVE_STATES>
 __global__ void __launch_bounds__(THREADS, 1)
-bilstm_persistent_kernel(const XT* __restrict__ xg,         // [2, B, T, 4H]
+bilstm_persistent_kernel(const float* __restrict__ xg,         // [2, B, T, 4H]
                          const float* __restrict__ w_hh,    // [2, 4H, H]
                          const int* __restrict__ lengths,   // [B]
                          const int* __restrict__ order,     // [B]: rows by descending length
@@ -224,8 +221,8 @@ bilstm_persistent_kernel(const XT* __restrict__ xg,         // [2, B, T, 4H]
                                        // here, so never read through the read-only path
                          int* ready,   // [2 * H / UNITS]: steps each block has finished
                          float* __restrict__ out,           // [B, T, 2H]
-                         XT* __restrict__ h_prev,           // [2, B, T, H] (SAVE_STATES)
-                         XT* __restrict__ c_prev,           // [2, B, T, H] (SAVE_STATES)
+                         float* __restrict__ h_prev,           // [2, B, T, H] (SAVE_STATES)
+                         float* __restrict__ c_prev,           // [2, B, T, H] (SAVE_STATES)
                          int batch, int time, int hidden) {
   namespace cg = cooperative_groups;
   cg::grid_group grid = cg::this_grid();
@@ -272,7 +269,7 @@ bilstm_persistent_kernel(const XT* __restrict__ xg,         // [2, B, T, 4H]
       const int tn = source_time(d, s + 1, time);
       for (int r = tid; r < batch; r += THREADS) {
         if (len_s[r] <= tn) continue;
-        const XT* x = xg + ((static_cast<size_t>(d) * batch + row_s[r]) * time + tn) * gates4
+        const float* x = xg + ((static_cast<size_t>(d) * batch + row_s[r]) * time + tn) * gates4
                       + u0;
 #pragma unroll
         for (int g = 0; g < 4; ++g) prefetch_l2(x + g * hidden);
@@ -291,7 +288,7 @@ bilstm_persistent_kernel(const XT* __restrict__ xg,         // [2, B, T, 4H]
       for (int k = 0; k < CELLS; ++k) {
         const int p = tid + k * THREADS;
         if (p < nb * UNITS) {
-          const XT* x = xg + ((static_cast<size_t>(d) * batch + row_s[b0 + p / UNITS]) * time
+          const float* x = xg + ((static_cast<size_t>(d) * batch + row_s[b0 + p / UNITS]) * time
                               + ts) * gates4 + u0 + p % UNITS;
 #pragma unroll
           for (int g = 0; g < 4; ++g) xv[k][g] = ldg_f32(x + g * hidden);
@@ -383,7 +380,7 @@ inline int smem_bytes(int batch, int hidden) {
 // cudaErrorNotSupported (no cooperative launch), an error of setting the
 // shared-memory limit, or cudaErrorCooperativeLaunchTooLarge (too few SMs
 // for the grid at this shared memory).
-template <bool SAVE_STATES, typename XT>
+template <bool SAVE_STATES>
 int check(int batch, int hidden) {
   if (hidden <= 0 || hidden % KC || batch <= 0) return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
@@ -393,11 +390,11 @@ int check(int batch, int hidden) {
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
   const int smem = smem_bytes(batch, hidden);
-  err = cudaFuncSetAttribute(bilstm_persistent_kernel<SAVE_STATES, XT>,
+  err = cudaFuncSetAttribute(bilstm_persistent_kernel<SAVE_STATES>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, bilstm_persistent_kernel<SAVE_STATES, XT>, THREADS, smem);
+      &per_sm, bilstm_persistent_kernel<SAVE_STATES>, THREADS, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (per_sm * sms < 2 * hidden / UNITS)
@@ -407,16 +404,16 @@ int check(int batch, int hidden) {
 
 // One cooperative launch for the whole layer; check's error without
 // launching when the grid cannot be resident, else the launch's error.
-template <bool SAVE_STATES, typename XT>
-int launch(const XT* xg, const float* w_hh, const int* lengths, const int* order, float* xchg,
-           int* ready, float* out, XT* h_prev, XT* c_prev, int batch, int time, int hidden,
+template <bool SAVE_STATES>
+int launch(const float* xg, const float* w_hh, const int* lengths, const int* order, float* xchg,
+           int* ready, float* out, float* h_prev, float* c_prev, int batch, int time, int hidden,
            void* stream) {
-  const int status = check<SAVE_STATES, XT>(batch, hidden);
+  const int status = check<SAVE_STATES>(batch, hidden);
   if (status != 0) return status;
   void* args[] = {&xg, &w_hh, &lengths, &order, &xchg, &ready, &out, &h_prev, &c_prev,
                   &batch, &time, &hidden};
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(bilstm_persistent_kernel<SAVE_STATES, XT>),
+      reinterpret_cast<void*>(bilstm_persistent_kernel<SAVE_STATES>),
       dim3(2 * hidden / UNITS), dim3(THREADS), args, smem_bytes(batch, hidden),
       static_cast<cudaStream_t>(stream)));
 }

@@ -14,8 +14,9 @@
 // touches source time ts = s for the forward direction and T-1-s for the
 // backward one, so every [2, B, T, *] array below is indexed by source time.
 //
-// Forward, one persistent cooperative launch a layer (the kernel of
-// bilstm_persistent.cuh with the state saves):
+// Forward, one persistent cooperative launch a layer with the state saves:
+// the kernel of bilstm_persistent.cuh for float32, of bilstm_fwd_mma.cuh
+// (the product on tensor cores) for bf16:
 //     h_prev[d, b, ts] = h,  c_prev[d, b, ts] = c       (state entering the step)
 //     gates = xg[d, b, ts] + h @ W_hh[d]^T              (gate order i, f, g, o)
 //     c' = sig(f) c + sig(i) tanh(g),  h' = sig(o) tanh(c')
@@ -55,7 +56,8 @@
 // over all 4H gate rows, so every block needs every other block's dG of
 // the same step.
 //
-// What the design does. Forward: see bilstm_persistent.cuh.
+// What the design does. Forward: see bilstm_persistent.cuh and
+// bilstm_fwd_mma.cuh.
 // Backward: the gate recompute leaves the sequential loop altogether and
 // becomes one tiled product over all valid rows (bound by its float32
 // operations, 8 H^2 flops a row): 128 x 128 output tiles, 8 x 8 a thread
@@ -81,6 +83,7 @@
 
 #include "bilstm_persistent.cuh"
 #include "bilstm_bwd_cluster.cuh"
+#include "bilstm_fwd_mma.cuh"
 
 namespace {
 
@@ -395,12 +398,17 @@ extern "C" int lstm_train_fwd_smem_bytes(int batch, int hidden) {
 // 0 if the forward launch can run with all 2 * hidden / 8 blocks resident
 // on the current device, else a CUDA error (see persistent::check).
 extern "C" int lstm_train_fwd_check(int batch, int hidden) {
-  return persistent::check<true, float>(batch, hidden);
+  return persistent::check<true>(batch, hidden);
 }
 
-// The same for the bf16 variant's launch.
+// The bf16 variant's launch (bilstm_fwd_mma.cuh): its dynamic shared
+// memory a block, and 0 if all its blocks can be resident on the current
+// device, else a CUDA error (see fwd_mma::check).
+extern "C" int lstm_train_fwd_smem_bytes_bf16(int batch, int hidden) {
+  return fwd_mma::smem_bytes(batch, hidden);
+}
 extern "C" int lstm_train_fwd_check_bf16(int batch, int hidden) {
-  return persistent::check<true, __nv_bfloat16>(batch, hidden);
+  return fwd_mma::check<true>(batch, hidden);
 }
 
 // The forward of the whole layer: reads xg, w_hh, lengths and order (the
@@ -413,18 +421,22 @@ extern "C" int lstm_train_fwd_f32(const float* xg, const float* w_hh, const int*
                                   const int* order, float* xchg, int* ready, float* out,
                                   float* h_prev, float* c_prev, int batch, int time, int hidden,
                                   void* stream) {
-  return persistent::launch<true, float>(xg, w_hh, lengths, order, xchg, ready, out, h_prev,
-                                         c_prev, batch, time, hidden, stream);
+  return persistent::launch<true>(xg, w_hh, lengths, order, xchg, ready, out, h_prev, c_prev,
+                                  batch, time, hidden, stream);
 }
 
-// lstm_train_fwd_f32 with xg [2, B, T, 4H] in bf16 and the states h_prev,
-// c_prev [2, B, T, H] stored in bf16; out and the scratch as there.
+// The bf16 variant (bilstm_fwd_mma.cuh): xg [2, B, T, 4H] in bf16 and the
+// states h_prev, c_prev [2, B, T, H] stored in bf16; the scratch xchg of
+// 2 * 2 * ceil(B / 16) * 16 * H floats' bytes (h split in bf16 halves, in
+// the mma's fragment order) and ready (zeroed on the stream first), any
+// contents; out as lstm_train_fwd_f32. Returns lstm_train_fwd_check_bf16's
+// error without launching, else the memset's or the launch's.
 extern "C" int lstm_train_fwd_bf16(const __nv_bfloat16* xg, const float* w_hh,
                                    const int* lengths, const int* order, float* xchg, int* ready,
                                    float* out, __nv_bfloat16* h_prev, __nv_bfloat16* c_prev,
                                    int batch, int time, int hidden, void* stream) {
-  return persistent::launch<true, __nv_bfloat16>(xg, w_hh, lengths, order, xchg, ready, out,
-                                                 h_prev, c_prev, batch, time, hidden, stream);
+  return fwd_mma::launch<true>(xg, w_hh, lengths, order, xchg, ready, out, h_prev, c_prev, batch,
+                               time, hidden, stream);
 }
 
 // Dynamic shared memory of the float32 backward recurrence launch: the

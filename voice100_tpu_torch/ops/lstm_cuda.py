@@ -28,11 +28,14 @@ The input projection ``x @ W_ih^T + b_ih + b_hh`` stays a
 the weight and input gradients of the backward (``dW_ih = dG^T x``,
 ``dW_hh = dG^T h_prev``, ``db = sum dG``, ``dx = dG W_ih``). The
 inference and train-forward kernels are one persistent cooperative
-launch a layer for both directions (``csrc/bilstm_persistent.cuh``); the
-wrappers pass the batch rows ordered by descending length
-(:func:`length_order`), so the rows valid at a step are a prefix in both
-directions, and scratch for the exchange of ``h`` and the blocks' step
-flags. The train backward launches twice a layer (a gate pass, then
+launch a layer for both directions: in float32 the kernel of
+``csrc/bilstm_persistent.cuh``, in bf16 that of ``csrc/bilstm_fwd_mma.cuh``,
+whose ``h W_hh^T`` runs on the tensor cores as a three-term bf16 split
+held to float32 (:func:`fwd_mma_plan` gives its launch). The wrappers
+pass the batch rows ordered by descending length (:func:`length_order`),
+so the rows valid at a step are a prefix in both directions, and scratch
+for the exchange of ``h`` and the blocks' step flags. The train backward
+launches twice a layer (a gate pass, then
 one cooperative launch for the whole reverse recurrence); its bf16
 recurrence is the kernel of ``csrc/bilstm_bwd_cluster.cuh``, clusters of
 blocks that share each step's float32 dG (:func:`bwd_cluster_plan`
@@ -62,7 +65,7 @@ from .lstm import bilstm, bilstm_train_bwd, bilstm_train_fwd, matmul_f32, projec
 
 __all__ = ["bilstm_cuda", "bilstm_infer", "bilstm_train_fwd_cuda", "bilstm_train_bwd_cuda",
            "BiLSTMFunction", "bilstm_train_cuda", "length_order", "bwd_cluster_plan",
-           "bwd_cluster_batch_cap"]
+           "bwd_cluster_batch_cap", "fwd_mma_plan", "fwd_mma_batch_cap"]
 
 _MULTIPLE = 32  # hidden must be a multiple of this (the kernels' k chunks and tiles)
 _SMEM_OPTIN_LIMIT = 232448  # the H100's shared memory a block can opt into
@@ -89,7 +92,8 @@ def _lib():
     lib = load("bilstm")
     if lib.bilstm_f32.argtypes is None:
         _declare(lib, 7, ("bilstm_f32", "bilstm_bf16"))
-        _declare_sizes(lib, ("bilstm_smem_bytes", "bilstm_check", "bilstm_check_bf16"))
+        _declare_sizes(lib, ("bilstm_smem_bytes", "bilstm_check", "bilstm_smem_bytes_bf16",
+                             "bilstm_check_bf16"))
     return lib
 
 
@@ -101,7 +105,8 @@ def _train_lib():
                           "lstm_train_bwd_recurrence_f32"))
         _declare(lib, 9, ("lstm_train_bwd_recurrence_bf16",))
         _declare_sizes(lib, ("lstm_train_fwd_smem_bytes", "lstm_train_fwd_check",
-                             "lstm_train_fwd_check_bf16", "lstm_train_bwd_smem_bytes",
+                             "lstm_train_fwd_smem_bytes_bf16", "lstm_train_fwd_check_bf16",
+                             "lstm_train_bwd_smem_bytes",
                              "lstm_train_bwd_check", "lstm_train_bwd_cluster_smem_bytes",
                              "lstm_train_bwd_cluster_check_bf16"))
         lib.lstm_train_bwd_cluster_size.argtypes = [_I]
@@ -158,6 +163,49 @@ def bwd_cluster_plan(batch: int, hidden: int) -> dict:
             "smem_bytes": smem}
 
 
+# The launch of kernels 1b and 2b (csrc/bilstm_fwd_mma.cuh): its constants,
+# for the shared memory a block and the exchange's rows.
+_MMA_TILE = 16          # batch rows an m tile, columns of h a k tile
+_MMA_WARPS = 8          # warps a block, each with 16 float4 of partial sums a lane
+_MMA_FRAG_BYTES = 4 * 32 * 16  # W_hh's hi and lo B fragments a k tile
+_MMA_ROW_BYTES = 2 * _UNITS * 4 + 2 * 4  # a row's (c, h) carry, length and position
+
+
+def _fwd_mma_smem(batch: int, hidden: int) -> int:
+    return (hidden // _MMA_TILE * _MMA_FRAG_BYTES + _MMA_WARPS * 4 * 32 * 16
+            + batch * _MMA_ROW_BYTES)
+
+
+def fwd_mma_batch_cap(hidden: int) -> int:
+    """The largest batch whose kernel 1b / 2b launch fits one block's
+    shared memory at ``hidden``."""
+    return (_SMEM_OPTIN_LIMIT - _fwd_mma_smem(0, hidden)) // _MMA_ROW_BYTES
+
+
+def fwd_mma_plan(batch: int, hidden: int) -> dict:
+    """The launch of kernels 1b and 2b, the bf16 forward recurrences, for
+    a layer, as ``csrc/bilstm_fwd_mma.cuh`` makes it: ``blocks``
+    (``2 H / 8``, one an SM), ``smem_bytes`` a block (W_hh's split slice
+    in fragment order, the warps' partial sums, the carry) and
+    ``exchange_rows``, the batch rounded up to whole m tiles of 16: the
+    exchange of ``h`` holds ``[2, 2, exchange_rows, H]`` floats' bytes.
+    Raises ``ValueError`` for ``H`` not a multiple of 32, an empty batch,
+    or a block whose shared memory passes the opt-in
+    (``B > fwd_mma_batch_cap(H)``)."""
+    if hidden <= 0 or hidden % _MULTIPLE:
+        raise ValueError(f"kernels 1b/2b: hidden {hidden} must be a multiple of {_MULTIPLE}")
+    if batch <= 0:
+        raise ValueError(f"kernels 1b/2b: batch {batch} must be positive")
+    smem = _fwd_mma_smem(batch, hidden)
+    if smem > _SMEM_OPTIN_LIMIT:
+        raise ValueError(f"kernels 1b/2b: W_hh's fragments, the sums and the carry of batch "
+                         f"{batch}, hidden {hidden} take {smem} B of shared memory, past the "
+                         f"{_SMEM_OPTIN_LIMIT} B a block can have (batch <= "
+                         f"{fwd_mma_batch_cap(hidden)})")
+    return {"blocks": 2 * hidden // _UNITS, "smem_bytes": smem,
+            "exchange_rows": -(-batch // _MMA_TILE) * _MMA_TILE}
+
+
 def _variant(name: str, xg: torch.Tensor) -> str:
     """``"f32"`` or ``"bf16"``, the variant the dtype of ``xg`` selects."""
     if xg.dtype == torch.float32:
@@ -190,11 +238,13 @@ def bilstm_cuda(w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,
     :func:`voice100_tpu_torch.ops.lstm.stack_directions` gives them;
     ``lengths [B]`` are the valid lengths; all float32. Same semantics as
     the plain :func:`bilstm`. One launch (``csrc/bilstm.cu``): the float32
-    variant, or with ``compute_dtype=torch.bfloat16`` the bf16 one on the
-    float32 projection rounded to bf16.
+    variant, or with ``compute_dtype=torch.bfloat16`` the bf16 one (kernel
+    1b, ``csrc/bilstm_fwd_mma.cuh``) on the float32 projection rounded to
+    bf16.
 
     Raises ``ValueError`` for ``H`` not a multiple of 32 or a batch whose
-    carry does not fit one block's shared memory, and ``RuntimeError``
+    carry does not fit one block's shared memory (in bf16 past
+    :func:`fwd_mma_batch_cap`, before the projection), and ``RuntimeError``
     when the device cannot launch the recurrence cooperatively with all
     its ``2 H / 8`` blocks resident; there is no other path.
     """
@@ -215,6 +265,8 @@ def bilstm_cuda(w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,
         raise ValueError("bilstm_cuda: w_hh must be contiguous")
     if lengths.shape != (batch,):
         raise ValueError(f"bilstm_cuda: lengths must be [{batch}], got {tuple(lengths.shape)}")
+    if compute_dtype == torch.bfloat16:
+        fwd_mma_plan(batch, hidden)  # raises before anything is launched
     xg = project_inputs(w_ih, bias, x).to(compute_dtype or torch.float32).contiguous()
     out, _ = _forward("bilstm_cuda", xg, w_hh, lengths, save_states=False)
     _count(bilstm_cuda, xg)
@@ -299,20 +351,29 @@ def _forward(name: str, xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Ten
     """One persistent launch of the forward recurrence: kernel 1
     (``out [B, T, 2H]``, ``[]``) or, with ``save_states``, kernel 2
     (``out``, ``[h_prev, c_prev]``, each ``[2, B, T, H]`` in the dtype of
-    ``xg``). Raises before launching anything when the grid cannot be
+    ``xg``). The bf16 variant (kernels 1b, 2b) is planned by
+    :func:`fwd_mma_plan`, which raises past its batch cap before anything
+    is loaded. Raises before launching anything when the grid cannot be
     resident."""
     batch, time, hidden, lengths = _layer_setup(name, xg, w_hh, lengths)
     variant = _variant(name, xg)
+    rows = fwd_mma_plan(batch, hidden)["exchange_rows"] if variant == "bf16" else batch
     lib, prefix = (_train_lib(), "lstm_train_fwd") if save_states else (_lib(), "bilstm")
     device = xg.device
     order = length_order(lengths)
-    xchg = torch.empty(2, 2, batch, hidden, device=device)        # [ping-pong, dir, B, H]
+    # [ping-pong, dir, rows, H] floats' bytes: float32 h by sorted row, or in
+    # bf16 h split into hi and lo halves, in the mma's A-fragment order
+    xchg = torch.empty(2, 2, rows, hidden, device=device)
     ready = torch.empty(2 * hidden // _UNITS, dtype=torch.int32, device=device)  # a flag a block
     out = torch.empty(batch, time, 2 * hidden, device=device)
     states = [torch.empty(2, batch, time, hidden, device=device, dtype=xg.dtype)
               for _ in range(2)] if save_states else []
     with torch.cuda.device(device), _LAUNCH_LOCK:
-        _check_resident(name, lib, prefix, variant, batch, hidden)
+        if variant == "bf16":  # the plan has checked its shared memory
+            check(lib, getattr(lib, f"{prefix}_check_bf16")(batch, hidden),
+                  f"{name} (cooperative launch)")
+        else:
+            _check_resident(name, lib, prefix, variant, batch, hidden)
         status = getattr(lib, f"{prefix}_{variant}")(
             xg.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(), order.data_ptr(),
             xchg.data_ptr(), ready.data_ptr(), out.data_ptr(), *[t.data_ptr() for t in states],
@@ -326,8 +387,9 @@ def bilstm_train_fwd_cuda(xg: torch.Tensor, w_hh: torch.Tensor, lengths: torch.T
     launch): ``xg [2, B, T, 4H]``, ``w_hh [2, 4H, H]`` -> ``out [B, T, 2H]``,
     ``h_prev, c_prev [2, B, T, H]``, as the plain
     :func:`voice100_tpu_torch.ops.lstm.bilstm_train_fwd`. A bf16 ``xg``
-    launches the bf16 variant, whose states are bf16; ``out`` is float32
-    either way. Raises as :func:`bilstm_cuda` does."""
+    launches the bf16 variant (kernel 2b, ``csrc/bilstm_fwd_mma.cuh``),
+    whose states are bf16; ``out`` is float32 either way. Raises as
+    :func:`bilstm_cuda` does."""
     if xg.device.type == "cpu":
         return bilstm_train_fwd(xg, w_hh, lengths)
     out, (h_prev, c_prev) = _forward("bilstm_train_fwd_cuda", xg, w_hh, lengths, save_states=True)
@@ -424,6 +486,8 @@ class BiLSTMFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w_ih, w_hh, bias, x, lengths, bf16=False):
         w_hh = w_hh.contiguous()
+        if bf16 and x.device.type == "cuda":
+            fwd_mma_plan(x.shape[0], w_hh.shape[2])  # raises before anything is launched
         xg = project_inputs(w_ih, bias, x, torch.bfloat16 if bf16 else None).contiguous()
         out, h_prev, c_prev = bilstm_train_fwd_cuda(xg, w_hh, lengths)
         ctx.save_for_backward(w_ih, w_hh, x, lengths, xg, h_prev, c_prev)

@@ -56,9 +56,25 @@ It also prints how many clusters of 1, 2, 4, 8 and 16 blocks of that
 recurrence the card holds resident at once at each shape
 (``max_active_clusters``), which sets its cluster size.
 
+Kernels 1b and 2b, the bf16 forward (``csrc/bilstm_fwd_mma.cuh``, the
+product on tensor cores), as 2b (``lstm_train_fwd_bf16``) at the bf16
+``asr_en_base`` (B=64, T=501, H=512), ``tts_en_base`` (B=128, T=512),
+``align_en_base`` (B=128, T=144, H=256) and ``align_v1`` (B=32, T=501,
+H=128) shapes, seeded ragged lengths with 1 and T:
+
+* ``full``; ``barrier_only``: the barrier, the valid-row count and the
+  L2 prefetch only: no product, no cell update, no frozen rows;
+* ``no_product``: the cell update on xg alone (no h read, no mma);
+* ``no_stream``: the mma on registers, reading no h from L2;
+* ``no_split``: a warp always takes an m tile's whole K, however few
+  tiles are live;
+* ``no_l2_prefetch``: without the L2 prefetch of the next step's xg;
+* ``f32_before``: kernel 2's float32 recurrence (``bilstm_persistent.cuh``)
+  on the widened ``xg``.
+
 Prints one line a variant and a JSON object ``{"card", "forward":
 {"shapes", "us_per_step": {variant: {shape: us}}}, "backward": {...},
-"backward_cluster": {...}}``.
+"backward_cluster": {...}, "forward_mma": {...}}``.
 """
 
 from __future__ import annotations
@@ -105,6 +121,17 @@ _C_STREAMED = "const int streamed = n;"
 _C_DG = "for (int p0 = tid; p0 < n * UNITS; p0 += CELLS * THREADS) {"
 _C_FROZEN = "for (int p = tid; p < (batch - n) * UNITS; p += THREADS) {"
 _C_ARRIVE = "mbarrier.arrive.shared::cluster.b64 _, [remote];"
+
+
+# text anchors in the bf16 forward (kernels 1b and 2b)
+MMA_HEADER = "bilstm_fwd_mma.cuh"
+_M_LOAD = ("        a[i][0] = __ldcg(src + (k0 + i) * EXCHANGE_WORDS);\n"
+           "        a[i][1] = __ldcg(src + (k0 + i) * EXCHANGE_WORDS + 1);")
+_M_P_TILES = "const int p_tiles = (n_live + TILE_M - 1) / TILE_M;"
+_M_N_TILES = "const int n_tiles = (n + TILE_M - 1) / TILE_M;"
+_M_FROZEN = "for (int p = tid; p < (batch - n) * UNITS; p += THREADS) {"
+_M_SPLIT = "while (live > 0 && live << (log_split + 1) <= WARPS"
+_M_PREFETCH = "if (len_s[r] <= tn) continue;"
 
 
 def _check_anchors(src: str, anchors, where: str) -> None:
@@ -160,6 +187,23 @@ def backward_cluster_variants(src: str):
         "barrier_only": no_product.replace(_C_DG, _C_DG.replace("p0 < n * UNITS", "p0 < 0"))
                                   .replace(_C_FROZEN, _C_FROZEN.replace("p < (batch - n) * UNITS",
                                                                         "p < 0")),
+    }
+
+
+def forward_mma_variants(src: str):
+    """Variants of ``bilstm_fwd_mma.cuh``'s text, by name."""
+    _check_anchors(src, (_M_LOAD, _M_P_TILES, _M_N_TILES, _M_FROZEN, _M_SPLIT, _M_PREFETCH),
+                   MMA_HEADER)
+    no_product = src.replace(_M_P_TILES, "const int p_tiles = 0;")
+    return {
+        "full": src,
+        "barrier_only": no_product.replace(_M_N_TILES, "const int n_tiles = 0;").replace(
+            _M_FROZEN, _M_FROZEN.replace("p < (batch", "p < 0 * (batch")),
+        "no_product": no_product,
+        "no_stream": src.replace(
+            _M_LOAD, "        a[i][0] = a[i][1] = make_uint4(k0 + i, 0u, 0u, 0u);"),
+        "no_split": src.replace(_M_SPLIT, _M_SPLIT.replace("live > 0", "false")),
+        "no_l2_prefetch": src.replace(_M_PREFETCH, "continue;"),
     }
 
 
@@ -351,6 +395,53 @@ def probe_backward_cluster(workdir: Path):
     return result
 
 
+def probe_forward_mma(workdir: Path):
+    shapes = {"asr_en_base": (64, 501, 512), "tts_en_base": (128, 512, 512),
+              "align_en_base": (128, 144, 256), "align_v1": (32, 501, 128)}
+    stream = torch.cuda.current_stream().cuda_stream
+    variants = forward_mma_variants((CSRC / MMA_HEADER).read_text())
+    libs = _build(workdir / "forward_mma", "bilstm_train.cu", MMA_HEADER, variants)
+    for lib in libs.values():
+        for fn in (lib.lstm_train_fwd_bf16, lib.lstm_train_fwd_f32):
+            fn.argtypes = [_P] * 9 + [_I] * 3 + [_P]
+            fn.restype = _I
+    result = {"shapes": "bf16: " + "; ".join(f"{key} B={b}, T={t}, H={h}"
+                                             for key, (b, t, h) in shapes.items()),
+              "us_per_step": {name: {} for name in [*libs, "f32_before"]}}
+    for key, (batch, time, hidden) in shapes.items():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        xg16 = (torch.randn(2, batch, time, 4 * hidden, device="cuda", generator=gen)
+                * 0.5).to(torch.bfloat16)
+        wide = xg16.float()
+        w_hh = (torch.rand(2, 4 * hidden, hidden, device="cuda", generator=gen) * 2 - 1) \
+            / hidden ** 0.5
+        lens = torch.tensor(_ragged(batch, time), dtype=torch.int32, device="cuda")
+        order = length_order(lens)
+        rows = -(-batch // 16) * 16
+        xchg = torch.empty(2, 2, rows, hidden, device="cuda")
+        ready = torch.empty(2 * hidden // 8, dtype=torch.int32, device="cuda")
+        out = torch.empty(batch, time, 2 * hidden, device="cuda")
+        states16 = [torch.empty(2, batch, time, hidden, device="cuda", dtype=torch.bfloat16)
+                    for _ in range(2)]
+        states32 = [torch.empty(2, batch, time, hidden, device="cuda") for _ in range(2)]
+        common = [w_hh, lens, order, xchg, ready, out]
+        for name, lib in libs.items():
+            pointers = [t.data_ptr() for t in (xg16, *common, *states16)]
+            launch = lib.lstm_train_fwd_bf16
+            result["us_per_step"][name][key] = _time(
+                lib, lambda: launch(*pointers, batch, time, hidden, stream)) * 1e3 / time
+        full = libs["full"]
+        pointers = [t.data_ptr() for t in (wide, *common, *states32)]
+        result["us_per_step"]["f32_before"][key] = _time(full, lambda: full.lstm_train_fwd_f32(
+            *pointers, batch, time, hidden, stream)) * 1e3 / time
+        del xg16, wide, xchg, out, states16, states32
+        torch.cuda.empty_cache()
+    for name, us in result["us_per_step"].items():
+        print(f"forward_mma {name}: " + ", ".join(f"{k} {v:.2f}" for k, v in us.items())
+              + " us a step", flush=True)
+    return result
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("probe_bilstm: CUDA is not available")
@@ -359,7 +450,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as workdir:
         result = {"card": card, "forward": probe_forward(Path(workdir)),
                   "backward": probe_backward(Path(workdir)),
-                  "backward_cluster": probe_backward_cluster(Path(workdir))}
+                  "backward_cluster": probe_backward_cluster(Path(workdir)),
+                  "forward_mma": probe_forward_mma(Path(workdir))}
     print(json.dumps(result), flush=True)
 
 
