@@ -262,7 +262,19 @@ toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
     the three programs and the card side of OnnxASR run, read just after
     (the ``export`` path); kernel 1 against its plain version at the
     three programs' shapes (B=1: asr T'=256, H=512; align T=128, H=256;
-    tts T=128, H=512);
+    tts T=128, H=512); then the v1 deployment surface
+    (``v1_deploy_phase``): the five v1 models at the train-v1 widths,
+    seeded, their BatchNorm statistics moved off 0 and 1, each exported
+    by the export CLI in this process on the card (no ``--device``: cuda
+    by default), loaded and run bit-equal to the direct call, its .onnx
+    under the NumPy runtime within 2e-3 of the card (f0 where the
+    voicing logit clears the tolerance), a reference-layout .ckpt
+    (``model.`` prefix, ``num_batches_tracked``) through the import CLI
+    on the card bit-equal; the launch counts set to 0 just before the
+    five programs run, read just after (the ``v1_export`` path: kernel 1
+    twice, for ``align_ctc_v1``'s two layers, every other kernel 0);
+    kernel 1 at ``align_ctc_v1``'s program shape
+    (B=1, T'=256, H=128) is checked early with the other export shapes;
 23. after step 13 (``distributed_phase``), trains asr_en_base through
     the training CLI on the align corpus with half of it held out (64
     train clips: one full global batch of 64 an epoch, 3 epochs) from
@@ -5274,7 +5286,7 @@ def world_device_phase(device, card, workdir, host_s):
 # the native WORLD synthesis against the NumPy one on the periodic path
 EXPORT_ONNX_TOL = 2e-3
 NATIVE_SYNTHESIS_TOL = 1e-4  # of the waveform's peak (tests/test_native.py:200-202)
-EXPORT_LENGTHS = {"asr": 473, "align": 101, "tts": 101}
+EXPORT_LENGTHS = {"asr": 473, "align": 101, "tts": 101, "align_v1": 473}
 
 
 def export_inputs(kind, model, device):
@@ -5293,7 +5305,7 @@ def check_bilstm_export(device):
     """Kernel 1 against its plain version at the exported programs'
     shapes: B=1 at the static extent, the valid length of
     ``export_inputs``; asr T'=256 (H=512, D=512), align T=128 (H=256,
-    D=256), tts T=128 (H=512, D=512)."""
+    D=256), tts T=128 (H=512, D=512), align_v1 T'=256 (H=128, D=128)."""
     from voice100_tpu_torch.models.layers import conv_stack_output_length
 
     settings = ASR_EN_BASE["encoder_settings"]
@@ -5305,6 +5317,8 @@ def check_bilstm_export(device):
                   ALIGN_EN_BASE["hidden_size"]),
         "tts": (128, EXPORT_LENGTHS["tts"], TTS_EN_BASE["encoder_hidden_size"],
                 TTS_EN_BASE["encoder_hidden_size"]),
+        # AudioAlignCTC's program: the stride-2 conv halves the 512 frames
+        "align_v1": (256, (EXPORT_LENGTHS["align_v1"] + 1) // 2, V1_H, V1_H),
     }
     return {f"export_{kind}": check_bilstm(device, 1, steps, [valid], hidden=hidden,
                                            input_size=d_in, plain_iters=1)
@@ -5487,6 +5501,207 @@ def export_phase(device, card, workdir, align_args):
                     "onnx_asr_s": onnx_asr_s, "native_synthesis_err": native_err,
                     "voiced_frames": int(voiced.sum())})
     return launches, summary
+
+
+# The v1 deployment surface: the five v1 models at the train-v1 widths
+# (V1_*), exported at the JAX tool's static shapes under its kinds
+# (label, the JAX tool's kind, model, inputs, widths)
+V1_DEPLOY = (("asr_v1", "asr_v1", "AudioToTextCTC", "asr", V1_ASR),
+             ("align_ctc_v1", "align_ctc_v1", "AudioAlignCTC", "align", V1_ALIGN),
+             ("ttsalign_v1", "ttsalign_v1", "TextToAlignTextModel", "tts", V1_TTS_ALIGN),
+             ("ttsaudio_v1", "ttsaudio_v1", "AlignTextToAudioModel", "tts", V1_TTS_AUDIO),
+             ("ttsaudio_mt_v1", "ttsaudio_v1", "AlignTextToAudioMultiTaskModel", "tts",
+              V1_TTS_MT))
+V1_DEPLOY_TIMED = 10
+
+
+def v1_deploy_model(i, name, kwargs):
+    """A seeded v1 model on the CPU, its BatchNorm running averages moved
+    by U(0.1, 0.5) (so that the folded graph and the import read them),
+    the acoustic models' WORLD statistics at the scale of real features."""
+    from voice100_tpu_torch import models
+    from voice100_tpu_torch.models.layers import BatchNorm
+
+    gen = torch.Generator().manual_seed(SEED + 60 + i)
+    model = getattr(models, name)(**kwargs, device="cpu", generator=gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                for buf in (m.running_mean, m.running_var):
+                    buf.add_(torch.rand(buf.shape, generator=gen) * 0.4 + 0.1)
+        if hasattr(model, "norm"):
+            s = model.logspc_size
+            for key, value in (("f0_mean", [150.0]), ("f0_std", [30.0]),
+                               ("logspc_mean", [-5.0] * s), ("logspc_std", [2.0] * s),
+                               ("codeap_mean", [-0.5]), ("codeap_std", [0.5])):
+                getattr(model.norm, key).copy_(torch.tensor(value))
+    return model.eval()
+
+
+def v1_reference_state(model):
+    """The model's state in the reference's layout: Lightning's ``model.``
+    prefix, and each BatchNorm's ``num_batches_tracked`` as
+    ``nn.BatchNorm1d`` keeps it."""
+    from voice100_tpu_torch.models.layers import BatchNorm
+
+    state = {f"model.{k}": v.detach().cpu() for k, v in model.state_dict().items()}
+    for prefix, m in model.named_modules():
+        if isinstance(m, BatchNorm):
+            state[f"model.{prefix}.num_batches_tracked"] = torch.tensor(100, dtype=torch.long)
+    return state
+
+
+def v1_deploy_phase(device, card, workdir):
+    """The v1 deployment surface and the mel-kernel switch on the card
+    (see the module's docstring, step 22). Returns the launches by path
+    and a summary."""
+    import yaml
+
+    from voice100_tpu_torch.onnx.runtime import load_model as load_onnx
+    from voice100_tpu_torch.ops.lstm_cuda import bilstm_cuda
+    from voice100_tpu_torch.tools.export import cli_main as export_main
+    from voice100_tpu_torch.tools.export import load_exported, predict_module
+    from voice100_tpu_torch.tools.import_torch import cli_main as import_main
+    from voice100_tpu_torch.training import TrainState, save_checkpoint
+    from voice100_tpu_torch.training.cli import load_model
+
+    phase_start = time.perf_counter()
+    root = os.path.join(workdir, "export_v1")
+    os.makedirs(root)
+    counters = cli_counters()
+    rng = np.random.default_rng(SEED + 61)
+    summary, outputs = {"card": card}, {}
+    for i, (kind, jax_kind, name, input_kind, kwargs) in enumerate(V1_DEPLOY):
+        model = v1_deploy_model(i, name, kwargs)
+        cfg, ckpt = os.path.join(root, f"{kind}.yaml"), os.path.join(root, f"{kind}.pt")
+        with open(cfg, "w") as f:
+            yaml.safe_dump({"model": {"class_path": f"voice100.models.{name}",
+                                      "init_args": kwargs}}, f)
+        save_checkpoint(ckpt, TrainState(model, torch.optim.Adam(model.parameters())))
+        path = os.path.join(root, f"{kind}.pt2")
+        start = time.perf_counter()
+        export_main(["--config", cfg, "--ckpt_path", ckpt, "--output", path])  # cuda by default
+        export_s = time.perf_counter() - start
+        with open(path + ".json") as f:
+            manifest = json.load(f)
+        if (manifest["kind"], torch.device(manifest["device"]).type) != (jax_kind, "cuda"):
+            fail(f"v1 export: the {kind} manifest reads {manifest}")
+        model = model.to(device)
+        if input_kind == "tts":
+            args = (torch.from_numpy(rng.integers(1, kwargs["vocab_size"], (1, 128)).astype(
+                np.int32)).to(device),)
+        else:
+            x = torch.from_numpy(rng.standard_normal((1, 512, kwargs["audio_size"])).astype(
+                np.float32)).to(device)
+            args = (x, torch.tensor([EXPORT_LENGTHS["align_v1"]], dtype=torch.int32,
+                                    device=device)) if input_kind == "align" else (x,)
+        direct_fn = predict_module(model)
+        with torch.inference_mode():
+            direct_fn(*args)
+            zero_counts(counters)
+            direct = direct_fn(*args)
+            direct_launches = read_counts(counters)
+            hasf0 = model(*args)[0] if kind.startswith("ttsaudio") else None
+        start = time.perf_counter()
+        program = load_exported(path)
+        load_s = time.perf_counter() - start
+        program(*args)  # warm-up: cuDNN plans
+        # the reference layout through the import CLI, on cuda by default
+        ref_ckpt = os.path.join(root, f"{kind}-reference.ckpt")
+        torch.save({"state_dict": v1_reference_state(model), "epoch": 0, "global_step": 0},
+                   ref_ckpt)
+        imported_ckpt = os.path.join(root, f"{kind}-imported.pt")
+        import_main(["--config", cfg, "--ckpt_path", ref_ckpt, "--output", imported_ckpt])
+        imported_fn = predict_module(load_model(cfg, imported_ckpt, device=device))
+        with torch.inference_mode():
+            imported = imported_fn(*args)
+        onnx = load_onnx(os.path.splitext(path)[0] + ".onnx")
+        np_args = [t.cpu().numpy() for t in args]
+        onnx(*np_args)
+        start = time.perf_counter()
+        onnx_out = onnx(*np_args)
+        onnx_ms = (time.perf_counter() - start) * 1e3
+        ms = {"direct": [], "exported": []}
+        with torch.inference_mode():
+            for r in range(2):  # in turns
+                for which in (("direct", "exported") if r == 0 else ("exported", "direct")):
+                    fn = direct_fn if which == "direct" else program
+                    ms[which].append(time_ms(lambda: fn(*args), iters=V1_DEPLOY_TIMED))
+        outputs[kind] = (program, args, direct, direct_launches, imported, onnx_out, hasf0)
+        summary[kind] = {"params": sum(p.numel() for p in model.parameters()),
+                         "export_s": export_s, "load_s": load_s,
+                         "direct_ms": float(np.median(ms["direct"])),
+                         "exported_ms": float(np.median(ms["exported"])),
+                         "onnx_numpy_ms": onnx_ms, "pt2_bytes": os.path.getsize(path),
+                         "onnx_bytes": os.path.getsize(os.path.splitext(path)[0] + ".onnx")}
+
+    # the main path: the five exported programs, one call each
+    zero_counts(counters)
+    for fn in counters.values():
+        if hasattr(fn, "launches_bf16"):
+            fn.launches_bf16 = 0
+    exported = {}
+    for kind, (program, args, *_rest) in outputs.items():
+        before = bilstm_cuda.launches
+        exported[kind] = program(*args)
+        torch.cuda.synchronize()
+        exported[kind] = (exported[kind], bilstm_cuda.launches - before)
+    launches = read_counts(counters)
+    bf16 = sum(getattr(fn, "launches_bf16", 0) for fn in counters.values())
+    want = dict.fromkeys(counters, 0)
+    want["bilstm_recurrence"] = V1_ALIGN["num_layers"]
+    if launches != want or bf16:
+        fail(f"v1 export: launches {launches} (bf16 {bf16}), not {want}")
+
+    for kind, (_, args, direct, direct_launches, imported, onnx_out, hasf0) in outputs.items():
+        got, got_launches = exported[kind]
+        per_call = V1_ALIGN["num_layers"] if kind == "align_ctc_v1" else 0
+        if got_launches != per_call or direct_launches["bilstm_recurrence"] != per_call:
+            fail(f"v1 export: the {kind} program launched kernel 1 {got_launches} times, the "
+                 f"direct call {direct_launches['bilstm_recurrence']}, not {per_call}")
+        if any(direct_launches[k] for k in direct_launches if k != "bilstm_recurrence"):
+            fail(f"v1 export: the direct {kind} call launched {direct_launches}")
+        got, direct, imported = (x if isinstance(x, tuple) else (x,)
+                                 for x in (got, direct, imported))
+        if not all(torch.isfinite(a).all() for a in direct if a.is_floating_point()):
+            fail(f"v1 export: the direct {kind} call gave non-finite outputs")
+        if len(got) != len(direct) or not all(torch.equal(a, b) for a, b in zip(got, direct)):
+            fail(f"v1 export: the {kind} program's outputs are not the direct call's bit for bit")
+        if not all(torch.equal(a, b) for a, b in zip(imported, direct)):
+            fail(f"v1 export: the imported {kind} checkpoint's outputs are not bit-equal")
+        if len(onnx_out) != len(direct):
+            fail(f"v1 export: the {kind} .onnx gives {len(onnx_out)} outputs, not {len(direct)}")
+        valid = None
+        if kind == "align_ctc_v1":
+            if not np.array_equal(onnx_out[1], direct[1].cpu().numpy()):
+                fail("v1 export: the align_ctc_v1 .onnx gives other logit lengths than the card")
+            valid = int(direct[1][0])
+        err, gated = 0.0, 0
+        for j, (o, d) in enumerate(zip(onnx_out, direct)):
+            if d.dim() < 2:
+                continue
+            diff = np.abs(np.asarray(o)[:, :valid] - d.cpu().numpy()[:, :valid])
+            if hasf0 is not None and j == 0:
+                # f0 is zero where the voicing logit is below 0: compare it where the
+                # logit clears the tolerance
+                clear = (hasf0.abs() > EXPORT_ONNX_TOL).cpu().numpy()
+                gated = int((~clear).sum())
+                diff = diff[clear]
+            err = max(err, float(diff.max()))
+        summary[kind].update(onnx_max_abs_err=err, f0_frames_gated=gated)
+        if not err <= EXPORT_ONNX_TOL:
+            fail(f"v1 export: the {kind} .onnx under the NumPy runtime is {err:.3e} from the card")
+
+    paths = {"v1_export": launches}
+    summary["wall_s"] = time.perf_counter() - phase_start
+    for kind, *_ in V1_DEPLOY:
+        r = summary[kind]
+        print(f"v1 export {kind} on {card}: export {r['export_s']:.2f} s, load "
+              f"{r['load_s']:.3f} s, exported {r['exported_ms']:.4f} ms vs direct "
+              f"{r['direct_ms']:.4f} ms a call, ONNX (NumPy) {r['onnx_numpy_ms']:.1f} ms a call, "
+              f"max_abs_err {r['onnx_max_abs_err']:.3e}", flush=True)
+    print(f"v1 deploy phase on {card}: {summary['wall_s']:.1f} s", flush=True)
+    return paths, summary
 
 
 # Data parallelism (the distributed phase): asr_en_base through the training
@@ -6387,6 +6602,10 @@ def main() -> None:
     print(card, flush=True)
     start = time.perf_counter()
 
+    def mark(name):
+        """Where the run's wall time goes: each phase's end from the build's start."""
+        print(f"phase {name}: done at {time.perf_counter() - start:.1f} s", flush=True)
+
     def print_build(report):
         for name, info in report.items():
             ptxas = [line.strip() for line in info["log"].splitlines()
@@ -6443,41 +6662,59 @@ def main() -> None:
         entry["step_us_by_variant"] = steps["us_per_step"][key]
         entry["chain_floor_ms"] = steps["chain_floor_ms"][key]
     aligning = check_viterbi(device, steps["us_per_step"]["viterbi"])
+    mark("kernel checks")
     by_path = {"serve": serve(device, card), "train": train(device, card)}
     train_parity(device)
+    mark("serve, train")
     with tempfile.TemporaryDirectory() as workdir:
         runs, args, samples = align(device, card, workdir)
         by_path.update({f"align_{run}": r["launches"] for run, r in runs.items()})
+        mark("align")
         by_path["serve_beam"], beam_summary = serve_beam(device, card, workdir,
                                                          args["data_dir"])
+        mark("serve_beam")
         server_paths, server_summary = server_phase(device, card, workdir)
         by_path.update(server_paths)
         by_path["profile_fit"], server_summary["profile_fit"] = profile_fit(device, card, workdir,
                                                                             args)
+        mark("server, profile_fit")
         parity = align_parity(device, args, workdir)
         cli_launches, _ = cli_phase(device, card, workdir, args, samples)
         by_path.update({f"cli_{sub}": launches for sub, launches in cli_launches.items()})
+        mark("align parity, cli")
         dp_start = time.perf_counter()
         dp_paths, dp_summary = distributed_phase(device, card, workdir, args)
         dp_summary["wall_s"] = time.perf_counter() - dp_start
         by_path.update(dp_paths)
+        mark("distributed")
         by_path["tts"], tts_kernel, tts_summary = tts_phase(device, card, workdir)
+        mark("tts")
         tts_train_paths, tts_train_kernels, tts_train_summary, tts_data = tts_train_phase(
             device, card, workdir, args)
         new_start = time.perf_counter()
+        mark("tts_train")
         world_summary = world_device_phase(device, card, workdir,
                                            tts_train_summary["world_analysis_cold_s"])
+        mark("world_device")
         by_path["export"], export_summary = export_phase(device, card, workdir, args)
+        mark("export")
+        v1_deploy_paths, v1_deploy_summary = v1_deploy_phase(device, card, workdir)
+        by_path.update(v1_deploy_paths)
+        mark("v1_deploy")
         export_summary["new_phases_wall_s"] = time.perf_counter() - new_start
         shell_paths, shell_summary = data_shell_phase(device, card, workdir, args,
                                                       os.path.join(workdir, "tts_data"))
+        mark("data_shell")
         phone_start = time.perf_counter()
         phone_paths, phone_kernels, phone_summary = phone_phase(device, card, workdir)
         phone_summary["wall_s"] = time.perf_counter() - phone_start
+        mark("phone")
         # kernel 1 at the TTS configs' training batch
         serving[1]["b128_h512"] = check_bilstm_b128_h512(device)
         bf16_paths, bf16_summary = bf16_phase(device, card, workdir, args, samples, tts_data)
+        mark("b128_h512, bf16")
         v1_paths, v1_summary = v1_phase(device, card, workdir, args, samples)
+        mark("v1")
     by_path.update(tts_train_paths)
     by_path.update(v1_paths)
     by_path.update(shell_paths)
@@ -6522,6 +6759,7 @@ def main() -> None:
     print(f"server_summary ({card}) " + json.dumps(server_summary), flush=True)
     print(f"world_device_summary ({card}) " + json.dumps(world_summary), flush=True)
     print(f"export_summary ({card}) " + json.dumps(export_summary), flush=True)
+    print(f"v1_deploy_summary ({card}) " + json.dumps(v1_deploy_summary), flush=True)
     print(f"dp_summary ({card}) " + json.dumps(dp_summary), flush=True)
     print(f"v1_summary ({card}) " + json.dumps(v1_summary), flush=True)
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s from the kernel build to here",

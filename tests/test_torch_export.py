@@ -1,15 +1,16 @@
 """The port's ``tools/export`` (``torch.export`` programs) on the CPU.
 
-Narrow v2 models initialised in JAX and carried to the port
-(``test_torch_onnx.make_pairs``). Each predict surface exported as a
-``.pt2`` reloads with ``torch.export.load``, equals the direct predict
-call bit for bit (the same ATen ops and the same biLSTM op on the same
-inputs), and stays within the port's parity tolerances of the JAX model's
-``apply`` (``tests/test_torch_asr.py``: logits 1e-4; ``tests/
-test_torch_tts.py``: durations rtol 1e-5, TTS streams 1e-4 abs); its graph
-holds one ``voice100_torch::bilstm_infer`` node a layer; the manifest
-names the surface; the CLI runs from a config and a port checkpoint; a v1
-architecture raises naming ROADMAP item 11.
+Narrow v2 and v1 models initialised in JAX and carried to the port
+(``test_torch_onnx.make_pairs``, ``make_v1_pairs``). Each predict surface
+exported as a ``.pt2`` reloads with ``torch.export.load``, equals the
+direct predict call bit for bit (the same ATen ops and the same biLSTM op
+on the same inputs), and stays within the port's parity tolerances of the
+JAX model's ``apply`` (``tests/test_torch_asr.py``: logits 1e-4; ``tests/
+test_torch_tts.py``: durations rtol 1e-5, TTS streams 1e-4 abs; the v1
+forward rtol 1e-4 / atol 1e-5 of ``tests/test_torch_v1_models.py``); its
+graph holds one ``voice100_torch::bilstm_infer`` node a layer
+(``AudioAlignCTC``'s two among the v1 models); the manifest names the JAX
+tool's kind; the CLI runs from a v2 or v1 config and a port checkpoint.
 """
 
 import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
@@ -23,7 +24,7 @@ import yaml
 
 import jax.numpy as jnp
 
-from test_torch_onnx import VOCAB, make_pairs
+from test_torch_onnx import MELS, V1_KINDS, VOCAB, make_pairs, make_v1_pairs
 
 KINDS = ["asr", "align", "tts", "tts_logspc"]
 
@@ -143,21 +144,124 @@ def test_cli_exports_a_config_and_checkpoint(exported, tmp_path):
     torch.testing.assert_close(load_exported(str(out))(*args), want, rtol=0, atol=0)
 
 
-def test_v1_architectures_raise_naming_the_item(tmp_path):
+def test_v1_architectures_raise_naming_the_item(v1_exported, tmp_path):
+    """The CLI exports a v1 config (a reference ``class_path``) and a port
+    checkpoint; an architecture without a surface raises naming itself."""
     from voice100_tpu_torch.onnx.export import export_onnx
-    from voice100_tpu_torch.tools.export import cli_main, export_model
+    from voice100_tpu_torch.tools.export import cli_main, export_model, load_exported
+    from voice100_tpu_torch.tools.export import predict_module
 
-    config = {"model": {"class_path": "voice100_tpu.models.AudioToTextCTC",
-                        "init_args": {"audio_size": 64, "vocab_size": VOCAB}},
+    port = v1_exported["align_v1"][2]
+    config = {"model": {"class_path": "voice100_tpu.models.AudioAlignCTC",
+                        "init_args": {"audio_size": MELS, "vocab_size": VOCAB,
+                                      "hidden_size": 16, "num_layers": 2}},
               "data": {"class_path": "voice100_tpu.data.AudioTextDataModule"}}
     (tmp_path / "v1.yaml").write_text(yaml.safe_dump(config))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cli_main(["--config", str(tmp_path / "v1.yaml"), "--ckpt_path", "none", "--device", "cpu"])
-    v1 = type("AlignTextToAudioModel", (torch.nn.Module,), {})()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        export_onnx(v1, str(tmp_path / "v1.onnx"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        export_model(v1, str(tmp_path / "v1.pt2"))
+    torch.save({"model": port.state_dict()}, tmp_path / "v1.pt")
+    out = tmp_path / "out" / "v1.pt2"
+    out.parent.mkdir()
+    cli_main(["--config", str(tmp_path / "v1.yaml"), "--ckpt_path", str(tmp_path / "v1.pt"),
+              "--output", str(out), "--device", "cpu"])
+    assert json.load(open(str(out) + ".json"))["kind"] == "align_ctc_v1"
+    assert (tmp_path / "out" / "v1.onnx").exists()
+    args = _v1_args("align_v1")
+    with torch.inference_mode():
+        want = predict_module(port)(*args)
+    for a, b in zip(load_exported(str(out))(*args), want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    other = type("AlignTextToAudioModelV0", (torch.nn.Module,), {})()
+    with pytest.raises(ValueError, match="AlignTextToAudioModelV0"):
+        export_onnx(other, str(tmp_path / "v0.onnx"))
+    with pytest.raises(ValueError, match="AlignTextToAudioModelV0"):
+        export_model(other, str(tmp_path / "v0.pt2"))
+
+
+@pytest.fixture(scope="module")
+def v1_exported(tmp_path_factory):
+    """kind -> (JAX model, variables, port model, .pt2 path) of the v1 surfaces."""
+    from voice100_tpu_torch.tools.export import export_model
+
+    out = {}
+    root = tmp_path_factory.mktemp("export_v1")
+    for kind, (model, variables, port) in make_v1_pairs().items():
+        path = str(root / f"{kind}.pt2")
+        assert export_model(port, path) == path
+        out[kind] = (model, variables, port, path)
+    return out
+
+
+V1_JAX_KIND = {"asr_v1": "asr_v1", "align_v1": "align_ctc_v1", "ttsalign_v1": "ttsalign_v1"}
+V1_ALIGN_LENGTH = 431
+
+
+def _v1_args(kind):
+    """Seeded inputs at the static shapes, a valid length short of the extent."""
+    rng = np.random.default_rng(4)
+    if kind in ("asr_v1", "align_v1"):
+        x = torch.from_numpy(rng.standard_normal((1, 512, MELS)).astype(np.float32))
+        return (x, torch.tensor([V1_ALIGN_LENGTH], dtype=torch.int32)) if kind == "align_v1" \
+            else (x,)
+    return (torch.from_numpy(rng.integers(1, VOCAB, (1, 128)).astype(np.int32)),)
+
+
+@pytest.mark.parametrize("kind", V1_KINDS)
+def test_v1_program_reloads_and_equals_the_direct_call(kind, v1_exported):
+    from voice100_tpu_torch.tools.export import load_exported, predict_module
+
+    _, _, port, path = v1_exported[kind]
+    args = _v1_args(kind)
+    with torch.inference_mode():
+        want = _tuple(predict_module(port)(*args))
+    got = _tuple(load_exported(path)(*args))
+    assert len(got) == len(want) == {"align_v1": 2, "ttsaudio_mt_v1": 4}.get(
+        kind, 3 if kind.startswith("ttsaudio") else 1)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and not a.requires_grad
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kind", V1_KINDS)
+def test_v1_program_is_within_parity_of_the_jax_model(kind, v1_exported):
+    from voice100_tpu_torch.tools.export import load_exported
+
+    model, variables, _, path = v1_exported[kind]
+    args = _v1_args(kind)
+    got = [t.numpy() for t in _tuple(load_exported(path)(*args))]
+    jargs = [jnp.asarray(t.numpy()) for t in args]
+    if kind.startswith("ttsaudio"):  # predict, no mc2sp folded
+        want = model.apply(variables, *jargs, method=type(model).predict)
+    else:
+        want = model.apply(variables, *jargs)
+    want = [np.asarray(w) for w in _tuple(want)]
+    assert len(got) == len(want)
+    valid = (V1_ALIGN_LENGTH + 1) // 2 if kind == "align_v1" else None
+    if kind == "align_v1":
+        np.testing.assert_array_equal(got[1], want[1])
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        if b.ndim > 1:
+            np.testing.assert_allclose(a[:, :valid], b[:, :valid], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", V1_KINDS)
+def test_v1_graph_and_manifest_name_the_jax_kind(kind, v1_exported):
+    from voice100_tpu_torch.tools.export import load_exported
+
+    path = v1_exported[kind][3]
+    program = load_exported(path).program
+    ops = [node for node in program.graph.nodes
+           if node.op == "call_function" and "bilstm_infer" in str(node.target)]
+    assert len(ops) == (2 if kind == "align_v1" else 0)
+    manifest = json.load(open(path + ".json"))
+    assert manifest["kind"] == V1_JAX_KIND.get(kind, "ttsaudio_v1")
+    assert manifest["format"] == "torch.export" and manifest["device"] == "cpu"
+    audio = kind in ("asr_v1", "align_v1")
+    assert manifest["input_shapes"] == ([[1, 512, MELS]] if audio else [[1, 128]]) + (
+        [[1]] if kind == "align_v1" else [])
+    assert manifest["input_dtypes"] == (["float32"] if audio else ["int32"]) + (
+        ["int32"] if kind == "align_v1" else [])
+    onnx = path[:-len(".pt2")] + ".onnx"
+    assert open(onnx, "rb").read(2) == b"\x08\x07"
 
 
 def test_deterministic_cudnn_is_restored_after_overlapping_threads():

@@ -1,11 +1,14 @@
 """The port's ONNX emitter, runtime and serving vs the JAX package's (CPU).
 
-Narrow v2 models are initialised in JAX and carried to the port with
-``from_jax_variables``. Held here:
+Narrow v2 and v1 models are initialised in JAX and carried to the port
+with ``from_jax_variables`` (the v1 BatchNorms' statistics moved off 0
+and 1, so that the folded graphs read them). Held here:
 
 * the port's emitter, fed the same weights, writes the JAX emitter's file
   byte for byte (both serialize the same messages in field order), and
-  each package's runtime reads the other's file to the same outputs;
+  each package's runtime reads the other's file to the same outputs; a
+  v1 acoustic model with ``use_mcep`` and ``n_fft=256`` folds the mc2sp
+  matrix of its own ``n_fft``;
 * the port's NumPy runtime against the port model at rtol/atol 1e-4 on
   valid frames (``tests/test_onnx.py:55-58``);
 * ``OnnxASR`` gives the port ``ASRPipeline``'s transcripts, ``OnnxTTS``
@@ -72,6 +75,88 @@ def make_pairs():
         port.load_state_dict(from_jax_variables(variables, DECODER), strict=True)
         out[kind] = (model, variables, port)
     return out
+
+
+# v1 surfaces: name, constructor arguments, the init inputs' kind
+V1_HIDDEN = 16
+V1_SPECS = {
+    "asr_v1": ("AudioToTextCTC", dict(audio_size=MELS, vocab_size=VOCAB, embed_size=12,
+                                      hidden_size=V1_HIDDEN)),
+    "align_v1": ("AudioAlignCTC", dict(audio_size=MELS, vocab_size=VOCAB, hidden_size=V1_HIDDEN,
+                                       num_layers=2)),
+    "ttsalign_v1": ("TextToAlignTextModel", dict(vocab_size=VOCAB, hidden_size=V1_HIDDEN)),
+    "ttsaudio_v1": ("AlignTextToAudioModel", dict(vocab_size=VOCAB, hidden_size=V1_HIDDEN,
+                                                  n_fft=32)),
+    "ttsaudio_v1_mcep": ("AlignTextToAudioModel", dict(vocab_size=VOCAB, hidden_size=V1_HIDDEN,
+                                                       use_mcep=True, n_fft=256)),
+    "ttsaudio_mt_v1": ("AlignTextToAudioMultiTaskModel", dict(
+        vocab_size=VOCAB, target_vocab_size=13, hidden_size=V1_HIDDEN, n_fft=32)),
+}
+V1_KINDS = list(V1_SPECS)
+
+
+def make_v1_pairs():
+    """kind -> (JAX model, its variables, the port model with its weights),
+    for the five v1 architectures (two of the acoustic one)."""
+    from voice100_tpu import models as jm
+    from voice100_tpu_torch import models as pm
+
+    rng = np.random.default_rng(9)
+    out = {}
+    for kind, (name, kwargs) in V1_SPECS.items():
+        model = getattr(jm, name)(**kwargs)
+        if name.startswith("Audio"):
+            args = (jnp.zeros((1, 21, MELS)),) + ((jnp.asarray([21]),) if name == "AudioAlignCTC"
+                                                   else ())
+        else:
+            args = (jnp.zeros((1, 8), jnp.int32),)
+        variables = dict(_init(model, args))
+        if "batch_stats" in variables:
+            variables["batch_stats"] = jax.tree_util.tree_map(
+                lambda a: (a + rng.uniform(0.1, 0.5, a.shape)).astype(np.float32),
+                variables["batch_stats"])
+        if "world_norm" in variables:
+            s = model.logspc_size
+            variables["world_norm"] = {"norm": {
+                "f0_mean": np.float32([150.0]), "f0_std": np.float32([30.0]),
+                "logspc_mean": np.linspace(-6, 0.5, s).astype(np.float32),
+                "logspc_std": np.linspace(0.2, 1.5, s).astype(np.float32),
+                "codeap_mean": np.float32([-20.0]), "codeap_std": np.float32([6.0])}}
+        port = getattr(pm, name)(**kwargs, device="cpu").eval()
+        port.load_state_dict(from_jax_variables(variables, model=name), strict=True)
+        out[kind] = (model, variables, port)
+    return out
+
+
+@pytest.fixture(scope="module")
+def v1_pairs():
+    return make_v1_pairs()
+
+
+def _v1_inputs(kind):
+    rng = np.random.default_rng(8)
+    if kind in ("asr_v1", "align_v1"):
+        audio = rng.standard_normal((2, 37, MELS)).astype(np.float32)
+        return (audio, np.asarray([37, 22], np.int32)) if kind == "align_v1" else (audio,)
+    return (rng.integers(1, VOCAB, (2, 13)).astype(np.int32),)
+
+
+def _v1_port_outputs(kind, port, args):
+    """The port model's outputs on ``args``, as the graph gives them: the
+    v1 acoustic models' predict with mc2sp of the model's ``n_fft`` folded
+    where it predicts mel-cepstrum."""
+    with torch.inference_mode():
+        x = [torch.from_numpy(a) for a in args]
+        if not kind.startswith("ttsaudio"):
+            out = port(*x)
+            return tuple(t.numpy() for t in (out if isinstance(out, tuple) else (out,)))
+        f0, feat, codeap, *logits = port.predict(*x)
+        if port.use_mcep:
+            from voice100_tpu_torch.dsp.mcep import create_mc2sp_matrix
+
+            feat = feat @ torch.from_numpy(
+                create_mc2sp_matrix(port.n_fft, 24, 0.410).astype(np.float32))
+        return tuple(t.numpy() for t in (f0, feat, codeap, *logits))
 
 
 @pytest.fixture(scope="module")
@@ -143,6 +228,46 @@ def test_runtime_matches_the_port_model(kind, pairs, tmp_path):
             if np.ndim(b) == 1:  # logits_len
                 np.testing.assert_array_equal(a, b)
             else:
+                np.testing.assert_allclose(a[row, :n], b[row, :n], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("kind", V1_KINDS)
+def test_v1_emitter_writes_the_jax_file(kind, v1_pairs, tmp_path):
+    from voice100_tpu.onnx.export import export_onnx as jax_export_onnx
+    from voice100_tpu.onnx.runtime import load_model as jax_load_model
+    from voice100_tpu_torch.onnx.export import export_onnx
+    from voice100_tpu_torch.onnx.runtime import load_model
+
+    model, variables, port = v1_pairs[kind]
+    ref_path = jax_export_onnx(model, variables, str(tmp_path / "jax.onnx"))
+    path = export_onnx(port, str(tmp_path / "port.onnx"))
+    assert open(path, "rb").read() == open(ref_path, "rb").read()
+    args = _v1_inputs(kind)
+    ours, theirs = load_model(ref_path)(*args), jax_load_model(path)(*args)
+    assert len(ours) == len(theirs) == {"align_v1": 2, "ttsaudio_mt_v1": 4}.get(
+        kind, 3 if kind.startswith("ttsaudio") else 1)
+    for a, b in zip(ours, theirs):
+        np.testing.assert_array_equal(a, b)
+    if kind == "ttsaudio_v1_mcep":  # mc2sp of the model's n_fft=256: 129 bins
+        assert ours[1].shape[-1] == 129
+
+
+@pytest.mark.parametrize("kind", V1_KINDS)
+def test_v1_runtime_matches_the_port_model(kind, v1_pairs, tmp_path):
+    from voice100_tpu_torch.onnx.export import export_onnx
+    from voice100_tpu_torch.onnx.runtime import load_model
+
+    port = v1_pairs[kind][2]
+    args = _v1_inputs(kind)
+    got = load_model(export_onnx(port, str(tmp_path / "m.onnx")))(*args)
+    want = _v1_port_outputs(kind, port, args)
+    assert [np.shape(a) for a in got] == [np.shape(b) for b in want]
+    if kind == "align_v1":
+        np.testing.assert_array_equal(got[1], want[1])
+    for row in range(2):
+        n = int(want[1][row]) if kind == "align_v1" else None
+        for a, b in zip(got, want):
+            if np.ndim(b) > 1:
                 np.testing.assert_allclose(a[row, :n], b[row, :n], rtol=RTOL, atol=ATOL)
 
 

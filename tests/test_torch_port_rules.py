@@ -6,11 +6,17 @@
   CUDA is absent instead of running on the CPU;
 * chip_smoke.py drives asr_en_base at the width config/asr_en_base.yaml
   gives, and fails (printing no result) without a card or without the
-  package beside it.
+  package beside it;
+* the public surface: every module of voice100_tpu/ has a port module at
+  the same path, and each of its public names (``__all__`` and the
+  top-level defs and classes, read from the source as text) exists there,
+  or stands in :data:`SURFACE_ALLOWLIST` with its port counterpart or the
+  reason it has none (TPU/JAX only, or ROADMAP item 4).
 """
 
 import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
 
+import ast
 import os
 import pathlib
 import re
@@ -199,3 +205,125 @@ def test_chip_smoke_fails_without_card_or_package(tmp_path, alone):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+# JAX modules without a port module: the Pallas kernels (ported as CUDA,
+# csrc/), the device F0 of dio_jax.py (dsp/world/dio_device.py) and the
+# generated protobuf module (onnx/schema.py builds its classes in code)
+NO_PORT_MODULE = {
+    "ops/lstm_pallas.py": "TPU/JAX only: kernels 1-3 are csrc/bilstm*.cu, ops/lstm_cuda.py",
+    "ops/ctc_pallas.py": "TPU/JAX only: kernels 4-7 are csrc/ctc.cu, csrc/viterbi.cu",
+    "ops/melspec_pallas.py": "TPU/JAX only: kernel 8 is csrc/melspec.cu, ops/melspec_cuda.py",
+    "dsp/world/dio_jax.py": "port: dsp/world/dio_device.py",
+    "onnx/voice100_onnx_pb2.py": "port: onnx/schema.py (descriptor built in code)",
+}
+ITEM_4 = "not ported: ROADMAP item 4 (tensor-parallel meshes)"
+# (JAX module, public name) -> the port's counterpart ("port: ...") or why
+# it has none ("TPU/JAX only: ..." or ITEM_4)
+SURFACE_ALLOWLIST = {
+    ("dsp/world/__init__.py", "synthesize"): "port: dsp/world/synthesis.py synthesize_batch",
+    ("dsp/world/__init__.py", "synthesize_fn"): "port: dsp/world/synthesis.py synthesize_batch",
+    ("dsp/world/synthesis.py", "synthesize"): "port: synthesize_batch",
+    ("dsp/world/synthesis.py", "synthesize_fn"): "port: synthesize_batch",
+    ("onnx/schema.py", "OnnxSchemaUnavailable"):
+        "TPU/JAX only: protoc fallback; the port builds its classes in code",
+    ("ops/__init__.py", "log_mel_spectrogram"): "port: ops/melspec.py",
+    ("ops/__init__.py", "MelSpectrogram"):
+        "port: ops/melspec_cuda.py log_mel_spectrogram_cuda / ops/melspec.py log_mel_spectrogram",
+    ("ops/__init__.py", "MELSPEC_DIM"): "port: ops/melspec.py",
+    ("ops/__init__.py", "LOG_OFFSET"): "port: ops/melspec.py",
+    ("ops/__init__.py", "sequence_mask"): "port: ops/mask.py",
+    ("ops/__init__.py", "ctc_loss"): "port: ops/ctc.py, ops/ctc_cuda.py ctc_loss_cuda",
+    ("ops/__init__.py", "ctc_viterbi_align"): "port: ops/ctc.py, ops/viterbi_cuda.py",
+    ("ops/__init__.py", "ViterbiResult"): "port: ops/ctc.py",
+    ("ops/__init__.py", "batch_spectrogram_augment"):
+        "port: ops/augment.py draw_augment + apply_augment",
+    ("ops/__init__.py", "BLANK_AUDIO"): "port: ops/mask.py",
+    ("ops/__init__.py", "expand_alignment"): "port: ops/duration.py expand_alignment_batch",
+    ("ops/__init__.py", "expand_alignment_batch"): "port: ops/duration.py",
+    ("ops/augment.py", "batch_spectrogram_augment"): "port: draw_augment + apply_augment",
+    ("ops/duration.py", "expand_alignment"): "port: expand_alignment_batch",
+    ("ops/melspec.py", "MelSpectrogram"):
+        "port: ops/melspec_cuda.py log_mel_spectrogram_cuda / log_mel_spectrogram",
+    ("ops/ctc.py", "last_kernel_mode"): "TPU/JAX only: the Pallas/scan switch",
+    ("ops/lstm.py", "last_kernel_mode"): "TPU/JAX only: the Pallas/scan switch",
+    ("ops/lstm.py", "init_lstm_params"): "port: models/layers.py BiLSTM",
+    ("ops/lstm.py", "multilayer_bilstm"): "port: models/layers.py BiLSTM",
+    ("parallel/__init__.py", "batch_sharding"): "TPU/JAX only: GSPMD sharding",
+    ("parallel/__init__.py", "replicated"): "TPU/JAX only: GSPMD sharding",
+    ("parallel/__init__.py", "infer_param_spec"): ITEM_4,
+    ("parallel/__init__.py", "shard_params"): ITEM_4,
+    ("parallel/mesh.py", "batch_sharding"): "TPU/JAX only: GSPMD sharding",
+    ("parallel/mesh.py", "replicated"): "TPU/JAX only: GSPMD sharding",
+    ("parallel/mesh.py", "replicate_tree"): "port: replicate",
+    ("parallel/mesh.py", "kernel_sharding"): "TPU/JAX only: shard_map of the Pallas kernels",
+    ("parallel/mesh.py", "active_kernel_mesh"): "TPU/JAX only: shard_map of the Pallas kernels",
+    ("parallel/mesh.py", "kernel_batch_axes"): "TPU/JAX only: shard_map of the Pallas kernels",
+    ("parallel/mesh.py", "kernel_batch_divisor"): "TPU/JAX only: shard_map of the Pallas kernels",
+    ("parallel/mesh.py", "pallas_interpret"): "TPU/JAX only: the Pallas interpret switch",
+    ("parallel/mesh.py", "data_shard_map"): "TPU/JAX only: shard_map",
+    ("tools/import_torch.py", "convert_asr_v2"): "port: convert_state_dict",
+    ("tools/import_torch.py", "convert_align_v2"): "port: convert_state_dict",
+    ("tools/import_torch.py", "convert_tts_v2"): "port: convert_state_dict",
+    ("tools/import_torch.py", "convert_asr_v1"): "port: convert_state_dict",
+    ("tools/import_torch.py", "convert_align_v1"): "port: convert_state_dict",
+    ("tools/import_torch.py", "convert_ttsalign_v1"): "port: convert_state_dict",
+    ("tools/import_torch.py", "convert_ttsaudio_v1"): "port: convert_state_dict",
+    ("tools/import_torch.py", "convert_ttsaudio_mt_v1"): "port: convert_state_dict",
+    ("training/__init__.py", "load_variables"): "port: training/checkpoint.py load_model_weights",
+    ("training/checkpoint.py", "load_variables"): "port: load_model_weights",
+    ("training/tasks.py", "upcast_float_inputs"): "port: tasks._upcast",
+}
+
+
+def _public_names(tree) -> list:
+    """``__all__`` and the top-level defs and classes not named with ``_``."""
+    names = []
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(isinstance(t, ast.Name) and t.id == "__all__"
+                                                for t in node.targets):
+            names = list(ast.literal_eval(node.value))
+    return names + [n.name for n in tree.body
+                    if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))
+                    and not n.name.startswith("_") and n.name not in names]
+
+
+def _defined_names(tree) -> set:
+    """Every name a module binds at its top level (defs, classes,
+    assignments, imports)."""
+    out = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            out.update(n.id for t in targets for n in ast.walk(t) if isinstance(n, ast.Name))
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            out.update((a.asname or a.name).split(".")[0] for a in node.names)
+    return out
+
+
+def test_public_surface_audit():
+    jax_root = ROOT / "voice100_tpu"
+    missing, used = [], set()
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = path.relative_to(jax_root).as_posix()
+        port = PACKAGE / rel
+        if rel in NO_PORT_MODULE:
+            assert not port.exists(), f"{rel} has a port module now: drop it from NO_PORT_MODULE"
+            continue
+        assert port.exists(), f"voice100_tpu/{rel} has no port module voice100_tpu_torch/{rel}"
+        have = _defined_names(ast.parse(port.read_text()))
+        for name in _public_names(ast.parse(path.read_text())):
+            if (rel, name) in SURFACE_ALLOWLIST:
+                assert name not in have, f"{rel} {name} is ported now: drop its allowlist entry"
+                used.add((rel, name))
+            elif name not in have:
+                missing.append(f"{rel}: {name}")
+    assert not missing, missing
+    assert set(SURFACE_ALLOWLIST) == used, set(SURFACE_ALLOWLIST) - used
+    reasons = list(SURFACE_ALLOWLIST.values()) + list(NO_PORT_MODULE.values())
+    assert all(r.startswith(("port: ", "TPU/JAX only: ")) or r == ITEM_4 for r in reasons)
+    # what is left to port is item 4's alone
+    assert {k for k, r in SURFACE_ALLOWLIST.items() if r == ITEM_4} == {
+        ("parallel/__init__.py", "infer_param_spec"), ("parallel/__init__.py", "shard_params")}

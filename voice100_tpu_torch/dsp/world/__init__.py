@@ -28,13 +28,14 @@ from ..mcep import create_mc2sp_matrix, create_sp2mc_matrix
 from .aperiodicity import _harmonic_device, band_aperiodicity, d4c
 from .backend import DEVICE, analysis_backend as analysis_backend_of
 from .cheaptrick import _cheaptrick_device, cheaptrick
-from .codec import decode_aperiodicity, get_num_aperiodicities
+from .codec import code_aperiodicity, decode_aperiodicity, get_num_aperiodicities
 from .dio import dio
 from .dio_device import dio_device, dio_device_tensors
 from .synthesis import NoiseSource, synthesis_shape, synthesize_batch
 
 __all__ = ["WORLDVocoder", "FEATURE_VERSION", "dio", "dio_device", "cheaptrick", "d4c",
-           "band_aperiodicity", "decode_aperiodicity", "get_num_aperiodicities",
+           "band_aperiodicity", "code_aperiodicity", "decode_aperiodicity",
+           "get_num_aperiodicities",
            "synthesis_shape", "synthesize_batch"]
 
 # the analysis algorithms' version, keyed into the feature cache's salt

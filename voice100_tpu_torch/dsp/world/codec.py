@@ -1,17 +1,18 @@
-"""WORLD aperiodicity decoding (coarse 3 kHz bands -> full spectrum), numpy.
+"""WORLD aperiodicity codec (coarse 3 kHz bands <-> full spectrum), numpy.
 
-A copy of ``decode_aperiodicity`` and ``get_num_aperiodicities`` from
-``voice100_tpu/dsp/world/codec.py`` (pyworld's codec, as the reference
-calls it at voice100/vocoder.py:100): the full spectrum is rebuilt by
-linear dB interpolation through anchors at 0 Hz (-60 dB), the coded
-bands and Nyquist (~0 dB).
+A copy of ``voice100_tpu/dsp/world/codec.py`` (pyworld's codec, as the
+reference calls it at voice100/vocoder.py:73,100), host float64:
+``code_aperiodicity`` samples the aperiodicity spectrum in dB at (b+1)*3
+kHz; ``decode_aperiodicity`` rebuilds the full spectrum by linear dB
+interpolation through anchors at 0 Hz (-60 dB), the coded bands and
+Nyquist (~0 dB).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["get_num_aperiodicities", "decode_aperiodicity"]
+__all__ = ["get_num_aperiodicities", "code_aperiodicity", "decode_aperiodicity"]
 
 _FREQ_INTERVAL = 3000.0
 _UPPER_LIMIT = 15000.0
@@ -23,6 +24,23 @@ def get_num_aperiodicities(fs: int) -> int:
     """floor(min(15000, fs/2 - 3000) / 3000): 1 band at 16 kHz, 2 at
     22.05 kHz."""
     return int(min(_UPPER_LIMIT, fs / 2.0 - _FREQ_INTERVAL) // _FREQ_INTERVAL)
+
+
+def code_aperiodicity(aperiodicity: np.ndarray, fs: int) -> np.ndarray:
+    """``[T, fft//2+1]`` amplitude-ratio spectrum -> ``[T, bands]`` dB (float64)."""
+    ap = np.asarray(aperiodicity, dtype=np.float64)
+    t_frames, n_bins = ap.shape
+    fft_size = (n_bins - 1) * 2
+    n_bands = get_num_aperiodicities(fs)
+    out = np.empty((t_frames, n_bands))
+    for b in range(n_bands):
+        pos = (b + 1) * _FREQ_INTERVAL * fft_size / fs
+        lo = int(np.floor(pos))
+        frac = pos - lo
+        hi = min(lo + 1, n_bins - 1)
+        val = ap[:, lo] * (1 - frac) + ap[:, hi] * frac
+        out[:, b] = 20.0 * np.log10(np.maximum(val, _SAFE_MIN))
+    return out
 
 
 def decode_aperiodicity(coded: np.ndarray, fs: int, fft_size: int) -> np.ndarray:

@@ -32,8 +32,10 @@ block decoding of a live stream, each window at B=1 through the greedy
 path, frames older than the right context committed, the left context
 kept as warm-up.
 
-Not ported yet: the mel-kernel switch (the port always takes the kernel
-on CUDA).
+The JAX package's ``mel_kernel`` switch (``voice100_tpu/inference.py:55,
+128-150``) picks its TPU backend (Pallas or XLA) and has no counterpart
+here: the front end is :func:`log_mel_spectrogram_cuda`, kernel 8 on a
+CUDA tensor and its plain version on a CPU tensor.
 
 ``TTSPipeline`` ports ``voice100_tpu/inference.py:435-670``: texts ->
 tokens (host) -> durations (the align model, biLSTM kernel) -> one fetch

@@ -14,6 +14,3 @@ __all__ = ["AudioToAlignText", "TextToAlignText", "AlignTextToAudio", "AudioToTe
            "AudioAlignCTC", "TextToAlignTextModel", "AlignTextToAudioModel",
            "AlignTextToAudioMultiTaskModel"]
 
-# what the v1 halves of the deployment tools (onnx/export.py,
-# tools/export.py, tools/import_torch.py) wait for
-V1_DEPLOYMENT_ITEM = "ROADMAP.md §1, item 11: the v1 halves of the deployment tools"

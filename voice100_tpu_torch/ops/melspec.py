@@ -9,6 +9,7 @@ mel projection as a third, in float32, as the JAX reference runs them at
 
 This is the plain version of the fused CUDA kernel in
 ``ops/melspec_cuda.py``; that wrapper runs it for tensors on the CPU.
+:func:`power_spectrum` is the power STFT alone (the DFT products).
 The numpy constants are rebuilt here because the JAX module imports jax.
 :func:`log_mel_spectrogram_np` is a copy of the JAX package's host NumPy
 twin (``voice100_tpu/ops/melspec.py:165``), which ONNX serving runs.
@@ -27,6 +28,7 @@ __all__ = [
     "hann_window",
     "mel_filterbank",
     "frame_signal",
+    "power_spectrum",
     "log_mel_spectrogram",
     "log_mel_spectrogram_np",
     "num_frames",
@@ -94,18 +96,36 @@ def frame_signal(waveform: torch.Tensor, n_fft: int, hop_length: int) -> torch.T
 
 
 @functools.lru_cache(maxsize=8)
-def _constants(n_fft: int, win_length: int, n_mels: int, sample_rate: int):
-    """Host constants: window ``[n_fft]``, real-DFT cos / -sin
-    ``[n_fft, n_fft//2+1]`` and the filterbank ``[n_fft//2+1, n_mels]``."""
+def _window(win_length: int, n_fft: int) -> np.ndarray:
+    """The float32 Hann window ``[n_fft]``, a host constant."""
+    return hann_window(win_length, n_fft).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _dft_matrices(n_fft: int):
+    """Real-DFT cos / -sin ``[n_fft, n_fft//2+1]``, float32 host constants."""
     n_freq = n_fft // 2 + 1
     t = np.arange(n_fft)[:, None] * np.arange(n_freq)[None, :]
     ang = 2.0 * np.pi * t / n_fft
-    return (
-        hann_window(win_length, n_fft).astype(np.float32),
-        np.cos(ang).astype(np.float32),
-        (-np.sin(ang)).astype(np.float32),
-        mel_filterbank(n_freq, n_mels, sample_rate),
-    )
+    return np.cos(ang).astype(np.float32), (-np.sin(ang)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _filterbank(n_fft: int, n_mels: int, sample_rate: int) -> np.ndarray:
+    """The filterbank ``[n_fft//2+1, n_mels]``, a host constant."""
+    return mel_filterbank(n_fft // 2 + 1, n_mels, sample_rate)
+
+
+def power_spectrum(waveform: torch.Tensor, n_fft: int, hop_length: int,
+                   win_length: int) -> torch.Tensor:
+    """``[..., T] -> [..., F, n_fft//2+1]`` power-2 STFT magnitude in the
+    waveform's dtype, through the real-DFT cos and -sin products."""
+    window, cos_m, sin_m = (torch.from_numpy(a).to(waveform.device, waveform.dtype)
+                            for a in (_window(win_length, n_fft), *_dft_matrices(n_fft)))
+    frames = frame_signal(waveform, n_fft, hop_length) * window
+    re = torch.matmul(frames, cos_m)
+    im = torch.matmul(frames, sin_m)
+    return re * re + im * im
 
 
 def log_mel_spectrogram(
@@ -118,14 +138,9 @@ def log_mel_spectrogram(
     log_offset: float = LOG_OFFSET,
 ) -> torch.Tensor:
     """``[..., T] -> [..., F, n_mels]`` float32 log-mel features."""
-    window, cos_m, sin_m, fb = (
-        torch.from_numpy(a).to(waveform.device)
-        for a in _constants(n_fft, win_length, n_mels, sample_rate)
-    )
-    frames = frame_signal(waveform.to(torch.float32), n_fft, hop_length) * window
-    re = torch.matmul(frames, cos_m)
-    im = torch.matmul(frames, sin_m)
-    mel = torch.matmul(re * re + im * im, fb)
+    fb = torch.from_numpy(_filterbank(n_fft, n_mels, sample_rate)).to(waveform.device)
+    mel = torch.matmul(power_spectrum(waveform.to(torch.float32), n_fft, hop_length, win_length),
+                       fb)
     return torch.log(mel + log_offset)
 
 
@@ -141,7 +156,7 @@ def log_mel_spectrogram_np(
     """Host NumPy twin of :func:`log_mel_spectrogram` (the same torch.stft
     semantics through ``np.fft.rfft``), for serving paths without torch
     (:mod:`voice100_tpu_torch.onnx.serve`)."""
-    window, _, _, fb = _constants(n_fft, win_length, n_mels, sample_rate)
+    window, fb = _window(win_length, n_fft), _filterbank(n_fft, n_mels, sample_rate)
     x = np.asarray(waveform, np.float32)
     pad = n_fft // 2
     xp = np.pad(x, (pad, pad), mode="reflect")

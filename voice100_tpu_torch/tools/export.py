@@ -1,23 +1,33 @@
 """Model export for serving: a ``torch.export`` program, a manifest, an ``.onnx``.
 
-Port of ``voice100_tpu/tools/export.py:32-179``. The JAX package
-serializes each v2 predict surface as StableHLO through ``jax.export``;
-the port writes the same surfaces, at the same static example shapes, as
-a ``torch.export`` program (``torch.export.save``, a ``.pt2``), with a
-JSON manifest beside it (``<output>.json``: the kind, the format, the
-input shapes and dtypes, the calling convention and the device it was
-traced on) and the ``.onnx`` of :mod:`voice100_tpu_torch.onnx.export`:
+Port of ``voice100_tpu/tools/export.py``. The JAX package serializes each
+predict surface as StableHLO through ``jax.export``; the port writes the
+same surfaces, at the same static example shapes, as a ``torch.export``
+program (``torch.export.save``, a ``.pt2``), with a JSON manifest beside
+it (``<output>.json``: the JAX tool's kind, the format, the input shapes
+and dtypes, the calling convention and the device it was traced on) and
+the ``.onnx`` of :mod:`voice100_tpu_torch.onnx.export`:
 
   asr:   (audio [1, 512, A] f32, audio_len [1] i32) -> (logits, logits_len)
   align: (text [1, 128] i32, text_len [1] i32)      -> durations
   tts:   (aligntext [1, 128] i32, aligntext_len [1] i32)
          -> (f0, logspc, codeap), mc2sp folded for a 25-wide mcep head
 
+and the v1 models' (``voice100_tpu/tools/export.py:45-74``), in eval mode
+(the BatchNorms on their running statistics), no mc2sp folded:
+
+  asr_v1:       (audio [1, 512, A] f32)                  -> logits
+  align_ctc_v1: (audio [1, 512, A] f32, audio_len [1] i32) -> (logits, logits_len)
+  ttsalign_v1:  (text [1, 128] i32)       -> the forward's log-duration pairs
+  ttsaudio_v1:  (aligntext [1, 128] i32)  -> (f0, logspc, codeap), and the
+                phone logits for the multi-task model
+
 The program holds kernel 1 as one ``voice100_torch::bilstm_infer`` node a
-layer (:func:`voice100_tpu_torch.ops.lstm_cuda.bilstm_infer`), so a
-program traced on the card launches the kernel as the direct call does;
-:func:`load_exported` registers the op before it loads a file. Unlike
-the JAX tool, a failed ``.onnx`` is not caught: it fails the export.
+layer (:func:`voice100_tpu_torch.ops.lstm_cuda.bilstm_infer`; the v2
+models and ``AudioAlignCTC``), so a program traced on the card launches
+the kernel as the direct call does; :func:`load_exported` registers the
+op before it loads a file. Unlike the JAX tool, a failed ``.onnx`` is not
+caught: it fails the export.
 
   python -m voice100_tpu_torch.tools.export --config C --ckpt_path K.pt \\
       [--output out.pt2] [--device cpu]
@@ -45,7 +55,9 @@ CALLING_CONVENTION = ("voice100_tpu_torch.tools.export.load_exported(path)(*args
 class _Predict(torch.nn.Module):
     """A model's predict surface as one ``forward`` (``_predict_fn`` of the
     JAX tool): the ASR forward, the align model's ``predict`` or the TTS
-    model's ``predict`` with mc2sp folded."""
+    model's ``predict`` with mc2sp folded; for the v1 models the forward
+    (``asr_v1``, ``align_ctc_v1``, ``ttsalign_v1``) or ``predict``
+    (``ttsaudio_v1``). Each kind takes its own number of inputs."""
 
     def __init__(self, model: torch.nn.Module, kind: str) -> None:
         super().__init__()
@@ -58,14 +70,14 @@ class _Predict(torch.nn.Module):
             mc2sp = mc2sp.to(next(model.parameters()).device)
         self.register_buffer("mc2sp", mc2sp)
 
-    def forward(self, x: torch.Tensor, x_len: torch.Tensor):
-        if self.kind == "asr":
-            return self.model(x, x_len)
+    def forward(self, *args: torch.Tensor):
+        if self.kind in ("asr", "asr_v1", "align_ctc_v1", "ttsalign_v1"):
+            return self.model(*args)
         # the models' predict bodies, without their inference_mode wrapper
         predict = type(self.model).predict.__wrapped__
-        if self.kind == "align":
-            return predict(self.model, x, x_len)
-        f0, feat, codeap = predict(self.model, x, x_len)
+        if self.kind in ("align", "ttsaudio_v1"):
+            return predict(self.model, *args)
+        f0, feat, codeap = predict(self.model, *args)
         logspc = feat @ self.mc2sp if self.mc2sp is not None else feat
         return f0, logspc, codeap
 
@@ -113,33 +125,35 @@ def _stacked_lstms(model: torch.nn.Module):
 
 
 def _kind(model) -> str:
-    from ..models import AlignTextToAudio, AudioToAlignText, TextToAlignText
-    from ..onnx.export import V1_CLASSES
+    """The JAX tool's name of ``model``'s surface."""
+    from ..models import (AlignTextToAudio, AlignTextToAudioModel, AudioAlignCTC,
+                          AudioToAlignText, AudioToTextCTC, TextToAlignText,
+                          TextToAlignTextModel)
 
-    if isinstance(model, AudioToAlignText):
-        return "asr"
-    if isinstance(model, TextToAlignText):
-        return "align"
-    if isinstance(model, AlignTextToAudio):
-        return "tts"
-    if type(model).__name__ in V1_CLASSES:
-        from ..models import V1_DEPLOYMENT_ITEM
-
-        raise NotImplementedError(f"cannot export {type(model).__name__} yet "
-                                  f"({V1_DEPLOYMENT_ITEM})")
+    # AlignTextToAudioMultiTaskModel is an AlignTextToAudioModel: the same kind
+    for cls, kind in ((AudioToAlignText, "asr"), (TextToAlignText, "align"),
+                      (AlignTextToAudio, "tts"), (AudioToTextCTC, "asr_v1"),
+                      (AudioAlignCTC, "align_ctc_v1"), (TextToAlignTextModel, "ttsalign_v1"),
+                      (AlignTextToAudioModel, "ttsaudio_v1")):
+        if isinstance(model, cls):
+            return kind
     raise ValueError(f"Cannot export {type(model).__name__}")
 
 
 def example_inputs(model, device=None):
     """The static example inputs of a model's surface (the JAX tool's):
-    ``[1, 512, A]`` features and ``[512]`` for ASR, ``[1, 128]`` ids and
-    ``[128]`` for align and TTS."""
+    ``[1, 512, A]`` features and ``[512]`` for ASR and ``align_ctc_v1``,
+    the features alone for ``asr_v1``; ``[1, 128]`` ids and ``[128]`` for
+    align and TTS, the ids alone for the v1 TTS models."""
     device = device if device is not None else next(model.parameters()).device
-    if _kind(model) == "asr":
+    kind = _kind(model)
+    if kind in ("asr", "asr_v1", "align_ctc_v1"):
         x = torch.zeros(1, 512, model.audio_size, dtype=torch.float32, device=device)
-        return x, torch.tensor([512], dtype=torch.int32, device=device)
-    return (torch.zeros(1, 128, dtype=torch.int32, device=device),
-            torch.tensor([128], dtype=torch.int32, device=device))
+        n = torch.tensor([512], dtype=torch.int32, device=device)
+    else:
+        x = torch.zeros(1, 128, dtype=torch.int32, device=device)
+        n = torch.tensor([128], dtype=torch.int32, device=device)
+    return (x,) if kind in ("asr_v1", "ttsalign_v1", "ttsaudio_v1") else (x, n)
 
 
 def predict_module(model) -> torch.nn.Module:
@@ -211,7 +225,7 @@ def load_exported(path: str) -> ExportedPredict:
 
 
 def cli_main(argv=None) -> None:
-    from ..training.cli import load_config, load_model
+    from ..training.cli import load_model
 
     parser = ArgumentParser(description="Export a port checkpoint's predict surface.")
     parser.add_argument("--config", required=True)
@@ -221,13 +235,6 @@ def cli_main(argv=None) -> None:
                         help="device to trace on (default cuda, which raises without CUDA)")
     args = parser.parse_args(argv)
 
-    name = load_config(args.config)["model"]["class_path"].rsplit(".", 1)[-1]
-    from ..onnx.export import V1_CLASSES
-
-    if name in V1_CLASSES:
-        from ..models import V1_DEPLOYMENT_ITEM
-
-        raise NotImplementedError(f"cannot export {name} yet ({V1_DEPLOYMENT_ITEM})")
     model = load_model(args.config, args.ckpt_path, device=args.device)
     output = args.output or (os.path.splitext(os.path.basename(args.config))[0] + ".pt2")
     export_model(model, output)

@@ -1,23 +1,33 @@
 """Import reference (PyTorch Lightning) checkpoints into port checkpoints.
 
-Port of ``voice100_tpu/tools/import_torch.py:48-157, 336-404``. The
-reference distributes pretrained ``.ckpt`` files (torch pickles with a
+Port of ``voice100_tpu/tools/import_torch.py``. The reference
+distributes pretrained ``.ckpt`` files (torch pickles with a
 ``state_dict``). The port keeps the reference's state-dict names
-(:mod:`voice100_tpu_torch.tools.weights`), so a v2 import is the
-reference's tensors under the model's own keys:
+(:mod:`voice100_tpu_torch.tools.weights`), so an import is the
+reference's tensors under the model's own keys, for all eight
+architectures (the JAX package's ``convert_*_v2`` and ``convert_*_v1``
+are this one mapping here):
 
   v2 ASR   (AudioToAlignText): ``encoder.*``, ``lstm.*``, ``dense.*``
   v2 align (TextToAlignText):  ``embedding.*``, ``lstm.*``, ``dense.*``
   v2 TTS   (AlignTextToAudio): ``embedding.*``, ``lstm.*``, ``decoder.*``,
            ``projection.*`` and the WORLD statistics ``norm.*``
+  v1 ASR   (AudioToTextCTC):   ``encoder.layers.{0-8}.conv.*``,
+           ``decoder.layers.1.*``
+  v1 align (AudioAlignCTC):    ``conv.*``, ``lstm.*``, ``dense.*``
+  v1 TTS   (TextToAlignTextModel, AlignTextToAudioModel,
+           AlignTextToAudioMultiTaskModel): ``embedding.*``, ``layers.*``
+           or ``decoder.layers.*`` / ``decoder.layer{1,2,3}.*``, and
+           ``norm.*`` for the acoustic models
 
-A Lightning ``model.`` prefix is dropped; keys the model does not have
-are ignored, as the JAX converters pick theirs by name; a statistic the
-checkpoint lacks keeps the model's identity value (mean 0, std 1); any
-other missing tensor raises, and the result loads with
-``load_state_dict(strict=True)``. The five v1 architectures' converters
-are not ported yet: they raise naming their ``ROADMAP.md`` item
-(``V1_DEPLOYMENT_ITEM``).
+with each BatchNorm's ``weight``, ``bias``, ``running_mean`` and
+``running_var``. A Lightning ``model.`` prefix is dropped; keys the model
+does not have are ignored (the reference BatchNorms'
+``num_batches_tracked`` among them), as the JAX converters pick theirs by
+name; a statistic the checkpoint lacks keeps the model's identity value
+(mean 0, std 1; the JAX ``_world_norm``); any other missing tensor
+raises, a shape that is not the model's raises, and the result loads
+with ``load_state_dict(strict=True)``.
 
   python -m voice100_tpu_torch.tools.import_torch --config C \\
       --ckpt_path reference.ckpt --output port.pt [--device cpu]
@@ -54,20 +64,12 @@ def _strip_prefix(state: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
 
 def convert_state_dict(state: Mapping[str, np.ndarray], model) -> Dict[str, torch.Tensor]:
-    """A reference state dict -> the state dict of ``model`` (a v2
-    ``AudioToAlignText``, ``TextToAlignText`` or ``AlignTextToAudio``; the
-    JAX package's ``convert_asr_v2``, ``convert_align_v2`` and
-    ``convert_tts_v2`` are all this one mapping here), float32 CPU tensors
-    in the model's shapes."""
-    from ..models import AlignTextToAudio, AudioToAlignText, TextToAlignText
-    from ..onnx.export import V1_CLASSES
+    """A reference state dict -> the state dict of ``model`` (any of the
+    eight architectures of :data:`voice100_tpu_torch.tools.weights.MODEL_NAMES`),
+    float32 CPU tensors in the model's shapes."""
+    from .weights import MODEL_NAMES
 
-    if type(model).__name__ in V1_CLASSES:
-        from ..models import V1_DEPLOYMENT_ITEM
-
-        raise NotImplementedError(f"no converter for {type(model).__name__} yet "
-                                  f"({V1_DEPLOYMENT_ITEM})")
-    if not isinstance(model, (AudioToAlignText, TextToAlignText, AlignTextToAudio)):
+    if type(model).__name__ not in MODEL_NAMES:
         raise ValueError(f"no converter for {type(model).__name__}")
     state = _strip_prefix(state)
     out = {}
@@ -78,7 +80,8 @@ def convert_state_dict(state: Mapping[str, np.ndarray], model) -> Dict[str, torc
                 raise ValueError(f"{key}: checkpoint shape {tuple(value.shape)}, model "
                                  f"{tuple(ref.shape)}")
         elif key.startswith("norm."):
-            value = ref.detach().cpu().clone()  # identity statistics, as the JAX importer keeps
+            # identity statistics, as the JAX importer's _world_norm gives them
+            value = (torch.zeros if key.endswith("_mean") else torch.ones)(ref.shape)
         else:
             raise KeyError(f"reference checkpoint has no {key!r}")
         out[key] = value
@@ -97,7 +100,6 @@ def cli_main(argv=None) -> None:
     from argparse import ArgumentParser
 
     from ..device import resolve_device
-    from ..onnx.export import V1_CLASSES
     from ..training.cli import _MODEL_CLASSES, _filter_kwargs, _resolve_class, load_config
 
     parser = ArgumentParser(description="Import a reference checkpoint into the port.")
@@ -110,11 +112,6 @@ def cli_main(argv=None) -> None:
     args = parser.parse_args(argv)
 
     model_cfg = load_config(args.config)["model"]
-    name = model_cfg["class_path"].rsplit(".", 1)[-1]
-    if name in V1_CLASSES:
-        from ..models import V1_DEPLOYMENT_ITEM
-
-        raise NotImplementedError(f"no converter for {name} yet ({V1_DEPLOYMENT_ITEM})")
     cls = _resolve_class(model_cfg["class_path"], _MODEL_CLASSES)
     kwargs = dict(model_cfg.get("init_args") or {})
     kwargs.pop("audio_stat", None)
