@@ -284,15 +284,25 @@ toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
     losses and final weights (without them two plain fits part: the CTC
     vocabulary scatter and cuDNN add with atomics); two ranks on the one
     card over gloo at batch 32 each (NCCL refuses two ranks on one GPU;
-    each rank a process, ``chip_smoke.py --dp-rank``); every fit's launches
-    exact, one gradient all-reduce a step in a group, losses within 1e-5
-    relative and Adam's first moments within 1e-4 relative L2 of the plain
-    fit's, the weights against the JAX test's rtol 2e-5 / atol 2e-6
-    reported; the gradient all-reduce of a step timed over NCCL and gloo;
-    then ASRPipeline (the
-    serve phase's 16 clips) and TTSPipeline (the TTS phase's 16 texts)
-    over a mesh of the one device, bit-equal to the plain calls with the
-    same launches;
+    each rank a process, ``chip_smoke.py --dp-rank``), then in the same
+    two processes the (1, 2) tensor-parallel fit (``--mesh_model_axis
+    2``: each rank keeps its shards of the parameters and Adam moments
+    and gathers the weights each step), then both again under
+    deterministic algorithms; every fit's launches exact (a tensor-parallel
+    rank's as a data-parallel rank's), one gradient all-reduce a step in a
+    group, one weight all-gather a step, an epoch's tail and a checkpoint
+    at (1, 2), losses within 1e-5 relative and Adam's first moments within
+    1e-4 relative L2 of the plain fit's, the weights against the JAX
+    test's rtol 2e-5 / atol 2e-6 reported; the (1, 2) fit bit-equal to
+    the 2-rank data-parallel fit under deterministic algorithms (losses,
+    val losses, last.pt weights, both Adam moments); each rank's bytes of
+    parameters and Adam state between steps beside the data-parallel
+    rank's (at most 0.51 of them); the gradient all-reduce of a step timed
+    over NCCL and gloo, and the (1, 2) weight all-gather over gloo; then
+    ASRPipeline (the serve phase's 16 clips) and TTSPipeline (the TTS
+    phase's 16 texts) over a mesh of the one device, and ASRPipeline over
+    a (1, 2) mesh naming the card twice, bit-equal to the plain calls
+    with the same launches;
 24. prints one JSON line of per-kernel results (the bf16 variants as
     their own lines), then, last, {"ok": true, "device": {...}}.
 
@@ -5729,6 +5739,10 @@ DP_MOMENT_REL_TOL = 1e-4
 DP_WEIGHT_RTOL, DP_WEIGHT_ATOL = 2e-5, 2e-6
 DP_RANK_TIMEOUT_S = 400
 DP_ALL_REDUCE_ITERS = 20
+# tensor parallelism at (1, 2): the share of a data-parallel rank's
+# model and Adam bytes that a rank may keep between steps (every
+# asr_en_base tensor but the dense layer's 29-wide bias shards in two)
+TP_RESIDENT_SHARE = 0.51
 
 
 def free_port() -> int:
@@ -5756,32 +5770,101 @@ def all_reduce_step_ms(device) -> dict:
     return {"ms": ms, "bytes": 4 * n, "backend": torch.distributed.get_backend()}
 
 
-def dp_rank_child(spec_path: str) -> None:
-    """One rank of the two-rank gloo fit (``python3 chip_smoke.py --dp-rank
-    SPEC``): the CLI's ``fit`` with this rank's arguments, its launch and
-    collective counts, then the gradient all-reduce of a step timed over a
-    second group of the same two ranks; written to the spec's ``out``."""
+def resident_bytes(state) -> dict:
+    """The bytes a train state holds now, counted from its tensors'
+    storages, each once: ``model``, every tensor its modules keep (the
+    parameters, of which a tensor-parallel rank's sharded ones are freed
+    between steps, the buffers, and weights derived from the parameters,
+    such as the stacked biLSTM weights evaluation builds), with the
+    shards its optimizer steps; ``optimizer``, every tensor of the
+    optimizer's state."""
+    def tensors(x):
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, dict):
+            for v in x.values():
+                yield from tensors(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                yield from tensors(v)
+
+    def nbytes(ts):
+        return sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                    for t in ts}.values())
+
+    kept = [t for m in state.model.modules() for key, value in vars(m).items()
+            if key != "_modules" for t in tensors(value)]
+    return {"model": nbytes(kept + list(state.shards.leaves)),
+            "optimizer": nbytes(tensors(list(state.optimizer.state.values())))}
+
+
+def all_gather_step_ms(device) -> dict:
+    """The weight all-gather of one asr_en_base step on a (1, 2) mesh of
+    the process group this process has joined (``ParamShards.gather``: the
+    flat buffer of the shards, the collective, the full tensors rebuilt),
+    CUDA-event ms a call, and the bytes of the tensors it rebuilds."""
+    from voice100_tpu_torch.models import AudioToAlignText
     from voice100_tpu_torch.parallel import mesh as parallel
+
+    model = AudioToAlignText(**ASR_EN_BASE, device=device,
+                             generator=torch.Generator().manual_seed(SEED))
+    shards = parallel.ParamShards(model, parallel.process_mesh(2, device))
+    ms = time_ms(shards.gather, iters=DP_ALL_REDUCE_ITERS)
+    return {"ms": ms, "bytes": sum(p.numel() * p.element_size()
+                                   for p, d in zip(shards.params, shards.dims) if d is not None),
+            "backend": torch.distributed.get_backend()}
+
+
+def dp_rank_child(spec_path: str) -> None:
+    """One rank of the two-rank gloo fits (``python3 chip_smoke.py --dp-rank
+    SPEC``): the CLI's ``fit`` for each of the spec's ``fits`` in turn
+    (each with this rank's arguments, under deterministic algorithms where
+    it says so), with its launch and collective counts and what the rank
+    keeps between steps (the most :func:`resident_bytes` counts after any
+    step);
+    then the gradient all-reduce and the (1, 2) weight all-gather of a
+    step timed over a second group of the same two ranks; written to the
+    spec's ``out``."""
+    from voice100_tpu_torch.parallel import mesh as parallel
+    from voice100_tpu_torch.training import trainer as trainer_mod
     from voice100_tpu_torch.training.cli import main
 
     with open(spec_path) as f:
         spec = json.load(f)
+    held = {}
+    train_step = trainer_mod.Trainer.train_step
+
+    def counted_step(self, task, state, *args, **kwargs):
+        out = train_step(self, task, state, *args, **kwargs)
+        for key, value in resident_bytes(state).items():
+            held[key] = max(held.get(key, 0), value)
+        return out
+
+    trainer_mod.Trainer.train_step = counted_step
     counters = cli_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    collectives = dict(parallel.collective_counts)
-    start = time.perf_counter()
-    main(spec["argv"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - start
-    result = {"wall_s": wall, "launches": {k: fn.launches for k, fn in counters.items()},
-              "collectives": {k: v - collectives[k]
-                              for k, v in parallel.collective_counts.items()}}
+    result = {"fits": {}}
+    for fit in spec["fits"]:
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        collectives = dict(parallel.collective_counts)
+        held.clear()
+        start = time.perf_counter()
+        with deterministic_algorithms(fit["deterministic"]):
+            main(fit["argv"])
+            torch.cuda.synchronize()
+        result["fits"][fit["name"]] = {
+            "wall_s": time.perf_counter() - start,
+            "launches": {k: fn.launches for k, fn in counters.items()},
+            "collectives": {k: v - collectives[k] for k, v in parallel.collective_counts.items()},
+            "resident_bytes": dict(held)}
+    trainer_mod.Trainer.train_step = train_step
     device = torch.device(spec["device"])
     parallel.init_distributed(spec["timing_address"], 2, spec["rank"], device=device,
                               backend="gloo")
     try:
         result["all_reduce"] = all_reduce_step_ms(device)
+        result["all_gather"] = all_gather_step_ms(device)
     finally:
         parallel.shutdown_distributed()
     with open(spec["out"], "w") as f:
@@ -5797,14 +5880,17 @@ def dp_fit(root, name):
     epochs = [r for r in records if "train_time_s" in r]
     saved = torch.load(os.path.join(root, name, "last.pt"), map_location="cpu",
                        weights_only=True)
-    return {"losses": [r["train_loss"] for r in records
+    return {"records": records,
+            "losses": [r["train_loss"] for r in records
                        if "train_loss" in r and "train_time_s" not in r],
             "val": [r["val_loss"] for r in epochs],
             "train_time_s": [r["train_time_s"] for r in epochs],
             "start": next(r for r in records if r.get("event") == "fit_start"),
             "weights": saved["model"],
             "moments": torch.cat([state["exp_avg"].reshape(-1) for _, state in
-                                  sorted(saved["optimizer"]["state"].items())])}
+                                  sorted(saved["optimizer"]["state"].items())]),
+            "second_moments": torch.cat([state["exp_avg_sq"].reshape(-1) for _, state in
+                                         sorted(saved["optimizer"]["state"].items())])}
 
 
 def dp_compare(got, want) -> dict:
@@ -5849,15 +5935,19 @@ def deterministic_algorithms(on: bool = True):
 def dp_mesh_pipelines(device, card, workdir):
     """ASRPipeline and TTSPipeline over a mesh of one device, [cuda:0], at
     the serve and TTS phases' inputs, against the plain pipelines: the
-    launches of one call each, and the results bit for bit."""
+    launches of one call each, and the results bit for bit. ASRPipeline
+    also over a (1, 2) mesh naming cuda:0 twice: the model axis adds no
+    work and changes nothing."""
     from voice100_tpu_torch.inference import ASRPipeline, TTSPipeline
     from voice100_tpu_torch.models import AudioToAlignText
     from voice100_tpu_torch.parallel import make_mesh
     from voice100_tpu_torch.training.cli import load_model
 
     counters = cli_counters()
-    mesh = make_mesh([torch.device("cuda", torch.cuda.current_device())
-                      if device.type == "cuda" else device])
+    card_device = (torch.device("cuda", torch.cuda.current_device()) if device.type == "cuda"
+                   else device)
+    mesh = make_mesh([card_device])
+    mesh12 = make_mesh([card_device, card_device], data=1, model=2)
 
     def run(pipe, call):
         call(pipe)  # warm-up
@@ -5873,17 +5963,21 @@ def dp_mesh_pipelines(device, card, workdir):
     rng = np.random.default_rng(SEED)
     clips = int16_clips(rng, rng.uniform(2.0, 10.0, size=16))
     asr = {name: ASRPipeline(copy.deepcopy(model), batch_size=BATCH, **kw)
-           for name, kw in (("plain", {"device": device}), ("mesh", {"mesh": mesh}))}
+           for name, kw in (("plain", {"device": device}), ("mesh", {"mesh": mesh}),
+                            ("mesh12", {"mesh": mesh12}))}
     results, launches = {}, {}
     for name, pipe in asr.items():
         results[name], launches[f"asr_{name}"] = run(pipe, lambda p: p.transcribe(clips))
-    if results["mesh"] != results["plain"] or launches["asr_mesh"] != launches["asr_plain"]:
-        fail(f"dp mesh: ASRPipeline over [{device}] gave other transcripts or launches "
-             f"{launches}")
-    for (_, wav, lens) in asr["plain"].batches(clips):
-        if not all(torch.equal(a, b) for a, b in zip(asr["mesh"]._decode(wav, lens),
-                                                      asr["plain"]._decode(wav, lens))):
-            fail("dp mesh: ASRPipeline over a one-device mesh is not bit-equal to the plain call")
+    for name in ("mesh", "mesh12"):
+        if (results[name] != results["plain"]
+                or launches[f"asr_{name}"] != launches["asr_plain"]):
+            fail(f"dp mesh: ASRPipeline over {asr[name].mesh} gave other transcripts or "
+                 f"launches {launches}")
+        for (_, wav, lens) in asr["plain"].batches(clips):
+            if not all(torch.equal(a, b) for a, b in zip(asr[name]._decode(wav, lens),
+                                                          asr["plain"]._decode(wav, lens))):
+                fail(f"dp mesh: ASRPipeline over {asr[name].mesh} is not bit-equal to the "
+                     f"plain call")
     paths = write_tts_checkpoints(os.path.join(workdir, "dp_tts"))
     tts = {name: TTSPipeline(load_model(*paths["align"], device=device),
                              load_model(*paths["audio"], device=device), use_phone=False, **kw)
@@ -5895,8 +5989,8 @@ def dp_mesh_pipelines(device, card, workdir):
         fail(f"dp mesh: TTSPipeline over [{device}] gave other waveforms or launches {launches}")
     print(f"dp mesh on {card}: ASRPipeline ({len(clips)} clips, batch {BATCH}) and TTSPipeline "
           f"({len(TTS_TEXTS)} texts) "
-          f"over a mesh of [{device}] bit-equal to the plain calls; launches {launches}",
-          flush=True)
+          f"over a mesh of [{device}], and ASRPipeline over {mesh12}, bit-equal to the plain "
+          f"calls; launches {launches}", flush=True)
     return launches
 
 
@@ -5917,7 +6011,7 @@ def distributed_phase(device, card, workdir, align_args):
 def _distributed_phase(device, card, workdir, align_args):
     import yaml
     from voice100_tpu_torch.parallel import mesh as parallel
-    from voice100_tpu_torch.training.cli import load_config, main
+    from voice100_tpu_torch.training.cli import build_trainer_config, load_config, main
 
     root = os.path.join(workdir, "dp")
     os.makedirs(root)
@@ -5996,22 +6090,32 @@ def _distributed_phase(device, card, workdir, align_args):
     finally:
         parallel.shutdown_distributed()
 
-    # (b) two ranks on cuda:0 over gloo, batch 32 each
+    # (b) two ranks on cuda:0 over gloo, batch 32 each: the data-parallel
+    # fit, the (1, 2) tensor-parallel fit, then both under deterministic
+    # algorithms, one after another in the same two processes
     config["data"]["init_args"]["batch_size"] = batch // 2
     cfg_half = os.path.join(root, "asr_en_base_dp_half.yaml")
     with open(cfg_half, "w") as f:
         yaml.safe_dump(config, f)
-    ports = (free_port(), free_port())
+    fits = [(name, model_axis, deterministic, free_port())
+            for name, model_axis, deterministic in (
+                ("gloo2", 1, False), ("tp2", 2, False), ("gloo2_det", 1, True),
+                ("tp2_det", 2, True))]
+    timing_port = free_port()
     procs, outs = [], []
     for rank in range(2):
-        argv = fit_argv("gloo2", ("--distributed", "--dist_backend", "gloo",
-                                  "--coordinator_address", f"localhost:{ports[0]}",
-                                  "--num_processes", "2", "--process_id", str(rank)))
-        argv[argv.index(cfg)] = cfg_half
+        specs = []
+        for name, model_axis, deterministic, port in fits:
+            argv = fit_argv(name, ("--distributed", "--dist_backend", "gloo",
+                                   "--coordinator_address", f"localhost:{port}",
+                                   "--num_processes", "2", "--process_id", str(rank),
+                                   "--mesh_model_axis", str(model_axis)))
+            argv[argv.index(cfg)] = cfg_half
+            specs.append({"name": name, "argv": argv, "deterministic": deterministic})
         # each rank on cuda:{rank % device_count}: both on the one card
         rank_device = (f"cuda:{rank % torch.cuda.device_count()}" if device.type == "cuda"
                        else str(device))
-        spec = {"argv": argv, "rank": rank, "timing_address": f"localhost:{ports[1]}",
+        spec = {"fits": specs, "rank": rank, "timing_address": f"localhost:{timing_port}",
                 "device": rank_device, "out": os.path.join(root, f"gloo2_rank{rank}.json")}
         path = os.path.join(root, f"gloo2_rank{rank}_spec.json")
         with open(path, "w") as f:
@@ -6038,30 +6142,72 @@ def _distributed_phase(device, card, workdir, align_args):
     for path in outs:
         with open(path) as f:
             ranks.append(json.load(f))
-    for rank, r in enumerate(ranks):
-        if r["launches"] != want or r["collectives"]["all_reduce_gradients"] != steps:
-            fail(f"dp gloo rank {rank}: launches {r['launches']}, collectives "
-                 f"{r['collectives']}, not {want} and one gradient all-reduce a step")
-    gloo = dp_fit(root, "gloo2")
-    agreement["gloo2"] = dp_compare(gloo, plain)
-    if (len(gloo["losses"]) != steps or (gloo["start"]["processes"], gloo["start"]["devices"])
-            != (2, 2) or not (agreement["gloo2"]["loss_rel_err"] <= DP_LOSS_REL_TOL
-                              and agreement["gloo2"]["moment_rel_l2_err"] <= DP_MOMENT_REL_TOL)):
-        fail(f"dp gloo: losses {gloo['losses']} / val {gloo['val']} against one process's "
-             f"{plain['losses']} / {plain['val']}: {agreement['gloo2']}; fit_start "
-             f"{gloo['start']}")
+    two = {name: dp_fit(root, name) for name, *_ in fits}
+    # the checkpoints a fit writes: last.pt an epoch, best.pt where the
+    # monitored val loss improves, epoch_N.pt every every_n_epochs
+    tc = build_trainer_config(config, {})
+    if tc.monitor != "val_loss" or not tc.save_last:
+        fail(f"dp: the phase counts checkpoints of a val_loss monitor with save_last; the "
+             f"config has {tc.monitor}, save_last {tc.save_last}")
+    for name, model_axis, _, _ in fits:
+        vals = two[name]["val"]
+        saves = (DP_EPOCHS + sum(v < min([float("inf")] + vals[:e]) for e, v in enumerate(vals))
+                 + sum((e + 1) % tc.every_n_epochs == 0 for e in range(DP_EPOCHS)))
+        gathers = steps + DP_EPOCHS + saves if model_axis > 1 else 0
+        for rank, r in enumerate(ranks):
+            got = r["fits"][name]
+            if (got["launches"] != want or got["collectives"]["all_reduce_gradients"] != steps
+                    or got["collectives"]["all_gather_params"] != gathers):
+                fail(f"dp {name} rank {rank}: launches {got['launches']}, collectives "
+                     f"{got['collectives']}, not {want}, one gradient all-reduce a step and "
+                     f"{gathers} weight all-gathers (a step, an epoch's tail, a checkpoint)")
+        start_record = two[name]["start"]
+        if (len(two[name]["losses"]) != steps or (start_record["processes"],
+                                                  start_record["devices"]) != (2, 2)
+                or start_record["mesh"] != {"data": 2 // model_axis, "model": model_axis}):
+            fail(f"dp {name}: losses {two[name]['losses']}, fit_start {start_record}")
+    for name in ("gloo2", "tp2"):
+        agreement[name] = dp_compare(two[name], plain)
+        if not (agreement[name]["loss_rel_err"] <= DP_LOSS_REL_TOL
+                and agreement[name]["moment_rel_l2_err"] <= DP_MOMENT_REL_TOL):
+            fail(f"dp {name}: losses {two[name]['losses']} / val {two[name]['val']} against one "
+                 f"process's {plain['losses']} / {plain['val']}: {agreement[name]}")
+    # tensor parallelism: the same gradient, norm and elementwise Adam update
+    # as data parallelism over the same two ranks, so bit for bit its run
+    # under deterministic algorithms
+    tp_det, dp_det = two["tp2_det"], two["gloo2_det"]
+    if not (tp_det["losses"] == dp_det["losses"] and tp_det["val"] == dp_det["val"]
+            and all(torch.equal(tp_det["weights"][k], dp_det["weights"][k])
+                    for k in dp_det["weights"])
+            and torch.equal(tp_det["moments"], dp_det["moments"])
+            and torch.equal(tp_det["second_moments"], dp_det["second_moments"])):
+        fail(f"tp: under deterministic algorithms the (1, 2) fit (losses {tp_det['losses']}, "
+             f"val {tp_det['val']}) is not bit-equal to the 2-rank data-parallel fit "
+             f"({dp_det['losses']}, val {dp_det['val']}) in losses, weights and Adam moments")
+    resident = {name: [r["fits"][name]["resident_bytes"] for r in ranks]
+                for name in ("gloo2", "tp2")}
+    for rank in range(2):
+        dp_bytes, tp_bytes = resident["gloo2"][rank], resident["tp2"][rank]
+        if not all(0 < tp_bytes[k] <= TP_RESIDENT_SHARE * dp_bytes[k]
+                   for k in ("model", "optimizer")):
+            fail(f"tp rank {rank} keeps {tp_bytes} bytes between steps against the data-parallel "
+                 f"rank's {dp_bytes}: not the shards alone")
 
     mesh_launches = dp_mesh_pipelines(device, card, root)
-    runs["gloo2"] = gloo
+    runs.update(two)
     summary = {
         "card": card, "epochs": DP_EPOCHS, "steps": steps, "global_batch": batch,
         "losses": {name: r["losses"] for name, r in runs.items()},
         "val_losses": {name: r["val"] for name, r in runs.items()},
         "against_plain": agreement,
         "all_reduce_ms_per_step": {"nccl1": nccl_ms, "gloo2": [r["all_reduce"] for r in ranks]},
+        "tp2_all_gather_ms_per_step": [r["all_gather"] for r in ranks],
+        "resident_bytes_between_steps": resident,
         "train_time_s_by_epoch": {name: r["train_time_s"] for name, r in runs.items()},
         "fit_wall_s": {**{name: r["wall_s"] for name, r in runs.items() if "wall_s" in r},
-                       "gloo2_ranks": [r["wall_s"] for r in ranks], "gloo2_with_start": gloo_wall},
+                       **{f"{name}_ranks": [r["fits"][name]["wall_s"] for r in ranks]
+                          for name, *_ in fits},
+                       "gloo2_with_start": gloo_wall},
     }
     print(f"dp on {card}: one-rank NCCL fit bit-equal to the plain fit under deterministic "
           f"algorithms ({steps} steps at batch {batch}, losses {det['losses']}); without them, "
@@ -6074,9 +6220,21 @@ def _distributed_phase(device, card, workdir, align_args):
           f"{nccl_ms['ms']:.4f} ms, gloo {[round(r['all_reduce']['ms'], 4) for r in ranks]} ms "
           f"({nccl_ms['bytes']} bytes); train time by epoch "
           f"{summary['train_time_s_by_epoch']}", flush=True)
+    print(f"tp on {card}: the (1, 2) fit of two gloo ranks on {rank_device} bit-equal to the "
+          f"2-rank data-parallel fit under deterministic algorithms (losses {tp_det['losses']}, "
+          f"val {tp_det['val']}, last.pt weights and both Adam moments); bytes a rank keeps "
+          f"between steps (the most after any step), model / Adam state: " + ", ".join(
+              f"rank {i} {resident['tp2'][i]['model']} / {resident['tp2'][i]['optimizer']} "
+              f"(data-parallel {resident['gloo2'][i]['model']} / "
+              f"{resident['gloo2'][i]['optimizer']})" for i in range(2))
+          + "; a step's weight all-gather " + ", ".join(
+              f"{r['all_gather']['ms']:.4f} ms" for r in ranks)
+          + f" ({ranks[0]['all_gather']['bytes']} bytes rebuilt) beside its gradient all-reduce "
+          + ", ".join(f"{r['all_reduce']['ms']:.4f} ms" for r in ranks), flush=True)
     paths = {"dp_plain_fit": runs["plain"]["launches"], "dp_nccl1_fit": runs["nccl1"]["launches"],
-             **{f"dp_gloo2_rank{i}": r["launches"] for i, r in enumerate(ranks)},
-             **{f"dp_mesh_{k}": v for k, v in mesh_launches.items() if k.endswith("mesh")}}
+             **{f"dp_{name}_rank{i}": r["fits"][name]["launches"]
+                for name in ("gloo2", "tp2") for i, r in enumerate(ranks)},
+             **{f"dp_mesh_{k}": v for k, v in mesh_launches.items() if "mesh" in k}}
     return paths, summary
 
 

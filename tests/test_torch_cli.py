@@ -97,8 +97,7 @@ def test_trainer_config_matches_jax(name, overrides):
     import dataclasses
 
     from voice100_tpu.training.cli import build_from_config as jax_build
-    from voice100_tpu_torch.training.cli import (UNPORTED, build_from_config,
-                                                 build_trainer_config, load_config)
+    from voice100_tpu_torch.training.cli import build_from_config, build_trainer_config, load_config
 
     config = load_config(os.path.join(ROOT, "config", name))
     overrides = {**overrides, "checkpoint_dir": "ck", "log_path": "log.jsonl"}
@@ -106,10 +105,9 @@ def test_trainer_config_matches_jax(name, overrides):
     got = build_trainer_config(config, overrides)
     ours = {f.name for f in dataclasses.fields(got)}
     theirs = {f.name for f in dataclasses.fields(want)}
-    # every JAX setting is a field here or one the port refuses past its default
-    assert ours < theirs and theirs - ours == set(UNPORTED)
+    # every JAX setting is a field here, at the JAX value
+    assert ours == theirs
     assert {k: getattr(got, k) for k in ours} == {k: getattr(want, k) for k in ours}
-    assert all(getattr(want, k) in UNPORTED[k][0] for k in theirs - ours)
     _, data = build_from_config(config, overrides, device="cpu")
     assert (data.batch_size, data.vocab_size) == (jax_data.batch_size, jax_data.vocab_size)
 
@@ -135,20 +133,7 @@ def test_configs_the_port_cannot_build_raise_naming_the_class(name):
     assert next(model.parameters()).device.type == "cpu"
 
 
-@pytest.mark.parametrize("key,value,item", [
-    ("mesh_model_axis", 2, "item 4: tensor-parallel"),
-    ("mesh_model_axis", 8, "item 4: tensor-parallel"),
-])
-def test_unported_trainer_settings_raise_naming_their_item(tmp_path, key, value, item):
-    from voice100_tpu_torch.training.cli import cli_main
-
-    cfg = tiny_config(tmp_path / "tiny.yaml", **{key: value})
-    with pytest.raises(NotImplementedError, match=f"{key}.*ROADMAP.md §1, {item}"):
-        cli_main(["fit", "--config", cfg, "--device", "cpu"])
-
-
 @pytest.mark.parametrize("flags,error,match", [
-    (["--mesh_model_axis", "2"], NotImplementedError, "mesh_model_axis.*item 4: tensor-parallel"),
     (["--distributed", "--num_processes", "2"], ValueError,
      "--coordinator_address, --num_processes and --process_id go together"),
     (["--precision", "8"], ValueError, "precision '8'.*'16', 'bf16', 'bfloat16', '16-mixed'"),

@@ -105,7 +105,8 @@ def test_fit_through_the_cli_checkpoints_resumes_and_validates(corpus, tmp_path,
              "--max_epochs", "1", "--log_path", jax_log, "--platform", "cpu"])
     jax_records = _records(jax_log)
     jax_start = next(r for r in jax_records if r.get("event") == "fit_start")
-    assert start.keys() == jax_start.keys() | {"device"}
+    assert start.keys() == jax_start.keys() | {"device", "mesh"}
+    assert start["mesh"] == {"data": 1, "model": 1}
     assert (start["params"], start["steps_per_epoch"], start["upload"], start["processes"]) == (
         jax_start["params"], jax_start["steps_per_epoch"], jax_start["upload"],
         jax_start["processes"])

@@ -5,8 +5,8 @@ function on the same batches. ``fit_mesh_for_batch`` and ``make_mesh``
 over eight CPU devices are held to the JAX functions over the eight
 virtual devices of ``tests/conftest.py`` (``tests/test_multichip.py:
 258-330``): the same ``data`` axis for every batch size and the same
-warnings. Tensor-parallel calls (``model > 1``, parameter placement)
-raise, naming their ROADMAP item. ``shard_batch`` splits a batch into
+warnings (``model > 1`` and parameter placement are held to JAX in
+``tests/test_torch_tensor_parallel.py``). ``shard_batch`` splits a batch into
 contiguous shards that concatenate back to it; ``replicate`` copies a
 module onto each device of the data axis; outside a process group the
 global-batch helpers change nothing.
@@ -96,20 +96,6 @@ def test_make_mesh_shapes():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             parallel.make_mesh()
-
-
-@pytest.mark.parametrize("call", [
-    lambda: parallel.make_mesh(CPUS, data=4, model=2),
-    lambda: parallel.make_mesh(CPUS, model=2),
-    lambda: parallel.fit_mesh_for_batch(16, model=2, devices=CPUS),
-    lambda: parallel.infer_param_spec(np.zeros((1024, 256)), None),
-    lambda: parallel.shard_params({"kernel": np.zeros((512, 128))}, None),
-], ids=["make_mesh", "make_mesh_inferred", "fit_mesh_for_batch", "infer_param_spec",
-        "shard_params"])
-def test_tensor_parallel_calls_raise_naming_their_item(call):
-    with pytest.raises(NotImplementedError,
-                       match="tensor-parallel.*ROADMAP.md §1, item 4: tensor-parallel meshes"):
-        call()
 
 
 @pytest.mark.parametrize("devices", [2, 4])

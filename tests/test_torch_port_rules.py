@@ -11,7 +11,7 @@
   the same path, and each of its public names (``__all__`` and the
   top-level defs and classes, read from the source as text) exists there,
   or stands in :data:`SURFACE_ALLOWLIST` with its port counterpart or the
-  reason it has none (TPU/JAX only, or ROADMAP item 4).
+  reason it has none (TPU/JAX only): nothing is left to port.
 """
 
 import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
@@ -217,9 +217,8 @@ NO_PORT_MODULE = {
     "dsp/world/dio_jax.py": "port: dsp/world/dio_device.py",
     "onnx/voice100_onnx_pb2.py": "port: onnx/schema.py (descriptor built in code)",
 }
-ITEM_4 = "not ported: ROADMAP item 4 (tensor-parallel meshes)"
 # (JAX module, public name) -> the port's counterpart ("port: ...") or why
-# it has none ("TPU/JAX only: ..." or ITEM_4)
+# it has none ("TPU/JAX only: ...")
 SURFACE_ALLOWLIST = {
     ("dsp/world/__init__.py", "synthesize"): "port: dsp/world/synthesis.py synthesize_batch",
     ("dsp/world/__init__.py", "synthesize_fn"): "port: dsp/world/synthesis.py synthesize_batch",
@@ -251,8 +250,6 @@ SURFACE_ALLOWLIST = {
     ("ops/lstm.py", "multilayer_bilstm"): "port: models/layers.py BiLSTM",
     ("parallel/__init__.py", "batch_sharding"): "TPU/JAX only: GSPMD sharding",
     ("parallel/__init__.py", "replicated"): "TPU/JAX only: GSPMD sharding",
-    ("parallel/__init__.py", "infer_param_spec"): ITEM_4,
-    ("parallel/__init__.py", "shard_params"): ITEM_4,
     ("parallel/mesh.py", "batch_sharding"): "TPU/JAX only: GSPMD sharding",
     ("parallel/mesh.py", "replicated"): "TPU/JAX only: GSPMD sharding",
     ("parallel/mesh.py", "replicate_tree"): "port: replicate",
@@ -323,7 +320,5 @@ def test_public_surface_audit():
     assert not missing, missing
     assert set(SURFACE_ALLOWLIST) == used, set(SURFACE_ALLOWLIST) - used
     reasons = list(SURFACE_ALLOWLIST.values()) + list(NO_PORT_MODULE.values())
-    assert all(r.startswith(("port: ", "TPU/JAX only: ")) or r == ITEM_4 for r in reasons)
-    # what is left to port is item 4's alone
-    assert {k for k, r in SURFACE_ALLOWLIST.items() if r == ITEM_4} == {
-        ("parallel/__init__.py", "infer_param_spec"), ("parallel/__init__.py", "shard_params")}
+    # every name has its counterpart or is the TPU's own: nothing is left to port
+    assert all(r.startswith(("port: ", "TPU/JAX only: ")) for r in reasons)

@@ -54,8 +54,11 @@ device, which runs the rest. ``ASRPipeline`` needs ``batch_size`` to
 divide by the data axis (the JAX package's ``ValueError``);
 ``TTSPipeline`` pads a batch's rows up to a multiple of it (wrap-around
 repeats, cut off after the models). A mesh of one device is the plain
-call on that device. Long-form streaming windows (B=1) run on the first
-device.
+call on that device. A ``(d, m)`` mesh with a ``model`` axis serves as its
+``data`` axis does (the JAX pipelines replicate their variables,
+``voice100_tpu/inference.py:114-126, 455-464``): the model-axis devices
+add no work and change no output. Long-form streaming windows (B=1) run
+on the first device.
 """
 
 from __future__ import annotations

@@ -271,6 +271,12 @@ class BiLSTM(nn.Module):
             self._stacked_key = key
         return self._stacked
 
+    def clear_stacked(self) -> None:
+        """Drop the weights :meth:`stacked_layers` built (the next call
+        builds them again): a trainer frees them once a step has made
+        them stale."""
+        self._stacked, self._stacked_key = [], None
+
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``[B, T, D] -> [B, T, 2H]``, zero past each length."""

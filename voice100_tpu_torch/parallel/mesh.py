@@ -37,9 +37,23 @@ The JAX package's ``kernel_sharding``, ``kernel_batch_axes`` and
 ``data_shard_map`` exist because ``pallas_call`` does not partition under
 GSPMD, so its kernels need a ``shard_map`` over the ``data`` axis. Here
 each rank runs its kernels on its own rows, and they have no
-counterpart. ``infer_param_spec`` and ``shard_params`` place parameters
-on a ``model`` axis (tensor parallelism): they raise, naming
-:data:`TENSOR_PARALLEL_ITEM`.
+counterpart.
+
+Tensor parallelism (a ``model`` axis of size m > 1) is the JAX kernel
+path (``kernel_batch_axes``: the batch split over ``data x model``, the
+weights all-gathered once a step, every device running the kernels on
+its rows) written over ranks. The world of ``data * model`` ranks shares
+each global batch as a data-parallel world of that size does; rank r has
+data index ``r // m`` and model index ``r % m`` (:func:`make_mesh`'s
+``reshape(data, model)`` of the rank order). :func:`infer_param_spec`
+picks the axis of a parameter to shard, :func:`shard_params` cuts it into
+m contiguous chunks (model index k keeps chunk k), and
+:class:`ParamShards` keeps a rank's chunks as the tensors its optimizer
+steps: between steps the module's sharded tensors are released, and each
+step rebuilds them in one flat all-gather within the rank's model group
+(:func:`all_gather_params`). The gradient is summed over all ranks as in
+data parallelism, clipped whole, and each rank's Adam steps its slices of
+it, so its moments exist only for the shards.
 
 gloo moves CPU tensors. Where a gloo group's tensors lie on a card (two
 ranks sharing one GPU, which NCCL refuses), :func:`all_reduce_through_host_`
@@ -62,26 +76,22 @@ import torch.distributed as dist
 from ..device import resolve_device
 
 __all__ = [
-    "TENSOR_PARALLEL_ITEM", "Mesh", "make_mesh", "fit_mesh_for_batch", "pad_batch_to_multiple",
+    "Mesh", "make_mesh", "fit_mesh_for_batch", "pad_batch_to_multiple",
     "shard_batch", "replicate", "mesh_spans_processes", "init_distributed",
     "shutdown_distributed", "process_index", "process_count", "in_process_group", "barrier",
     "global_batch", "global_batch_active", "global_sum", "global_sum_autograd",
     "own_rows_of_draw", "roll_rows", "all_reduce_",
     "all_reduce_through_host_", "all_reduce_gradients", "all_gather_digest", "collective_counts",
-    "infer_param_spec", "shard_params",
+    "infer_param_spec", "shard_params", "process_mesh", "model_group", "all_gather_params",
+    "ParamShards",
 ]
-
-TENSOR_PARALLEL_ITEM = "ROADMAP.md §1, item 4: tensor-parallel meshes"
 
 log = logging.getLogger(__name__)
 
 # calls of each collective since the last reset (chip_smoke.py reads them)
 collective_counts = {"all_reduce_gradients": 0, "global_sum": 0, "global_sum_autograd": 0,
-                     "all_reduce": 0, "roll_rows": 0, "all_gather_digest": 0}
-
-
-def _tensor_parallel(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is tensor-parallel, not ported yet ({TENSOR_PARALLEL_ITEM})")
+                     "all_reduce": 0, "roll_rows": 0, "all_gather_digest": 0,
+                     "all_gather_params": 0}
 
 
 class Mesh:
@@ -123,13 +133,17 @@ def _default_devices() -> List[torch.device]:
 def make_mesh(devices: Optional[Sequence] = None, data: Optional[int] = None,
               model: int = 1) -> Mesh:
     """A ``(data, model)`` mesh over ``devices`` (default: every CUDA
-    device). ``model > 1`` is tensor parallelism and raises."""
-    if model != 1:
-        raise _tensor_parallel(f"a mesh with model={model}")
+    device), the devices in row-major order. ``data`` defaults to
+    ``len(devices) // model``; a ``model`` that does not divide the
+    devices, or a shape that does not hold them all, raises ``ValueError``
+    where the JAX function's assertion fails."""
     devices = list(devices) if devices is not None else _default_devices()
     n = len(devices)
     if data is None:
-        data = n
+        if n % model:
+            raise ValueError(f"a mesh with model={model} needs a multiple of {model} devices, "
+                             f"got {n}")
+        data = n // model
     if data * model != n:
         raise ValueError(f"a {data}x{model} mesh needs {data * model} devices, got {n}")
     return Mesh(devices, data, model)
@@ -143,8 +157,6 @@ def fit_mesh_for_batch(batch_size: int, model: int = 1,
     divisor of ``batch_size`` (no padding), else the smallest (least
     padding; :func:`pad_batch_to_multiple` pads). Devices left out could
     not reduce the rows a device."""
-    if model != 1:
-        raise _tensor_parallel(f"a mesh with model={model}")
     devices = list(devices) if devices is not None else _default_devices()
     n = len(devices)
     avail = max(1, n // model)
@@ -437,11 +449,272 @@ def roll_rows(x: torch.Tensor) -> torch.Tensor:
 
 # -- tensor parallelism -------------------------------------------------------
 
-def infer_param_spec(*args, **kwargs):
-    """A parameter's placement on a ``model`` axis: tensor-parallel."""
-    raise _tensor_parallel("infer_param_spec")
+def infer_param_spec(leaf, mesh: Mesh, min_size: int = 256) -> tuple:
+    """A parameter's placement on ``mesh``'s ``model`` axis, the JAX
+    policy (``voice100_tpu/parallel/mesh.py:225-250``): the largest axis
+    that divides by the ``model`` size and is at least ``min_size`` long
+    is sharded (ties go to the later axis, ``max`` over ``(size, axis)``),
+    which catches the LSTM gate matrices, conv and dense kernels and
+    biases of ``min_size`` or more; anything else, and everything on a
+    mesh whose ``model`` axis is 1, is replicated. Returns the spec as a
+    tuple, which compares equal to the JAX ``PartitionSpec``:
+    ``("model", None)`` shards the first of two axes, ``()`` replicates.
+
+    ``leaf`` is anything with a ``shape``. The port's tensors have
+    PyTorch's layouts (``[out, in, k]``, ``[out, in]``), so the axis picked
+    on a port tensor may be another logical axis than on the flax leaf;
+    the numbers do not depend on it, since every forward reads the
+    all-gathered weights."""
+    model_size = mesh.shape["model"]
+    shape = tuple(leaf.shape)
+    if model_size == 1 or not shape:
+        return ()
+    candidates = [(size, dim) for dim, size in enumerate(shape)
+                  if size % model_size == 0 and size >= min_size]
+    if not candidates:
+        return ()
+    _, dim = max(candidates)
+    return tuple("model" if d == dim else None for d in range(len(shape)))
 
 
-def shard_params(*args, **kwargs):
-    """Parameters placed on a ``model`` axis: tensor-parallel."""
-    raise _tensor_parallel("shard_params")
+def _spec_dim(spec: tuple) -> Optional[int]:
+    return spec.index("model") if "model" in spec else None
+
+
+def _chunk(leaf, dim: int, parts: int, index: int):
+    """Chunk ``index`` of ``parts`` equal contiguous chunks of ``leaf``
+    along ``dim``, a view (a tensor or a NumPy array)."""
+    size = leaf.shape[dim] // parts
+    return leaf[(slice(None),) * dim + (slice(index * size, (index + 1) * size),)]
+
+
+def shard_params(params, mesh: Mesh, model_index: Optional[int] = None):
+    """``params`` (tensors or NumPy arrays in nested tuples, lists and
+    dicts) with each leaf that :func:`infer_param_spec` shards cut along
+    its axis into ``model`` contiguous chunks, of which model index
+    ``model_index`` keeps its own (a contiguous copy); replicated leaves
+    come back as they are. ``model_index`` defaults to this rank's,
+    ``process_index() % model``."""
+    model_size = mesh.shape["model"]
+    if model_index is None:
+        model_index = process_index() % model_size
+
+    def shard(leaf):
+        dim = _spec_dim(infer_param_spec(leaf, mesh))
+        if dim is None:
+            return leaf
+        part = _chunk(leaf, dim, model_size, model_index)
+        if isinstance(part, torch.Tensor):
+            return part.clone(memory_format=torch.contiguous_format)
+        return np.ascontiguousarray(part)
+
+    return _tree_map(shard, params)
+
+
+def process_mesh(model: int = 1, device=None) -> Mesh:
+    """The run's ``(data, model)`` mesh over its ranks: ``process_count()``
+    slots in rank order, ``data = process_count() // model`` (so rank r has
+    data index ``r // model`` and model index ``r % model``). A process
+    knows only its own device, which stands in every slot. ``model`` (the
+    trainer's ``mesh_model_axis``) must divide the world size
+    (``ValueError`` otherwise, where the JAX mesh's assertion fails)."""
+    world = process_count()
+    if model < 1 or world % model:
+        raise ValueError(f"mesh_model_axis={model} needs a multiple of {model} processes (one "
+                         f"device a process: --distributed with {model}k ranks), got {world}")
+    return make_mesh([torch.device(device or "cpu")] * world, model=model)
+
+
+def model_group(mesh: Mesh):
+    """This rank's ``model`` group, the ranks of its data index (None on a
+    mesh whose ``model`` axis is 1). Every rank creates every data index's
+    group (``dist.new_group``), in order, as ``torch.distributed`` asks."""
+    data, model = mesh.shape["data"], mesh.shape["model"]
+    if data * model != process_count():
+        raise ValueError(f"a {data}x{model} mesh over {process_count()} processes")
+    if model == 1:
+        return None  # every rank its own group: nothing to gather
+    mine = None
+    for i in range(data):
+        group = dist.new_group(list(range(i * model, (i + 1) * model)))
+        if i == process_index() // model:
+            mine = group
+    return mine
+
+
+def all_gather_params(shards: Sequence[torch.Tensor], group, size: int) -> torch.Tensor:
+    """Every rank of ``group``'s ``shards``, gathered in one collective:
+    this rank's tensors (one dtype and device, the same shapes on every
+    rank of the group) flattened into one buffer, all-gathered, and
+    returned as ``[size, numel]``, a row a rank in group order. NCCL
+    gathers on the card (``all_gather_into_tensor``); gloo gathers host
+    memory, a card's buffer through pinned host memory and back."""
+    collective_counts["all_gather_params"] += 1
+    flat = torch.cat([s.detach().reshape(-1) for s in shards])
+    backend = dist.get_backend(group)
+    if backend == "nccl":
+        out = flat.new_empty((size, flat.numel()))
+        dist.all_gather_into_tensor(out, flat, group=group)
+        return out
+    through_host = flat.device.type == "cuda"
+    if through_host:
+        host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+        host.copy_(flat)
+        out = torch.empty((size, flat.numel()), dtype=flat.dtype, pin_memory=True)
+    else:
+        host, out = flat, flat.new_empty((size, flat.numel()))
+    dist.all_gather(list(out.unbind(0)), host, group=group)
+    return out.to(flat.device, non_blocking=True) if through_host else out
+
+
+def _assemble(rows: torch.Tensor, shards: Sequence[torch.Tensor], dims: Sequence[int]):
+    """For each shard of ``shards`` (this rank's, in the gathered order),
+    its full tensor's chunks: ``[size]`` views into ``rows``."""
+    offset = 0
+    for shard, dim in zip(shards, dims):
+        n = shard.numel()
+        yield dim, [row[offset:offset + n].view(shard.shape) for row in rows]
+        offset += n
+
+
+class ParamShards:
+    """This rank's ``model``-axis shards of ``module``'s parameters.
+
+    :attr:`leaves` stands for :meth:`module.parameters`, in its order: for
+    a parameter that :func:`infer_param_spec` shards on ``mesh``, this
+    rank's chunk as :func:`shard_params` cuts it (a new parameter); for a replicated
+    one, the module's own parameter. An optimizer over :attr:`leaves`
+    holds its state for the shards alone. Without a mesh (or on one whose
+    ``model`` axis is 1) every parameter is replicated: :attr:`leaves` are
+    the module's parameters and the methods below gather, cut and free
+    no parameter, so a data-parallel or single-process state takes the
+    same calls.
+
+    A step calls :meth:`gather` (the full tensors into the module, one
+    :func:`all_gather_params` within :func:`model_group`), runs the
+    forward and backward and reduces the gradients over every rank, then
+    :meth:`grads_to_leaves` (each shard's slice of the full gradient) and,
+    after the optimizer, :meth:`release` (the module's sharded tensors
+    and their gradients freed: their storage is resized to nothing, so
+    between steps the rank holds its shards only; the weights that
+    evaluation stacked from the parameters, now stale, go too).
+    :meth:`ensure_full` gathers a released module for evaluation and
+    callers. :meth:`full_state` and :meth:`load` carry full-shape state
+    dicts, the format of a data-parallel checkpoint."""
+
+    def __init__(self, module: torch.nn.Module, mesh: Optional[Mesh] = None) -> None:
+        self.module = module
+        self.mesh = mesh
+        self.size = mesh.shape["model"] if mesh is not None else 1
+        self.index = process_index() % self.size
+        self.group = model_group(mesh) if mesh is not None else None
+        self.names = [name for name, _ in module.named_parameters()]
+        self.params = list(module.parameters())
+        self.dims = [_spec_dim(infer_param_spec(p, mesh)) if mesh is not None else None
+                     for p in self.params]
+        self.sharded = [i for i, d in enumerate(self.dims) if d is not None]
+        self.leaves = list(self.params)
+        if self.sharded:
+            cut = shard_params([p.detach() for p in self.params], mesh, self.index)
+            for i in self.sharded:
+                self.leaves[i] = torch.nn.Parameter(cut[i])
+        self.released = False
+
+    @torch.no_grad()
+    def gather(self) -> None:
+        """The module's sharded tensors rebuilt from every rank's shards
+        (nothing to gather where no parameter is sharded)."""
+        sharded = self.sharded
+        if not sharded:
+            return
+        rows = all_gather_params([self.leaves[i] for i in sharded], self.group, self.size)
+        self._allocate()
+        for i, (dim, chunks) in zip(sharded, _assemble(rows, [self.leaves[i] for i in sharded],
+                                                       [self.dims[i] for i in sharded])):
+            p = self.params[i]
+            size = p.shape[dim] // self.size
+            for j, chunk in enumerate(chunks):
+                p.narrow(dim, j * size, size).copy_(chunk)
+
+    def _allocate(self) -> None:
+        """Storage for the module's released tensors again."""
+        if self.released:
+            for i in self.sharded:
+                p = self.params[i]
+                p.untyped_storage().resize_(p.numel() * p.element_size())
+            self.released = False
+
+    def ensure_full(self) -> None:
+        """:meth:`gather` where the module's tensors are released."""
+        if self.released:
+            self.gather()
+
+    @torch.no_grad()
+    def grads_to_leaves(self) -> None:
+        """Each shard's gradient: its slice of the module parameter's full
+        (reduced, clipped) gradient, which is freed."""
+        for i in self.sharded:
+            p = self.params[i]
+            if p.grad is not None:
+                self.leaves[i].grad = _chunk(p.grad, self.dims[i], self.size, self.index).clone(
+                    memory_format=torch.contiguous_format)
+                p.grad = None
+
+    def release(self) -> None:
+        """Free the module's sharded tensors and their gradients until the
+        next :meth:`gather`, and the weights its layers stacked from the
+        parameters for evaluation (stale once the optimizer has stepped)."""
+        for module in self.module.modules():
+            clear = getattr(module, "clear_stacked", None)
+            if clear is not None:
+                clear()
+        if not self.sharded:
+            return
+        for i in self.sharded:
+            p = self.params[i]
+            p.grad = None
+            p.untyped_storage().resize_(0)
+        self.released = True
+
+    def full_state(self, optimizer: torch.optim.Optimizer):
+        """``(module state dict, optimizer state dict)`` at full shape, the
+        shards and their Adam moments gathered in one collective, which
+        every rank of the model group joins."""
+        sharded = self.sharded
+        if not sharded:
+            return self.module.state_dict(), optimizer.state_dict()
+        # a leaf whose gradient stayed None has no moments; every rank
+        # agrees on which those are (the gradients are summed over all)
+        states = [optimizer.state.get(self.leaves[i], {}) for i in sharded]
+        parts = [(i, None, self.leaves[i]) for i in sharded] + [
+            (i, name, s[name]) for name in ("exp_avg", "exp_avg_sq")
+            for i, s in zip(sharded, states) if name in s]
+        rows = all_gather_params([t for _, _, t in parts], self.group, self.size)
+        module_sd = self.module.state_dict()
+        opt_sd = optimizer.state_dict()
+        opt_sd["state"] = {k: dict(v) for k, v in opt_sd["state"].items()}  # not the live dicts
+        for (i, name, _), (dim, chunks) in zip(parts, _assemble(
+                rows, [t for _, _, t in parts], [self.dims[i] for i, _, _ in parts])):
+            full = torch.cat(chunks, dim=dim)
+            if name is None:
+                module_sd[self.names[i]] = full
+            else:
+                opt_sd["state"][i][name] = full
+        return module_sd, opt_sd
+
+    @torch.no_grad()
+    def load(self, module_sd, opt_sd, optimizer: torch.optim.Optimizer) -> None:
+        """Full-shape state dicts (:meth:`full_state`'s, or a
+        data-parallel run's) into the module, the shards and
+        ``optimizer``, which keeps each shard's slice of the moments (a
+        moment has its parameter's shape, so :func:`shard_params` cuts it
+        as it cuts the parameter; Adam's scalar step stays whole)."""
+        self._allocate()
+        self.module.load_state_dict(module_sd)
+        if self.sharded:
+            cut = shard_params([p.detach() for p in self.params], self.mesh, self.index)
+            for i in self.sharded:
+                self.leaves[i].copy_(cut[i])
+            opt_sd = {**opt_sd, "state": {k: shard_params(dict(v), self.mesh, self.index)
+                                          for k, v in opt_sd["state"].items()}}
+        optimizer.load_state_dict(opt_sd)

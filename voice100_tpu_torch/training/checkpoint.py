@@ -10,7 +10,13 @@ over through ``tools/weights.py``.
 
 In a data-parallel run (``parallel/mesh.py``) rank 0 writes a checkpoint,
 every rank waits for the write, and every rank reads: the ranks hold the
-same state.
+same state. On a tensor-parallel mesh (a :class:`TrainState` whose
+``shards`` cut parameters) every rank joins one all-gather of the shards
+and their Adam moments, and rank 0 writes the full tensors, so the file
+is the same format as a data-parallel run's: it loads in ``load_model``,
+and it
+resumes on either layout; restoring onto a tensor-parallel mesh keeps
+each rank's slices (``voice100_tpu/training/trainer.py:313-321``).
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 import os
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -35,19 +42,28 @@ class TrainState:
     step: int = 0
     epoch: int = 0
     best_monitor: float = float("inf")
+    # the leaves ``optimizer`` steps: a tensor-parallel rank's shards, or
+    # (by default) the model's parameters, every one replicated
+    shards: Optional[parallel.ParamShards] = None
+
+    def __post_init__(self) -> None:
+        if self.shards is None:
+            self.shards = parallel.ParamShards(self.model)
 
 
 def save_checkpoint(path: str, state: TrainState) -> None:
     """Write ``state`` to ``path`` (a file), atomically: rank 0 writes,
     and every rank of a process group waits for it, so that none reads
-    the checkpoint before it exists."""
+    the checkpoint before it exists. On a tensor-parallel mesh every rank
+    must call it: the full tensors are gathered first."""
+    model_sd, opt_sd = state.shards.full_state(state.optimizer)
     if parallel.process_index() == 0:
         path = os.path.abspath(path)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save({
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
+            "model": model_sd,
+            "optimizer": opt_sd,
             "step": state.step,
             "epoch": state.epoch,
             "best_monitor": state.best_monitor,
@@ -57,12 +73,12 @@ def save_checkpoint(path: str, state: TrainState) -> None:
 
 
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:
-    """Load a checkpoint into ``state``'s model and optimizer, in place;
-    returns the state with the saved counters."""
+    """Load a checkpoint into ``state``'s model and optimizer, in place
+    (on a tensor-parallel mesh, this rank's slices of the parameters and
+    moments into its shards); returns the state with the saved counters."""
     device = next(state.model.parameters()).device
     saved = torch.load(os.path.abspath(path), map_location=device, weights_only=True)
-    state.model.load_state_dict(saved["model"])
-    state.optimizer.load_state_dict(saved["optimizer"])
+    state.shards.load(saved["model"], saved["optimizer"], state.optimizer)
     return dataclasses.replace(state, step=int(saved["step"]), epoch=int(saved["epoch"]),
                                best_monitor=float(saved["best_monitor"]))
 

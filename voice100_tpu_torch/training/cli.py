@@ -50,8 +50,12 @@ and gloo on the CPU; ``--dist_backend gloo`` takes gloo for tensors on a
 card too, which lets two ranks share one GPU (NCCL refuses that). Each
 rank reads its share of every global batch of ``batch_size *
 num_processes`` rows (``training/trainer.py``); ``predict`` runs on rank
-0 alone, over every row. Tensor-parallel meshes (``--mesh_model_axis`` >
-1) are not ported and raise.
+0 alone, over every row. ``--mesh_model_axis m`` (or
+``trainer.mesh_model_axis``, the key over the flag) with m > 1 makes the
+ranks a ``(num_processes / m, m)`` mesh: each rank keeps its shards of
+the large parameters and their Adam moments and gathers the weights each
+step (tensor parallelism, ``parallel/mesh.py``); m must divide the
+process count, so without ``--distributed`` it raises.
 """
 
 from __future__ import annotations
@@ -72,20 +76,12 @@ from .. import models as _models
 from ..models import (AlignTextToAudio, AlignTextToAudioModel, TextToAlignText,
                       TextToAlignTextModel)
 from ..parallel import mesh as parallel
-from ..parallel.mesh import TENSOR_PARALLEL_ITEM
 from .checkpoint import load_model_weights, merge_world_stats
 from .tasks import make_task
 from .trainer import Trainer, TrainerConfig, _host
 
 __all__ = ["load_config", "build_from_config", "build_trainer_config", "config_audio_stat",
-           "load_model", "main", "cli_main", "UNPORTED"]
-
-# The JAX trainer's settings that the port does not run: a config key
-# -> (the values that ask for nothing the port lacks, the item that ports
-# the rest)
-UNPORTED = {
-    "mesh_model_axis": ((1,), TENSOR_PARALLEL_ITEM),
-}
+           "load_model", "main", "cli_main"]
 
 _MODEL_CLASSES = {name: getattr(_models, name) for name in _models.__all__}
 _DATA_CLASSES = {"AudioTextDataModule": AudioTextDataModule,
@@ -182,15 +178,9 @@ def build_trainer_config(config: Dict[str, Any], overrides: Dict[str, Any]) -> T
     and ``gradient_clip_val``, the checkpoint callback's ``monitor`` and
     ``every_n_epochs``, ``seed_everything``, the CLI's overrides, and the
     config's other trainer keys where a ``TrainerConfig`` field has their
-    name. A setting of :data:`UNPORTED` that asks for more than the port
-    runs raises ``NotImplementedError`` naming its ``ROADMAP.md`` item."""
+    name (a config's ``mesh_model_axis`` over the flag, as the JAX
+    pass-through has it)."""
     trainer_cfg = config.get("trainer") or {}
-    # the config's key wins over the flag, as the JAX pass-through has it
-    unported = {"mesh_model_axis": overrides.get("mesh_model_axis", 1), **trainer_cfg}
-    for key, (accepted, item) in UNPORTED.items():
-        if unported.get(key, accepted[0]) not in accepted:
-            raise NotImplementedError(f"trainer.{key}={unported[key]!r} is not ported yet "
-                                      f"({item})")
     monitor, every_n = "val_loss", 10
     for cb in trainer_cfg.get("callbacks") or []:
         init = cb.get("init_args") or {}
@@ -202,6 +192,7 @@ def build_trainer_config(config: Dict[str, Any], overrides: Dict[str, Any]) -> T
         monitor=monitor,
         every_n_epochs=every_n,
         seed=int(config.get("seed_everything", 1234)),
+        mesh_model_axis=int(overrides.get("mesh_model_axis", 1)),
         checkpoint_dir=overrides.get("checkpoint_dir"),
         log_path=overrides.get("log_path"),
         precision=str(overrides.get("precision") or trainer_cfg.get("precision", "32")),
@@ -302,8 +293,10 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (default) or cpu (the plain PyTorch path)")
     parser.add_argument("--mesh_model_axis", type=int, default=1,
-                        help=f"1 only; tensor-parallel meshes are not ported yet "
-                             f"({TENSOR_PARALLEL_ITEM})")
+                        help="the mesh's model axis over the ranks of --distributed: m > 1 "
+                             "shards the large parameters and their Adam moments over m ranks "
+                             "(tensor parallelism; m divides the process count); 1 (default) "
+                             "is data parallelism")
     parser.add_argument("--distributed", action="store_true",
                         help="data-parallel training, one process a device: join the process "
                              "group (the three flags below, or torchrun's environment) before "

@@ -143,21 +143,23 @@ class Task:
         return tuple(_upcast(torch.as_tensor(t).to(device, non_blocking=True))
                      for t in self.extract_args(batch))
 
-    def make_optimizer(self, steps_per_epoch: int = 1) -> torch.optim.Optimizer:
+    def make_optimizer(self, steps_per_epoch: int = 1, params=None) -> torch.optim.Optimizer:
         """Adam at ``model.learning_rate`` with torch's defaults (b1 0.9,
         b2 0.999, eps 1e-8), which are optax.adam's; for
         ``AudioToTextCTC`` AdamW with the model's weight decay on every
         parameter and the staircase ``lr * 0.98 ** (step //
         steps_per_epoch)`` as :attr:`lr_schedule` (torch's default weight
-        decay, 0.01, is not optax's, so it is set)."""
+        decay, 0.01, is not optax's, so it is set). ``params`` (default
+        the model's parameters) are the tensors it steps: a
+        tensor-parallel rank's shards (``parallel.ParamShards.leaves``)."""
         lr = self.model.learning_rate
+        params = list(self.model.parameters() if params is None else params)
         if isinstance(self.model, AudioToTextCTC):
             spe = max(int(steps_per_epoch), 1)
             self.lr_schedule = lambda step: lr * 0.98 ** (int(step) // spe)
-            return torch.optim.AdamW(self.model.parameters(), lr=lr,
-                                     weight_decay=self.model.weight_decay)
+            return torch.optim.AdamW(params, lr=lr, weight_decay=self.model.weight_decay)
         self.lr_schedule = lambda step: lr
-        return torch.optim.Adam(self.model.parameters(), lr=lr)
+        return torch.optim.Adam(params, lr=lr)
 
 
 def make_task(model) -> Task:

@@ -90,9 +90,27 @@ checkpoints (``training/checkpoint.py``), every rank restores the same
 ``restore_from``, and a run of more than one process streams its batches:
 the device cache is off, with the JAX trainer's warning record
 (``trainer.py:560-575``), so ``steps_per_dispatch`` takes the per-step
-path. Tensor-parallel meshes are not ported: their setting has no field
-here, and a config that sets one raises (``training/cli.py``
-``UNPORTED``).
+path.
+
+``mesh_model_axis`` m > 1 is tensor parallelism over the same ranks
+(``voice100_tpu/training/trainer.py:253-321``): the run's mesh is
+``(process_count / m, m)`` (``parallel.process_mesh``; m must divide the
+world size, and a single process with m > 1 raises before any step, as
+the JAX mesh's assertion does on one device). Each rank keeps its
+``model``-axis shards of the parameters (``parallel.ParamShards``) as the
+tensors Adam steps, so the moments exist for the shards alone. A step
+all-gathers the full weights into the module, runs the forward and
+backward on the rank's rows inside ``global_batch`` as above, sums the
+gradients over every rank, clips the full gradient, steps Adam on the
+rank's slices of it and frees the module's sharded tensors again. The
+gradient, its norm and Adam's elementwise update are the numbers of a
+data-parallel run of the same world size, so the two train bit for bit
+alike. The epoch's tail gathers the weights once for validation and the
+caller (``fit`` returns a module holding the full weights), and each
+checkpoint gathers the shards and moments to full shape
+(``training/checkpoint.py``). ``collective_counts["all_gather_params"]``:
+one a step, one an epoch's tail, one a checkpoint written (and one when a
+stop request ends the fit).
 """
 
 from __future__ import annotations
@@ -144,6 +162,9 @@ class TrainerConfig:
     save_last: bool = True
     log_every_n_steps: int = 10
     seed: int = 1234
+    # the size of the mesh's model axis over the ranks: tensor parallelism
+    # for m > 1 (m must divide the process count)
+    mesh_model_axis: int = 1
     log_path: Optional[str] = None
     # "32", or bf16 mixed precision under any of BF16_PRECISIONS
     precision: str = "32"
@@ -259,6 +280,25 @@ class Trainer:
     def _bf16(self) -> bool:
         return str(self.config.precision) in BF16_PRECISIONS
 
+    def process_mesh(self, model) -> parallel.Mesh:
+        """The run's mesh for ``model``'s device (``parallel.process_mesh``:
+        ``ValueError`` where ``mesh_model_axis`` does not divide the
+        process count)."""
+        return parallel.process_mesh(int(self.config.mesh_model_axis),
+                                     next(model.parameters()).device)
+
+    def make_state(self, task: Task, steps_per_epoch: int = 1,
+                   mesh: Optional[parallel.Mesh] = None) -> TrainState:
+        """A fresh train state of ``task``'s model on ``mesh`` (default
+        :meth:`process_mesh`), its optimizer over this rank's
+        ``parallel.ParamShards`` leaves, which the state keeps: the
+        model's parameters where the ``model`` axis is 1, its shards of
+        the large ones otherwise."""
+        mesh = mesh or self.process_mesh(task.model)
+        shards = parallel.ParamShards(task.model, mesh)
+        return TrainState(task.model, task.make_optimizer(steps_per_epoch, shards.leaves),
+                          shards=shards)
+
     def apply_precision(self) -> None:
         """Set the process compute dtype from ``precision``: bf16, or back
         to float32, so that an earlier bf16 run of this process does not
@@ -308,8 +348,11 @@ class Trainer:
         (the JAX ``task.loss(..., train=False)``). In a process group the
         batch is this rank's share of the global batch, the gradients are
         summed over the ranks before the clip, and the metrics are this
-        rank's shares (:meth:`_global_metrics` sums them)."""
+        rank's shares (:meth:`_global_metrics` sums them). On a
+        tensor-parallel mesh the full weights are gathered first, and Adam
+        steps the shards' slices of the clipped gradient."""
         state.optimizer.zero_grad(set_to_none=True)
+        state.shards.gather()
         if task.lr_schedule is not None:
             # the schedule at the state's step, so a restored state resumes
             # at its rate (optax evaluates it at the update count)
@@ -324,7 +367,9 @@ class Trainer:
             parallel.all_reduce_gradients(state.model.parameters())
         if self.config.gradient_clip_val and self.config.gradient_clip_val > 0:
             clip_by_global_norm(state.model.parameters(), self.config.gradient_clip_val)
+        state.shards.grads_to_leaves()
         state.optimizer.step()
+        state.shards.release()
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}
 
@@ -338,7 +383,11 @@ class Trainer:
         Other iterables count every row. In a process group each rank's
         batch is its share of a global batch: a batch's metrics and real
         rows are summed over the ranks, so every rank returns the metrics
-        one process would over the global batches' real rows."""
+        one process would over the global batches' real rows. A
+        tensor-parallel ``state`` gathers its weights first where they are
+        released."""
+        if state is not None:
+            state.shards.ensure_full()
         totals: Dict[str, float] = {}
         count = 0
         grouped = parallel.process_count() > 1
@@ -431,6 +480,7 @@ class Trainer:
         On a stop request the current step finishes, ``{"event":
         "stopped"}`` is logged, ``last.pt`` saved and the state returned."""
         cfg = self.config
+        mesh = self.process_mesh(model)  # before the data: a bad model axis stops here
         self.apply_precision()
         datamodule = None
         if hasattr(data, "setup") and hasattr(data, "train_dataloader"):
@@ -448,7 +498,7 @@ class Trainer:
         task = make_task(model)
         # a rank's loader length: the global batches of an epoch
         # (voice100_tpu/training/trainer.py:269-270)
-        state = TrainState(model, task.make_optimizer(len(train_batches)))
+        state = self.make_state(task, len(train_batches), mesh)
         if restore_from:
             state = restore_checkpoint(restore_from, state)
         device = next(model.parameters()).device
@@ -462,6 +512,8 @@ class Trainer:
         self._log({"event": "fit_start", "params": sum(p.numel() for p in model.parameters()),
                    "steps_per_epoch": len(train_batches), "device": str(device),
                    "devices": processes, "processes": processes,
+                   "mesh": {"data": processes // int(cfg.mesh_model_axis),
+                            "model": int(cfg.mesh_model_axis)},
                    "upload": "bf16" if self._upload_bf16() else "f32"})
         cache = None
         self._batch_shapes = None
@@ -521,6 +573,7 @@ class Trainer:
             if stopped:
                 self._log({"event": "stopped", "epoch": epoch, "step": state.step})
                 state.epoch = epoch  # a resume re-runs this epoch
+                state.shards.ensure_full()
                 if cfg.checkpoint_dir and cfg.save_last:
                     save_checkpoint(os.path.join(cfg.checkpoint_dir, "last.pt"), state)
                 return state
@@ -621,8 +674,10 @@ class Trainer:
         return {name: torch.stack([m[name] for m in steps]) for name in steps[0]}
 
     def _epoch_tail(self, task, state, epoch, start, running, val_batches, datamodule) -> None:
-        """The epoch record, validation and checkpoints."""
+        """The epoch record, validation and checkpoints, on the full
+        weights (a tensor-parallel state gathers them here)."""
         cfg = self.config
+        state.shards.ensure_full()
         record = {"epoch": epoch, "step": state.step,
                   "train_time_s": round(time.time() - start, 2),
                   "lr": float(task.lr_schedule(state.step))}
