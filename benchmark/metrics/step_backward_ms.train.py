@@ -1,0 +1,8 @@
+"""Mean host time of the trainer's ``trainer.backward`` span a step (the
+program's span inside ``Trainer.train_step``; layer ``training.trainer``)."""
+
+from yardstick import program_spans
+
+
+def read(ctx):
+    return program_spans.span_ms("trainer.backward", "trainer.train_step")

@@ -15,17 +15,24 @@ device tensors as used by that stream (``record_stream``), so the caching
 allocator cannot hand their memory to the side stream while the
 consumer's kernels still read it. On the CPU ``place`` runs on the thread
 as it is.
+
+Under a trace of the consumer's thread (:mod:`voice100_tpu_torch.utils.profiling`)
+``next`` is the span ``prefetch.wait``, and each batch taken charges
+``prefetch.prepare``: the thread's seconds reading it from the loader
+and applying ``place``.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Any, Callable, Iterable, Optional
 
 import torch
 
 from ..device import resolve_device
+from ..utils.profiling import charge, span
 from .pack import device_put_packed, tree_flatten
 
 __all__ = ["DevicePrefetcher", "prefetch_to_device"]
@@ -74,8 +81,16 @@ class DevicePrefetcher:
 
     def _run(self, it) -> None:
         try:
-            for item in it:
-                if not self._put(self._placed(item)):
+            while True:
+                # timed on every batch: this thread is never traced, and the
+                # consumer charges the time to its own session
+                start = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    break
+                placed, event = self._placed(item)
+                if not self._put((placed, event, time.perf_counter() - start)):
                     return
         except BaseException as exc:  # raised again at the consumer's next()
             self._exc = exc
@@ -89,6 +104,10 @@ class DevicePrefetcher:
         return self
 
     def __next__(self):
+        with span("prefetch.wait"):
+            return self._next()
+
+    def _next(self):
         if self._closed.is_set():
             raise StopIteration
         item = self._queue.get()
@@ -97,7 +116,8 @@ class DevicePrefetcher:
             if self._exc is not None:
                 raise self._exc
             raise StopIteration
-        placed, event = item
+        placed, event, prepare_s = item
+        charge("prefetch.prepare", prepare_s)
         if event is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(event)

@@ -26,6 +26,10 @@ contexts derived from that bucket, fed in pieces of the smallest bucket;
 such a clip decodes greedily, beam or not. :meth:`ASRPipeline.batches`
 still raises ``NotImplementedError`` for a clip handed to it directly.
 ``streamed`` keeps a bounded record of the clips ``transcribe`` streamed.
+Under a trace (:mod:`voice100_tpu_torch.utils.profiling`) a call is the
+span ``asr.transcribe`` (with the caching allocator's calls across it),
+and each batch marks ``asr.pad`` (the bucket check and sort, then its
+pad), ``asr.upload``, ``asr.dispatch``, ``asr.fetch`` and ``asr.text``.
 
 ``StreamingASRSession`` ports ``voice100_tpu/inference.py:295-432``:
 block decoding of a live stream, each window at B=1 through the greedy
@@ -81,6 +85,7 @@ from .ops.melspec_cuda import log_mel_spectrogram_cuda
 from .parallel.mesh import Mesh, pad_batch_to_multiple, replicate, shard_batch
 from .text import get_phonemizer, get_tokenizer
 from .text.ngram import CharNgramLM
+from .utils.profiling import span
 
 __all__ = ["ASRPipeline", "StreamingASRSession", "TTSPipeline"]
 
@@ -248,49 +253,62 @@ class ASRPipeline:
         """``(indices, wav [batch_size, bucket], lengths [batch_size])`` on
         the device, shortest clips first. A batch is all int16 when every
         input is int16 PCM, else float32 (int16 entries scaled on host)."""
+        order = None
+        for start in range(0, len(waveforms), self.batch_size):
+            with span("asr.pad"):
+                if order is None:  # the first batch's pad takes the check and the sort
+                    self._check_buckets(waveforms)
+                    order = list(np.argsort([len(w) for w in waveforms]))
+                    pcm16 = all(np.asarray(w).dtype == np.int16 for w in waveforms)
+                chunk = [int(i) for i in order[start:start + self.batch_size]]
+                longest = max(len(waveforms[i]) for i in chunk)
+                max_len = next(s for s in self.buckets if longest <= s)
+                batch = np.zeros((self.batch_size, max_len), np.int16 if pcm16 else np.float32)
+                lengths = np.zeros(self.batch_size, np.int32)
+                for row, i in enumerate(chunk):
+                    w = np.asarray(waveforms[i])
+                    if w.dtype == np.int16 and not pcm16:
+                        w = w.astype(np.float32) * (1.0 / 32768.0)
+                    batch[row, :len(w)] = w
+                    lengths[row] = len(w)
+            with span("asr.upload"):
+                wav = torch.from_numpy(batch).to(self.device)
+                wav_len = torch.from_numpy(lengths).to(self.device)
+            yield chunk, wav, wav_len
+
+    def _check_buckets(self, waveforms) -> None:
         for i, w in enumerate(waveforms):
             if len(w) > self.buckets[-1]:
                 raise NotImplementedError(
                     f"waveform {i} has {len(w)} samples, more than the largest "
                     f"bucket ({self.buckets[-1]}); transcribe streams such clips"
                 )
-        order = list(np.argsort([len(w) for w in waveforms]))
-        pcm16 = all(np.asarray(w).dtype == np.int16 for w in waveforms)
-        for start in range(0, len(order), self.batch_size):
-            chunk = [int(i) for i in order[start:start + self.batch_size]]
-            longest = max(len(waveforms[i]) for i in chunk)
-            max_len = next(s for s in self.buckets if longest <= s)
-            batch = np.zeros((self.batch_size, max_len), np.int16 if pcm16 else np.float32)
-            lengths = np.zeros(self.batch_size, np.int32)
-            for row, i in enumerate(chunk):
-                w = np.asarray(waveforms[i])
-                if w.dtype == np.int16 and not pcm16:
-                    w = w.astype(np.float32) * (1.0 / 32768.0)
-                batch[row, :len(w)] = w
-                lengths[row] = len(w)
-            yield (chunk, torch.from_numpy(batch).to(self.device),
-                   torch.from_numpy(lengths).to(self.device))
 
     def transcribe(self, waveforms: List[np.ndarray]) -> List[str]:
         """Batch transcription of mono clips at ``sample_rate``, float32
         in [-1, 1] or int16 PCM. A clip longer than the largest bucket
         streams through a :class:`StreamingASRSession` first; the others
         are dispatched in batches, and fetched after the last dispatch."""
-        results = [""] * len(waveforms)
-        short = []
-        for i, wav in enumerate(waveforms):
-            if len(wav) > self.buckets[-1]:
-                results[i] = self._stream(wav)
-            else:
-                short.append(i)
-        clips = [waveforms[i] for i in short]
-        pending = [(chunk, *self._decode(wav, lengths))
-                   for chunk, wav, lengths in self.batches(clips)]
-        for chunk, out, out_len in pending:
-            out, out_len = out.cpu().numpy(), out_len.cpu().numpy()
-            for row, i in enumerate(chunk):
-                results[short[i]] = self._text(out[row], int(out_len[row]))
-        return results
+        with span("asr.transcribe", device=self.device):
+            results = [""] * len(waveforms)
+            short = []
+            for i, wav in enumerate(waveforms):
+                if len(wav) > self.buckets[-1]:
+                    results[i] = self._stream(wav)
+                else:
+                    short.append(i)
+            clips = [waveforms[i] for i in short]
+            pending = []
+            for chunk, wav, lengths in self.batches(clips):
+                with span("asr.dispatch"):
+                    pending.append((chunk, *self._decode(wav, lengths)))
+            for chunk, out, out_len in pending:
+                with span("asr.fetch"):
+                    out, out_len = out.cpu().numpy(), out_len.cpu().numpy()
+                with span("asr.text"):
+                    for row, i in enumerate(chunk):
+                        results[short[i]] = self._text(out[row], int(out_len[row]))
+            return results
 
     def _stream(self, wav: np.ndarray) -> str:
         """A long clip's transcript through a session whose contexts come

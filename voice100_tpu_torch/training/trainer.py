@@ -70,7 +70,12 @@ per-step run over the same batches (the plan keeps the epoch's order).
 steps 2-4 (:func:`voice100_tpu_torch.utils.profiling.trace`, a Chrome
 trace in that directory; ``trainer.py:690-726``) and logs ``{"event":
 "profile_written", "dir": ...}``; a stop request mid-trace closes and
-writes it. A profiled fit takes the per-step path, whatever
+writes it. Under any trace, :meth:`Trainer.train_step` marks its phases
+(:func:`voice100_tpu_torch.utils.profiling.span`): ``trainer.train_step``
+over the call, ``trainer.forward`` (augmentation, forward, loss),
+``trainer.backward`` and ``trainer.update`` (the gradient all-reduce,
+the clip, the shard moves and the optimizer), with the caching
+allocator's device allocations and frees across the step. A profiled fit takes the per-step path, whatever
 ``steps_per_dispatch`` says (``trainer.py:623``).
 
 Data parallelism is one process a device, joined by ``torch.distributed``
@@ -133,7 +138,7 @@ from ..data.prefetch import DevicePrefetcher
 from ..ops.lstm import set_default_compute_dtype
 from ..ops.metrics import error_rate
 from ..parallel import mesh as parallel
-from ..utils.profiling import trace
+from ..utils.profiling import span, trace
 from .checkpoint import TrainState, restore_checkpoint, save_checkpoint
 from .tasks import Task, make_task
 
@@ -351,27 +356,30 @@ class Trainer:
         rank's shares (:meth:`_global_metrics` sums them). On a
         tensor-parallel mesh the full weights are gathered first, and Adam
         steps the shards' slices of the clipped gradient."""
-        state.optimizer.zero_grad(set_to_none=True)
-        state.shards.gather()
-        if task.lr_schedule is not None:
-            # the schedule at the state's step, so a restored state resumes
-            # at its rate (optax evaluates it at the update count)
-            for group in state.optimizer.param_groups:
-                group["lr"] = task.lr_schedule(state.step)
-        grouped = parallel.in_process_group()
-        with parallel.global_batch(grouped):
-            loss, metrics = task.loss(batch, train, generator)
-        loss.backward()
-        if grouped:
-            # the ranks' gradients of their shares of the global loss, summed
-            parallel.all_reduce_gradients(state.model.parameters())
-        if self.config.gradient_clip_val and self.config.gradient_clip_val > 0:
-            clip_by_global_norm(state.model.parameters(), self.config.gradient_clip_val)
-        state.shards.grads_to_leaves()
-        state.optimizer.step()
-        state.shards.release()
-        state.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        with span("trainer.train_step", device=state.model):
+            state.optimizer.zero_grad(set_to_none=True)
+            state.shards.gather()
+            if task.lr_schedule is not None:
+                # the schedule at the state's step, so a restored state resumes
+                # at its rate (optax evaluates it at the update count)
+                for group in state.optimizer.param_groups:
+                    group["lr"] = task.lr_schedule(state.step)
+            grouped = parallel.in_process_group()
+            with span("trainer.forward"), parallel.global_batch(grouped):
+                loss, metrics = task.loss(batch, train, generator)
+            with span("trainer.backward"):
+                loss.backward()
+            with span("trainer.update"):
+                if grouped:
+                    # the ranks' gradients of their shares of the global loss, summed
+                    parallel.all_reduce_gradients(state.model.parameters())
+                if self.config.gradient_clip_val and self.config.gradient_clip_val > 0:
+                    clip_by_global_norm(state.model.parameters(), self.config.gradient_clip_val)
+                state.shards.grads_to_leaves()
+                state.optimizer.step()
+                state.shards.release()
+            state.step += 1
+            return {k: v.detach() for k, v in metrics.items()}
 
     @torch.no_grad()
     def evaluate(self, task: Task, state: TrainState, batches: Iterable) -> Dict[str, float]:
