@@ -162,3 +162,112 @@ def test_pipeline_over_a_mesh_equals_the_plain_call(jax_model):
         assert meshed.transcribe(clips) == plain.transcribe(clips) == one.transcribe(clips)
     with pytest.raises(ValueError, match="batch_size 3 must be divisible by the mesh data axis 2"):
         ASRPipeline(_port_model(variables), mesh=make_mesh(["cpu", "cpu"]), batch_size=3)
+
+
+def _numpy_pad(clips, rows, width, pcm16):
+    """A batch as the pipeline padded it before it staged batches: a fresh
+    ``np.zeros`` buffer, each clip written at the start of its row."""
+    batch = np.zeros((rows, width), np.int16 if pcm16 else np.float32)
+    lengths = np.zeros(rows, np.int32)
+    for row, w in enumerate(clips):
+        if w.dtype == np.int16 and not pcm16:
+            w = w.astype(np.float32) * (1.0 / 32768.0)
+        batch[row, :len(w)] = w
+        lengths[row] = len(w)
+    return batch, lengths
+
+
+class _RecycledHost:
+    """``torch.empty`` for the pipeline's host buffers (the calls that
+    name ``pin_memory``) as a caching allocator hands blocks back: every
+    request of a rank is a view of one arena that keeps what the last
+    batch wrote, and the arena's first bytes are garbage."""
+
+    def __init__(self, empty):
+        self.empty, self.arenas = empty, {}
+
+    def __call__(self, size, dtype=None, pin_memory=None, **kwargs):
+        if pin_memory is None:
+            return self.empty(size, dtype=dtype, **kwargs)
+        shape = (size,) if isinstance(size, int) else tuple(size)
+        nbytes = int(np.prod(shape)) * dtype.itemsize
+        arena = self.arenas.get(len(shape))
+        if arena is None or arena.numel() < nbytes:
+            grown = torch.full((nbytes,), 0x5A, dtype=torch.uint8)
+            if arena is not None:
+                grown[:arena.numel()] = arena
+            arena = self.arenas[len(shape)] = grown
+        return arena[:nbytes].view(dtype).view(shape)
+
+
+@pytest.fixture
+def recycled(monkeypatch):
+    monkeypatch.setattr(torch, "empty", _RecycledHost(torch.empty))
+
+
+def _mix(kind, rng):
+    """Clips with a short last batch at batch size 2 and an empty clip."""
+    sizes = (0, 1200, 7000, 16000, 300)
+    pcm = [(rng.standard_normal(n) * 3000).astype(np.int16) for n in sizes]
+    floats = [(rng.standard_normal(n) * 0.3).astype(np.float32) for n in sizes]
+    return {"int16": pcm, "float32": floats, "mixed": floats[:2] + pcm[2:]}[kind]
+
+
+@pytest.mark.parametrize("kind", ["int16", "float32", "mixed"])
+def test_batches_equal_a_fresh_numpy_pad(jax_model, recycled, kind):
+    """Every element of a batch is written, none assumed zero: padded into
+    recycled garbage, a batch equals the fresh ``np.zeros`` pad element for
+    element (tails, rows past a short last batch, an empty clip's row),
+    in the batch's dtype, shortest clips first, at its bucket's width."""
+    from voice100_tpu_torch.inference import ASRPipeline
+
+    clips = _mix(kind, np.random.default_rng(2))
+    pipe = ASRPipeline(_port_model(jax_model[1]), device="cpu", batch_size=2,
+                       buckets_sec=(0.5, 1.0))
+    order = list(np.argsort([len(c) for c in clips]))
+    seen = []
+    for chunk, wav, lengths in pipe.batches(clips):
+        longest = max(len(clips[i]) for i in chunk)
+        width = 8000 if longest <= 8000 else 16000
+        want, want_len = _numpy_pad([clips[i] for i in chunk], 2, width, kind == "int16")
+        assert wav.dtype == torch.from_numpy(want).dtype and lengths.dtype == torch.int32
+        np.testing.assert_array_equal(wav.numpy(), want)
+        np.testing.assert_array_equal(lengths.numpy(), want_len)
+        seen += chunk
+    assert seen == order and len(chunk) == 1
+
+
+def test_a_recycled_40s_buffer_leaves_no_samples_in_a_5s_batch(jax_model, recycled):
+    """A 40 s batch and then a 5 s one, their buffers the same recycled
+    bytes: the 5 s batch's tail and its empty second row are zeros."""
+    from voice100_tpu_torch.inference import ASRPipeline
+
+    rng = np.random.default_rng(3)
+    long, short = ((rng.standard_normal(n) * 3000).astype(np.int16) + 1
+                   for n in (640_000, 70_000))
+    pipe = ASRPipeline(_port_model(jax_model[1]), device="cpu", batch_size=2)
+    for clips, width in (([long, long[::-1].copy()], 640_000), ([short], 80_000)):
+        (chunk, wav, lengths), = pipe.batches(clips)
+        want, want_len = _numpy_pad(clips, 2, width, True)
+        np.testing.assert_array_equal(wav.numpy(), want)
+        np.testing.assert_array_equal(lengths.numpy(), want_len)
+    assert not wav[0, 70_000:].any() and not wav[1].any()
+
+
+def test_transcripts_from_recycled_buffers_match_jax(jax_model, recycled):
+    """``test_pipeline_transcripts_match_jax``'s clips, padded into
+    recycled garbage, still give the JAX pipeline's strings."""
+    from voice100_tpu.inference import ASRPipeline as JaxPipeline
+    from voice100_tpu_torch.inference import ASRPipeline
+
+    model, variables = jax_model
+    rng = np.random.default_rng(1)
+    floats = [(rng.standard_normal(n) * 0.3).astype(np.float32) for n in (4000, 9000, 2500)]
+    pcm = [(rng.standard_normal(n) * 3000).astype(np.int16) for n in (7000, 16000, 1200)]
+    kwargs = dict(batch_size=2, buckets_sec=(0.5, 1.0))
+    jax_pipe = JaxPipeline(model, variables, **kwargs)
+    pipe = ASRPipeline(_port_model(variables), device="cpu", **kwargs)
+    for clips in (pcm, floats, floats[:1] + pcm[:2], pcm):
+        want = jax_pipe.transcribe(clips)
+        assert pipe.transcribe(clips) == want
+        assert any(want)

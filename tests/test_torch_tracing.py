@@ -15,7 +15,12 @@ biLSTM with H=16) takes train steps and serves an ``ASRPipeline``:
   ``user_annotation`` (which the card's timeline would copy);
 * each traced session reads only its own calls, also while another
   thread runs spans untraced;
-* a ``Trainer(profile_dir=...)`` fit's trace holds the trainer's ranges.
+* a ``Trainer(profile_dir=...)`` fit's trace holds the trainer's ranges;
+* the counter ``asr.staged`` stays absent on the CPU; on a card (tests
+  marked ``card``, skipped without one) it takes one a batch, and a
+  four-batch transcription uploads from pinned memory with no host sync
+  between its first pad and its first fetch, its batches equal to a
+  fresh ``np.zeros`` pad.
 """
 
 import torch_threads  # noqa: F401  (first: torch's CPU threads a worker)
@@ -256,3 +261,75 @@ def test_a_profiled_fit_traces_the_trainer_phases(tmp_path):
     assert sum(e["name"] == "v100.trainer.train_step" for e in ours) == 3
     assert _calls(profiling.table(), "trainer.train_step") == 3
     assert os.path.isdir(prof)
+
+
+# -- staged batches --------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: batches are staged in pinned memory on CUDA only")
+    return torch.device("cuda:0")
+
+
+def _staged_clips():
+    """Four batches of four at buckets of 0.25, 0.5, 1 and 2 s, one a bucket."""
+    rng = np.random.default_rng(4)
+    sizes = [int(n) for lo in (3000, 6000, 12000, 24000)
+             for n in rng.integers(lo, 4 * lo // 3, 4)]
+    return [rng.integers(-3000, 3000, n).astype(np.int16) for n in rng.permutation(sizes)]
+
+
+def _staged_pipeline(device):
+    # H=128: kernel 1 takes hidden sizes that are multiples of 32
+    model = AudioToAlignText(MELS, VOCAB, SETTINGS, 2, 128, device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+    return ASRPipeline(model, batch_size=4, buckets_sec=(0.25, 0.5, 1.0, 2.0), device=device)
+
+
+def test_the_staged_counter_stays_absent_on_the_cpu(traced_transcribe):
+    assert "asr.staged" not in traced_transcribe["counters"]
+
+
+@pytest.mark.card
+def test_the_staged_counter_takes_one_a_batch_on_cuda(cuda_device):
+    pipe, clips = _staged_pipeline(cuda_device), _staged_clips()
+    pipe.transcribe(clips)
+    table, _ = _traced(lambda: pipe.transcribe(clips))
+    assert _calls(table, "asr.pad") == 4
+    assert table["counters"]["asr.staged"] == 4
+
+
+@pytest.mark.card
+def test_a_staged_transcription_uploads_pinned_without_a_sync(cuda_device):
+    """Under the profiler a warm four-batch call copies no pageable host
+    memory and makes no stream or device sync from its first ``asr.pad``
+    to its first ``asr.fetch``; its batches on the card equal the fresh
+    ``np.zeros`` pad and its transcripts the untraced call's."""
+    from torch.autograd import DeviceType
+
+    pipe, clips = _staged_pipeline(cuda_device), _staged_clips()
+    want = pipe.transcribe(clips)  # warm: kernels built, pinned blocks cached
+    torch.cuda.synchronize(cuda_device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        texts = pipe.transcribe(clips)
+        torch.cuda.synchronize(cuda_device)
+    events = prof.events()
+    copies = [e.name for e in events
+              if e.device_type == DeviceType.CUDA and e.name.startswith("Memcpy HtoD")]
+    assert copies and not any("Pageable" in name for name in copies), copies
+
+    def first(name):
+        return min(e.time_range.start for e in events if e.name == profiling.SPAN_PREFIX + name)
+
+    start, end = first("asr.pad"), first("asr.fetch")
+    syncs = [e.name for e in events if e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+             and start <= e.time_range.start < end]
+    assert not syncs, syncs
+    assert texts == want
+    for chunk, wav, lengths in pipe.batches(clips):
+        batch = np.zeros((4, wav.shape[1]), np.int16)
+        for row, i in enumerate(chunk):
+            batch[row, :len(clips[i])] = clips[i]
+        np.testing.assert_array_equal(wav.cpu().numpy(), batch)
+        np.testing.assert_array_equal(lengths.cpu().numpy(), [len(clips[i]) for i in chunk])

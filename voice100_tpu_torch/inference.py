@@ -18,7 +18,14 @@ either beam (``lm_weight``, ``lm_bonus``); a table whose vocabulary is not
 the tokenizer's raises ``ValueError``.
 
 Every batch is dispatched before any result is fetched, so the host's
-token decoding of one batch does not hold up the device's next.
+token decoding of one batch does not hold up the device's next. On a CUDA
+device a batch is padded into pinned host memory (PyTorch's caching host
+allocator, so a bucket's block is reused from call to call and the pad
+takes no page faults) and its upload is enqueued on the current stream
+without a host sync: the host pads the next batch while the card runs
+the one before. Every element of the buffer is written, since a reused
+block holds an earlier batch. A CPU device pads the same way into
+ordinary memory.
 
 ``transcribe`` streams a clip longer than the largest bucket through a
 :class:`StreamingASRSession` (``voice100_tpu/inference.py:197-219``) with
@@ -29,7 +36,8 @@ still raises ``NotImplementedError`` for a clip handed to it directly.
 Under a trace (:mod:`voice100_tpu_torch.utils.profiling`) a call is the
 span ``asr.transcribe`` (with the caching allocator's calls across it),
 and each batch marks ``asr.pad`` (the bucket check and sort, then its
-pad), ``asr.upload``, ``asr.dispatch``, ``asr.fetch`` and ``asr.text``.
+pad), ``asr.upload``, ``asr.dispatch``, ``asr.fetch`` and ``asr.text``;
+the counter ``asr.staged`` takes one a batch uploaded from pinned memory.
 
 ``StreamingASRSession`` ports ``voice100_tpu/inference.py:295-432``:
 block decoding of a live stream, each window at B=1 through the greedy
@@ -85,7 +93,7 @@ from .ops.melspec_cuda import log_mel_spectrogram_cuda
 from .parallel.mesh import Mesh, pad_batch_to_multiple, replicate, shard_batch
 from .text import get_phonemizer, get_tokenizer
 from .text.ngram import CharNgramLM
-from .utils.profiling import span
+from .utils.profiling import count, span
 
 __all__ = ["ASRPipeline", "StreamingASRSession", "TTSPipeline"]
 
@@ -252,7 +260,10 @@ class ASRPipeline:
     def batches(self, waveforms: List[np.ndarray]) -> Iterator[Tuple[List[int], torch.Tensor, torch.Tensor]]:
         """``(indices, wav [batch_size, bucket], lengths [batch_size])`` on
         the device, shortest clips first. A batch is all int16 when every
-        input is int16 PCM, else float32 (int16 entries scaled on host)."""
+        input is int16 PCM, else float32 (int16 entries scaled on host).
+        On CUDA each batch is staged in pinned memory and uploaded without
+        a host sync."""
+        staged = self.device.type == "cuda"
         order = None
         for start in range(0, len(waveforms), self.batch_size):
             with span("asr.pad"):
@@ -263,17 +274,27 @@ class ASRPipeline:
                 chunk = [int(i) for i in order[start:start + self.batch_size]]
                 longest = max(len(waveforms[i]) for i in chunk)
                 max_len = next(s for s in self.buckets if longest <= s)
-                batch = np.zeros((self.batch_size, max_len), np.int16 if pcm16 else np.float32)
-                lengths = np.zeros(self.batch_size, np.int32)
+                # a pinned block may come back holding an earlier batch:
+                # every element is written, none is assumed zero
+                batch = torch.empty((self.batch_size, max_len),
+                                    dtype=torch.int16 if pcm16 else torch.float32,
+                                    pin_memory=staged)
+                lengths = torch.empty(self.batch_size, dtype=torch.int32, pin_memory=staged)
+                rows, n = batch.numpy(), lengths.numpy()
                 for row, i in enumerate(chunk):
                     w = np.asarray(waveforms[i])
                     if w.dtype == np.int16 and not pcm16:
                         w = w.astype(np.float32) * (1.0 / 32768.0)
-                    batch[row, :len(w)] = w
-                    lengths[row] = len(w)
+                    rows[row, :len(w)] = w
+                    rows[row, len(w):] = 0
+                    n[row] = len(w)
+                rows[len(chunk):] = 0
+                n[len(chunk):] = 0
             with span("asr.upload"):
-                wav = torch.from_numpy(batch).to(self.device)
-                wav_len = torch.from_numpy(lengths).to(self.device)
+                wav = batch.to(self.device, non_blocking=staged)
+                wav_len = lengths.to(self.device, non_blocking=staged)
+            if staged:
+                count("asr.staged")
             yield chunk, wav, wav_len
 
     def _check_buckets(self, waveforms) -> None:
