@@ -303,7 +303,21 @@ toolkit (nvcc under $CUDA_HOME, default /usr/local/cuda). In order:
     phase's 16 texts) over a mesh of the one device, and ASRPipeline over
     a (1, 2) mesh naming the card twice, bit-equal to the plain calls
     with the same launches;
-24. prints one JSON line of per-kernel results (the bf16 variants as
+24. after step 10 (``conformer_phase``), holds kernel 9 (relative-position
+    attention, forward and backward) against its plain version at the
+    Conformer-CTC cell's batch of 64, 8 heads of 64: T'=432 with the
+    cell's lengths and a dropout keep mask, and T'=418 (no multiple of
+    the kernel's tiles) ragged down to one frame without one; one forward
+    and two backward launches a call, the output and every gradient
+    within 2e-5 of its largest element, padded query rows 0; times
+    kernel and plain version in turns (event and device time) against
+    its bound; then trains ConformerCTC at its published widths through
+    Trainer.train_step on one batch of the cell's shape (SpecAugment and
+    dropout on, AdamW under Noam from step 10,000): one warm-up step, then
+    3 timed steps with the launch counts set to 0 just before and read
+    just after (kernel 9's forward once and backward twice a block a
+    step, 54 launches; kernels 4 and 5 once a step), the losses finite;
+25. prints one JSON line of per-kernel results (the bf16 variants as
     their own lines), then, last, {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line is printed. Without
@@ -495,6 +509,23 @@ PEAK_BF16_FLOPS = 989e12  # dense, tensor cores
 HBM_BYTES_PER_S = 3.35e12
 # kernel and library call timed in turns: rounds, each of `iters` calls
 TURN_ROUNDS = 5
+# Conformer-CTC Large (benchmark/configs/conformer_ctc_large.json) at the
+# batch of its training cell: clips of LibriSpeech train-clean-100's
+# lengths cut to 2-16.7 s (80% N(14, 1.6), 20% U(2, 13)), 80 mels at 100
+# frames a second in extents of 64 frames, subsampled x4 (T' up to 432),
+# 8 heads of 64, 6 target ids a second, a run resumed at the Noam peak
+# (step 10,000), no clipping
+CONFORMER_BATCH = 64
+CONFORMER_MELS = 80
+CONFORMER_HEADS = 8
+CONFORMER_STEPS = 3
+CONFORMER_START_STEP = 10000
+# kernel 9 against its plain version, both float32 on the card: max abs
+# error over each result's largest element. 64-term dot products and
+# softmax rows of up to 432 keys summed in another order (the kernel's
+# online softmax, partial sums of the positional gradient); a wrong
+# shift, mask or dropout index moves a result by O(1) of its scale.
+RELPOS_REL_TOL = 2e-5
 
 
 def fail(message: str) -> None:
@@ -524,11 +555,14 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 def counted_kernels():
     """The port's kernels by parts of their names on the card (one of the
     parts split by "|"), each with the wrappers that count its launches
-    (kernels 1 and 2 share one template, 1b and 2b another)."""
+    (kernels 1 and 2 share one template, 1b and 2b another; kernel 9's
+    three launches share a prefix)."""
     from voice100_tpu_torch.ops.ctc_cuda import ctc_alpha_adjoint_cuda, ctc_alpha_cuda
     from voice100_tpu_torch.ops.lstm_cuda import (bilstm_cuda, bilstm_train_bwd_cuda,
                                                   bilstm_train_fwd_cuda)
     from voice100_tpu_torch.ops.melspec_cuda import log_mel_spectrogram_cuda
+    from voice100_tpu_torch.ops.relpos_attention_cuda import (relpos_attention_bwd_cuda,
+                                                              relpos_attention_fwd_cuda)
     from voice100_tpu_torch.ops.viterbi_cuda import viterbi_align_lattice_cuda
 
     return {"log_mel_kernel": (log_mel_spectrogram_cuda,),
@@ -536,7 +570,8 @@ def counted_kernels():
                                                                bilstm_train_fwd_cuda),
             "lstm_train_bwd_": (bilstm_train_bwd_cuda,),
             "ctc_alpha_kernel": (ctc_alpha_cuda,), "ctc_adjoint_kernel": (ctc_alpha_adjoint_cuda,),
-            "viterbi_align_kernel": (viterbi_align_lattice_cuda,)}
+            "viterbi_align_kernel": (viterbi_align_lattice_cuda,),
+            "relpos_": (relpos_attention_fwd_cuda, relpos_attention_bwd_cuda)}
 
 
 def kernel_named(part: str, name: str) -> bool:
@@ -2015,6 +2050,229 @@ def train_stages(trainer, task, state, batch, gen, tag="train_stages_ms"):
     parts["step_host_enqueue"] = (time.perf_counter() - start) * 1e3
     torch.cuda.synchronize()
     print(f"{tag} " + json.dumps({"batch": list(audio.shape), **parts}), flush=True)
+
+
+def conformer_lengths(rng, batch=CONFORMER_BATCH):
+    """Log-mel frames of ``batch`` clips of the Conformer cell's lengths
+    (the first at the longest, 16.7 s), their padded extent, its
+    subsampled length T' and the clips' seconds."""
+    from voice100_tpu_torch.models.conformer_ctc import subsampled_length
+
+    seconds = np.where(rng.random(batch) < 0.8, rng.normal(14.0, 1.6, batch),
+                       rng.uniform(2.0, 13.0, batch))
+    seconds = np.clip(seconds, 2.0, 16.7)
+    seconds[0] = 16.7
+    frames = (seconds * SAMPLE_RATE).astype(np.int64) // 160 + 1
+    extent = -(-int(frames.max()) // 64) * 64
+    return frames, extent, int(subsampled_length(extent)), seconds
+
+
+def relpos_case(device, batch, time_steps, lengths, drop, seed):
+    """Seeded inputs of kernel 9 at ``[batch, time_steps]``, 8 heads of
+    64: ``((q, k, v, p, u, v_b), lengths, keep, dout)``, the keep mask
+    drawn at 0.1 where ``drop``, ``dout`` zero on padded query rows."""
+    from voice100_tpu_torch.ops.relpos_attention import keep_mask
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (batch, time_steps, CONFORMER_HEADS, 64)
+    q, k, v = (torch.randn(shape, generator=g, device=device) for _ in range(3))
+    p = torch.randn(2 * time_steps - 1, CONFORMER_HEADS, 64, generator=g, device=device)
+    u, vb = (torch.randn(CONFORMER_HEADS, 64, generator=g, device=device) * 0.3
+             for _ in range(2))
+    lengths = torch.as_tensor(lengths, device=device)
+    keep = (keep_mask((batch, CONFORMER_HEADS, time_steps, time_steps), 0.1, g, device)
+            if drop else None)
+    valid = torch.arange(time_steps, device=device)[None, :] < lengths[:, None]
+    dout = torch.randn(shape, generator=g, device=device) * valid[:, :, None, None]
+    return (q, k, v, p, u, vb), lengths, keep, dout
+
+
+def relpos_bound_ms(batch, time_steps, lengths):
+    """Kernel 9's least time, forward and backward, over the valid pairs:
+    9 dot products of 64 a pair and head (forward q.k, q.p, P.v; backward
+    dO.v and the products of dV, dK, dQu, dQv, dp); each input read and
+    each output written once (q, k, v, out and their gradients over the
+    real rows, the projected positions of the longest row and their
+    gradient, lse and Delta, the keep mask over the valid pairs, twice)."""
+    lengths = np.asarray(lengths, np.float64)
+    pairs = CONFORMER_HEADS * float(np.sum(lengths ** 2))
+    rows = float(np.sum(lengths)) * CONFORMER_HEADS * 64 * 4
+    positions = (2 * float(lengths.max()) - 1) * CONFORMER_HEADS * 64 * 4
+    stats = batch * CONFORMER_HEADS * time_steps * 4
+    return bound_ms(13 * rows + 3 * positions + 3 * stats + 2 * pairs, 9 * 2 * 64 * pairs)
+
+
+def check_relpos_attention(device):
+    """Kernel 9 (relative-position attention, forward and backward)
+    against its plain version at the Conformer cell's batch: at T' = 432
+    with the cell's lengths and a keep mask, and at T' = 418 (a 16.7 s
+    clip unpadded, no multiple of the kernel's tiles) with ragged rows
+    down to one frame and no mask. Each call one forward and two backward
+    launches; the output and the six gradients within ``RELPOS_REL_TOL``
+    of each result's largest element; padded query rows exactly 0. Times
+    forward and backward of the kernel and the plain version in turns at
+    the cell's shape (event and device time), and the forwards alone.
+    Returns kernel 9's line (its launches from :func:`conformer_phase`)."""
+    from voice100_tpu_torch.models.conformer_ctc import subsampled_length
+    from voice100_tpu_torch.ops.relpos_attention import relpos_attention_plain
+    from voice100_tpu_torch.ops.relpos_attention_cuda import (relpos_attention_bwd_cuda,
+                                                              relpos_attention_cuda,
+                                                              relpos_attention_fwd_cuda)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's products in float32
+    frames, _, cell_time, _ = conformer_lengths(np.random.default_rng(SEED + 27))
+    cell_lengths = [int(n) for n in subsampled_length(frames)]
+    ragged = [418] * 32 + [max(1, 418 - 13 * i) for i in range(32)]
+    ragged[-1] = 1
+    cases = {"cell": (cell_time, cell_lengths, True), "t418": (418, ragged, False)}
+    errs, line = {}, {}
+    for n, (name, (time_steps, lengths, drop)) in enumerate(cases.items()):
+        inputs, lens, keep, dout = relpos_case(device, CONFORMER_BATCH, time_steps, lengths,
+                                               drop, SEED + n)
+        rate = 0.1 if drop else 0.0
+        ref_leaves = [t.clone().requires_grad_(True) for t in inputs]
+        ref = relpos_attention_plain(*ref_leaves, lens, keep, rate)
+        ref_grads = torch.autograd.grad(ref, ref_leaves, dout)
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+        before = (relpos_attention_fwd_cuda.launches, relpos_attention_bwd_cuda.launches)
+        out = relpos_attention_cuda(*leaves, lens, keep, rate)
+        grads = torch.autograd.grad(out, leaves, dout)
+        torch.cuda.synchronize()
+        launched = (relpos_attention_fwd_cuda.launches - before[0],
+                    relpos_attention_bwd_cuda.launches - before[1])
+        if launched != (1, 2):
+            fail(f"kernel 9 ({name}): one call made {launched} forward and backward launches, "
+                 f"not (1, 2)")
+        padded = torch.arange(time_steps, device=device)[None, :] >= lens[:, None]
+        if float((out.detach() * padded[:, :, None, None]).abs().max()) != 0.0:
+            fail(f"kernel 9 ({name}): a padded query row attends to something")
+        errs[name] = {key: rel_err(a, b) for key, a, b in zip(
+            ("out", "dq", "dk", "dv", "dp", "du", "dv_bias"), (out, *grads), (ref, *ref_grads))}
+        del ref, ref_grads, out, grads
+        if name != "cell":
+            continue
+
+        def kernel_call():
+            return torch.autograd.grad(relpos_attention_cuda(*leaves, lens, keep, rate), leaves,
+                                       dout)
+
+        def plain_call():
+            return torch.autograd.grad(relpos_attention_plain(*leaves, lens, keep, rate), leaves,
+                                       dout)
+
+        turns = timed_in_turns({"kernel": kernel_call, "plain": plain_call}, iters=10)
+        bound, bound_by = relpos_bound_ms(CONFORMER_BATCH, time_steps, lengths)
+        line = {
+            "ms": turns["kernel"]["ms"], "device_ms": turns["kernel"]["device_ms"],
+            "plain_ms": turns["plain"]["ms"], "plain_device_ms": turns["plain"]["device_ms"],
+            "fwd_ms": time_ms(lambda: relpos_attention_fwd_cuda(*inputs, lens, keep, rate)),
+            "fwd_plain_ms": time_ms(lambda: relpos_attention_plain(*inputs, lens, keep, rate)),
+            "bound_ms": bound, "bound_by": bound_by,
+            "events_launches": turns["kernel"]["events_launches"],
+            "valid_pair_share": float(np.sum(np.square(np.asarray(lengths, np.float64))))
+            / (CONFORMER_BATCH * time_steps ** 2)}
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    worst = max(max(e.values()) for e in errs.values())
+    print(f"kernel 9 (B={CONFORMER_BATCH}, H={CONFORMER_HEADS}, D=64; T'={cell_time} with the "
+          f"Conformer cell's lengths and a keep mask, T'=418 ragged without): max error over "
+          f"the largest element {worst:.3e} (tol {RELPOS_REL_TOL:.0e}) {json.dumps(errs)}; "
+          f"forward and backward at T'={cell_time}: kernel {line['ms']:.4f} ms (device "
+          f"{fmt_ms(line['device_ms'])}), plain {line['plain_ms']:.4f} ms (device "
+          f"{fmt_ms(line['plain_device_ms'])}), bound {line['bound_ms']:.4f} ms "
+          f"({line['bound_by']}); forwards {line['fwd_ms']:.4f} / {line['fwd_plain_ms']:.4f} ms",
+          flush=True)
+    for name, e in errs.items():
+        for key, value in e.items():
+            if not value <= RELPOS_REL_TOL:
+                fail(f"kernel 9 ({name}): {key} is {value:.3e} of its largest element from the "
+                     f"plain version (tol {RELPOS_REL_TOL:.0e})")
+    return {"name": "relpos_attention", "route": "cuda",
+            "source": "voice100_tpu_torch/csrc/relpos_attention.cu", "replaces": None,
+            "launches": None, "max_rel_err": worst, "rel_err": errs, **line,
+            "shapes": f"B={CONFORMER_BATCH}, T'={cell_time}, H={CONFORMER_HEADS}, D=64, the "
+                      f"Conformer cell's lengths, keep mask at 0.1, forward and backward; plain: "
+                      f"materialised scores (float32 cuBLAS), softmax, mask"}
+
+
+def conformer_phase(device, card):
+    """Kernel 9 at the Conformer cell's shapes (:func:`check_relpos_attention`),
+    then ConformerCTC at its published widths (121.5 M parameters) trained
+    through Trainer.train_step on one batch of the cell's shape (64 clips
+    of its lengths, random 80-bin features, SpecAugment and dropout on,
+    AdamW under Noam from step 10,000, no clipping): one warm-up step,
+    then ``CONFORMER_STEPS`` timed steps with the launch counts set to 0
+    just before and read just after (kernel 9's forward once and its
+    backward twice a block a step, kernels 4 and 5 once a step); the
+    losses must be finite. Returns kernel 9's line with the step's
+    launches."""
+    from voice100_tpu_torch.models import ConformerCTC
+    from voice100_tpu_torch.ops.ctc_cuda import ctc_alpha_adjoint_cuda, ctc_alpha_cuda
+    from voice100_tpu_torch.ops.mask import BLANK_AUDIO
+    from voice100_tpu_torch.ops.relpos_attention_cuda import (relpos_attention_bwd_cuda,
+                                                              relpos_attention_fwd_cuda)
+    from voice100_tpu_torch.training import Trainer, TrainerConfig, make_task
+
+    entry = check_relpos_attention(device)
+    rng = np.random.default_rng(SEED + 28)
+    frames, extent, time_steps, seconds = conformer_lengths(rng)
+    target_lengths = np.maximum(np.round(seconds * 6).astype(np.int64), 1)
+    targets = rng.integers(1, 129, size=(CONFORMER_BATCH, -(-int(target_lengths.max()) // 16) * 16))
+    targets[np.arange(targets.shape[1])[None, :] >= target_lengths[:, None]] = 0
+    g = torch.Generator(device=device).manual_seed(SEED)
+    mel_len = torch.from_numpy(frames).to(device)
+    mel = torch.randn(CONFORMER_BATCH, extent, CONFORMER_MELS, generator=g, device=device) * 2 - 4
+    mel = torch.where((torch.arange(extent, device=device)[None, :] < mel_len[:, None])[..., None],
+                      mel, BLANK_AUDIO)
+    batch = ((mel, mel_len), (torch.from_numpy(targets).to(device),
+                              torch.from_numpy(target_lengths).to(device)))
+    model = ConformerCTC(device=device, generator=torch.Generator().manual_seed(SEED))
+    layers = len(model.layers)
+    trainer = Trainer(TrainerConfig(gradient_clip_val=0.0))
+    trainer.apply_precision()
+    task = make_task(model)
+    state = trainer.make_state(task)
+    state.step = CONFORMER_START_STEP
+    counters = {"relpos_attention_fwd": relpos_attention_fwd_cuda,
+                "relpos_attention_bwd": relpos_attention_bwd_cuda,
+                "ctc_alpha": ctc_alpha_cuda, "ctc_adjoint": ctc_alpha_adjoint_cuda}
+    warm = float(trainer.train_step(task, state, batch, g)["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    for fn in counters.values():
+        fn.launches = 0
+    losses, step_ms = [], []
+    for _ in range(CONFORMER_STEPS):
+        start = time.perf_counter()
+        losses.append(float(trainer.train_step(task, state, batch, g)["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - start) * 1e3)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    n_params = sum(p.numel() for p in model.parameters())
+    median = float(np.median(step_ms))
+    print(f"train conformer_ctc_large ({n_params} parameters): batch {CONFORMER_BATCH} "
+          f"({seconds.sum():.2f} s of audio, extent {extent} frames, T'={time_steps}), "
+          f"SpecAugment and dropout on, from step {CONFORMER_START_STEP}; loss warm-up "
+          f"{warm:.4f}, then {[round(v, 4) for v in losses]}; step median {median:.2f} ms (min "
+          f"{min(step_ms):.2f}, max {max(step_ms):.2f}), {seconds.sum() / (median * 1e-3):.1f} "
+          f"audio s/s, peak {peak} B allocated on {card}; launches over {CONFORMER_STEPS} "
+          f"steps {launches}", flush=True)
+    del model, task, state, trainer, batch, mel
+    torch.cuda.empty_cache()
+    if not all(np.isfinite([warm] + losses)):
+        fail(f"train conformer: non-finite loss {[warm] + losses}")
+    for name, per_step in (("relpos_attention_fwd", layers), ("relpos_attention_bwd", 2 * layers),
+                           ("ctc_alpha", 1), ("ctc_adjoint", 1)):
+        want = per_step * CONFORMER_STEPS
+        if launches[name] != want:
+            fail(f"train conformer: {name} launched {launches[name]} times in "
+                 f"{CONFORMER_STEPS} steps, not {want}")
+    step_launches = launches["relpos_attention_fwd"] + launches["relpos_attention_bwd"]
+    entry.update(launches=step_launches, launches_per_step=step_launches / CONFORMER_STEPS,
+                 launches_by_path={"conformer_train": step_launches}, step_ms=median,
+                 step_peak_bytes=peak)
+    return entry
 
 
 def train_parity(device):
@@ -6824,6 +7082,8 @@ def main() -> None:
     by_path = {"serve": serve(device, card), "train": train(device, card)}
     train_parity(device)
     mark("serve, train")
+    relpos_line = conformer_phase(device, card)
+    mark("conformer")
     with tempfile.TemporaryDirectory() as workdir:
         runs, args, samples = align(device, card, workdir)
         by_path.update({f"align_{run}": r["launches"] for run, r in runs.items()})
@@ -6922,7 +7182,8 @@ def main() -> None:
     print(f"v1_summary ({card}) " + json.dumps(v1_summary), flush=True)
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s from the kernel build to here",
           flush=True)
-    print(json.dumps({"kernels": serving + training + aligning + bf16_lines}), flush=True)
+    print(json.dumps({"kernels": serving + training + aligning + bf16_lines + [relpos_line]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -39,7 +39,7 @@ def test_sources_list_the_included_headers(csrc):
     assert names["bilstm"] == ["bilstm.cu", "bilstm_persistent.cuh", "bilstm_fwd_mma.cuh"]
     assert names["bilstm_train"] == ["bilstm_train.cu", "bilstm_persistent.cuh",
                                      "bilstm_bwd_cluster.cuh", "bilstm_fwd_mma.cuh"]
-    for name in ("melspec", "ctc", "viterbi"):
+    for name in ("melspec", "ctc", "viterbi", "relpos_attention"):
         assert names[name] == [f"{name}.cu"]
 
 
@@ -99,7 +99,7 @@ def test_build_module_imports_and_names_libraries_without_nvcc(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "no nvcc: nvcc not found" in out.stdout
-    assert out.stdout.strip().endswith(".so") and "5 libbilstm-" in out.stdout
+    assert out.stdout.strip().endswith(".so") and "6 libbilstm-" in out.stdout
 
 
 @pytest.mark.parametrize("kind,source", [("forward", "bilstm_persistent.cuh"),

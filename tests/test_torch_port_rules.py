@@ -84,7 +84,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     from voice100_tpu_torch.data import AudioTextDataModule, MelSpectrogramAudioTransform
     from voice100_tpu_torch.device import resolve_device
     from voice100_tpu_torch.inference import ASRPipeline
-    from voice100_tpu_torch.models import AudioToAlignText
+    from voice100_tpu_torch.models import AudioToAlignText, ConformerCTC
     from voice100_tpu_torch.models.layers import BiLSTM, ConvStack
     from voice100_tpu_torch.ops import viterbi_cuda
     from voice100_tpu_torch.tools.align_text import cli_main, run_align
@@ -96,6 +96,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
         resolve_device(None)
     with pytest.raises(RuntimeError, match="CUDA"):
         AudioToAlignText(64, 29, settings, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ConformerCTC(n_layers=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         BiLSTM(8, 8, 1)
     with pytest.raises(RuntimeError, match="CUDA"):

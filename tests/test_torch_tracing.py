@@ -244,6 +244,24 @@ def test_an_untraced_thread_leaves_the_traced_session_alone():
     assert _calls(table, "trainer.train_step") == 3 and "other" not in table["spans"]
 
 
+def test_a_counter_on_a_thread_without_spans_joins_the_session(monkeypatch):
+    """As kernel 9's backward launches are counted on autograd's thread on a
+    card: the count adds to the session and drops none of its spans."""
+    run = _Run()
+    run.step()
+
+    def steps():
+        run.step()
+        monkeypatch.setattr(profiling, "_enabled", lambda: True)  # as on autograd's thread
+        worker = threading.Thread(target=profiling.count, args=("conformer.attn_launches", 2))
+        worker.start()
+        worker.join()
+
+    table, _ = _traced(steps)
+    assert _calls(table, "trainer.train_step") == 1
+    assert table["counters"]["conformer.attn_launches"] == 2
+
+
 def test_a_profiled_fit_traces_the_trainer_phases(tmp_path):
     from corpus_fixture import make_dummy_corpus
     from test_torch_profiling import _fit, _traces

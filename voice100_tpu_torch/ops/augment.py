@@ -23,6 +23,16 @@ A rank of a data-parallel run
 for the global batch and keeps its own rows, and its last row blends with
 the next rank's first: its rows come out as one process's global batch
 gives them.
+
+:func:`draw_spec_augment` and :func:`apply_spec_augment` are NeMo's
+``SpecAugment`` for the Conformer-CTC model (``conformer_ctc_bpe.yaml``:
+2 frequency masks of width at most 27, 10 time masks of width at most
+0.05 of each row's length, masked to 0), drawn on the device: one
+``torch.rand`` of ``[B, 24]`` uniforms a batch, turned into NeMo's
+inclusive integer ranges (a frequency mask starts in ``[0, F - W]`` and
+is ``[0, W]`` wide, ``W = min(27, F)``; a time mask of a row of length
+``L`` starts in ``[0, max(1, L - w)]`` and is ``[0, w]`` wide,
+``w = max(1, floor(0.05 L))``).
 """
 
 from __future__ import annotations
@@ -35,10 +45,13 @@ from ..parallel.mesh import own_rows_of_draw, roll_rows
 from .mask import BLANK_AUDIO
 from .melspec import LOG_OFFSET
 
-__all__ = ["AUGMENT_RATE", "draw_augment", "apply_augment"]
+__all__ = ["AUGMENT_RATE", "draw_augment", "apply_augment", "SPEC_FREQ_MASKS", "SPEC_FREQ_WIDTH",
+           "SPEC_TIME_MASKS", "SPEC_TIME_WIDTH", "draw_spec_augment", "apply_spec_augment"]
 
 AUGMENT_RATE = 0.2
 _N_TIME_MASKS = 3
+SPEC_FREQ_MASKS, SPEC_FREQ_WIDTH = 2, 27
+SPEC_TIME_MASKS, SPEC_TIME_WIDTH = 10, 0.05
 
 Draws = Dict[str, torch.Tensor]
 
@@ -131,3 +144,38 @@ def apply_augment(audio: torch.Tensor, audio_len: torch.Tensor, draws: Draws):
     mixed = torch.log(torch.clamp((0.9 * x + 0.1 * rolled) * mask, min=LOG_OFFSET))
     masked = torch.log(torch.clamp(x, min=LOG_OFFSET))
     return torch.where(d["mix_coin"], mixed, masked), audio_len
+
+
+def draw_spec_augment(generator: torch.Generator, batch: int) -> Draws:
+    """SpecAugment's draws of one batch: ``[batch, 2 (SPEC_FREQ_MASKS +
+    SPEC_TIME_MASKS)]`` uniforms on ``generator.device``, one call."""
+    n = 2 * (SPEC_FREQ_MASKS + SPEC_TIME_MASKS)
+    return {"spec": torch.rand(batch, n, generator=generator, device=generator.device)}
+
+
+def _below(u: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """``floor(u n)`` for uniforms ``u`` in [0, 1): an integer in ``[0, n)``."""
+    return torch.minimum((u * n).floor(), n - 1)
+
+
+def apply_spec_augment(audio: torch.Tensor, audio_len: torch.Tensor, draws: Draws) -> torch.Tensor:
+    """``[B, T, F]`` features with SpecAugment's masks (:func:`draw_spec_augment`)
+    set to 0; lengths do not change. The integer bounds are taken in
+    float64, as NeMo's Python does."""
+    _, time, dim = audio.shape
+    dev = audio.device
+    u = draws["spec"].to(dev, torch.float64)
+    nf = SPEC_FREQ_MASKS
+    width = float(min(SPEC_FREQ_WIDTH, dim))
+    f_start = _below(u[:, :nf], torch.tensor(dim - width + 1.0, dtype=torch.float64, device=dev))
+    f_width = _below(u[:, nf:2 * nf], torch.tensor(width + 1.0, dtype=torch.float64, device=dev))
+    length = audio_len.to(dev, torch.float64)[:, None]
+    t_max = torch.clamp((length * SPEC_TIME_WIDTH).floor(), min=1.0)
+    t_start = _below(u[:, 2 * nf:2 * nf + SPEC_TIME_MASKS],
+                     torch.clamp(length - t_max, min=1.0) + 1)
+    t_width = _below(u[:, 2 * nf + SPEC_TIME_MASKS:], t_max + 1)
+    f_idx = torch.arange(dim, device=dev, dtype=torch.float64)[None, None, :]
+    t_idx = torch.arange(time, device=dev, dtype=torch.float64)[None, None, :]
+    f_band = ((f_idx >= f_start[:, :, None]) & (f_idx < (f_start + f_width)[:, :, None])).any(1)
+    t_band = ((t_idx >= t_start[:, :, None]) & (t_idx < (t_start + t_width)[:, :, None])).any(1)
+    return audio.masked_fill(f_band[:, None, :] | t_band[:, :, None], 0.0)

@@ -2,7 +2,7 @@
 
 Port of ``voice100_tpu/training/tasks.py``:
 
-* ``AudioToAlignText``, ``TextToAlignText`` and the v1
+* ``AudioToAlignText``, ``TextToAlignText``, ``ConformerCTC`` and the v1
   ``AudioToTextCTC``, ``AudioAlignCTC`` and ``TextToAlignTextModel``: a
   pair batch ``((a, a_len), (b, b_len))`` (audio and text, or text and
   the flat durations), one scalar loss;
@@ -34,6 +34,10 @@ every parameter (optax's default mask is none) and the learning rate
 updates (``tasks.py:166-181``, the reference's StepLR). The task keeps
 the schedule as ``lr_schedule``; the trainer sets each step's rate from
 it at the state's step, so a resumed run goes on at the right rate.
+``ConformerCTC``'s is NeMo's ``adamw`` (betas 0.9 and 0.98, eps 1e-8,
+weight decay ``model.weight_decay`` on every parameter) under
+``NoamAnnealing`` (``models.conformer_ctc.noam_lr`` at the step, at least
+1, as NeMo's scheduler evaluates it).
 """
 
 from __future__ import annotations
@@ -43,8 +47,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from ..models import (AlignTextToAudio, AlignTextToAudioModel, AlignTextToAudioMultiTaskModel,
-                      AudioAlignCTC, AudioToAlignText, AudioToTextCTC, TextToAlignText,
-                      TextToAlignTextModel)
+                      AudioAlignCTC, AudioToAlignText, AudioToTextCTC, ConformerCTC,
+                      TextToAlignText, TextToAlignTextModel)
 
 __all__ = ["Task", "make_task"]
 
@@ -158,13 +162,17 @@ class Task:
             spe = max(int(steps_per_epoch), 1)
             self.lr_schedule = lambda step: lr * 0.98 ** (int(step) // spe)
             return torch.optim.AdamW(params, lr=lr, weight_decay=self.model.weight_decay)
+        if isinstance(self.model, ConformerCTC):
+            self.lr_schedule = self.model.lr_at
+            return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.98), eps=1e-8,
+                                     weight_decay=self.model.weight_decay)
         self.lr_schedule = lambda step: lr
         return torch.optim.Adam(params, lr=lr)
 
 
 def make_task(model) -> Task:
     if isinstance(model, (AudioToAlignText, TextToAlignText, AudioToTextCTC, AudioAlignCTC,
-                          TextToAlignTextModel)):
+                          TextToAlignTextModel, ConformerCTC)):
         return Task(model, _pair_args, _scalar_post)
     if isinstance(model, AlignTextToAudio):
         return Task(model, _world_args, _tts_v2_post)

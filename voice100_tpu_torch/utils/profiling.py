@@ -21,7 +21,8 @@ the profiler's trace, on the kernels' clock, recorded as a ``cpu_op``
 an in-process table, which :func:`table` reads with the counters of
 :func:`count`. The table holds the newest traced session: :func:`trace`
 starts a fresh one, and so does the first traced span on a thread whose
-spans ran untraced before. Updates are thread-safe.
+spans ran untraced before (a counter starts none). Updates are
+thread-safe.
 """
 
 from __future__ import annotations
@@ -145,9 +146,11 @@ def span(name: str, device=None):
 
 
 def count(name: str, n: float = 1) -> None:
-    """Add ``n`` to counter ``name`` of :func:`table` when tracing is on."""
+    """Add ``n`` to counter ``name`` of :func:`table` when tracing is on.
+    A counter joins the session and starts none: it may be taken on a
+    thread that runs no span (autograd's backward thread on a card), whose
+    first traced call would otherwise drop what the session held."""
     if _enabled():
-        _TABLE.begin_traced()
         _TABLE.count(name, n)
 
 
