@@ -164,6 +164,63 @@ def test_pipeline_over_a_mesh_equals_the_plain_call(jax_model):
         ASRPipeline(_port_model(variables), mesh=make_mesh(["cpu", "cpu"]), batch_size=3)
 
 
+REACH = 960  # the front end's reach for SETTINGS: 6 mel hops past the last valid frame
+
+
+def _rule_width(longest, bucket):
+    """A batch's width: its longest clip plus the reach, rounded up to
+    1,600 samples, capped at its bucket."""
+    return min(bucket, -(-(longest + REACH) // 1600) * 1600)
+
+
+@pytest.mark.parametrize("longest,short_by", [(3839, 0), (3840, 0), (7500, 0), (3200, 160)],
+                         ids=["just_under_a_step", "on_a_step", "capped", "a_hop_short"])
+def test_a_batch_padded_to_its_reach_gives_the_bucket_logits(jax_model, longest, short_by):
+    """A batch padded by the rule (longest + reach just under a 1,600
+    boundary, on one, and past its bucket) gives the valid logit frames
+    and greedy ids of the same rows padded to their bucket, and
+    ``transcribe`` the strings of a bucket-padded run; so does the batch
+    padded by hand to exactly longest + reach (within its bucket). One hop
+    short of the
+    reach, the longest row's last valid frame reads the conv's zero
+    padding where the blank level stood, and differs: the reach is
+    needed, not merely enough."""
+    from voice100_tpu_torch.inference import ASRPipeline
+
+    rng = np.random.default_rng(longest)
+    clips = [(rng.standard_normal(n) * 0.3).astype(np.float32)
+             for n in (longest - 1000, longest, 300, longest - 161)]
+    kwargs = dict(batch_size=4, buckets_sec=(0.5, 1.0))
+    pipe = ASRPipeline(_port_model(jax_model[1]), device="cpu", **kwargs)
+    assert pipe.reach == REACH
+    bucket = 8000 if longest <= 8000 else 16000
+    (chunk, wav, lengths), = pipe.batches(clips)
+    width = wav.shape[1]
+    assert width == _rule_width(longest, bucket) and width <= bucket
+    assert width % 1600 == 0 or width == bucket
+    assert (width == bucket) == (longest == 7500)
+    rows = [clips[i] for i in chunk]
+    want, want_len = pipe.logits(*map(torch.from_numpy, _numpy_pad(rows, 4, bucket, False)))
+    got, got_len = pipe.logits(wav, lengths)
+    hand, hand_len = pipe.logits(*map(torch.from_numpy, _numpy_pad(
+        rows, 4, min(bucket, longest + REACH - short_by), False)))
+    for n in (got_len, hand_len):
+        torch.testing.assert_close(n, want_len, rtol=0, atol=0)
+    for r, n in enumerate(want_len.tolist()):
+        torch.testing.assert_close(got[r, :n], want[r, :n], rtol=0, atol=1e-6)
+        assert torch.equal(got[r, :n].argmax(-1), want[r, :n].argmax(-1))
+        gap = (hand[r, :n] - want[r, :n]).abs().max().item()
+        if short_by and len(rows[r]) == longest:
+            assert (hand[r, n - 1] - want[r, n - 1]).abs().max().item() > 1e-3
+        else:
+            assert gap <= 1e-6, (r, gap)
+    bucketed = ASRPipeline(_port_model(jax_model[1]), device="cpu", **kwargs)
+    bucketed.reach = None  # an encoder without a reach: every batch at its bucket
+    assert next(bucketed.batches(clips))[1].shape[1] == bucket
+    texts = pipe.transcribe(clips)
+    assert texts == bucketed.transcribe(clips) and any(texts)
+
+
 def _numpy_pad(clips, rows, width, pcm16):
     """A batch as the pipeline padded it before it staged batches: a fresh
     ``np.zeros`` buffer, each clip written at the start of its row."""
@@ -218,7 +275,9 @@ def test_batches_equal_a_fresh_numpy_pad(jax_model, recycled, kind):
     """Every element of a batch is written, none assumed zero: padded into
     recycled garbage, a batch equals the fresh ``np.zeros`` pad element for
     element (tails, rows past a short last batch, an empty clip's row),
-    in the batch's dtype, shortest clips first, at its bucket's width."""
+    in the batch's dtype, shortest clips first, at its longest clip plus
+    the reach, rounded up to 1,600 samples, or its bucket where narrower
+    (1,600, 8,000 and the capped 16,000 here)."""
     from voice100_tpu_torch.inference import ASRPipeline
 
     clips = _mix(kind, np.random.default_rng(2))
@@ -228,7 +287,7 @@ def test_batches_equal_a_fresh_numpy_pad(jax_model, recycled, kind):
     seen = []
     for chunk, wav, lengths in pipe.batches(clips):
         longest = max(len(clips[i]) for i in chunk)
-        width = 8000 if longest <= 8000 else 16000
+        width = _rule_width(longest, 8000 if longest <= 8000 else 16000)
         want, want_len = _numpy_pad([clips[i] for i in chunk], 2, width, kind == "int16")
         assert wav.dtype == torch.from_numpy(want).dtype and lengths.dtype == torch.int32
         np.testing.assert_array_equal(wav.numpy(), want)
@@ -239,14 +298,16 @@ def test_batches_equal_a_fresh_numpy_pad(jax_model, recycled, kind):
 
 def test_a_recycled_40s_buffer_leaves_no_samples_in_a_5s_batch(jax_model, recycled):
     """A 40 s batch and then a 5 s one, their buffers the same recycled
-    bytes: the 5 s batch's tail and its empty second row are zeros."""
+    bytes: the 5 s batch (70,000 + 960 samples, padded to 72,000) has a
+    zero tail and an empty second row of zeros; the 40 s batch keeps its
+    bucket, the cap."""
     from voice100_tpu_torch.inference import ASRPipeline
 
     rng = np.random.default_rng(3)
     long, short = ((rng.standard_normal(n) * 3000).astype(np.int16) + 1
                    for n in (640_000, 70_000))
     pipe = ASRPipeline(_port_model(jax_model[1]), device="cpu", batch_size=2)
-    for clips, width in (([long, long[::-1].copy()], 640_000), ([short], 80_000)):
+    for clips, width in (([long, long[::-1].copy()], 640_000), ([short], 72_000)):
         (chunk, wav, lengths), = pipe.batches(clips)
         want, want_len = _numpy_pad(clips, 2, width, True)
         np.testing.assert_array_equal(wav.numpy(), want)

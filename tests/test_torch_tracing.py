@@ -176,7 +176,10 @@ def test_a_traced_transcription_records_its_span_once(traced_transcribe):
     calls, seconds = traced_transcribe["spans"]["asr.transcribe"]
     assert calls == 1 and seconds > 0
     assert sum(traced_transcribe["spans"][p][1] for p in ASR_PHASES) <= seconds
-    assert traced_transcribe["counters"] == {}  # no CUDA allocator on the CPU
+    # two batches of four at 6,400 samples (longest 4,735 and 5,402, plus
+    # the reach, rounded up); no CUDA allocator counter on the CPU
+    assert traced_transcribe["counters"] == {"asr.padded_samples": 2 * 4 * 6400,
+                                             "asr.clip_samples": sum(map(len, _clips()))}
 
 
 @pytest.mark.parametrize("phase", ASR_PHASES)
@@ -307,6 +310,20 @@ def _staged_pipeline(device):
 
 def test_the_staged_counter_stays_absent_on_the_cpu(traced_transcribe):
     assert "asr.staged" not in traced_transcribe["counters"]
+
+
+def test_the_pad_counters_take_each_batch_and_its_clips():
+    """A traced CPU call over four batches of four: ``asr.padded_samples``
+    is the sum of batch size x width over the batches it padded (here
+    each its bucket, the cap), and ``asr.clip_samples`` the clips'
+    samples."""
+    pipe, clips = _staged_pipeline("cpu"), _staged_clips()
+    widths = [wav.shape[1] for _, wav, _ in pipe.batches(clips)]
+    table, _ = _traced(lambda: pipe.transcribe(clips))
+    assert len(widths) == _calls(table, "asr.pad") == 4
+    assert table["counters"]["asr.padded_samples"] == pipe.batch_size * sum(widths)
+    assert table["counters"]["asr.clip_samples"] == sum(map(len, clips))
+    assert widths == pipe.buckets  # each longest clip within the reach of its bucket: capped
 
 
 @pytest.mark.card

@@ -1,13 +1,27 @@
 """Serving pipelines: batched, bucketed ASR and TTS inference.
 
 ``ASRPipeline`` ports ``voice100_tpu/inference.py:36-292``: waveforms are
-sorted by length, padded to a small set of bucket lengths in fixed-size
-batches, uploaded (int16 PCM as it is, normalised on the device by the
-exact power of two 1/32768), turned into log-mel features by the fused
-CUDA kernel, masked past each clip's frames to the blank level and run
-through the model. Greedy decoding (the default) reduces the logits to
-frame-wise argmax ids on the device; the host decodes them with the
-tokenizer and merges repeats. ``beam_size > 0`` decodes by CTC prefix
+sorted by length, padded in fixed-size batches, uploaded (int16 PCM as it
+is, normalised on the device by the exact power of two 1/32768), turned
+into log-mel features by the fused CUDA kernel, masked past each clip's
+frames to the blank level and run through the model.
+
+A batch is padded to its longest clip plus the front end's right reach
+(``reach``: the samples past a clip's end that its valid logit frames
+read, through the log-mel window and the conv encoder), rounded up to
+0.1 s (10 mel hops), and never past the bucket its longest clip falls in.
+With the reach met every valid logit frame is the one a bucket-wide pad
+gives (up to the last bits where the card's libraries pick another
+algorithm at another shape), so the transcripts do not change. The JAX
+package pads to the buckets themselves because XLA compiles one program
+a shape; the port's kernels and library calls compile nothing a shape, so
+here the buckets are only the cap on a batch's width and the threshold
+past which a clip streams. An encoder with a transposed conv has no such
+reach and keeps the bucket widths.
+
+Greedy decoding (the default) reduces the logits to frame-wise argmax ids
+on the device; the host decodes them with the tokenizer and merges
+repeats. ``beam_size > 0`` decodes by CTC prefix
 beam search instead: on the device by default
 (``ops/ctc_beam_device.py``, ``beam_topk`` extension symbols a frame; the
 host fetches the collapsed ids), or with ``beam_device=False`` on the host
@@ -37,7 +51,9 @@ Under a trace (:mod:`voice100_tpu_torch.utils.profiling`) a call is the
 span ``asr.transcribe`` (with the caching allocator's calls across it),
 and each batch marks ``asr.pad`` (the bucket check and sort, then its
 pad), ``asr.upload``, ``asr.dispatch``, ``asr.fetch`` and ``asr.text``;
-the counter ``asr.staged`` takes one a batch uploaded from pinned memory.
+the counter ``asr.staged`` takes one a batch uploaded from pinned memory,
+and on every device ``asr.padded_samples`` takes a batch's
+``batch_size x width`` and ``asr.clip_samples`` its clips' samples.
 
 ``StreamingASRSession`` ports ``voice100_tpu/inference.py:295-432``:
 block decoding of a live stream, each window at B=1 through the greedy
@@ -86,6 +102,7 @@ from .device import resolve_device
 from .dsp.world import WORLDVocoder
 from .dsp.world.synthesis import NoiseSource
 from .models import AlignTextToAudio, AudioToAlignText, TextToAlignText
+from .models.layers import conv_stack_output_length
 from .ops.ctc_beam import ctc_prefix_beam_search
 from .ops.ctc_beam_device import ctc_prefix_beam_search_batched
 from .ops.mask import BLANK_AUDIO, sequence_mask
@@ -104,6 +121,40 @@ def _bucket(n: int, sizes: Sequence[int]) -> int:
         if n <= s:
             return s
     return sizes[-1]
+
+
+# the front end of ``ASRPipeline._features``: the log-mel hop, and the FFT
+# size whose frame reads n_fft // 2 samples past its centre
+_HOP = 160
+_N_FFT = 512
+# a batch's width rounds up to 10 mel hops (0.1 s at 16 kHz)
+_WIDTH_STEP = 10 * _HOP
+
+
+def _front_end_reach(settings) -> Optional[int]:
+    """The least number of samples past a clip's end that its batch must
+    hold for every logit frame below the clip's output length to read
+    only samples and mel frames that exist in the tensor, for a conv
+    encoder of ``settings`` behind the log-mel front end. The mel frames
+    below ``mel_len`` read ``n_fft // 2`` samples past their centres
+    (closer to the edge the reflect padding would replace those zeros);
+    the encoder's valid outputs read masked mel frames past ``mel_len`` up
+    to its right reach (missing frames would be the conv's zero padding,
+    not the blank level). None for an encoder with a transposed conv."""
+    if any(transpose for _, transpose, *_ in settings):
+        return None
+    period = _HOP  # what a clip's end needs, less its length, repeats
+    for _, _, _, stride, _, _ in settings:
+        period *= stride
+    reach = 0
+    for n in range(period):
+        mel_len = n // _HOP + 1
+        frame = conv_stack_output_length(settings, mel_len) - 1  # its last valid output
+        for _, _, kernel, stride, padding, _ in reversed(settings):
+            frame = frame * stride - padding + kernel - 1  # the last input that one reads
+        need = max(_HOP * frame, (mel_len - 1) * _HOP + _N_FFT // 2)
+        reach = max(reach, need - n)
+    return reach
 
 
 def _serving_devices(mesh, device) -> List[torch.device]:
@@ -193,6 +244,8 @@ class ASRPipeline:
         self.sample_rate = sample_rate
         self.batch_size = batch_size
         self.buckets = [int(s * sample_rate) for s in buckets_sec]
+        # samples past its longest clip a batch is padded to (None: to the bucket)
+        self.reach = _front_end_reach(self.model.encoder_settings)
         # one record a clip transcribe streamed: samples, frames committed
         # and windows decoded (bounded, as a long-running server keeps it)
         self.streamed = deque(maxlen=1024)
@@ -202,7 +255,7 @@ class ASRPipeline:
             # 1/32768 is a power of two: bit-exact with dividing on the host
             wav = wav.to(torch.float32) * (1.0 / 32768.0)
         mel = log_mel_spectrogram_cuda(wav, sample_rate=self.sample_rate)
-        mel_len = wav_len // 160 + 1
+        mel_len = wav_len // _HOP + 1
         # padded waveform tails give frames past mel_len; set them to the
         # blank level the model was trained with
         mask = sequence_mask(mel_len, mel.shape[1], torch.bool)[:, :, None]
@@ -258,11 +311,14 @@ class ASRPipeline:
             lm_weight=self.lm_weight, lm_bonus=self.lm_bonus))
 
     def batches(self, waveforms: List[np.ndarray]) -> Iterator[Tuple[List[int], torch.Tensor, torch.Tensor]]:
-        """``(indices, wav [batch_size, bucket], lengths [batch_size])`` on
-        the device, shortest clips first. A batch is all int16 when every
-        input is int16 PCM, else float32 (int16 entries scaled on host).
-        On CUDA each batch is staged in pinned memory and uploaded without
-        a host sync."""
+        """``(indices, wav [batch_size, width], lengths [batch_size])`` on
+        the device, shortest clips first. ``width`` is the batch's longest
+        clip plus ``reach``, rounded up to 10 mel hops, or the bucket that
+        clip falls in where that is narrower (or where the encoder has no
+        reach): the buckets are the JAX package's shapes, kept here only as
+        the cap. A batch is all int16 when every input is int16 PCM, else
+        float32 (int16 entries scaled on host). On CUDA each batch is
+        staged in pinned memory and uploaded without a host sync."""
         staged = self.device.type == "cuda"
         order = None
         for start in range(0, len(waveforms), self.batch_size):
@@ -274,6 +330,8 @@ class ASRPipeline:
                 chunk = [int(i) for i in order[start:start + self.batch_size]]
                 longest = max(len(waveforms[i]) for i in chunk)
                 max_len = next(s for s in self.buckets if longest <= s)
+                if self.reach is not None:
+                    max_len = min(max_len, -(-(longest + self.reach) // _WIDTH_STEP) * _WIDTH_STEP)
                 # a pinned block may come back holding an earlier batch:
                 # every element is written, none is assumed zero
                 batch = torch.empty((self.batch_size, max_len),
@@ -295,6 +353,8 @@ class ASRPipeline:
                 wav_len = lengths.to(self.device, non_blocking=staged)
             if staged:
                 count("asr.staged")
+            count("asr.padded_samples", self.batch_size * max_len)
+            count("asr.clip_samples", int(n.sum()))
             yield chunk, wav, wav_len
 
     def _check_buckets(self, waveforms) -> None:
